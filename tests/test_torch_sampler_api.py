@@ -1,0 +1,309 @@
+"""The port's run() driver against the JAX package's: schedules, result
+shapes and dtypes, striding, model time, first-hit, multi-chain batching,
+dispatch errors, and the sampled distribution.
+
+torch cannot replay JAX's random stream, so sampled trajectories are held
+statistically (TV against exact enumeration, mean energies against the JAX
+run); everything deterministic (schedules, model time) is held exactly."""
+import dataclasses
+
+import numpy as np
+import jax
+import pytest
+import torch
+
+from repro.core import problems as jproblems
+from repro.core import sampler_api as jsa
+from repro_torch.core import ising, problems, sampler_api
+from repro_torch.core.sampler_api import (
+    TauLeap,
+    constant,
+    geometric,
+    linear,
+    resolve_schedule,
+    run,
+)
+
+torch.set_num_threads(1)
+
+CPU = "cpu"
+
+
+def _dense_problem(n=12, seed=0, scale=0.6):
+    rng = np.random.default_rng(seed)
+    A = rng.normal(0, scale, (n, n))
+    J = np.triu(A, 1)
+    J = J + J.T
+    return ising.DenseIsing.from_numpy(J, rng.normal(0, scale / 2, n), device=CPU)
+
+
+def _grid_exact_problem(n=5, seed=0):
+    """Dense problem whose J sits exactly on the int8 grid (codes/127), so
+    the cuda backend's quantization is lossless."""
+    rng = np.random.default_rng(seed)
+    codes = np.triu(rng.integers(-126, 127, (n, n)), 1)
+    codes = codes + codes.T
+    codes[0, 1] = codes[1, 0] = 127  # pin max-abs: quantize round-trips exactly
+    return ising.DenseIsing.from_numpy(codes / 127.0, rng.normal(0, 0.2, n), device=CPU)
+
+
+def _tv_to_exact(prob, samples):
+    _, p_exact = ising.enumerate_boltzmann(prob)
+    bits = (samples.reshape(-1, prob.n).numpy() > 0).astype(np.int64)
+    hist = np.bincount(bits @ (1 << np.arange(prob.n)), minlength=2**prob.n)
+    return 0.5 * float(np.abs(hist / hist.sum() - p_exact).sum())
+
+
+@pytest.mark.parametrize(
+    "sched",
+    [jsa.constant(0.7), jsa.linear(0.0, 1.0), jsa.linear(0.3, 2.0),
+     jsa.geometric(0.1, 1.0), jsa.geometric(0.3, 3.0)],
+    ids=lambda s: type(s).__name__,
+)
+@pytest.mark.parametrize("n_steps", [1, 2, 5, 300])
+def test_schedules_match_jax(sched, n_steps):
+    mine = {jsa.constant: constant, jsa.linear: linear, jsa.geometric: geometric}[type(sched)]
+    got = mine(**dataclasses.asdict(sched)).betas(n_steps, CPU)
+    want = np.asarray(sched.betas(n_steps))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    # linspace follows the JAX formula; XLA's CPU pow (geometric) and its
+    # fused multiply-adds may round the last ulps differently: <= 8 ulp
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    np.testing.assert_array_equal(got.numpy()[[0, -1]], want[[0, -1]])
+
+
+def test_resolve_schedule_forms_and_errors():
+    assert resolve_schedule(None, 5, device=CPU).shape == (5,)
+    np.testing.assert_array_equal(resolve_schedule(2.0, 3, device=CPU).numpy(), [2.0] * 3)
+    np.testing.assert_array_equal(
+        resolve_schedule(np.float32(0.5), 2, device=CPU).numpy(), [0.5, 0.5])
+    np.testing.assert_array_equal(
+        resolve_schedule(constant(0.5), 2, device=CPU).numpy(),
+        np.asarray(jsa.resolve_schedule(jsa.constant(0.5), 2)))
+    two_d = np.ones((4, 8), np.float32)
+    assert resolve_schedule(two_d, 8, 4, device=CPU).shape == (4, 8)
+    with pytest.raises(ValueError, match="schedule length 7 != n_steps 5"):
+        resolve_schedule(np.ones(7), 5, device=CPU)
+    with pytest.raises(ValueError, match=r"5 rows.*n_chains=4"):
+        resolve_schedule(np.ones((5, 8)), 8, 4, device=CPU)
+    with pytest.raises(ValueError, match=r"requires n_chains > 1"):
+        resolve_schedule(np.ones((2, 8)), 8, 1, device=CPU)
+    with pytest.raises(ValueError, match="shape"):
+        resolve_schedule(np.ones((2, 2, 4)), 4, device=CPU)
+
+
+@pytest.mark.parametrize("n_chains", [1, 3])
+def test_run_shapes_and_dtypes(n_chains):
+    prob = _dense_problem()
+    lead = () if n_chains == 1 else (n_chains,)
+    for backend in ("ref", "cuda"):
+        res = run(prob, "tau_leap", 0, n_steps=64, sample_every=8, n_chains=n_chains,
+                  backend=backend)
+        assert res.s.shape == lead + (prob.n,)
+        assert res.t.shape == lead
+        assert res.samples.shape == lead + (8, prob.n)
+        assert res.times.shape == lead + (8,) and res.energies.shape == lead + (8,)
+        assert res.s.dtype == res.samples.dtype == torch.float32
+        assert res.times.dtype == res.energies.dtype == torch.float32
+        assert set(np.unique(res.samples.numpy())) <= {-1.0, 1.0}
+        assert res.t_hit is None and res.hit is None and res.timing is None
+        t = res.times.numpy().reshape(-1, 8)
+        assert np.all(np.diff(t, axis=-1) >= 0)
+        np.testing.assert_allclose(
+            res.energies.numpy(), prob.energy(res.samples).numpy(), rtol=1e-6)
+        # sample_every=0: empty results in the sampling branches' dtypes
+        empty = run(prob, "tau_leap", 0, n_steps=8, n_chains=n_chains, backend=backend)
+        assert empty.samples.shape == lead + (0, prob.n)
+        assert empty.times.shape == lead + (0,) and empty.energies.shape == lead + (0,)
+        assert empty.energies.dtype == res.energies.dtype
+        assert empty.times.dtype == res.times.dtype
+        assert empty.samples.dtype == res.samples.dtype
+        cat = torch.cat([empty.energies, res.energies], dim=-1)
+        assert cat.dtype == res.energies.dtype
+
+
+def test_remainder_steps_after_last_observation():
+    """n_steps not divisible by sample_every: the tail still advances the
+    chain, and striding draws no randomness of its own."""
+    prob = _dense_problem(n=6, seed=2)
+    full = run(prob, TauLeap(dt=0.3), 1, n_steps=17)
+    strided = run(prob, TauLeap(dt=0.3), 1, n_steps=17, sample_every=5)
+    assert strided.samples.shape == (3, prob.n)
+    np.testing.assert_array_equal(full.s.numpy(), strided.s.numpy())
+    assert float(strided.t) == float(full.t)
+    assert float(strided.times[-1]) < float(strided.t)
+
+
+@pytest.mark.parametrize("dt,lambda0,n_steps,every", [(0.1, 1.0, 97, 10), (0.3, 1.7, 40, 3)])
+def test_model_time_equals_jax(dt, lambda0, n_steps, every):
+    jprob = jproblems.sk_instance(8, 1)
+    prob = ising.DenseIsing.from_numpy(np.asarray(jprob.J), np.asarray(jprob.b), device=CPU)
+    want = jsa.run(jprob, jsa.TauLeap(dt=dt, lambda0=lambda0), jax.random.key(0),
+                   n_steps=n_steps, sample_every=every)
+    got = run(prob, TauLeap(dt=dt, lambda0=lambda0), 0, n_steps=n_steps, sample_every=every)
+    assert got.t.item() == float(want.t)
+    np.testing.assert_array_equal(got.times.numpy(), np.asarray(want.times))
+    chains = run(prob, TauLeap(dt=dt, lambda0=lambda0), 0, n_steps=n_steps,
+                 sample_every=every, n_chains=2, backend="cuda")
+    np.testing.assert_array_equal(chains.times.numpy()[1], np.asarray(want.times))
+
+
+def test_first_hit_semantics():
+    prob = problems.random_maxcut(16, 1, device=CPU)
+    warm = run(prob, TauLeap(dt=0.25), 9, n_steps=400, sample_every=20, n_chains=4)
+    target = float(np.median(warm.energies.numpy()))
+    res = run(prob, TauLeap(dt=0.25), 5, n_steps=300, n_chains=6, first_hit=target,
+              sample_every=10)
+    assert res.t_hit.shape == (6,) and res.hit.shape == (6,) and res.hit.dtype == torch.bool
+    hit, t_hit = res.hit.numpy(), res.t_hit.numpy()
+    assert hit.any()
+    assert np.all(np.isfinite(t_hit[hit])) and np.all(np.isinf(t_hit[~hit]))
+    assert np.all(t_hit[hit] <= res.t.numpy()[hit])
+    # an already-met target hits at t=0; an unreachable one never does
+    easy = run(prob, TauLeap(dt=0.25), 5, n_steps=5, n_chains=3, first_hit=1e9)
+    assert easy.hit.all() and np.all(easy.t_hit.numpy() == 0.0)
+    never = run(prob, TauLeap(dt=0.25), 5, n_steps=5, first_hit=-1e9)
+    assert not bool(never.hit) and np.isinf(never.t_hit.item())
+    # tracking the target changes nothing that was sampled
+    plain = run(prob, TauLeap(dt=0.25), 5, n_steps=300, n_chains=6, sample_every=10)
+    np.testing.assert_array_equal(plain.samples.numpy(), res.samples.numpy())
+
+
+def test_multi_chain_annealing_and_independent_chains():
+    prob = problems.random_maxcut(24, 3, device=CPU)
+    res = run(prob, TauLeap(dt=0.25), 0, n_steps=400, n_chains=6,
+              schedule=geometric(0.3, 2.5), sample_every=40, backend="cuda")
+    assert res.s.shape == (6, prob.n) and res.samples.shape == (6, 10, prob.n)
+    assert len(np.unique(res.s.numpy(), axis=0)) > 1  # chains are independent
+    e = res.energies.numpy()
+    assert e[:, -1].mean() < e[:, 0].mean()  # annealing lowers energy
+
+
+def test_per_chain_schedules():
+    """(n_chains, n_steps) schedules: each chain is a row with its own beta;
+    the cold chain ends lower than the hot one."""
+    prob = problems.sk_instance(16, 7, device=CPU)
+    betas = np.stack([np.full(300, 0.1), np.full(300, 3.0)]).astype(np.float32)
+    for backend in ("ref", "cuda"):
+        res = run(prob, TauLeap(dt=0.2), 4, n_steps=300, n_chains=2, schedule=betas,
+                  sample_every=30, backend=backend)
+        e = res.energies.numpy()
+        assert e[1, -5:].mean() < e[0, -5:].mean(), backend
+    with pytest.raises(ValueError, match=r"2 rows.*n_chains=3"):
+        run(prob, TauLeap(dt=0.2), 4, n_steps=300, n_chains=3, schedule=betas)
+    with pytest.raises(ValueError, match="n_chains"):
+        run(prob, TauLeap(dt=0.2), 4, n_steps=300, schedule=betas)
+
+
+@pytest.mark.parametrize("backend", ["ref", "cuda"])
+def test_tau_leap_samples_boltzmann(backend):
+    """Small dt tau-leap on a grid-exact n=5 problem samples the Boltzmann
+    distribution: TV < 0.06, the JAX bias test's bound at dt=0.05. The
+    couplings reach |J| = 1, so chains relax slowly: over 4 seeds, 4000
+    steps gave TV 0.016-0.070 and 16000 steps 0.007-0.019."""
+    prob = _grid_exact_problem()
+    res = run(prob, TauLeap(dt=0.05), 3, n_steps=16000, n_chains=64, sample_every=4,
+              backend=backend)
+    assert _tv_to_exact(prob, res.samples) < 0.06
+
+
+def test_cuda_backend_tracks_ref_on_grid_exact_problem():
+    """Same generator, same uniforms: on a grid-exact problem the int8
+    field is exact, so the two backends' trajectories agree except where a
+    uniform lands within float rounding of a flip threshold."""
+    prob = _grid_exact_problem(n=48)
+    kw = dict(n_steps=200, sample_every=10, n_chains=2)
+    r_ref = run(prob, TauLeap(dt=0.25), 2, backend="ref", **kw)
+    r_cuda = run(prob, TauLeap(dt=0.25), 2, backend="cuda", **kw)
+    assert float((r_ref.samples == r_cuda.samples).float().mean()) > 0.99
+    # on CPU tensors, "auto" is the ref backend
+    r_auto = run(prob, TauLeap(dt=0.25), 2, backend="auto", **kw)
+    np.testing.assert_array_equal(r_auto.samples.numpy(), r_ref.samples.numpy())
+
+
+def test_mean_energy_agrees_with_jax_run():
+    """The port and the JAX driver on the same sk_instance(16, 7): the mean
+    final energies of 32 chains agree within 4 combined standard errors."""
+    jprob = jproblems.sk_instance(16, 7)
+    prob = ising.DenseIsing.from_numpy(np.asarray(jprob.J), np.asarray(jprob.b), device=CPU)
+    kw = dict(n_steps=300, n_chains=32)
+    want = jsa.run(jprob, jsa.TauLeap(dt=0.2), jax.random.key(0),
+                   schedule=jsa.geometric(0.3, 2.0), **kw)
+    e_j = np.asarray(jprob.energy(want.s), np.float64)
+    for backend in ("ref", "cuda"):
+        got = run(prob, TauLeap(dt=0.2), 0, schedule=geometric(0.3, 2.0),
+                  backend=backend, **kw)
+        e_t = prob.energy(got.s).numpy().astype(np.float64)
+        se = np.sqrt(e_j.var(ddof=1) / e_j.size + e_t.var(ddof=1) / e_t.size)
+        assert abs(e_t.mean() - e_j.mean()) < 4 * se, (backend, e_t.mean(), e_j.mean(), se)
+
+
+def test_timeit_reports_throughput_and_identical_results():
+    prob = _dense_problem(n=10, seed=1)
+    kw = dict(n_steps=60, sample_every=10)
+    plain = run(prob, TauLeap(dt=0.25), 1, **kw)
+    timed = run(prob, TauLeap(dt=0.25), 1, timeit=True, **kw)
+    t = timed.timing
+    assert isinstance(t, sampler_api.RunTiming)
+    assert t.wall_s > 0 and t.compile_s >= 0
+    assert t.steps_per_s == pytest.approx(60 / t.wall_s)
+    assert t.chain_steps_per_s == pytest.approx(t.steps_per_s)
+    np.testing.assert_array_equal(plain.samples.numpy(), timed.samples.numpy())
+    # a caller's generator: both passes replay its stream
+    gen = torch.Generator().manual_seed(1)
+    g_timed = run(prob, TauLeap(dt=0.25), gen, timeit=True, **kw)
+    np.testing.assert_array_equal(g_timed.samples.numpy(), plain.samples.numpy())
+    chains = run(prob, TauLeap(dt=0.25), 2, n_steps=40, n_chains=3, timeit=True)
+    assert chains.timing.chain_steps_per_s == pytest.approx(3 * chains.timing.steps_per_s)
+
+
+def test_s0_is_the_initial_state():
+    prob = _dense_problem(n=8)
+    s0 = torch.ones(8)
+    res = run(prob, TauLeap(dt=1e-9), 0, n_steps=3, s0=s0, sample_every=1)
+    np.testing.assert_array_equal(res.samples.numpy(), np.ones((3, 8), np.float32))
+    s0c = torch.tensor([[1.0] * 8, [-1.0] * 8])
+    res = run(prob, TauLeap(dt=1e-9), 0, n_steps=2, s0=s0c, n_chains=2)
+    np.testing.assert_array_equal(res.s.numpy(), s0c.numpy())
+    with pytest.raises(ValueError, match="s0 has shape"):
+        run(prob, TauLeap(), 0, n_steps=2, s0=torch.ones(7))
+
+
+def test_registry_and_error_paths():
+    assert sampler_api.kernel_names() == ["tau_leap"]
+    assert isinstance(sampler_api.get_kernel("tau_leap", dt=0.5), TauLeap)
+    prob = _dense_problem(n=8)
+    with pytest.raises(KeyError, match="unknown sampler kernel"):
+        run(prob, "metropolis_lights_out", 0, n_steps=10)
+    for later, slice_name in (("chromatic_gibbs", "lattice slice"),
+                              ("colored_gibbs", "sparse slice"),
+                              ("random_scan_gibbs", "CTMC slice"), ("ctmc", "CTMC slice")):
+        with pytest.raises(NotImplementedError, match=slice_name):
+            run(prob, later, 0, n_steps=10)
+    for bad in ("pallas", "gpu"):
+        with pytest.raises(ValueError, match="backend must be"):
+            run(prob, TauLeap(), 0, n_steps=10, backend=bad)
+    trim = sampler_api.glauber.SigmoidTrim(a=torch.ones(()), b=torch.zeros(()))
+    with pytest.raises(ValueError, match="does not support backend 'cuda'"):
+        run(prob, TauLeap(trim=trim), 0, n_steps=4, backend="cuda")
+    with pytest.raises(NotImplementedError, match="trims"):
+        run(prob, TauLeap(trim=trim, backend="cuda"), 0, n_steps=4)
+    assert run(prob, TauLeap(trim=trim), 0, n_steps=4, backend="auto").s.shape == (8,)
+    with pytest.raises(NotImplementedError, match="lattice slice"):
+        run(jproblems.cal_problem(coupling=0.5), TauLeap(), 0, n_steps=4)
+    with pytest.raises(NotImplementedError, match="sparse slice"):
+        run(jproblems.random_3regular_maxcut(8, seed=0), TauLeap(), 0, n_steps=4)
+    with pytest.raises(NotImplementedError, match="faults"):
+        run(prob, TauLeap(), 0, n_steps=4, faults=object())
+    with pytest.raises(NotImplementedError, match="diagnostics"):
+        run(prob, TauLeap(), 0, n_steps=4, diagnostics=True)
+    with pytest.raises(TypeError, match="seed"):
+        run(prob, TauLeap(), jax.random.key(0), n_steps=4)
+    with pytest.raises(ValueError, match="n_chains"):
+        run(prob, TauLeap(), 0, n_steps=4, n_chains=0)
+    J = np.zeros((4, 4))
+    J[0, 1] = J[1, 0] = np.nan
+    with pytest.raises(sampler_api.NonFiniteEnergyError, match="non-finite"):
+        run(ising.DenseIsing.from_numpy(J, np.zeros(4), device=CPU), TauLeap(), 0, n_steps=2)
+    assert sampler_api._resolve_backend("cuda") == "cuda"
+    assert sampler_api._resolve_backend("auto", TauLeap(), prob) == "ref"
