@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (`src/repro_torch`) on one NVIDIA H100.
 
-    python3 chip_smoke.py        # from the repository root, no arguments
+    python3 chip_smoke.py             # from the repository root, no arguments
+    python3 chip_smoke.py --cpu-gates # the lattice and sparse main paths with
+                                      # backend="ref" on the CPU, 256 chains:
+                                      # the gates' calibration (no card needed)
 
 Phases, each printed as one JSON line; any failure raises and the script
 exits nonzero without printing the final result line:
@@ -10,22 +13,55 @@ exits nonzero without printing the final result line:
                 capability (must be 9.0), and the nvcc build of the kernels
                 in src/repro_torch/kernels/csrc (one nvcc per source, run
                 together).
-  2. check    — each kernel against its plain PyTorch version on the card at
-                (B, N) = (1,5) (8,64) (3,130) (64,300) (256,2048) (3,4099),
-                asymmetric random int8 J: dense_field's int32 accumulators
-                exactly, its fields within 1 ulp; tau_leap_step's spins equal
-                except where |u - p| <= 1e-6 (p from the plain version).
-  3. timing   — CUDA-event median of each kernel at (256, 2048), beside its
-                plain version, torch._int_mm (the library int8 product,
-                timed here only) and the device-memory/tensor-core bound.
+  2. check    — each dense kernel against its plain PyTorch version on the
+                card at (B, N) = (1,5) (8,64) (3,130) (64,300) (256,2048)
+                (3,4099), asymmetric random int8 J: dense_field's int32
+                accumulators exactly, its fields within 1 ulp;
+                tau_leap_step's spins equal except where |u - p| <= 1e-6 (p
+                from the plain version).
+     check_lattice — lattice_gibbs_sweep against its plain version at
+                (B,H,W) = (1,1,1) (8,8,8) (4,16,16) (2,32,24) (3,17,23)
+                (16,128,128) (4096,16,16) (1,200,200), random asymmetric w,
+                random frozen masks, king colour masks (random, improper
+                ones at (8,8,8)), per-row beta in [0.3, 3]: spins equal
+                except where |u - p_up| <= 1e-6 in the site's phase, frozen
+                sites equal to the clamp value, and the fields probed
+                through p_up (uniforms set to the plain p_up and one ulp
+                below it) equal bit for bit.
+     check_sparse — sparse_fields and colored_gibbs_sweep at (B, n, graph) =
+                (1, 5, dense random, random improper masks) (8, 100,
+                density 0.4) (3, 130, ragged)
+                (256, 16384, random_3regular_maxcut) (2, 40000, 3-regular):
+                fields within 2^-22 (sum_k |w_ik| + |b_i|), exactly for unit
+                weights; spins equal except where |u - p_up| <= beta_r/2 *
+                that bound + 1e-6.
+  3. timing   — CUDA-event median of each kernel at its main path's shape,
+                beside its plain version, the library call that computes the
+                same function where there is one (torch._int_mm for the int8
+                product, torch.sparse.mm for the sparse fields; timed here
+                only) and the device-memory bound.
   4. main     — sampler_api.run(TauLeap(dt=0.1), backend="cuda") on SK
                 n=2048 seed 0, 256 chains x 2000 steps, geometric(0.3, 3.0)
                 annealing, with and without first_hit, and the same run on
                 backend="ref"; then the int8 fields of the final states
                 through ops.dense_field. Launch counters are zeroed before
                 and read after each path.
+     main_lattice — ChromaticGibbs on cal_problem() (the chip's 16x16 core),
+                4096 chains x 500 sweeps, geometric(0.3, 3.0), the same
+                three runs with first_hit = the template energy: hit
+                fraction >= 0.5 on both backends, within 0.05 of each other;
+                then a clamped-conditional run (top half clamped to the
+                template): clamped half exact, free half agreement > 0.9.
+     main_sparse — ColoredGibbs on random_3regular_maxcut(16384, 0), 256
+                chains x 1000 sweeps, the same three runs: cut fraction of
+                the edges >= 0.85, cuda and ref within 1%; then the fields
+                of the final states through ops.sparse_fields (1 launch):
+                0.5 s.h + b.s equals SparseIsing.energy exactly.
   5. stats    — a grid-exact n=5 problem through the tau_leap_step kernel,
                 64 chains x 16000 steps: TV distance to exact enumeration.
+     stats_gibbs — TV to exact enumeration below 0.03 for a 2x3 lattice with
+                random couplings and one clamped site (lattice kernel) and
+                an 8-site random weighted graph (coloured kernel).
 
 The last two lines are the kernels summary and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -44,6 +80,7 @@ SRC = Path(__file__).resolve().parent / "src"
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+FP32_OPS_PER_S = 67e12  # outside the tensor cores
 
 CHECK_SHAPES = [(1, 5), (8, 64), (3, 130), (64, 300), (256, 2048), (3, 4099)]
 TIME_SHAPE = (256, 2048)
@@ -54,9 +91,9 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, ops: float, ops_per_s: float = INT8_OPS_PER_S) -> tuple[float, str]:
     """Least time (ms) for the work on one H100 and what bounds it."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -79,6 +116,145 @@ def time_ms(torch, fn, n: int = 100, warmup: int = 10) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
+# -- chromatic Gibbs (slice 2) -------------------------------------------------
+
+LATTICE_SHAPES = [(1, 1, 1), (8, 8, 8), (4, 16, 16), (2, 32, 24), (3, 17, 23),
+                  (16, 128, 128), (4096, 16, 16), (1, 200, 200)]
+# (B, n, graph): "dense" random couplings at a density, or a 3-regular MaxCut
+SPARSE_CASES = [(1, 5, "dense", 1.0), (8, 100, "dense", 0.4), (3, 130, "dense", 0.05),
+                (256, 16384, "3regular", 0), (2, 40000, "3regular", 1)]
+FIELD_EPS = 2.0**-22  # |dh_i| <= FIELD_EPS * (sum_k |w_ik| + |b_i|)
+LATTICE_MAIN = dict(n_chains=4096, n_sweeps=500, sample_every=50)
+SPARSE_MAIN = dict(n=16384, n_chains=256, n_sweeps=1000, sample_every=100)
+CAL_HIT_MIN, CAL_HIT_GAP = 0.5, 0.05
+CUT_MIN, CUT_REL_GAP = 0.85, 0.01
+TV_GIBBS_MAX = 0.03  # the JAX bound, tests/test_core_samplers.py
+
+
+def counters():
+    """(reset, read) over the launch counters of every ported kernel."""
+    from repro_torch.kernels import dense_field, lattice_gibbs, sparse_gather, tau_leap
+
+    def reset():
+        tau_leap.launches = dense_field.launches = lattice_gibbs.launches = 0
+        for k in sparse_gather.launches:
+            sparse_gather.launches[k] = 0
+
+    def read():
+        return {"tau_leap_step": tau_leap.launches, "dense_field": dense_field.launches,
+                "lattice_gibbs_sweep": lattice_gibbs.launches, **sparse_gather.launches}
+
+    return reset, read
+
+
+def phase_band(torch, fields, s, u, masks, frozen, beta, tol):
+    """Sites where some phase of the plain sweep drew a uniform within `tol`
+    of its p_up: the only sites where kernel and plain spins may differ."""
+    band = torch.zeros(s.shape, dtype=torch.bool, device=s.device)
+    b = beta.reshape((-1,) + (1,) * (s.ndim - 1))
+    for c in range(masks.shape[0]):
+        p = torch.sigmoid(-2.0 * (b * fields(s)))
+        upd = masks[c] & ~frozen
+        band |= upd & ((u[c] - p).abs() <= tol)
+        s = torch.where(upd, torch.where(u[c] < p, 1.0, -1.0), s)
+    return band
+
+
+def cut_fraction(prob, s):
+    """Fraction of a unit-weight MaxCut instance's edges cut by each state."""
+    n_edges = float(prob.deg.sum()) / 2
+    return (n_edges - prob.energy(s)) / (2 * n_edges)
+
+
+def gibbs_runs(prob, kernel, runs, reset, read, *, n_chains, n_sweeps, sample_every,
+               timeit=True):
+    """Drive run() once per (label, backend, first_hit) of `runs` with
+    geometric(0.3, 3.0) annealing; launch counters zeroed before each run
+    and read after it."""
+    import torch
+    from repro_torch.core.sampler_api import geometric, run
+
+    out = {}
+    for label, backend, first_hit in runs:
+        reset()
+        res = run(prob, kernel, 0, n_steps=n_sweeps, n_chains=n_chains,
+                  schedule=geometric(0.3, 3.0), sample_every=sample_every,
+                  first_hit=first_hit, backend=backend, timeit=timeit)
+        launches = read()
+        e_final = prob.energy(res.s)
+        if not bool(torch.isfinite(res.energies).all()) or not bool(torch.isfinite(e_final).all()):
+            raise AssertionError(f"{label}: non-finite energies")
+        rate = res.timing.chain_steps_per_s if timeit else None
+        out[label] = {
+            "backend": backend, "first_hit": first_hit, "launches": launches,
+            "chain_sweeps_per_s": rate, "spin_updates_per_s": rate and rate * prob.n,
+            "wall_s": res.timing.wall_s if timeit else None,
+            "compile_s": res.timing.compile_s if timeit else None,
+            "hit_fraction": None if res.hit is None else float(res.hit.float().mean()),
+            "final_energy_per_spin": float(e_final.mean()) / prob.n,
+            "final_state": res.s,
+        }
+    return out
+
+
+def clamped_conditional(prob, backend, n_chains, n_sweeps):
+    """CAL with its top half clamped to the template (Fig. 4C): whether the
+    clamped half was preserved exactly, and the free half's mean agreement
+    with the template."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import problems
+    from repro_torch.core.sampler_api import ChromaticGibbs, run
+
+    H, W = prob.shape
+    template = torch.as_tensor(problems.cal_template(), device=prob.device)
+    known = torch.zeros((H, W), dtype=torch.bool, device=prob.device)
+    known[: H // 2] = True
+    clamped = dataclasses.replace(prob, clamp_mask=known, clamp_value=template)
+    res = run(clamped, ChromaticGibbs(), 1, n_steps=n_sweeps, n_chains=n_chains, backend=backend)
+    exact = bool((res.s[:, : H // 2] == template[: H // 2]).all())
+    agree = float((res.s[:, H // 2:] * template[H // 2:]).mean())
+    return exact, agree
+
+
+def cpu_gates() -> int:
+    """The lattice and sparse main paths with backend="ref" on the CPU at 256
+    chains: the numbers the card's gates were calibrated from."""
+    import torch
+    from repro_torch.core import problems
+    from repro_torch.core.sampler_api import ChromaticGibbs, ColoredGibbs
+
+    reset, read = counters()
+    cal = problems.cal_problem(device="cpu")
+    e_t = float(cal.energy(torch.as_tensor(problems.cal_template())))
+    kw = dict(LATTICE_MAIN, n_chains=256, timeit=False)
+    lat = gibbs_runs(cal, ChromaticGibbs(), [("ref_first_hit", "ref", e_t)], reset, read, **kw)
+    exact, agree = clamped_conditional(problems.cal_problem(coupling=0.6, device="cpu"),
+                                       "ref", 256, 400)
+    for m in lat.values():
+        del m["final_state"]
+    emit({"phase": "cpu_gates_lattice", "problem": "cal_problem()", "n_chains": 256,
+          "runs": lat, "clamped_half_exact": exact, "free_half_agreement": agree})
+    mc = problems.random_3regular_maxcut(SPARSE_MAIN["n"], 0, device="cpu")
+    kw = dict(SPARSE_MAIN, n_chains=256, timeit=False)
+    del kw["n"]
+    sp = gibbs_runs(mc, ColoredGibbs(), [("ref_first_hit", "ref", sparse_target(mc))],
+                    reset, read, **kw)
+    for m in sp.values():
+        m["cut_fraction"] = float(cut_fraction(mc, m.pop("final_state")).mean())
+    emit({"phase": "cpu_gates_sparse", "problem": f"random_3regular_maxcut({mc.n}, 0)",
+          "n_chains": 256, "runs": sp})
+    return 0
+
+
+def sparse_target(prob) -> float:
+    """first_hit energy of a unit-weight MaxCut instance: a cut of CUT_MIN
+    of its edges."""
+    n_edges = float(prob.deg.sum()) / 2
+    return n_edges * (1.0 - 2.0 * CUT_MIN)
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke.py: {SRC / 'repro_torch'} not found; run from a checkout "
@@ -88,14 +264,19 @@ def main() -> int:
     import numpy as np
     import torch
 
+    if sys.argv[1:] == ["--cpu-gates"]:
+        return cpu_gates()
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's kernels need an H100",
               file=sys.stderr)
         return 2
 
     from repro_torch.core import ising, problems
-    from repro_torch.core.sampler_api import TauLeap, geometric, run
-    from repro_torch.kernels import _build, dense_field, ops, ref, tau_leap
+    from repro_torch.core.ising import king_color_masks
+    from repro_torch.core.sampler_api import ChromaticGibbs, ColoredGibbs, TauLeap, geometric, run
+    from repro_torch.core.sparse import SparseIsing
+    from repro_torch.kernels import (_build, dense_field, lattice_gibbs, ops, ref, sparse_gather,
+                                     tau_leap)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -169,6 +350,102 @@ def main() -> int:
               "tau_leap_mismatches": int(differ.sum()), "tau_leap_in_band": int(in_band.sum())})
     torch.cuda.synchronize()
 
+    def pm1(shape):
+        return torch.as_tensor(rng.choice([-1.0, 1.0], shape).astype(np.float32), device=dev)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    for name in ("lattice_gibbs_sweep", "sparse_fields", "colored_gibbs_sweep"):
+        err[name], mism[name] = 0.0, 0
+    for B, H, W in LATTICE_SHAPES:
+        s = pm1((B, H, W))
+        w = f32(rng.normal(0.0, 0.5, (8, H, W)))  # asymmetric: pure arithmetic
+        b = f32(rng.normal(0.0, 0.3, (H, W)))
+        u = f32(rng.random((4, B, H, W)))
+        colors_b = king_color_masks(H, W, device=dev)
+        if (B, H, W) == (8, 8, 8):  # an improper colouring: phases see the state before them
+            colors_b = torch.as_tensor(rng.random((4, H, W)) < 0.5, device=dev)
+        frozen_b = torch.as_tensor(rng.random((H, W)) < 0.2, device=dev)
+        clampv = pm1((H, W))
+        beta = f32(rng.uniform(0.3, 3.0, B))
+        colors, frozen = colors_b.float(), frozen_b.float()
+        out_k = lattice_gibbs.lattice_gibbs_sweep(s, w, b, u, colors, frozen, clampv, beta)
+        out_r = ops.lattice_gibbs_sweep(s, w, b, u, colors, frozen, clampv, beta,
+                                        mode="reference")
+        band = phase_band(torch, lambda x: ref.lattice_fields_ref(x, w, b), s, u, colors_b,
+                          frozen_b, beta, P_BAND)
+        differ = out_k != out_r
+        bad = int((differ & ~band).sum())
+        n_clamp = int((out_k[:, frozen_b] != clampv[frozen_b]).sum())
+        # Fields through p_up, one phase updating every free site: uniforms at
+        # the plain p_up give -1 unless the kernel's p_up is larger, one ulp
+        # below it +1 unless it is smaller. p_up is formed as the kernel forms it.
+        x = -2.0 * (beta[:, None, None] * ref.lattice_fields_ref(s, w, b))
+        p = 1.0 / (1.0 + torch.exp(-x))
+        all_sites = torch.ones((1, H, W), dtype=torch.float32, device=dev)
+        hi = lattice_gibbs.lattice_gibbs_sweep(s, w, b, p[None].contiguous(), all_sites, frozen,
+                                               clampv, beta)
+        lo = lattice_gibbs.lattice_gibbs_sweep(
+            s, w, b, torch.nextafter(p, torch.tensor(-1.0, device=dev))[None].contiguous(),
+            all_sites, frozen, clampv, beta)
+        free = ~frozen_b
+        n_field = int(((hi != -1.0) & free).sum() + ((lo != 1.0) & free).sum())
+        if bad or n_clamp or n_field:
+            raise AssertionError(
+                f"lattice_gibbs_sweep ({B},{H},{W}): {bad} spins differ outside the band, "
+                f"{n_clamp} frozen sites off their clamp value, {n_field} fields differ")
+        mism["lattice_gibbs_sweep"] += int(differ.sum())
+        err["lattice_gibbs_sweep"] = max(err["lattice_gibbs_sweep"],
+                                         float(((out_k - out_r).abs() * ~band).max()))
+        emit({"phase": "check_lattice", "B": B, "H": H, "W": W, "mismatches": int(differ.sum()),
+              "in_band": int(band.sum()), "field_mismatches": n_field,
+              "sigmoid_vs_kernel_formula": int((torch.sigmoid(x) != p).sum())})
+
+    for B, n, graph, arg in SPARSE_CASES:
+        if graph == "3regular":
+            sp = problems.random_3regular_maxcut(n, arg, device=dev)
+        else:
+            A = rng.normal(0.0, 0.6, (n, n)) * (rng.random((n, n)) < arg)
+            J = np.triu(A, 1)
+            sp = SparseIsing.from_dense(ising.DenseIsing.from_numpy(
+                J + J.T, rng.normal(0.0, 0.3, n), device=dev))
+        idx, w, b = sp.nbr_idx, sp.nbr_w, sp.b
+        unit = bool(((w == 0) | (w.abs() == 1)).all()) and not bool(b.any())
+        s = pm1((B, n))
+        masks_b = sp.color_masks
+        if n == 5:  # random masks, an improper colouring
+            masks_b = torch.as_tensor(rng.random((3, n)) < 0.5, device=dev)
+        C = masks_b.shape[0]
+        u = f32(rng.random((C, B, n)))
+        beta = f32(rng.uniform(0.3, 3.0, B))
+        h_k = sparse_gather.sparse_fields(s, idx, w, b)
+        h_r = ref.sparse_fields_ref(s, idx, w, b)
+        fbound = FIELD_EPS * (w.abs().sum(-1) + b.abs())
+        dh = (h_k - h_r).abs()
+        n_h = int((dh != 0).sum()) if unit else int((dh > fbound).sum())
+        out_k = sparse_gather.colored_gibbs_sweep(s, idx, w, b, u, masks_b.float(), beta)
+        out_r = ops.colored_gibbs_sweep(s, idx, w, b, u, masks_b.float(), beta, mode="reference")
+        tol = beta[:, None] / 2 * fbound + P_BAND
+        nofreeze = torch.zeros(n, dtype=torch.bool, device=dev)
+        band = phase_band(torch, lambda x: ref.sparse_fields_ref(x, idx, w, b), s, u, masks_b,
+                          nofreeze, beta, tol)
+        differ = out_k != out_r
+        bad = int((differ & ~band).sum())
+        if n_h or bad:
+            raise AssertionError(f"sparse ({B},{n},{graph}): {n_h} fields out of bound, "
+                                 f"{bad} spins differ outside the band")
+        err["sparse_fields"] = max(err["sparse_fields"], float(dh.max()))
+        mism["sparse_fields"] += int((dh != 0).sum())
+        mism["colored_gibbs_sweep"] += int(differ.sum())
+        err["colored_gibbs_sweep"] = max(err["colored_gibbs_sweep"],
+                                         float(((out_k - out_r).abs() * ~band).max()))
+        emit({"phase": "check_sparse", "B": B, "n": n, "graph": graph, "max_deg": sp.max_deg,
+              "colors": C, "unit_weights": unit, "field_max_abs_err": float(dh.max()),
+              "field_mismatches": int((dh != 0).sum()), "sweep_mismatches": int(differ.sum()),
+              "sweep_in_band": int(band.sum())})
+    torch.cuda.synchronize()
+
     # -- 3. timings at the main path's shape --------------------------------
     B, N = TIME_SHAPE
     s = torch.as_tensor(rng.choice([-1.0, 1.0], (B, N)).astype(np.float32), device=dev)
@@ -192,6 +469,65 @@ def main() -> int:
     }
     emit({"phase": "timing", "B": B, "N": N, "ms": ms,
           "bound_ms": {k: v[0] for k, v in bounds.items()}, "nvidia_smi": smi})
+
+    # The chromatic-Gibbs kernels at their main paths' shapes. Bounds count
+    # what these inputs need: each input read once, the output written once,
+    # and of the (C, B, ...) uniforms only those of the sites a phase updates.
+    cal = problems.cal_problem(device=dev)
+    H, W = cal.shape
+    B = LATTICE_MAIN["n_chains"]
+    s = pm1((B, H, W))
+    colors = king_color_masks(H, W, device=dev).float()
+    frozen = cal.frozen_mask.float()
+    clampv = cal.frozen_values
+    u = torch.rand((4, B, H, W), device=dev)
+    beta = torch.full((B,), 1.7, dtype=torch.float32, device=dev)
+    ms["lattice_gibbs_sweep"] = time_ms(torch, lambda: lattice_gibbs.lattice_gibbs_sweep(
+        s, cal.w, cal.b, u, colors, frozen, clampv, beta))
+    ms["lattice_gibbs_sweep_plain"] = time_ms(torch, lambda: ops.lattice_gibbs_sweep(
+        s, cal.w, cal.b, u, colors, frozen, clampv, beta, mode="reference"))
+    updated = float((colors * (1.0 - frozen)).sum())  # sites updated per chain and sweep
+    HW = H * W
+    bounds["lattice_gibbs_sweep"] = bound(
+        4 * (2 * B * HW + B * updated + 8 * HW + HW + 4 * HW + 2 * HW + B),
+        B * updated * 22, FP32_OPS_PER_S)  # 8 mul + 9 add, beta, -2, exp, add, div
+    lattice_shape = [B, H, W]
+
+    mc = problems.random_3regular_maxcut(SPARSE_MAIN["n"], 0, device=dev)
+    B, n, D = SPARSE_MAIN["n_chains"], mc.n, mc.max_deg
+    s = pm1((B, n))
+    masks = mc.color_masks.float()
+    C = masks.shape[0]
+    u = torch.rand((C, B, n), device=dev)
+    beta = torch.full((B,), 1.7, dtype=torch.float32, device=dev)
+    zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+    live = torch.arange(D, device=dev)[None, :] < mc.deg[:, None]  # drop padded slots
+    rows = torch.arange(n, device=dev)[:, None].expand(n, D)[live]
+    csr = torch.sparse_coo_tensor(torch.stack([rows, mc.nbr_idx[live].long()]),
+                                  mc.nbr_w[live], (n, n)).coalesce().to_sparse_csr()
+    s_t = s.t().contiguous()
+    ms["sparse_fields"] = time_ms(torch, lambda: sparse_gather.sparse_fields(
+        s, mc.nbr_idx, mc.nbr_w, zeros))
+    ms["sparse_fields_plain"] = time_ms(torch, lambda: ref.sparse_fields_ref(
+        s, mc.nbr_idx, mc.nbr_w, zeros))
+    ms["sparse_mm"] = time_ms(torch, lambda: torch.sparse.mm(csr, s_t))
+    ms["colored_gibbs_sweep"] = time_ms(torch, lambda: sparse_gather.colored_gibbs_sweep(
+        s, mc.nbr_idx, mc.nbr_w, mc.b, u, masks, beta))
+    ms["colored_gibbs_sweep_plain"] = time_ms(torch, lambda: ops.colored_gibbs_sweep(
+        s, mc.nbr_idx, mc.nbr_w, mc.b, u, masks, beta, mode="reference"))
+    updated = float(masks.sum())
+    bounds["sparse_fields"] = bound(4 * (2 * B * n + 2 * n * D + n), B * n * (2 * D + 1),
+                                    FP32_OPS_PER_S)
+    bounds["colored_gibbs_sweep"] = bound(
+        4 * (2 * B * n + B * updated + 2 * n * D + n + C * n + B),
+        B * updated * (2 * D + 6), FP32_OPS_PER_S)
+    emit({"phase": "timing_gibbs", "lattice_shape": lattice_shape, "sparse_shape": [B, n],
+          "max_deg": D, "colors": C, "ms": {k: ms[k] for k in ms if k not in (
+              "dense_field", "dense_field_plain", "tau_leap_step", "tau_leap_step_plain",
+              "int_mm")},
+          "bound_ms": {k: bounds[k][0] for k in (
+              "lattice_gibbs_sweep", "sparse_fields", "colored_gibbs_sweep")},
+          "nvidia_smi": smi})
 
     # -- 4. the main path ---------------------------------------------------
     n, n_steps, n_chains = 2048, 2000, 256
@@ -247,6 +583,73 @@ def main() -> int:
               "launches": {"dense_field": fields_launches}, "max_rel_energy_err": rel},
           "nvidia_smi": smi})
 
+    reset, read = counters()
+    want = {k: 0 for k in read()}
+
+    def expect(label, launches, **nonzero):
+        if launches != dict(want, **nonzero):
+            raise AssertionError(f"{label}: launches {launches}, expected {dict(want, **nonzero)}")
+
+    # The lattice main path: the chip's 16x16 core, CAL letters.
+    e_t = float(cal.energy(torch.as_tensor(problems.cal_template(), device=dev)))
+    lat = gibbs_runs(cal, ChromaticGibbs(), (("cuda_first_hit", "cuda", e_t), ("cuda", "cuda", None),
+                                             ("ref_first_hit", "ref", e_t)),
+                     reset, read, **LATTICE_MAIN)
+    n_sweeps = LATTICE_MAIN["n_sweeps"]
+    for label, m in lat.items():  # timeit runs two passes
+        expect(label, m["launches"],
+               **({"lattice_gibbs_sweep": 2 * n_sweeps} if m["backend"] == "cuda" else {}))
+        del m["final_state"]
+    hits = (lat["cuda_first_hit"]["hit_fraction"], lat["ref_first_hit"]["hit_fraction"])
+    if min(hits) < CAL_HIT_MIN or abs(hits[0] - hits[1]) > CAL_HIT_GAP:
+        raise AssertionError(f"CAL hit fractions {hits}: need >= {CAL_HIT_MIN}, "
+                             f"within {CAL_HIT_GAP} of each other")
+    reset()
+    exact, agree = clamped_conditional(problems.cal_problem(coupling=0.6, device=dev), "cuda",
+                                       LATTICE_MAIN["n_chains"], 400)
+    clamped_launches = read()
+    expect("clamped conditional", clamped_launches, lattice_gibbs_sweep=400)
+    if not exact or not agree > 0.9:
+        raise AssertionError(f"clamped conditional: clamped half exact {exact}, "
+                             f"free-half agreement {agree} (need > 0.9)")
+    emit({"phase": "main_lattice", "problem": "cal_problem()", "template_energy": e_t,
+          **LATTICE_MAIN, "runs": lat, "clamped_conditional": {
+              "launches": clamped_launches, "clamped_half_exact": exact,
+              "free_half_agreement": agree}, "nvidia_smi": smi})
+
+    # The sparse main path: MaxCut on a random 3-regular graph.
+    kw = {k: v for k, v in SPARSE_MAIN.items() if k != "n"}
+    e_cut = sparse_target(mc)
+    sp = gibbs_runs(mc, ColoredGibbs(), (("cuda_first_hit", "cuda", e_cut), ("cuda", "cuda", None),
+                                         ("ref_first_hit", "ref", e_cut)),
+                    reset, read, **kw)
+    n_sweeps = SPARSE_MAIN["n_sweeps"]
+    for label, m in sp.items():
+        expect(label, m["launches"],
+               **({"colored_gibbs_sweep": 2 * n_sweeps} if m["backend"] == "cuda" else {}))
+        m["cut_fraction"] = float(cut_fraction(mc, m["final_state"]).mean())
+    cuts = (sp["cuda_first_hit"]["cut_fraction"], sp["ref_first_hit"]["cut_fraction"])
+    if min(cuts) < CUT_MIN or abs(cuts[0] - cuts[1]) > CUT_REL_GAP * cuts[1]:
+        raise AssertionError(f"maxcut3r cut fractions {cuts}: need >= {CUT_MIN}, "
+                             f"within {CUT_REL_GAP:.0%} of each other")
+    # The fields of the final states through ops.sparse_fields: with unit
+    # weights 0.5 s.h + b.s is an integer sum, equal to the energy exactly.
+    s_fin = sp["cuda_first_hit"]["final_state"]
+    reset()
+    h = ops.sparse_fields(s_fin, mc.nbr_idx, mc.nbr_w, torch.zeros_like(mc.b))
+    sparse_fields_launches = read()
+    expect("sparse fields path", sparse_fields_launches, sparse_fields=1)
+    e_fields = 0.5 * (s_fin * h).sum(-1) + (mc.b * s_fin).sum(-1)
+    n_energy = int((e_fields != mc.energy(s_fin)).sum())
+    if n_energy:
+        raise AssertionError(f"sparse fields path: {n_energy} energies differ")
+    for m in sp.values():
+        del m["final_state"]
+    emit({"phase": "main_sparse", "problem": f"random_3regular_maxcut({mc.n}, 0)",
+          "max_deg": mc.max_deg, "colors": mc.n_colors, "first_hit": e_cut, **kw, "runs": sp,
+          "fields_path": {"launches": sparse_fields_launches, "energy_mismatches": n_energy},
+          "nvidia_smi": smi})
+
     # -- 5. statistics through the kernel -----------------------------------
     srng = np.random.default_rng(0)
     n5 = 5
@@ -269,21 +672,74 @@ def main() -> int:
     emit({"phase": "stats", "n": n5, "n_chains": 64, "n_steps": 16000, "tv": tv,
           "launches": {"tau_leap_step": stats_launches}})
 
-    # -- summary -------------------------------------------------------------
-    def entry(name, source, replaces, launches, bkey, plain_key):
-        bms, by = bounds[bkey]
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": err[bkey], "mismatches": mism[bkey],
-                "ms": ms[bkey], "plain_ms": ms[plain_key], "bound_ms": bms, "bound_by": by,
-                "library_ms": ms["int_mm"]}
+    def tv_to(p_exact, samples, n_sites):
+        bits = (samples.reshape(-1, n_sites).cpu().numpy() > 0).astype(np.int64)
+        hist = np.bincount(bits @ (1 << np.arange(n_sites)), minlength=2**n_sites)
+        return 0.5 * float(np.abs(hist / hist.sum() - p_exact).sum())
 
+    # A 2x3 lattice with random couplings and site (0, 0) clamped to +1: the
+    # exact law is the enumeration conditioned on that site.
+    pairs = {((y, x), (y + dy, x + dx)): float(srng.normal(0.0, 0.6))
+             for y in range(2) for x in range(3) for dy, dx in ising.KING_OFFSETS[4:]
+             if y + dy < 2 and 0 <= x + dx < 3}
+    clamp = np.zeros((2, 3), bool)
+    clamp[0, 0] = True
+    lat6 = ising.lattice_from_pairs(2, 3, pairs, biases=srng.normal(0.0, 0.3, (2, 3)),
+                                    clamp_mask=clamp, clamp_value=np.ones((2, 3)), device=dev)
+    states, p6 = ising.enumerate_boltzmann(lat6.to_dense())
+    p6 = np.where(states[:, 0] > 0, p6, 0.0)
+    p6 /= p6.sum()
+    lat_sweeps, lat_chains = 400, 1024
+    reset()
+    res6 = run(lat6, ChromaticGibbs(), 2, n_steps=lat_sweeps, n_chains=lat_chains,
+               sample_every=2, backend="cuda")
+    lat_launches = read()
+    expect("lattice stats", lat_launches, lattice_gibbs_sweep=lat_sweeps)
+    tv_lat = tv_to(p6, res6.samples[:, 5:], 6)  # the first 5 samples are burn-in
+    # An 8-site random weighted graph through the coloured kernel.
+    A = srng.normal(0.0, 0.6, (8, 8)) * (srng.random((8, 8)) < 0.5)
+    sp8 = SparseIsing.from_dense(ising.DenseIsing.from_numpy(
+        np.triu(A, 1) + np.triu(A, 1).T, srng.normal(0.0, 0.3, 8), device=dev))
+    _, p8 = ising.enumerate_boltzmann(sp8.to_dense())
+    sp_sweeps, sp_chains = 200, 4096
+    reset()
+    res8 = run(sp8, ColoredGibbs(), 3, n_steps=sp_sweeps, n_chains=sp_chains, sample_every=2,
+               backend="cuda")
+    sp_launches = read()
+    expect("sparse stats", sp_launches, colored_gibbs_sweep=sp_sweeps)
+    tv_sp = tv_to(p8, res8.samples[:, 5:], 8)
+    if not (tv_lat < TV_GIBBS_MAX and tv_sp < TV_GIBBS_MAX):
+        raise AssertionError(f"TV distances {tv_lat} (lattice), {tv_sp} (sparse) are not "
+                             f"below {TV_GIBBS_MAX}")
+    emit({"phase": "stats_gibbs", "lattice": {"shape": [2, 3], "clamped_sites": 1,
+                                              "n_chains": lat_chains, "n_steps": lat_sweeps,
+                                              "tv": tv_lat, "launches": lat_launches},
+          "sparse": {"n": 8, "max_deg": sp8.max_deg, "colors": sp8.n_colors,
+                     "n_chains": sp_chains, "n_steps": sp_sweeps, "tv": tv_sp,
+                     "launches": sp_launches}})
+
+    # -- summary -------------------------------------------------------------
+    def entry(name, source, replaces, launches, library):
+        bms, by = bounds[name]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err[name], "mismatches": mism[name],
+                "ms": ms[name], "plain_ms": ms[name + "_plain"], "bound_ms": bms, "bound_by": by,
+                "library_ms": None if library is None else ms[library]}
+
+    csrc = "src/repro_torch/kernels/csrc/"
     emit({"kernels": [
-        entry("tau_leap_step", "src/repro_torch/kernels/csrc/tau_leap.cu",
-              "src/repro/kernels/tau_leap.py:82", path_launches["tau_leap_step"],
-              "tau_leap_step", "tau_leap_step_plain"),
-        entry("dense_field", "src/repro_torch/kernels/csrc/dense_field.cu",
-              "src/repro/kernels/dense_field.py:72", fields_launches,
-              "dense_field", "dense_field_plain"),
+        entry("tau_leap_step", csrc + "tau_leap.cu", "src/repro/kernels/tau_leap.py:82",
+              path_launches["tau_leap_step"], "int_mm"),
+        entry("dense_field", csrc + "dense_field.cu", "src/repro/kernels/dense_field.py:72",
+              fields_launches, "int_mm"),
+        entry("lattice_gibbs_sweep", csrc + "lattice_gibbs.cu",
+              "src/repro/kernels/lattice_gibbs.py:102",
+              lat["cuda_first_hit"]["launches"]["lattice_gibbs_sweep"], None),
+        entry("sparse_fields", csrc + "sparse_fields.cu", "src/repro/kernels/sparse_gather.py:90",
+              sparse_fields_launches["sparse_fields"], "sparse_mm"),
+        entry("colored_gibbs_sweep", csrc + "colored_gibbs.cu",
+              "src/repro/kernels/sparse_gather.py:126",
+              sp["cuda_first_hit"]["launches"]["colored_gibbs_sweep"], None),
     ], "tau_leap_in_band": near})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

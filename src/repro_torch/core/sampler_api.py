@@ -17,15 +17,29 @@ per-chain schedule is a per-row beta.
 
 Kernels ported so far, registered by name:
 
-    "tau_leap" — the PASS ASYNC model on dense problems: every neuron flips
-        independently w.p. 1-exp(-dt*lambda_i) per step of model time dt.
-        `backend="cuda"` quantizes J to int8 once at init and runs every
-        step through the hand-written `tau_leap_step` kernel (on CPU
-        tensors, through its plain PyTorch version, as the JAX package
-        runs its Pallas kernels in interpret mode off-TPU).
+    "chromatic_gibbs" — exact parallel Gibbs on the king's-move lattice via
+        the 4-coloring; one step = one sweep = 4 color phases. Under
+        `backend="cuda"` every sweep is ONE launch of the hand-written
+        `lattice_gibbs_sweep` kernel; the ref path recomputes the stencil
+        field per color phase.
+    "colored_gibbs"   — chromatic Gibbs on arbitrary sparse graphs
+        (`SparseIsing` + its `color_masks`); one step = one sweep over the
+        color classes. Under `backend="cuda"` every sweep is ONE launch of
+        the hand-written `colored_gibbs_sweep` kernel.
+    "tau_leap"        — the PASS ASYNC model (dense, lattice or sparse):
+        every neuron flips independently w.p. 1-exp(-dt*lambda_i) per step
+        of model time dt. On dense problems `backend="cuda"` quantizes J to
+        int8 once at init and runs every step through the hand-written
+        `tau_leap_step` kernel; lattice and sparse problems are ref-only,
+        as in JAX.
 
-The other kernels of the JAX registry ("random_scan_gibbs",
-"chromatic_gibbs", "colored_gibbs", "ctmc"), lattice and sparse problems,
+On CPU tensors a cuda backend runs each kernel's plain PyTorch version, as
+the JAX package runs its Pallas kernels in interpret mode off-TPU. Both
+backends of a kernel draw the same uniforms from the generator: the Gibbs
+sweeps draw all (C, n_chains, ...) uniforms of a sweep in one call before
+the first color phase.
+
+The other kernels of the JAX registry ("random_scan_gibbs", "ctmc"),
 `faults=` and `diagnostics=True` raise NotImplementedError naming the
 slice of the port that brings them (see ROADMAP.md).
 
@@ -56,8 +70,10 @@ from typing import Any, NamedTuple, Optional, Protocol, Union, runtime_checkable
 import torch
 
 from repro_torch.core import glauber
-from repro_torch.core.ising import DenseIsing, resolve_device
+from repro_torch.core.ising import DenseIsing, LatticeIsing, king_color_masks, resolve_device
+from repro_torch.core.sparse import SparseIsing
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import broadcast_rows
 
 
 class NonFiniteEnergyError(ValueError):
@@ -79,30 +95,25 @@ def random_init(
 
 
 def state_shape(problem) -> tuple[int, ...]:
-    """Natural spin-array shape for a (dense) problem."""
-    return (problem.n,)
-
-
-# Problem kinds of the JAX package that later slices of the port bring.
-LATER_PROBLEM_KINDS = {
-    "lattice": "the lattice slice (LatticeIsing, ChromaticGibbs)",
-    "sparse": "the sparse slice (SparseIsing, ColoredGibbs)",
-}
+    """Natural spin-array shape for a problem: (H, W) on a lattice."""
+    return problem.shape if isinstance(problem, LatticeIsing) else (problem.n,)
 
 
 def problem_kind_of(problem) -> str:
     """The problem-kind dispatch axis: "dense" | "lattice" | "sparse".
 
-    Only dense problems are ported; a lattice problem (it has clamp masks)
-    or a sparse one (it has neighbor lists) is recognised so that `run()`
-    can name the slice that brings it."""
+    Anything else, such as a problem of the JAX package, raises TypeError:
+    convert it with the port's `from_numpy` constructors."""
+    if isinstance(problem, LatticeIsing):
+        return "lattice"
+    if isinstance(problem, SparseIsing):
+        return "sparse"
     if isinstance(problem, DenseIsing):
         return "dense"
-    if hasattr(problem, "clamp_mask"):
-        return "lattice"
-    if hasattr(problem, "nbr_idx"):
-        return "sparse"
-    raise TypeError(f"unknown problem type {type(problem).__name__}")
+    raise TypeError(
+        f"unknown problem type {type(problem).__module__}.{type(problem).__name__}; "
+        "run() takes the port's DenseIsing, LatticeIsing or SparseIsing"
+    )
 
 
 def kernel_problem_kinds(kernel) -> tuple[str, ...]:
@@ -130,7 +141,7 @@ def check_problem_kind(kernel, problem) -> None:
 class KernelState(NamedTuple):
     """State carried through the driver's step loop, batched over chains.
 
-    s:   (n_chains, n) spin state (±1).
+    s:   (n_chains, n) spin state (±1); (n_chains, H, W) on a lattice.
     t:   (n_chains,) model time (seconds of chip time at rate lambda0).
     e:   (n_chains,) running energy for kernels that maintain it
          incrementally; None otherwise — the driver recomputes on demand
@@ -170,8 +181,6 @@ KERNELS: dict[str, type] = {}
 
 # Kernels of the JAX registry that later slices of the port bring.
 LATER_KERNELS = {
-    "chromatic_gibbs": "the lattice slice",
-    "colored_gibbs": "the sparse slice",
     "random_scan_gibbs": "the sync-baseline and exact-CTMC slice",
     "ctmc": "the sync-baseline and exact-CTMC slice",
 }
@@ -273,11 +282,14 @@ class geometric(Schedule):
 ScheduleLike = Union[None, float, torch.Tensor, Schedule]
 
 
-def _tau_leap_flip(s, h, u, dt, trim):
+def _tau_leap_flip(s, h, u, dt, trim, frozen=None):
     """One tau-leap update given (beta-scaled) fields h and uniforms u: each
-    spin flips w.p. 1-exp(-dt*lambda_i/lambda0)."""
+    spin flips w.p. 1-exp(-dt*lambda_i/lambda0); frozen (clamped/dead)
+    sites never do."""
     rate = glauber.flip_prob(h, s, trim)
     p_flip = 1.0 - torch.exp(-dt * rate)
+    if frozen is not None:
+        p_flip = torch.where(frozen, torch.zeros_like(p_flip), p_flip)
     return torch.where(u < p_flip, -s, s)
 
 
@@ -326,6 +338,133 @@ def resolve_schedule(
 # ---------------------------------------------------------------------------
 
 
+@register_kernel("chromatic_gibbs")
+@dataclasses.dataclass(frozen=True)
+class ChromaticGibbs:
+    """Exact parallel Gibbs on the king's-move lattice via the 4-coloring.
+    One step = 4 color phases = one update per neuron, so the model time
+    per step at per-neuron rate lambda0 is 1/lambda0.
+
+    `backend="cuda"` runs the whole sweep of all chains as ONE launch of
+    `ops.lattice_gibbs_sweep` (the CUDA kernel on CUDA tensors, its plain
+    version on CPU tensors), each row with its own beta. The ref path
+    recomputes the full stencil field once per color phase. Both draw the
+    sweep's (4, n_chains, H, W) uniforms in one call, so on one device they
+    follow the same stream. Trims are ref-only.
+
+    Lattice-only: the arbitrary-graph generalization is `colored_gibbs`."""
+
+    backends = ("ref", "cuda")
+    problem_kinds = ("lattice",)
+
+    lambda0: float = 1.0
+    trim: Optional[glauber.SigmoidTrim] = None
+    backend: str = "ref"  # "ref" | "cuda"
+
+    def backends_for(self, problem=None) -> tuple[str, ...]:
+        """Backends valid for this kernel config (trims are ref-only)."""
+        return ("ref",) if self.trim is not None else self.backends
+
+    def init(self, problem: LatticeIsing, generator, s0=None, n_chains=1) -> KernelState:
+        """Initial state on the clamped lattice; the color, frozen and clamp
+        planes the sweep takes are made once here."""
+        if self.backend not in self.backends:
+            raise ValueError(f"backend must be 'ref' | 'cuda', got {self.backend!r}")
+        if self.backend == "cuda" and self.trim is not None:
+            raise NotImplementedError("cuda chromatic gibbs does not support trims")
+        dev = problem.device
+        if s0 is None:
+            s0 = random_init(generator, (n_chains,) + problem.shape, device=dev)
+        s0 = problem.apply_clamps(s0)
+        colors = king_color_masks(*problem.shape, device=dev)
+        frozen = problem.frozen_mask
+        if self.backend == "cuda":
+            aux = (colors.float(), frozen.float(), problem.frozen_values.float())
+        else:
+            aux = (colors, frozen)
+        t0 = torch.zeros((s0.shape[0],), dtype=torch.float32, device=dev)
+        return KernelState(s=s0, t=t0, e=None, aux=aux)
+
+    def step(self, problem: LatticeIsing, state, generator, beta) -> KernelState:
+        """One sweep: all 4 king-coloring phases for every chain."""
+        s = state.s
+        C = state.aux[0].shape[0]
+        u = torch.rand((C,) + tuple(s.shape), generator=generator, device=s.device)
+        if self.backend == "cuda":
+            colors, frozen, clamp = state.aux
+            s = ops.lattice_gibbs_sweep(
+                s, problem.w, problem.b, u, colors, frozen, clamp, beta=beta
+            )
+        else:
+            colors, frozen = state.aux
+            b = broadcast_rows(beta, s)
+            for c in range(C):
+                h = problem.local_fields(s)
+                p_up = glauber.prob_up(b * h, self.trim)
+                proposal = torch.where(u[c] < p_up, 1.0, -1.0).to(s.dtype)
+                s = torch.where(colors[c] & ~frozen, proposal, s)
+            s = problem.apply_clamps(s)
+        return KernelState(s=s, t=state.t + 1.0 / self.lambda0, e=None, aux=state.aux)
+
+
+@register_kernel("colored_gibbs")
+@dataclasses.dataclass(frozen=True)
+class ColoredGibbs:
+    """Exact parallel Gibbs on an arbitrary sparse graph via its coloring —
+    `chromatic_gibbs` generalized beyond the king's lattice. The problem's
+    `color_masks` partition the sites into independent sets, so one step =
+    one sweep over the color classes = one update per site (model time
+    1/lambda0 per sweep).
+
+    `backend="cuda"` runs the whole sweep of all chains as ONE launch of
+    `ops.colored_gibbs_sweep`, each row with its own beta. The ref path
+    recomputes the gathered fields once per color phase. Both draw the
+    sweep's (C, n_chains, n) uniforms in one call and sum the fields in the
+    same slot order."""
+
+    backends = ("ref", "cuda")
+    problem_kinds = ("sparse",)
+
+    lambda0: float = 1.0
+    backend: str = "ref"  # "ref" | "cuda"
+
+    def init(self, problem: SparseIsing, generator, s0=None, n_chains=1) -> KernelState:
+        """Initial state; requires the problem's color_masks."""
+        if self.backend not in self.backends:
+            raise ValueError(f"backend must be 'ref' | 'cuda', got {self.backend!r}")
+        if problem.color_masks is None:
+            raise ValueError(
+                "colored_gibbs needs problem.color_masks — build the problem "
+                "with coloring enabled (SparseIsing.from_edges/from_dense "
+                "color by default) or supply masks explicitly"
+            )
+        dev = problem.device
+        if s0 is None:
+            s0 = random_init(generator, (n_chains, problem.n), device=dev)
+        masks = problem.color_masks
+        aux = masks.float() if self.backend == "cuda" else masks
+        t0 = torch.zeros((s0.shape[0],), dtype=torch.float32, device=dev)
+        return KernelState(s=s0, t=t0, e=None, aux=aux)
+
+    def step(self, problem: SparseIsing, state, generator, beta) -> KernelState:
+        """One sweep over the graph's color classes for every chain."""
+        s = state.s
+        masks = state.aux
+        u = torch.rand((masks.shape[0],) + tuple(s.shape), generator=generator, device=s.device)
+        if self.backend == "cuda":
+            s = ops.colored_gibbs_sweep(
+                s, problem.nbr_idx, problem.nbr_w, problem.b, u, masks, beta=beta
+            )
+        else:
+            b = broadcast_rows(beta, s)
+            for c in range(masks.shape[0]):
+                h = problem.local_fields(s)
+                p_up = glauber.prob_up(b * h)
+                proposal = torch.where(u[c] < p_up, 1.0, -1.0).to(s.dtype)
+                s = torch.where(masks[c], proposal, s)
+        return KernelState(s=s, t=state.t + 1.0 / self.lambda0, e=None, aux=state.aux)
+
+
 @register_kernel("tau_leap")
 @dataclasses.dataclass(frozen=True)
 class TauLeap:
@@ -334,15 +473,17 @@ class TauLeap:
     1/lambda0). Small dt*lambda0 -> exact CTMC; large dt -> 'stale neighbor'
     distortion, the analogue of the chip's circuit-delay skew (Fig S9).
 
-    Dense problems only in this slice of the port. `backend="cuda"`
-    quantizes J to int8 once at init and runs every step through
-    `ops.tau_leap_step` (the CUDA kernel on CUDA tensors, its plain version
-    on CPU tensors), all chains as the rows of one call, each row with its
-    own beta. Both backends draw the same (n_chains, n) uniforms per step
-    from the generator."""
+    Works on DenseIsing, LatticeIsing (stencil fields, clamp/dead masks)
+    and SparseIsing (gathered neighbor fields). On dense problems
+    `backend="cuda"` quantizes J to int8 once at init and runs every step
+    through `ops.tau_leap_step` (the CUDA kernel on CUDA tensors, its plain
+    version on CPU tensors), all chains as the rows of one call, each row
+    with its own beta; lattice and sparse problems are ref-only, as in JAX.
+    Both backends draw the same (n_chains, ...) uniforms per step from the
+    generator."""
 
     backends = ("ref", "cuda")
-    problem_kinds = ("dense",)
+    problem_kinds = ("dense", "lattice", "sparse")
 
     dt: float = 0.1
     lambda0: float = 1.0
@@ -350,8 +491,11 @@ class TauLeap:
     trim: Optional[glauber.SigmoidTrim] = None
 
     def backends_for(self, problem=None) -> tuple[str, ...]:
-        """Backends valid for this kernel config (trims are ref-only)."""
-        return ("ref",) if self.trim is not None else self.backends
+        """Backends valid for this kernel/problem pair: lattice and sparse
+        tau-leap have no kernel; trims are ref-only."""
+        if isinstance(problem, (LatticeIsing, SparseIsing)) or self.trim is not None:
+            return ("ref",)
+        return self.backends
 
     def init(self, problem, generator, s0=None, n_chains=1) -> KernelState:
         """Initial state (int8-quantized weights under cuda)."""
@@ -359,8 +503,15 @@ class TauLeap:
             raise ValueError(f"backend must be 'ref' | 'cuda', got {self.backend!r}")
         dev = problem.device
         if s0 is None:
-            s0 = random_init(generator, (n_chains, problem.n), device=dev)
+            s0 = random_init(generator, (n_chains,) + state_shape(problem), device=dev)
         aux = ()
+        if self.backend == "cuda" and not isinstance(problem, DenseIsing):
+            raise NotImplementedError(
+                "cuda tau-leap supports dense problems only; use chromatic_gibbs "
+                "(lattice) or colored_gibbs (sparse) for the fused sweep kernels"
+            )
+        if isinstance(problem, LatticeIsing):
+            s0 = problem.apply_clamps(s0)
         if self.backend == "cuda":
             if self.trim is not None:
                 raise NotImplementedError("cuda tau-leap does not support trims")
@@ -378,9 +529,15 @@ class TauLeap:
             j_i8, scale, dt = state.aux
             # beta scales the field: h_beta = acc*(beta*scale) + beta*b
             s = ops.tau_leap_step(s, j_i8, problem.b, scale, u, dt, beta=beta)
+        elif isinstance(problem, LatticeIsing):
+            h = problem.local_fields(s)
+            s = _tau_leap_flip(
+                s, broadcast_rows(beta, s) * h, u, self.dt, self.trim, problem.frozen_mask
+            )
+            s = problem.apply_clamps(s)
         else:
             h = problem.local_fields(s)
-            s = _tau_leap_flip(s, beta[:, None] * h, u, self.dt, self.trim)
+            s = _tau_leap_flip(s, broadcast_rows(beta, s) * h, u, self.dt, self.trim)
         return KernelState(
             s=s, t=state.t + self.dt / self.lambda0, e=None, aux=state.aux
         )
@@ -567,15 +724,16 @@ def run(
     Runs on the device the problem's tensors live on.
 
     Args:
-      problem: DenseIsing. Lattice and sparse problems raise
-        NotImplementedError naming the slice of the port that brings them.
+      problem: DenseIsing, LatticeIsing or SparseIsing (the port's; any
+        other type raises TypeError).
       kernel: a SamplerKernel instance, or a registered kernel name.
       seed: an int (seeds a fresh torch.Generator on the problem's device)
         or a torch.Generator on that device; it draws the initial states
         and the per-step uniforms.
       n_steps: kernel steps.
-      s0: optional initial state — (n_chains, n) when n_chains > 1, (n,)
-        otherwise; random ±1 init per chain when omitted.
+      s0: optional initial state — (n_chains,) + state_shape(problem) when
+        n_chains > 1, state_shape(problem) otherwise ((H, W) on a lattice);
+        random ±1 init per chain when omitted.
       schedule: beta schedule — None (beta=1), float, Schedule object,
         (n_steps,) array, or (n_chains, n_steps) per-chain array.
       n_chains: independent chains, batched as the rows of every step.
@@ -591,12 +749,6 @@ def run(
     """
     if isinstance(kernel, str):
         kernel = get_kernel(kernel)
-    kind = problem_kind_of(problem)
-    if kind in LATER_PROBLEM_KINDS:
-        raise NotImplementedError(
-            f"{kind} problems are not ported yet; they arrive with "
-            f"{LATER_PROBLEM_KINDS[kind]} (see ROADMAP.md)"
-        )
     check_problem_kind(kernel, problem)
     if faults is not None:
         raise NotImplementedError(
@@ -632,7 +784,7 @@ def run(
     )
     if s0 is not None:
         s0 = s0.to(dev)
-        if n_chains == 1 and s0.ndim == 1:
+        if n_chains == 1 and s0.ndim == len(state_shape(problem)):
             s0 = s0[None]
         if tuple(s0.shape) != (n_chains,) + state_shape(problem):
             raise ValueError(

@@ -14,6 +14,8 @@ import torch
 KERNEL_CAPABILITY = (9, 0)
 # gridDim.y counts 64-chain row blocks and may not exceed 65535.
 MAX_ROWS = 64 * 65535
+# Shared memory one block may use on sm_90 (227 KB).
+MAX_SMEM_BYTES = 232448
 
 
 @functools.lru_cache(maxsize=None)

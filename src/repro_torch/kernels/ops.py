@@ -18,7 +18,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import dense_field as _df
+from repro_torch.kernels import lattice_gibbs as _lg
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import sparse_gather as _sg
 from repro_torch.kernels import tau_leap as _tl
 
 MODES = ("auto", "kernel", "reference")
@@ -30,6 +32,50 @@ def _use_kernel(t: torch.Tensor, mode: str) -> bool:
     if mode == "auto":
         return t.device.type == "cuda"
     return mode == "kernel"
+
+
+def _row_beta(beta, s: torch.Tensor) -> torch.Tensor:
+    """The (B,) f32 per-row beta the kernels take: None -> ones, a float or
+    () tensor -> that value on every row, a (B,) tensor as it is."""
+    if beta is None:
+        beta = 1.0
+    beta = torch.as_tensor(beta, dtype=torch.float32, device=s.device)
+    return beta.expand(s.shape[0]).contiguous() if beta.ndim == 0 else beta
+
+
+def lattice_gibbs_sweep(
+    s, w, b, uniforms, colors, frozen, clamp_value, beta=None, mode: str = "auto"
+) -> torch.Tensor:
+    """One fused chromatic Gibbs sweep over the (B,H,W) chains of `s`.
+
+    The JAX signature (colors, frozen as f32 {0,1}), with `beta` a float, a
+    () tensor or a (B,) per-row inverse temperature: row r rounds as the JAX
+    call with scalar beta[r]."""
+    beta = _row_beta(beta, s)
+    if _use_kernel(s, mode):
+        return _lg.lattice_gibbs_sweep(s, w, b, uniforms, colors, frozen, clamp_value, beta)
+    return _ref.lattice_gibbs_sweep_ref(
+        s, w, b, uniforms, colors > 0.5, frozen > 0.5, clamp_value, beta
+    )
+
+
+def sparse_fields(s, nbr_idx, nbr_w, b, mode: str = "auto") -> torch.Tensor:
+    """Padded neighbour-list fields h = gather(s, nbr_idx) . nbr_w + b."""
+    if _use_kernel(s, mode):
+        return _sg.sparse_fields(s, nbr_idx, nbr_w, b)
+    return _ref.sparse_fields_ref(s, nbr_idx, nbr_w, b)
+
+
+def colored_gibbs_sweep(
+    s, nbr_idx, nbr_w, b, uniforms, masks, beta=None, mode: str = "auto"
+) -> torch.Tensor:
+    """One fused chromatic Gibbs sweep over the (B,n) chains of a sparse
+    graph: the JAX signature (masks as f32 {0,1}), with `beta` as in
+    `lattice_gibbs_sweep`."""
+    beta = _row_beta(beta, s)
+    if _use_kernel(s, mode):
+        return _sg.colored_gibbs_sweep(s, nbr_idx, nbr_w, b, uniforms, masks, beta)
+    return _ref.colored_gibbs_sweep_ref(s, nbr_idx, nbr_w, b, uniforms, masks > 0.5, beta)
 
 
 def dense_field(s_i8, j_i8, b, scale, mode: str = "auto") -> torch.Tensor:

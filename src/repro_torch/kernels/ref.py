@@ -7,7 +7,93 @@ step is the JAX one.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from repro_torch.core.ising import KING_OFFSETS, shift2d
+from repro_torch.core.sparse import gather_sum
+
+
+def broadcast_rows(beta: Optional[torch.Tensor], s: torch.Tensor) -> torch.Tensor:
+    """(B,) per-row beta broadcast against the (B, ...) state `s` (None: 1)."""
+    if beta is None:
+        beta = torch.ones((s.shape[0],), dtype=torch.float32, device=s.device)
+    return beta.reshape((-1,) + (1,) * (s.ndim - 1))
+
+
+def lattice_fields_ref(s: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """King's-move local fields. s: (B,H,W) ±1; w: (8,H,W); b: (H,W).
+
+    The eight shifted planes are added to a zero accumulator in
+    KING_OFFSETS order, then b: the JAX order, bit for bit."""
+    acc = torch.zeros_like(s)
+    for k, (dy, dx) in enumerate(KING_OFFSETS):
+        acc = acc + w[k] * shift2d(s, dy, dx)
+    return acc + b
+
+
+def lattice_gibbs_sweep_ref(
+    s: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    uniforms: torch.Tensor,
+    color_masks: torch.Tensor,
+    frozen: torch.Tensor,
+    clamp_value: torch.Tensor,
+    beta: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One full chromatic Gibbs sweep on the king's lattice.
+
+    s: (B,H,W) ±1; uniforms: (C,B,H,W); color_masks: (C,H,W) bool;
+    frozen: (H,W) bool; clamp_value: (H,W) ±1 (applied where frozen);
+    beta: (B,) per-row inverse temperature (None -> 1.0). Row r rounds as
+    the JAX B = 1 call with scalar beta[r]: sigma(-2*(beta*h)). Every
+    phase's fields come from the state before that phase."""
+    beta = broadcast_rows(beta, s)
+    for c in range(color_masks.shape[0]):
+        h = lattice_fields_ref(s, w, b)
+        p_up = torch.sigmoid(-2.0 * (beta * h))
+        proposal = torch.where(uniforms[c] < p_up, 1.0, -1.0).to(s.dtype)
+        upd = color_masks[c] & ~frozen
+        s = torch.where(upd, proposal, s)
+    return torch.where(frozen, clamp_value.to(s.dtype), s)
+
+
+def sparse_fields_ref(
+    s: torch.Tensor, nbr_idx: torch.Tensor, nbr_w: torch.Tensor, b: torch.Tensor
+) -> torch.Tensor:
+    """Padded neighbor-list local fields. s: (B,n) ±1; nbr_idx (n,D) int32;
+    nbr_w (n,D); b (n,). Padded slots index the site itself with weight 0.
+
+    The slots are summed in order k = 0..D-1, as the CUDA kernels do; JAX's
+    `jnp.sum` reduces them in its own order, so the two agree to about one
+    float32 eps of sum_k |w_ik| + |b_i| (exactly for integer weights)."""
+    return gather_sum(s, nbr_idx, nbr_w) + b
+
+
+def colored_gibbs_sweep_ref(
+    s: torch.Tensor,
+    nbr_idx: torch.Tensor,
+    nbr_w: torch.Tensor,
+    b: torch.Tensor,
+    uniforms: torch.Tensor,
+    color_masks: torch.Tensor,
+    beta: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One full chromatic Gibbs sweep on a sparse graph.
+
+    s: (B,n) ±1; uniforms: (C,B,n); color_masks: (C,n) bool; beta: (B,)
+    per-row inverse temperature (None -> 1.0), sigma(-2*(beta*h)) as in
+    the JAX B = 1 call. Every phase's fields come from the state before
+    that phase."""
+    beta = broadcast_rows(beta, s)
+    for c in range(color_masks.shape[0]):
+        h = sparse_fields_ref(s, nbr_idx, nbr_w, b)
+        p_up = torch.sigmoid(-2.0 * (beta * h))
+        proposal = torch.where(uniforms[c] < p_up, 1.0, -1.0).to(s.dtype)
+        s = torch.where(color_masks[c], proposal, s)
+    return s
 
 
 def dense_acc_ref(s_i8: torch.Tensor, j_i8: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,7 @@ from repro.core import ising as jising
 from repro.core import problems as jproblems
 from repro_torch.core import glauber, ising, problems
 from repro_torch.core.sampler_api import random_init
+from repro_torch.core.sparse import SparseIsing
 
 torch.set_num_threads(1)
 
@@ -122,10 +123,16 @@ def test_generators_equal_jax(n, seed):
 
 
 def test_sparse_maxcut_names_the_sparse_slice():
-    with pytest.raises(NotImplementedError, match="sparse slice"):
-        problems.random_maxcut(16, 0, density=0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="sparse slice"):
-        problems.random_maxcut(16, 0, sparse=True, device="cpu")
+    """The sparse MaxCut layout is ported: low densities (and sparse=True)
+    give the SparseIsing of the same instance, as in the JAX package."""
+    for kw in (dict(density=0.1), dict(sparse=True)):
+        sp = problems.random_maxcut(16, 0, device="cpu", **kw)
+        jsp = jproblems.random_maxcut(16, 0, **kw)
+        assert isinstance(sp, SparseIsing)
+        for f in ("nbr_idx", "nbr_w", "deg", "b", "color_masks"):
+            np.testing.assert_array_equal(getattr(sp, f).numpy(), np.asarray(getattr(jsp, f)))
+        dense = problems.random_maxcut(16, 0, device="cpu", **dict(kw, sparse=False))
+        np.testing.assert_array_equal(sp.to_dense().J.numpy(), dense.J.numpy())
 
 
 def test_from_numpy_round_trips_a_jax_problem():

@@ -270,16 +270,18 @@ def test_s0_is_the_initial_state():
 
 
 def test_registry_and_error_paths():
-    assert sampler_api.kernel_names() == ["tau_leap"]
+    assert sampler_api.kernel_names() == ["chromatic_gibbs", "colored_gibbs", "tau_leap"]
     assert isinstance(sampler_api.get_kernel("tau_leap", dt=0.5), TauLeap)
     prob = _dense_problem(n=8)
     with pytest.raises(KeyError, match="unknown sampler kernel"):
         run(prob, "metropolis_lights_out", 0, n_steps=10)
-    for later, slice_name in (("chromatic_gibbs", "lattice slice"),
-                              ("colored_gibbs", "sparse slice"),
-                              ("random_scan_gibbs", "CTMC slice"), ("ctmc", "CTMC slice")):
-        with pytest.raises(NotImplementedError, match=slice_name):
+    for later in ("random_scan_gibbs", "ctmc"):
+        with pytest.raises(NotImplementedError, match="CTMC slice"):
             run(prob, later, 0, n_steps=10)
+    # the Gibbs sweeps are ported, for their own problem kinds
+    for name, kind in (("chromatic_gibbs", "lattice"), ("colored_gibbs", "sparse")):
+        with pytest.raises(ValueError, match=f"supported problem kinds: \\('{kind}',\\)"):
+            run(prob, name, 0, n_steps=10)
     for bad in ("pallas", "gpu"):
         with pytest.raises(ValueError, match="backend must be"):
             run(prob, TauLeap(), 0, n_steps=10, backend=bad)
@@ -289,10 +291,16 @@ def test_registry_and_error_paths():
     with pytest.raises(NotImplementedError, match="trims"):
         run(prob, TauLeap(trim=trim, backend="cuda"), 0, n_steps=4)
     assert run(prob, TauLeap(trim=trim), 0, n_steps=4, backend="auto").s.shape == (8,)
-    with pytest.raises(NotImplementedError, match="lattice slice"):
-        run(jproblems.cal_problem(coupling=0.5), TauLeap(), 0, n_steps=4)
-    with pytest.raises(NotImplementedError, match="sparse slice"):
-        run(jproblems.random_3regular_maxcut(8, seed=0), TauLeap(), 0, n_steps=4)
+    # the port's lattice and sparse problems run; the JAX package's are
+    # another type, converted through the port's from_numpy constructors
+    assert run(problems.cal_problem(coupling=0.5, device=CPU), TauLeap(), 0,
+               n_steps=4).s.shape == (16, 16)
+    assert run(problems.random_3regular_maxcut(8, 0, device=CPU), TauLeap(), 0,
+               n_steps=4).s.shape == (8,)
+    for jax_problem in (jproblems.cal_problem(coupling=0.5),
+                        jproblems.random_3regular_maxcut(8, seed=0)):
+        with pytest.raises(TypeError, match="unknown problem type"):
+            run(jax_problem, TauLeap(), 0, n_steps=4)
     with pytest.raises(NotImplementedError, match="faults"):
         run(prob, TauLeap(), 0, n_steps=4, faults=object())
     with pytest.raises(NotImplementedError, match="diagnostics"):
