@@ -27,7 +27,11 @@ exits nonzero without printing the final result line:
                 except where |u - p_up| <= 1e-6 in the site's phase, frozen
                 sites equal to the clamp value, and the fields probed
                 through p_up (uniforms set to the plain p_up and one ulp
-                below it) equal bit for bit.
+                below it) equal bit for bit. The same in bf16 (all seven
+                operands bf16, beta f32), where the fields are probed with
+                the two bf16 uniforms that bracket the plain p_up, at beta
+                = +-16^k (k < 6): equal wherever the probe can tell a field
+                from its bf16 neighbours (the share is printed).
      check_sparse — sparse_fields and colored_gibbs_sweep at (B, n, graph) =
                 (1, 5, dense random, random improper masks) (8, 100,
                 density 0.4) (3, 130, ragged)
@@ -35,11 +39,23 @@ exits nonzero without printing the final result line:
                 fields within 2^-22 (sum_k |w_ik| + |b_i|), exactly for unit
                 weights; spins equal except where |u - p_up| <= beta_r/2 *
                 that bound + 1e-6.
+     check_flash — flash_attention against its plain version at (BH, Sq,
+                Sk, d, causal, dtype) = the JAX test's grid (2,256,256,64,
+                causal, f32) (4,128,384,32, f32) (1,512,512,128, causal,
+                bf16) (2,256,256,64, causal, bf16); causal Sq != Sk
+                (2,256,128,64, f32) (2,128,384,64, bf16); (1,256,256,256,
+                causal, f32); the two full-width shapes of main_attention
+                in f32; d = 8, 40 and 136 (partial column groups): within
+                atol = rtol = 2e-5 (f32) and 2e-2 (bf16), the JAX test's
+                bounds, and in bf16 also within one bf16 ulp (2^-7 |o| +
+                1e-6) of the plain version's f32 result.
   3. timing   — CUDA-event median of each kernel at its main path's shape,
                 beside its plain version, the library call that computes the
                 same function where there is one (torch._int_mm for the int8
-                product, torch.sparse.mm for the sparse fields; timed here
-                only) and the device-memory bound.
+                product, torch.sparse.mm for the sparse fields,
+                scaled_dot_product_attention for attention; timed here
+                only) and the device bound; the lattice sweep in f32 and
+                bf16, flash_attention at both main_attention shapes.
   4. main     — sampler_api.run(TauLeap(dt=0.1), backend="cuda") on SK
                 n=2048 seed 0, 256 chains x 2000 steps, geometric(0.3, 3.0)
                 annealing, with and without first_hit, and the same run on
@@ -57,6 +73,13 @@ exits nonzero without printing the final result line:
                 the edges >= 0.85, cuda and ref within 1%; then the fields
                 of the final states through ops.sparse_fields (1 launch):
                 0.5 s.h + b.s equals SparseIsing.energy exactly.
+     main_attention — ops.flash_attention at the prefill attention of two
+                full-width configs, batch 1, S = 4096 (train_4k), causal,
+                bf16: phi4-mini-3.8B (24 query heads, 8 KV heads repeated
+                to 24, d = 128) and gemma-2b (8 query heads, 1 KV head,
+                d = 256); one kernel launch each, held against the plain
+                version as check_flash holds bf16 (2e-2, and one bf16 ulp
+                of the f32 result).
   5. stats    — a grid-exact n=5 problem through the tau_leap_step kernel,
                 64 chains x 16000 steps: TV distance to exact enumeration.
      stats_gibbs — TV to exact enumeration below 0.03 for a 2x3 lattice with
@@ -129,22 +152,71 @@ SPARSE_MAIN = dict(n=16384, n_chains=256, n_sweeps=1000, sample_every=100)
 CAL_HIT_MIN, CAL_HIT_GAP = 0.5, 0.05
 CUT_MIN, CUT_REL_GAP = 0.85, 0.01
 TV_GIBBS_MAX = 0.03  # the JAX bound, tests/test_core_samplers.py
+# |beta| of the bf16 field probe's copies: each resolves the fields with
+# 2 <= beta |h| <= 40 or so, so together 2^-20 < |h| < 40; both signs put
+# every p_up where bf16 uniforms are fine (near 0, not near 1).
+PROBE_BETAS = tuple(sign * 16.0**k for k in range(6) for sign in (1.0, -1.0))
+
+# -- attention (slice 3) --------------------------------------------------------
+
+BF16_OPS_PER_S = 989e12  # dense, tensor cores
+# (BH, Sq, Sk, d, causal, dtype)
+FLASH_CASES = [(2, 256, 256, 64, True, "float32"), (4, 128, 384, 32, False, "float32"),
+               (1, 512, 512, 128, True, "bfloat16"), (2, 256, 256, 64, True, "bfloat16"),
+               (2, 256, 128, 64, True, "float32"), (2, 128, 384, 64, True, "bfloat16"),
+               (1, 256, 256, 256, True, "float32"),
+               # main_attention's shapes in f32: its bf16 runs are checked there
+               (24, 4096, 4096, 128, True, "float32"), (8, 4096, 4096, 256, True, "float32"),
+               # head dims that fill no whole 64-column group
+               (3, 128, 256, 8, True, "float32"), (2, 128, 128, 40, False, "float32"),
+               (1, 256, 128, 136, True, "bfloat16")]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the JAX test's, tests/test_kernels.py
+BF16_ULP = 2.0**-7  # one bf16 ulp, relative to |o|, with 1e-6 absolute near 0
+# Prefill attention at train_4k (configs/base.py), batch 1: (config, query
+# heads, KV heads, head dim), from src/repro/configs/{phi4_mini_3p8b,gemma_2b}.py
+ATTENTION_MAIN = [("phi4-mini-3.8B", 24, 8, 128), ("gemma-2b", 8, 1, 256)]
+ATTENTION_S = 4096
 
 
 def counters():
     """(reset, read) over the launch counters of every ported kernel."""
-    from repro_torch.kernels import dense_field, lattice_gibbs, sparse_gather, tau_leap
+    from repro_torch.kernels import (dense_field, flash_attention, lattice_gibbs, sparse_gather,
+                                     tau_leap)
 
     def reset():
         tau_leap.launches = dense_field.launches = lattice_gibbs.launches = 0
+        flash_attention.launches = 0
         for k in sparse_gather.launches:
             sparse_gather.launches[k] = 0
 
     def read():
         return {"tau_leap_step": tau_leap.launches, "dense_field": dense_field.launches,
-                "lattice_gibbs_sweep": lattice_gibbs.launches, **sparse_gather.launches}
+                "lattice_gibbs_sweep": lattice_gibbs.launches, **sparse_gather.launches,
+                "flash_attention": flash_attention.launches}
 
     return reset, read
+
+
+def check_attention(torch, ops, what, out, q, k, v, causal):
+    """Hold a flash_attention output against its plain version: within
+    FLASH_TOL in q's dtype, and in bf16 also within one bf16 ulp of the
+    plain version's f32 result, since both round f32 values of the same
+    sums (outputs of ~0.01 at S = 4096 would pass 2e-2 with a key tile
+    dropped). Returns (max |err|, max |err| / one ulp; 0 in f32)."""
+    plain = ops.flash_attention(q, k, v, causal, mode="reference")
+    tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
+    e = (out.float() - plain.float()).abs()
+    n_bad = int((e > tol + tol * plain.float().abs()).sum())
+    ulps = 0.0
+    if q.dtype == torch.bfloat16:
+        exact = ops.flash_attention(q.float(), k.float(), v.float(), causal, mode="reference")
+        ulps = float(((out.float() - exact).abs() / (BF16_ULP * exact.abs() + 1e-6)).max())
+    finite = bool(torch.isfinite(out).all())
+    if out.dtype != q.dtype or out.shape != q.shape or not finite or n_bad or ulps > 1.0:
+        raise AssertionError(f"flash_attention {what}: {out.dtype} {tuple(out.shape)}, finite "
+                             f"{finite}, {n_bad} elements off by more than {tol} (abs and rel), "
+                             f"{ulps} bf16 ulps from the f32 plain version")
+    return float(e.max()), ulps
 
 
 def phase_band(torch, fields, s, u, masks, frozen, beta, tol):
@@ -156,8 +228,64 @@ def phase_band(torch, fields, s, u, masks, frozen, beta, tol):
         p = torch.sigmoid(-2.0 * (b * fields(s)))
         upd = masks[c] & ~frozen
         band |= upd & ((u[c] - p).abs() <= tol)
-        s = torch.where(upd, torch.where(u[c] < p, 1.0, -1.0), s)
+        s = torch.where(upd, torch.where(u[c] < p, 1.0, -1.0).to(s.dtype), s)
     return band
+
+
+def bf16_bracket(torch, p):
+    """(lo, hi) in bf16 for f32 p > 0: the largest bf16 below p and the
+    smallest bf16 at or above it."""
+    bits = p.view(torch.int32)
+    t = bits & -0x10000  # p rounded toward zero to bf16
+    exact = t == bits
+    lo = torch.where(exact, t - 0x10000, t).view(torch.float32)
+    hi = torch.where(exact, t, t + 0x10000).view(torch.float32)
+    return lo.to(torch.bfloat16), hi.to(torch.bfloat16)
+
+
+def bf16_field_probe(torch, sweep, s, w, b, frozen, clampv):
+    """The bf16 sweep's fields probed through p_up, one phase updating every
+    free site of len(PROBE_BETAS) copies of the chains, copy k at beta =
+    PROBE_BETAS[k]: uniforms at `hi` (the smallest bf16 >= the plain p_up)
+    give -1 and at `lo` (the largest bf16 below it) +1 unless the kernel's
+    p_up leaves (lo, hi]. Where p_up at both bf16 neighbours of the plain
+    field h also lies outside (lo, hi], a kernel field other than h would
+    show: the site is resolved; a field of exactly 0 never is (p_up = 0.5 at
+    every beta). Returns (sites whose kernel p_up left the bracket, free
+    sites resolved in some copy, free sites, free sites with h = 0)."""
+    from repro_torch.kernels import ref
+
+    B, H, W = s.shape
+    n = len(PROBE_BETAS)
+    beta = torch.tensor(PROBE_BETAS, device=s.device).repeat_interleave(B)
+
+    def p_up(h):  # as the kernel forms it
+        x = -2.0 * (beta[:, None, None] * h)
+        return 1.0 / (1.0 + torch.exp(-x))
+
+    h = ref.lattice_fields_ref(s, w, b).float().repeat(n, 1, 1)
+    p = p_up(h)
+    valid = p > 0  # p_up underflowed to 0: no uniform below it
+    lo, hi = bf16_bracket(torch, torch.where(valid, p, 1.0))
+    # the bf16 values next to h: one bf16 ulp up and down (bit steps of
+    # 0x10000 in the f32 pattern, signed by h); +-the least bf16 around 0
+    bits = h.view(torch.int32)
+    step = torch.where(h >= 0, 1, -1).to(torch.int32) * 0x10000
+    up = torch.where(h == 0, 0x10000, bits + step).view(torch.float32)
+    down = torch.where(h == 0, -0x7FFF0000, bits - step).view(torch.float32)
+    lo_f, hi_f = lo.float(), hi.float()
+    resolved = valid
+    for q in (p_up(up), p_up(down)):
+        resolved = resolved & ~((lo_f < q) & (q <= hi_f))
+    s_n = s.repeat(n, 1, 1)
+    all_sites = torch.ones((1, H, W), dtype=s.dtype, device=s.device)
+    out_hi = sweep(s_n, w, b, hi[None].contiguous(), all_sites, frozen, clampv, beta)
+    out_lo = sweep(s_n, w, b, lo[None].contiguous(), all_sites, frozen, clampv, beta)
+    free = ~(frozen > 0.5)
+    n_field = int((((out_hi != -1.0) | (out_lo != 1.0)) & valid & free).sum())
+    n_resolved = int((resolved.reshape(n, B, H, W).any(0) & free).sum())
+    n_zero = int(((h[:B] == 0) & free).sum())
+    return n_field, n_resolved, int(free.sum()) * B, n_zero
 
 
 def cut_fraction(prob, s):
@@ -275,8 +403,8 @@ def main() -> int:
     from repro_torch.core.ising import king_color_masks
     from repro_torch.core.sampler_api import ChromaticGibbs, ColoredGibbs, TauLeap, geometric, run
     from repro_torch.core.sparse import SparseIsing
-    from repro_torch.kernels import (_build, dense_field, lattice_gibbs, ops, ref, sparse_gather,
-                                     tau_leap)
+    from repro_torch.kernels import (_build, dense_field, flash_attention, lattice_gibbs, ops, ref,
+                                     sparse_gather, tau_leap)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -356,7 +484,8 @@ def main() -> int:
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    for name in ("lattice_gibbs_sweep", "sparse_fields", "colored_gibbs_sweep"):
+    for name in ("lattice_gibbs_sweep", "lattice_gibbs_sweep_bf16", "sparse_fields",
+                 "colored_gibbs_sweep", "flash_attention"):
         err[name], mism[name] = 0.0, 0
     for B, H, W in LATTICE_SHAPES:
         s = pm1((B, H, W))
@@ -398,9 +527,35 @@ def main() -> int:
         mism["lattice_gibbs_sweep"] += int(differ.sum())
         err["lattice_gibbs_sweep"] = max(err["lattice_gibbs_sweep"],
                                          float(((out_k - out_r).abs() * ~band).max()))
-        emit({"phase": "check_lattice", "B": B, "H": H, "W": W, "mismatches": int(differ.sum()),
-              "in_band": int(band.sum()), "field_mismatches": n_field,
+        emit({"phase": "check_lattice", "dtype": "float32", "B": B, "H": H, "W": W,
+              "mismatches": int(differ.sum()), "in_band": int(band.sum()),
+              "field_mismatches": n_field,
               "sigmoid_vs_kernel_formula": int((torch.sigmoid(x) != p).sum())})
+
+        # bf16: the same inputs rounded to bf16, beta still f32
+        sb, wb, bb, ub, cb, fb, cvb = (t.to(torch.bfloat16)
+                                       for t in (s, w, b, u, colors, frozen, clampv))
+        out_k = lattice_gibbs.lattice_gibbs_sweep(sb, wb, bb, ub, cb, fb, cvb, beta)
+        out_r = ops.lattice_gibbs_sweep(sb, wb, bb, ub, cb, fb, cvb, beta, mode="reference")
+        band = phase_band(torch, lambda x: ref.lattice_fields_ref(x, wb, bb), sb, ub, colors_b,
+                          frozen_b, beta, P_BAND)
+        differ = out_k != out_r
+        bad = int((differ & ~band).sum())
+        n_clamp = int((out_k[:, frozen_b] != cvb[frozen_b]).sum())
+        n_field, n_resolved, n_free, n_zero = bf16_field_probe(
+            torch, lattice_gibbs.lattice_gibbs_sweep, sb, wb, bb, fb, cvb)
+        if out_k.dtype != torch.bfloat16 or bad or n_clamp or n_field or n_resolved < n_free - n_zero:
+            raise AssertionError(
+                f"bf16 lattice_gibbs_sweep ({B},{H},{W}): out {out_k.dtype}, {bad} spins differ "
+                f"outside the band, {n_clamp} frozen sites off their clamp value, {n_field} "
+                f"fields differ, {n_free - n_zero - n_resolved} nonzero fields unresolved")
+        mism["lattice_gibbs_sweep_bf16"] += int(differ.sum())
+        err["lattice_gibbs_sweep_bf16"] = max(err["lattice_gibbs_sweep_bf16"],
+                                              float(((out_k - out_r).float().abs() * ~band).max()))
+        emit({"phase": "check_lattice", "dtype": "bfloat16", "B": B, "H": H, "W": W,
+              "mismatches": int(differ.sum()), "in_band": int(band.sum()),
+              "field_mismatches": n_field, "field_sites_resolved": n_resolved,
+              "free_sites": n_free, "zero_fields": n_zero})
 
     for B, n, graph, arg in SPARSE_CASES:
         if graph == "3regular":
@@ -444,6 +599,27 @@ def main() -> int:
               "colors": C, "unit_weights": unit, "field_max_abs_err": float(dh.max()),
               "field_mismatches": int((dh != 0).sum()), "sweep_mismatches": int(differ.sum()),
               "sweep_in_band": int(band.sum())})
+    torch.cuda.synchronize()
+
+    # flash_attention against its plain version; inputs from their own
+    # generator, so the phases before and after see the numbers they did
+    frng = np.random.default_rng(13)
+
+    def normal(shape, dtype):
+        return torch.as_tensor(frng.normal(0.0, 0.5, shape).astype(np.float32),
+                               device=dev).to(dtype)
+
+    for BH, Sq, Sk, d, causal, dtype in FLASH_CASES:
+        dt_ = getattr(torch, dtype)
+        q, k, v = normal((BH, Sq, d), dt_), normal((BH, Sk, d), dt_), normal((BH, Sk, d), dt_)
+        out_k = flash_attention.flash_attention(q, k, v, causal)
+        e, ulps = check_attention(torch, ops, (BH, Sq, Sk, d, causal, dtype), out_k, q, k, v,
+                                  causal)
+        err["flash_attention"] = max(err["flash_attention"], e)
+        emit({"phase": "check_flash", "BH": BH, "Sq": Sq, "Sk": Sk, "d": d, "causal": causal,
+              "dtype": dtype, "max_abs_err": e, "tol": FLASH_TOL[dtype],
+              "max_bf16_ulps": ulps if dtype == "bfloat16" else None})
+        del q, k, v, out_k
     torch.cuda.synchronize()
 
     # -- 3. timings at the main path's shape --------------------------------
@@ -491,6 +667,15 @@ def main() -> int:
     bounds["lattice_gibbs_sweep"] = bound(
         4 * (2 * B * HW + B * updated + 8 * HW + HW + 4 * HW + 2 * HW + B),
         B * updated * 22, FP32_OPS_PER_S)  # 8 mul + 9 add, beta, -2, exp, add, div
+    lat_bf16 = [t.to(torch.bfloat16) for t in (s, cal.w, cal.b, u, colors, frozen, clampv)]
+    ms["lattice_gibbs_sweep_bf16"] = time_ms(torch, lambda: lattice_gibbs.lattice_gibbs_sweep(
+        *lat_bf16, beta))
+    ms["lattice_gibbs_sweep_bf16_plain"] = time_ms(torch, lambda: ops.lattice_gibbs_sweep(
+        *lat_bf16, beta, mode="reference"))
+    bounds["lattice_gibbs_sweep_bf16"] = bound(
+        2 * (2 * B * HW + B * updated + 8 * HW + HW + 4 * HW + 2 * HW) + 4 * B,
+        B * updated * 22, FP32_OPS_PER_S)
+    del lat_bf16
     lattice_shape = [B, H, W]
 
     mc = problems.random_3regular_maxcut(SPARSE_MAIN["n"], 0, device=dev)
@@ -526,8 +711,38 @@ def main() -> int:
               "dense_field", "dense_field_plain", "tau_leap_step", "tau_leap_step_plain",
               "int_mm")},
           "bound_ms": {k: bounds[k][0] for k in (
-              "lattice_gibbs_sweep", "sparse_fields", "colored_gibbs_sweep")},
+              "lattice_gibbs_sweep", "lattice_gibbs_sweep_bf16", "sparse_fields",
+              "colored_gibbs_sweep")},
           "nvidia_smi": smi})
+
+    # flash_attention at the main_attention shapes, causal bf16, beside its
+    # plain version and scaled_dot_product_attention (timed only). Bound:
+    # q, k, v and out once each; 4 d FLOPs for each unmasked (q, k) pair.
+    # The kernel runs for milliseconds, so fewer launches are timed.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    attention_timing = {}
+    for name, hq, _, d in ATTENTION_MAIN:
+        S = ATTENTION_S
+        q, k, v = (0.5 * torch.randn((hq, S, d), device=dev, dtype=torch.bfloat16)
+                   for _ in range(3))
+        t = {"ms": time_ms(torch, lambda: flash_attention.flash_attention(q, k, v, True),
+                           n=20, warmup=3),
+             "plain_ms": time_ms(torch, lambda: ops.flash_attention(q, k, v, True,
+                                                                     mode="reference"),
+                                 n=10, warmup=2),
+             "library_ms": time_ms(torch, lambda: sdpa(q[None], k[None], v[None],
+                                                       is_causal=True))}
+        t["bound_ms"], t["bound_by"] = bound(4 * hq * S * d * 2, 4.0 * d * hq * S * (S + 1) / 2,
+                                             BF16_OPS_PER_S)
+        attention_timing[name] = t
+        del q, k, v
+    first = attention_timing[ATTENTION_MAIN[0][0]]
+    ms["flash_attention"], ms["flash_attention_plain"] = first["ms"], first["plain_ms"]
+    ms["sdpa"], bounds["flash_attention"] = first["library_ms"], (first["bound_ms"],
+                                                                  first["bound_by"])
+    emit({"phase": "timing_attention", "S": ATTENTION_S, "dtype": "bfloat16", "causal": True,
+          "shapes": {name: [hq, ATTENTION_S, d] for name, hq, _, d in ATTENTION_MAIN},
+          "by_config": attention_timing, "nvidia_smi": smi})
 
     # -- 4. the main path ---------------------------------------------------
     n, n_steps, n_chains = 2048, 2000, 256
@@ -650,6 +865,29 @@ def main() -> int:
           "fields_path": {"launches": sparse_fields_launches, "energy_mismatches": n_energy},
           "nvidia_smi": smi})
 
+    # The attention path: ops.flash_attention at the prefill attention of
+    # two full-width configs, the KV heads repeated to the query heads.
+    attention = {}
+    for name, hq, hkv, d in ATTENTION_MAIN:
+        S = ATTENTION_S
+        q = normal((1, hq, S, d), torch.bfloat16)
+        k, v = (normal((1, hkv, S, d), torch.bfloat16).repeat_interleave(hq // hkv, dim=1)
+                for _ in range(2))
+        q, k, v = (t.reshape(hq, S, d) for t in (q, k, v))
+        reset()
+        o = ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        launches = read()
+        expect(f"attention {name}", launches, flash_attention=1)
+        e, ulps = check_attention(torch, ops, name, o, q, k, v, True)
+        err["flash_attention"] = max(err["flash_attention"], e)
+        attention[name] = {"query_heads": hq, "kv_heads": hkv, "head_dim": d, "S": S,
+                           "launches": launches, "max_abs_err": e,
+                           "tol": FLASH_TOL["bfloat16"], "max_bf16_ulps": ulps}
+        del q, k, v, o
+    emit({"phase": "main_attention", "batch": 1, "causal": True, "dtype": "bfloat16",
+          "configs": attention, "nvidia_smi": smi})
+
     # -- 5. statistics through the kernel -----------------------------------
     srng = np.random.default_rng(0)
     n5 = 5
@@ -732,14 +970,22 @@ def main() -> int:
               path_launches["tau_leap_step"], "int_mm"),
         entry("dense_field", csrc + "dense_field.cu", "src/repro/kernels/dense_field.py:72",
               fields_launches, "int_mm"),
-        entry("lattice_gibbs_sweep", csrc + "lattice_gibbs.cu",
-              "src/repro/kernels/lattice_gibbs.py:102",
-              lat["cuda_first_hit"]["launches"]["lattice_gibbs_sweep"], None),
+        dict(entry("lattice_gibbs_sweep", csrc + "lattice_gibbs.cu",
+                   "src/repro/kernels/lattice_gibbs.py:102",
+                   lat["cuda_first_hit"]["launches"]["lattice_gibbs_sweep"], None),
+             bf16_ms=ms["lattice_gibbs_sweep_bf16"],
+             bf16_plain_ms=ms["lattice_gibbs_sweep_bf16_plain"],
+             bf16_bound_ms=bounds["lattice_gibbs_sweep_bf16"][0],
+             bf16_max_abs_err=err["lattice_gibbs_sweep_bf16"],
+             bf16_mismatches=mism["lattice_gibbs_sweep_bf16"]),
         entry("sparse_fields", csrc + "sparse_fields.cu", "src/repro/kernels/sparse_gather.py:90",
               sparse_fields_launches["sparse_fields"], "sparse_mm"),
         entry("colored_gibbs_sweep", csrc + "colored_gibbs.cu",
               "src/repro/kernels/sparse_gather.py:126",
               sp["cuda_first_hit"]["launches"]["colored_gibbs_sweep"], None),
+        entry("flash_attention", csrc + "flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:85",
+              sum(a["launches"]["flash_attention"] for a in attention.values()), "sdpa"),
     ], "tau_leap_in_band": near})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import dense_field as _df
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lattice_gibbs as _lg
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sparse_gather as _sg
@@ -115,3 +116,12 @@ def quantize_dense(J: torch.Tensor, bits: int = 8) -> tuple[torch.Tensor, torch.
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     codes = torch.clamp(torch.round(J / scale), -qmax, qmax).to(torch.int8)
     return codes, scale.to(torch.float32)
+
+
+def flash_attention(q, k, v, causal: bool = True, mode: str = "auto") -> torch.Tensor:
+    """(BH, S, d) fused attention with scale 1/sqrt(d): the JAX signature,
+    GQA-aligned operands (the caller repeats the KV heads). With `causal`,
+    query i sees keys 0..i."""
+    if _use_kernel(q, mode):
+        return _fa.flash_attention(q, k, v, causal)
+    return _ref.flash_attention_ref(q, k, v, causal)

@@ -145,3 +145,22 @@ def tau_leap_step_ref(
     """
     p_flip = tau_leap_flip_prob_ref(s, j_i8, b, scale, dt)
     return torch.where(uniforms < p_flip, -s, s)
+
+
+def flash_attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
+) -> torch.Tensor:
+    """Attention oracle of the flash-attention kernel. q: (BH,Sq,d); k, v:
+    (BH,Sk,d); any S. Scores, softmax and p @ v in f32, the result in q's
+    dtype. With `causal`, query i sees keys 0..i (aligned at the top left,
+    also when Sq != Sk); masked scores are -1e30."""
+    d = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32), k.to(torch.float32))
+    s = s / torch.sqrt(torch.tensor(d, dtype=torch.float32, device=q.device))
+    if causal:
+        Sq, Sk = s.shape[-2], s.shape[-1]
+        mask = (torch.arange(Sk, device=q.device)[None, :]
+                <= torch.arange(Sq, device=q.device)[:, None])
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32)).to(q.dtype)

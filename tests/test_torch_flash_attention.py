@@ -1,0 +1,151 @@
+"""The port's flash attention (plain version and dispatch) against the JAX
+package's oracle and its Pallas kernel in interpret mode, the kernel
+wrapper's argument checks, and, on a card, the CUDA kernel against its
+plain version.
+
+Inputs are made with numpy from a seed and go through both packages. The
+tolerances are the JAX test's (tests/test_kernels.py): 2e-5 in float32 and
+2e-2 in bfloat16, absolute and relative; the softmax sums run in another
+order in each implementation; in bfloat16 the port's oracle is held to
+one ulp of JAX's, since both round f32 results of the same sums."""
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import flash_attention as jfa
+from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention, ops, ref
+
+torch.set_num_threads(1)
+REPO = Path(__file__).resolve().parents[1]
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# (BH, Sq, Sk, d, causal, dtype): the JAX test's grid, then causal Sq != Sk
+CASES = [
+    (2, 256, 256, 64, True, "float32"),
+    (4, 128, 384, 32, False, "float32"),
+    (1, 512, 512, 128, True, "bfloat16"),
+    (2, 256, 256, 64, True, "bfloat16"),
+    (2, 256, 128, 64, True, "float32"),
+    (2, 128, 384, 64, True, "bfloat16"),
+]
+
+
+def _qkv(BH, Sq, Sk, d, seed):
+    rng = np.random.default_rng(seed)
+    return [(rng.normal(0.0, 0.5, (BH, S, d))).astype(np.float32) for S in (Sq, Sk, Sk)]
+
+
+def _torch(arrays, dtype, device="cpu"):
+    return [torch.as_tensor(a, device=device).to(getattr(torch, dtype)) for a in arrays]
+
+
+def _jax(arrays, dtype):
+    return [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrays]
+
+
+def _f32(x):
+    return x.float().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("BH,Sq,Sk,d,causal,dtype", CASES)
+def test_plain_version_matches_jax_oracle_and_pallas(BH, Sq, Sk, d, causal, dtype):
+    arrays = _qkv(BH, Sq, Sk, d, seed=BH * Sq + Sk + d)
+    tq, tk, tv = _torch(arrays, dtype)
+    jq, jk, jv = _jax(arrays, dtype)
+    got = ref.flash_attention_ref(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == (BH, Sq, d)
+    via_ops = ops.flash_attention(tq, tk, tv, causal=causal)  # mode="auto" on CPU tensors
+    np.testing.assert_array_equal(_f32(via_ops), _f32(got))
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal)
+    pallas = jfa.flash_attention(jq, jk, jv, causal=causal, block_q=128, block_k=128,
+                                 interpret=True)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_f32(got), _f32(pallas), atol=tol, rtol=tol)
+    # both oracles round f32 results of the same sums: in bf16, one ulp apart at most
+    to_oracle = dict(atol=tol, rtol=tol) if dtype == "float32" else dict(atol=1e-6, rtol=2**-7)
+    np.testing.assert_allclose(_f32(got), _f32(want), **to_oracle)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk", [(5, 7), (9, 3), (1, 1)])
+def test_plain_version_takes_any_sequence_length(Sq, Sk, causal):
+    arrays = _qkv(3, Sq, Sk, 8, seed=Sq * 10 + Sk)
+    got = ref.flash_attention_ref(*_torch(arrays, "float32"), causal=causal)
+    want = jref.flash_attention_ref(*_jax(arrays, "float32"), causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=2e-5)
+    if causal:  # query 0 sees key 0 only
+        np.testing.assert_allclose(_f32(got)[:, 0], arrays[2][:, 0], atol=2e-5, rtol=2e-5)
+
+
+def test_ops_modes_on_cpu_and_the_kernel_wrapper_checks():
+    tq, tk, tv = _torch(_qkv(2, 128, 256, 64, seed=3), "float32")
+    flash_attention.launches = 0
+    np.testing.assert_array_equal(
+        ops.flash_attention(tq, tk, tv).numpy(),
+        ops.flash_attention(tq, tk, tv, mode="reference").numpy())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.flash_attention(tq, tk, tv, mode="kernel")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention.flash_attention(tq, tk, tv)
+    with pytest.raises(ValueError, match="mode"):
+        ops.flash_attention(tq, tk, tv, mode="pallas")
+    # shapes and dtypes the kernel does not take raise, whatever the device
+    with pytest.raises(ValueError, match="multiples of 128"):
+        flash_attention.flash_attention(tq[:, :100], tk, tv)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        flash_attention.flash_attention(tq, tk[:, :200], tv[:, :200])
+    for d in (12, 264):
+        q, k, v = _torch(_qkv(1, 128, 128, d, seed=d), "float32")
+        with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+            flash_attention.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="all float32 or all bfloat16"):
+        flash_attention.flash_attention(tq, tk.bfloat16(), tv)
+    with pytest.raises(ValueError, match="all float32 or all bfloat16"):
+        flash_attention.flash_attention(tq.half(), tk.half(), tv.half())
+    assert flash_attention.launches == 0
+
+
+def test_chip_check_catches_a_dropped_key_tile():
+    """chip_smoke.py's bf16 attention check holds outputs to one bf16 ulp of
+    the f32 plain version. At long S the causal outputs are small (the
+    softmax is near uniform), so a kernel that drops a key tile for the
+    late rows stays within 2e-2 but not within that bound."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    BH, S, d = 2, 2048, 64
+    q, k, v = _torch(_qkv(BH, S, S, d, seed=7), "bfloat16")
+    exact = ops.flash_attention(q, k, v, mode="reference")
+    _, ulps = chip_smoke.check_attention(torch, ops, "exact", exact, q, k, v, True)
+    assert 0.0 < ulps <= 0.5 + 1e-3  # the bf16 rounding only
+    keep = torch.ones(S, S, dtype=torch.bool).tril()
+    keep[S // 2:, 64:128] = False  # key tile 1 dropped for the late rows
+    scores = (q.float() @ k.float().transpose(1, 2) / d**0.5).masked_fill(~keep, -1e30)
+    dropped = (scores.softmax(-1) @ v.float()).bfloat16()
+    np.testing.assert_allclose(_f32(dropped), _f32(exact), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+    with pytest.raises(AssertionError, match="bf16 ulps"):
+        chip_smoke.check_attention(torch, ops, "dropped", dropped, q, k, v, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,Sq,Sk,d,causal,dtype", CASES + [
+    (1, 256, 256, 256, True, "float32"), (2, 256, 256, 8, False, "bfloat16")])
+def test_kernel_matches_plain_version_on_the_card(BH, Sq, Sk, d, causal, dtype):
+    """The CUDA kernel against its plain version at chip_smoke.py's check
+    shapes, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (an sm_90 card); chip_smoke.py checks it there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _torch(_qkv(BH, Sq, Sk, d, seed=BH * Sq + Sk + d), dtype, device="cuda")
+    flash_attention.launches = 0
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == 1 and got.dtype == q.dtype
+    plain = ops.flash_attention(q, k, v, causal=causal, mode="reference")
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), plain.float(), atol=tol, rtol=tol)

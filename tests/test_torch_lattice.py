@@ -10,6 +10,7 @@ P_BAND of its p_up: torch's and XLA's sigmoids differ by up to 2 ulp."""
 import dataclasses
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -31,6 +32,10 @@ TV_MAX = 0.03  # the JAX bound, tests/test_core_samplers.py
 
 def _f32(a):
     return jnp.asarray(np.asarray(a, np.float32), jnp.float32)
+
+
+def _bf16(a):
+    return jnp.asarray(np.asarray(a, np.float32)).astype(jnp.bfloat16)
 
 
 def _random_lattice(H, W, seed):
@@ -60,7 +65,7 @@ def _phase_band(fields, s, u, masks, frozen, beta, tol):
         p = torch.sigmoid(-2.0 * (bb * fields(s)))
         upd = masks[c] & ~frozen
         band |= upd & ((u[c] - p).abs() <= tol)
-        s = torch.where(upd, torch.where(u[c] < p, 1.0, -1.0), s)
+        s = torch.where(upd, torch.where(u[c] < p, 1.0, -1.0).to(s.dtype), s)
     return band
 
 
@@ -230,6 +235,90 @@ def test_per_row_beta_equals_one_jax_call_per_row():
     np.testing.assert_array_equal(via_ops.numpy(), ones.numpy())
 
 
+# bf16: every add of the stencil rounds to bf16, as the JAX oracle's eager
+# ops do, so fields are equal bit for bit and spins exactly (atol=0).
+
+
+@pytest.mark.parametrize("beta", [0.3, 1.0, 3.0])
+@pytest.mark.parametrize("B,H,W", [(4, 16, 16), (8, 8, 8), (2, 32, 24), (16, 16, 16)])
+def test_bf16_sweep_and_fields_match_jax_oracle(B, H, W, beta):
+    s, w, b, u, colors, frozen, clampv = _sweep_inputs(B, H, W, seed=B * H + W)
+    ts, tw, tb, tu, tclamp = [torch.as_tensor(x).to(torch.bfloat16) for x in (s, w, b, u, clampv)]
+    js, jw, jb, ju, jclamp = [_bf16(x) for x in (s, w, b, u, clampv)]
+    h = ref.lattice_fields_ref(ts, tw, tb)
+    assert h.dtype == torch.bfloat16
+    np.testing.assert_array_equal(h.float().numpy(),
+                                  np.asarray(jref.lattice_fields_ref(js, jw, jb), np.float32))
+    got = ref.lattice_gibbs_sweep_ref(ts, tw, tb, tu, torch.as_tensor(colors),
+                                      torch.as_tensor(frozen), tclamp, torch.full((B,), beta))
+    assert got.dtype == torch.bfloat16
+    want = jref.lattice_gibbs_sweep_ref(js, jw, jb, ju, jnp.asarray(colors), jnp.asarray(frozen),
+                                        jclamp, jnp.float32(beta))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=0)
+    via_ops = ops.lattice_gibbs_sweep(ts, tw, tb, tu, torch.as_tensor(colors).to(torch.bfloat16),
+                                      torch.as_tensor(frozen).to(torch.bfloat16), tclamp, beta)
+    np.testing.assert_array_equal(via_ops.float().numpy(), got.float().numpy())
+
+
+@pytest.mark.parametrize("beta", [None, 0.3, 1.0, 3.0])
+def test_bf16_sweep_matches_pallas_at_the_jax_grid(beta):
+    """The inputs of the JAX package's dtype sweep (tests/test_kernels.py,
+    bf16 at (4, 16, 16), key 5), at several beta: the plain version equals
+    the Pallas kernel in interpret mode (atol=0). Under jit XLA keeps
+    excess precision in bf16 by default, so at other inputs the Pallas
+    kernel can differ from its own eager oracle; the port follows the
+    oracle (test above)."""
+    B, H, W = 4, 16, 16
+    k = jax.random.split(jax.random.key(5), 5)
+    s = (2 * jax.random.bernoulli(k[0], 0.5, (B, H, W)) - 1).astype(jnp.bfloat16)
+    w = (jax.random.normal(k[1], (8, H, W)) * 0.5).astype(jnp.bfloat16)
+    b = (jax.random.normal(k[2], (H, W)) * 0.3).astype(jnp.bfloat16)
+    u = jax.random.uniform(k[3], (4, B, H, W)).astype(jnp.bfloat16)
+    colors = jising.king_color_masks(H, W).astype(jnp.bfloat16)
+    frozen = jnp.zeros((H, W), jnp.bfloat16)
+    clampv = -jnp.ones((H, W), jnp.bfloat16)
+    jbeta = None if beta is None else jnp.float32(beta)
+    pallas = jlg.lattice_gibbs_sweep(s, w, b, u, colors, frozen, clampv, jbeta, interpret=True,
+                                     block_batch=4)
+    t = [torch.as_tensor(np.asarray(x, np.float32)).to(torch.bfloat16)
+         for x in (s, w, b, u, colors, frozen, clampv)]
+    tbeta = None if beta is None else torch.full((B,), beta)
+    got = ref.lattice_gibbs_sweep_ref(*t[:4], t[4] > 0.5, t[5] > 0.5, t[6], tbeta)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(pallas, np.float32), atol=0)
+    via_ops = ops.lattice_gibbs_sweep(*t, 1.0 if beta is None else beta)
+    np.testing.assert_array_equal(via_ops.float().numpy(), got.float().numpy())
+
+
+def test_bf16_per_row_beta_equals_one_jax_call_per_row():
+    B, H, W = 5, 8, 7
+    s, w, b, u, colors, frozen, clampv = _sweep_inputs(B, H, W, seed=23)
+    beta = np.random.default_rng(24).uniform(0.3, 3.0, B).astype(np.float32)
+    ts, tw, tb, tu, tclamp = [torch.as_tensor(x).to(torch.bfloat16) for x in (s, w, b, u, clampv)]
+    got = ref.lattice_gibbs_sweep_ref(ts, tw, tb, tu, torch.as_tensor(colors),
+                                      torch.as_tensor(frozen), tclamp, torch.as_tensor(beta))
+    for r in range(B):
+        want = jref.lattice_gibbs_sweep_ref(
+            _bf16(s[r:r + 1]), _bf16(w), _bf16(b), _bf16(u[:, r:r + 1]), jnp.asarray(colors),
+            jnp.asarray(frozen), _bf16(clampv), jnp.float32(beta[r]))
+        np.testing.assert_array_equal(got[r].float().numpy(), np.asarray(want, np.float32)[0])
+
+
+def test_kernel_wrapper_names_mixed_dtypes():
+    B, H, W = 2, 4, 4
+    t = [torch.as_tensor(x) for x in _sweep_inputs(B, H, W, seed=8)]
+    t[4], t[5] = t[4].float(), t[5].float()
+    lattice_gibbs.launches = 0
+    mixed = list(t)
+    mixed[1] = t[1].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="w torch.bfloat16"):
+        lattice_gibbs.lattice_gibbs_sweep(*mixed, torch.ones(B))
+    with pytest.raises(ValueError, match="all float32 or all bfloat16"):
+        lattice_gibbs.lattice_gibbs_sweep(*[x.half() for x in t], torch.ones(B))
+    with pytest.raises(ValueError, match="CUDA tensors"):  # bf16 throughout is taken
+        lattice_gibbs.lattice_gibbs_sweep(*[x.to(torch.bfloat16) for x in t], torch.ones(B))
+    assert lattice_gibbs.launches == 0
+
+
 def test_ops_modes_on_cpu_and_the_kernel_wrapper_checks():
     B, H, W = 2, 4, 4
     s, w, b, u, colors, frozen, clampv = _sweep_inputs(B, H, W, seed=7)
@@ -266,6 +355,26 @@ def test_kernel_matches_plain_version_on_the_card():
     band = _phase_band(lambda x: ref.lattice_fields_ref(x, t[1], t[2]), t[0], t[3],
                        masks[0] > 0.5, masks[1] > 0.5, beta, P_BAND)
     assert not bool(((got != plain) & ~band).any())
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_matches_plain_version_on_the_card():
+    """The bf16 kernel against its plain version: spins equal outside the
+    band, frozen sites at their clamp, the result in bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (an sm_90 card); chip_smoke.py checks it there")
+    B, H, W = 3, 17, 23
+    s, w, b, u, colors, frozen, clampv = _sweep_inputs(B, H, W, seed=10)
+    t = [torch.as_tensor(x, device="cuda").to(torch.bfloat16)
+         for x in (s, w, b, u, colors, frozen, clampv)]
+    beta = torch.linspace(0.3, 3.0, B, device="cuda")
+    got = ops.lattice_gibbs_sweep(*t, beta)
+    assert got.dtype == torch.bfloat16
+    plain = ops.lattice_gibbs_sweep(*t, beta, mode="reference")
+    band = _phase_band(lambda x: ref.lattice_fields_ref(x, t[1], t[2]), t[0], t[3],
+                       t[4] > 0.5, t[5] > 0.5, beta, P_BAND)
+    assert not bool(((got != plain) & ~band).any())
+    assert bool((got[:, t[5] > 0.5] == t[6][t[5] > 0.5]).all())
 
 
 # ---------------------------------------------------------------------------
