@@ -12,7 +12,12 @@ exits nonzero without printing the final result line:
   1. device   — the card's name and power limit (nvidia-smi), its compute
                 capability (must be 9.0), and the nvcc build of the kernels
                 in src/repro_torch/kernels/csrc (one nvcc per source, run
-                together).
+                together), with ptxas's registers and spills.
+     sass     — the toolkit's cuobjdump -sass of libflash_attention.so,
+                libtau_leap.so and libdense_field.so: the count of HGMMA,
+                UTMALDG, LDGSTS and IMMA instructions in each kernel. Fails
+                unless every bf16 flash kernel has HGMMA (wgmma) and UTMALDG
+                (TMA loads), and the int8 kernels LDGSTS (cp.async) and IMMA.
   2. check    — each dense kernel against its plain PyTorch version on the
                 card at (B, N) = (1,5) (8,64) (3,130) (64,300) (256,2048)
                 (3,4099), asymmetric random int8 J: dense_field's int32
@@ -45,7 +50,9 @@ exits nonzero without printing the final result line:
                 bf16) (2,256,256,64, causal, bf16); causal Sq != Sk
                 (2,256,128,64, f32) (2,128,384,64, bf16); (1,256,256,256,
                 causal, f32); the two full-width shapes of main_attention
-                in f32; d = 8, 40 and 136 (partial column groups): within
+                in f32; d = 8, 40 and 136 (partial column groups); the bf16
+                kernel (wgmma) also at (4,128,384,32) and (3,128,256,8,
+                causal), f32 running on the CUDA-core kernel: within
                 atol = rtol = 2e-5 (f32) and 2e-2 (bf16), the JAX test's
                 bounds, and in bf16 also within one bf16 ulp (2^-7 |o| +
                 1e-6) of the plain version's f32 result.
@@ -79,7 +86,8 @@ exits nonzero without printing the final result line:
                 to 24, d = 128) and gemma-2b (8 query heads, 1 KV head,
                 d = 256); one kernel launch each, held against the plain
                 version as check_flash holds bf16 (2e-2, and one bf16 ulp
-                of the f32 result).
+                of the f32 result); the launch counted as bf16 (the wgmma
+                kernel), none as f32.
   5. stats    — a grid-exact n=5 problem through the tau_leap_step kernel,
                 64 chains x 16000 steps: TV distance to exact enumeration.
      stats_gibbs — TV to exact enumeration below 0.03 for a 2x3 lattice with
@@ -169,13 +177,24 @@ FLASH_CASES = [(2, 256, 256, 64, True, "float32"), (4, 128, 384, 32, False, "flo
                (24, 4096, 4096, 128, True, "float32"), (8, 4096, 4096, 256, True, "float32"),
                # head dims that fill no whole 64-column group
                (3, 128, 256, 8, True, "float32"), (2, 128, 128, 40, False, "float32"),
-               (1, 256, 128, 136, True, "bfloat16")]
+               (1, 256, 128, 136, True, "bfloat16"),
+               # the bf16 kernel at the JAX grid's f32 shape and at d = 8
+               (4, 128, 384, 32, False, "bfloat16"), (3, 128, 256, 8, True, "bfloat16")]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the JAX test's, tests/test_kernels.py
 BF16_ULP = 2.0**-7  # one bf16 ulp, relative to |o|, with 1e-6 absolute near 0
 # Prefill attention at train_4k (configs/base.py), batch 1: (config, query
 # heads, KV heads, head dim), from src/repro/configs/{phi4_mini_3p8b,gemma_2b}.py
 ATTENTION_MAIN = [("phi4-mini-3.8B", 24, 8, 128), ("gemma-2b", 8, 1, 256)]
 ATTENTION_S = 4096
+
+# -- the redesigned kernels (slice 4) ---------------------------------------------
+
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "IMMA")
+SASS_LIBS = ("flash_attention", "tau_leap", "dense_field")
+# each kernel's name in the libraries' SASS, and the instructions it must hold
+SASS_KERNELS = {"flash_bf16_kernel": ("HGMMA", "UTMALDG"), "flash_f32_kernel": (),
+                "tau_leap_kernel": ("LDGSTS", "IMMA"), "pack_spins_kernel": (),
+                "dense_field_kernel": ("LDGSTS", "IMMA")}
 
 
 def counters():
@@ -186,13 +205,16 @@ def counters():
     def reset():
         tau_leap.launches = dense_field.launches = lattice_gibbs.launches = 0
         flash_attention.launches = 0
-        for k in sparse_gather.launches:
-            sparse_gather.launches[k] = 0
+        for counts in (sparse_gather.launches, flash_attention.launches_by_dtype):
+            for k in counts:
+                counts[k] = 0
 
     def read():
         return {"tau_leap_step": tau_leap.launches, "dense_field": dense_field.launches,
                 "lattice_gibbs_sweep": lattice_gibbs.launches, **sparse_gather.launches,
-                "flash_attention": flash_attention.launches}
+                "flash_attention": flash_attention.launches,
+                "flash_attention_bf16": flash_attention.launches_by_dtype["bfloat16"],
+                "flash_attention_f32": flash_attention.launches_by_dtype["float32"]}
 
     return reset, read
 
@@ -217,6 +239,27 @@ def check_attention(torch, ops, what, out, q, k, v, causal):
                              f"{finite}, {n_bad} elements off by more than {tol} (abs and rel), "
                              f"{ulps} bf16 ulps from the f32 plain version")
     return float(e.max()), ulps
+
+
+def sass_counts(build_dir, cuobjdump) -> dict:
+    """{library: {kernel: {op: count}}} from cuobjdump -sass of each library
+    in SASS_LIBS; a kernel is named by its SASS_KERNELS entry and, for a
+    template, its first argument (flash_bf16_kernel<128>)."""
+    import re
+
+    out = {}
+    for lib in SASS_LIBS:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(build_dir / f"lib{lib}.so")],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        kernels = {}
+        for chunk in sass.split("Function : ")[1:]:
+            mangled = chunk.split("\n", 1)[0].strip()
+            name = next((k for k in SASS_KERNELS if k in mangled), mangled)
+            arg = re.search(r"ILi(\d+)EE", mangled)
+            name += f"<{arg.group(1)}>" if arg else ""
+            kernels[name] = {op: len(re.findall(rf"\b{op}\b", chunk)) for op in SASS_OPS}
+        out[lib] = kernels
+    return out
 
 
 def phase_band(torch, fields, s, u, masks, frozen, beta, tol):
@@ -432,6 +475,17 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
           "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                          "cudnn": torch.backends.cudnn.allow_tf32}})
+
+    # the instructions the redesigned kernels were compiled to
+    sass = sass_counts(build_dir, Path(_build._nvcc()).with_name("cuobjdump"))
+    missing = [f"{lib}: {kernel} has no {op}" for lib, kernels in sass.items()
+               for kernel, counts in kernels.items()
+               for op in SASS_KERNELS.get(kernel.split("<")[0], ()) if counts[op] == 0]
+    found = {k.split("<")[0] for kernels in sass.values() for k in kernels}
+    missing += [f"no {k} in the libraries" for k in SASS_KERNELS if k not in found]
+    emit({"phase": "sass", "counts": sass})
+    if missing:
+        raise AssertionError("SASS: " + "; ".join(missing))
 
     # -- 2. kernels against their plain versions ----------------------------
     rng = np.random.default_rng(0)
@@ -878,7 +932,7 @@ def main() -> int:
         o = ops.flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
         launches = read()
-        expect(f"attention {name}", launches, flash_attention=1)
+        expect(f"attention {name}", launches, flash_attention=1, flash_attention_bf16=1)
         e, ulps = check_attention(torch, ops, name, o, q, k, v, True)
         err["flash_attention"] = max(err["flash_attention"], e)
         attention[name] = {"query_heads": hq, "kv_heads": hkv, "head_dim": d, "S": S,
@@ -983,9 +1037,12 @@ def main() -> int:
         entry("colored_gibbs_sweep", csrc + "colored_gibbs.cu",
               "src/repro/kernels/sparse_gather.py:126",
               sp["cuda_first_hit"]["launches"]["colored_gibbs_sweep"], None),
-        entry("flash_attention", csrc + "flash_attention.cu",
-              "src/repro/kernels/flash_attention.py:85",
-              sum(a["launches"]["flash_attention"] for a in attention.values()), "sdpa"),
+        dict(entry("flash_attention", csrc + "flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:85",
+                   sum(a["launches"]["flash_attention"] for a in attention.values()), "sdpa"),
+             **{f"{name}_{key}": attention_timing[name][key]
+                for name, *_ in ATTENTION_MAIN[1:]
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms")}),
     ], "tau_leap_in_band": near})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -11,11 +11,17 @@ about 6.8 MB (J 4.2 MB, s 0.5 MB, h out 2.1 MB), about 2.0 µs at
 3.35 TB/s, against 2.15 G int8 operations, about 1.1 µs at 1,979 TOPS: it
 is memory-bound, bound about 2.0 µs.
 
-What the design does about it: J is read once per 64-chain row block, in
-place and row-major (site i reads row i of J along k, no transposed or
-padded copy as the TPU wrapper makes), the int8 products run on the tensor
-cores (mma.sync m16n8k32, exact int32 sums), and the ragged B, N and k
-edges are zero-filled in shared memory, not padded in device memory.
+What the design does about it: the mainloop it shares with tau_leap_step
+(`int8_field.cuh`) reads J in place, row-major (site i reads row i of J
+along k, no transposed or padded copy as the TPU wrapper makes), through a
+4-stage cp.async ring of 128-byte k tiles that keeps three tiles in flight
+during the MMAs (16-byte copies when N % 16 == 0, a scalar path
+otherwise); the int8 products run on the tensor cores (mma.sync m16n8k32,
+exact int32 sums) in 64 x 64 output tiles of 8 warps, k split between the
+two blocks of a thread-block cluster, so (256, 2048) runs 256 blocks; the
+partial sums meet in distributed shared memory; ragged B, N and k edges
+are zero-filled in shared memory, not padded in device memory; the
+epilogue writes coalesced rows.
 """
 from __future__ import annotations
 

@@ -15,9 +15,18 @@ GQA is the caller's: heads come aligned, with the KV heads repeated.
 What bounds it on the H100: at the phi4-mini prefill shape (24 heads,
 S = 4096, d = 128, causal, bf16) 101 MB of q, k, v and out (30 µs at
 3.35 TB/s) against 103 GFLOP (104 µs at 989 bf16 TFLOP/s): operations.
-This version multiplies in f32 on the CUDA cores (67 TFLOP/s, so 1.5 ms
-at best), which keeps f32 inputs within 2e-5 of the f32 oracle, where a
-TF32 or bf16 tensor-core product would not; tensor cores are later work.
+
+Two kernels in one library, chosen by dtype and counted in
+`launches_by_dtype`; no call of one dtype reaches the other's kernel:
+  bf16 — on the tensor cores: wgmma for q kᵀ and for p v, TMA loads of the
+         k and v tiles into a two-stage ring fed by a producer warpgroup,
+         128 query rows a block. p is split into three bf16 parts for the
+         p v product, which keeps every output within one bf16 ulp of the
+         f32 oracle, where one bf16 p would not at S = 4096, nor two parts
+         at the first rows of a head.
+  f32  — on the CUDA cores in f32 FMAs (67 TFLOP/s at most), which keeps
+         f32 inputs within 2e-5 of the f32 oracle, where a TF32 or bf16
+         tensor-core product would not.
 """
 from __future__ import annotations
 
@@ -27,6 +36,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import check_cuda, check_tensor
 
 launches = 0  # kernel launches in this process; chip_smoke.py resets and reads it
+# the same launches by dtype: "bfloat16" went to the wgmma kernel, "float32"
+# to the CUDA-core kernel
+launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 DTYPES = (torch.float32, torch.bfloat16)
 SEQ_MULTIPLE = 128  # the TPU kernel's default block; it asserts the same
@@ -68,10 +80,19 @@ def flash_attention(
     out = torch.empty_like(q)
     if BH == 0 or Sq == 0:
         return out
+    bf16 = q.dtype == torch.bfloat16
+    _launch(q, k, v, out, causal, bf16, dev)
+    launches += 1
+    launches_by_dtype["bfloat16" if bf16 else "float32"] += 1
+    return out
+
+
+def _launch(q, k, v, out, causal: bool, bf16: bool, device) -> None:
+    """One launch on the device's current stream: the wgmma kernel when
+    `bf16`, else the CUDA-core kernel; raise on a CUDA error."""
+    BH, Sq, d = q.shape
     code = _build.launcher("flash_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq, Sk, d, int(causal),
-        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq, k.shape[1], d,
+        int(causal), int(bf16), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check("flash_attention", code)
-    launches += 1
-    return out

@@ -118,6 +118,15 @@ def dense_field_ref(
     return dense_acc_ref(s_i8, j_i8).to(torch.float32) * scale + b
 
 
+def pack_spins_ref(s: torch.Tensor, ld: int) -> torch.Tensor:
+    """The int8 spins the tau-leap kernel's packing launch writes: s (B,N)
+    as int8 (truncation toward zero, as JAX's astype(int8)) in a (B, ld)
+    tensor, zero in the padding columns N .. ld-1."""
+    out = torch.zeros((s.shape[0], ld), dtype=torch.int8, device=s.device)
+    out[:, : s.shape[1]] = s.to(torch.int8)
+    return out
+
+
 def tau_leap_flip_prob_ref(
     s: torch.Tensor,
     j_i8: torch.Tensor,

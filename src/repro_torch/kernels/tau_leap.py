@@ -16,12 +16,20 @@ about 10.5 MB (J 4.2 MB, s, u and the new s 2.1 MB each), about 3.1 µs at
 3.35 TB/s, against 2.15 G int8 operations, about 1.1 µs at 1,979 TOPS: it
 is memory-bound, bound about 3.1 µs.
 
-What the design does about it: the f32 spins are converted to int8 while
-their tile is loaded (the TPU wrapper casts them in a separate pass), J is
-read in place, row-major and unpadded, the products run on the tensor
-cores (mma.sync m16n8k32, exact int32 sums), and the whole epilogue
-(dequantize, sigmoid, exp, compare, flip) runs on the accumulator
-registers, so only s, u and the new s cross device memory besides J.
+What the design does about it: the f32 spins are converted to int8 once
+per step by a small packing launch into a scratch tensor whose rows are
+padded to 16 bytes and zero past N (the TPU wrapper casts them in a
+separate pass too), so the mainloop reads s in 16-byte cp.async copies at
+any N, through a 4-stage ring that keeps three tiles in flight during the
+MMAs; J is read in place, row-major and unpadded (16-byte copies when
+N % 16 == 0, a scalar path otherwise); the products run on the tensor
+cores (mma.sync m16n8k32, exact int32 sums) in 64 x 64 output tiles of 8
+warps, k split between the two blocks of a thread-block cluster, so
+(256, 2048) runs 256 blocks; the epilogue (dequantize, sigmoid, exp,
+compare, flip) runs on the summed int32 tile with coalesced reads of s and
+u, issued before the mainloop, and coalesced writes of the new s. One C
+launcher issues both launches on the current stream; `launches` counts
+one per call.
 """
 from __future__ import annotations
 
@@ -31,6 +39,25 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import check_cuda, check_spins, check_tensor
 
 launches = 0  # kernel launches in this process; chip_smoke.py resets and reads it
+
+SPIN_ROW_ALIGN = 16  # bytes: the packed int8 spins' row stride is a multiple of this
+
+
+def padded_cols(n: int) -> int:
+    """Row stride, in int8 columns, of the packed spins of an n-site state."""
+    return -(-n // SPIN_ROW_ALIGN) * SPIN_ROW_ALIGN
+
+
+def _launch(s, s8, j_i8, b, scale, beta, uniforms, dt, out, device) -> None:
+    """Both launches of one step (pack the spins into s8, then the fused
+    product and flip) on the device's current stream; raise on a CUDA error."""
+    B, N = s.shape
+    code = _build.launcher("tau_leap")(
+        s.data_ptr(), s8.data_ptr(), j_i8.data_ptr(), b.data_ptr(), scale.data_ptr(),
+        beta.data_ptr(), uniforms.data_ptr(), dt.data_ptr(), out.data_ptr(), B, N,
+        s8.shape[1], torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check("tau_leap_step", code)
 
 
 def tau_leap_step(
@@ -59,11 +86,8 @@ def tau_leap_step(
     out = torch.empty((B, N), dtype=torch.float32, device=dev)
     if B == 0 or N == 0:
         return out
-    code = _build.launcher("tau_leap")(
-        s.data_ptr(), j_i8.data_ptr(), b.data_ptr(), scale.data_ptr(),
-        beta.data_ptr(), uniforms.data_ptr(), dt.data_ptr(), out.data_ptr(),
-        B, N, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check("tau_leap_step", code)
+    # the kernel writes every byte, padding included (torch.empty is 16-byte aligned)
+    s8 = torch.empty((B, padded_cols(N)), dtype=torch.int8, device=dev)
+    _launch(s, s8, j_i8, b, scale, beta, uniforms, dt, out, dev)
     launches += 1
     return out

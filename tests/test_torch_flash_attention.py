@@ -110,14 +110,102 @@ def test_ops_modes_on_cpu_and_the_kernel_wrapper_checks():
     assert flash_attention.launches == 0
 
 
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke
+
+
+def _emulate_bf16_kernel(q, k, v, causal, parts, block_n=128):
+    """The bf16 CUDA kernel's arithmetic in torch: scores from bf16 q and k
+    summed in f32, the online softmax in f32 over key tiles of block_n, p
+    split into `parts` bf16 parts (1: p rounded to bf16), each part times
+    bf16 v summed in f32, the row sum from the unrounded p; out in bf16."""
+    BH, Sq, d = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((BH, Sq, 1), -1e30)
+    l = torch.zeros((BH, Sq, 1))
+    o = torch.zeros((BH, Sq, d))
+    rows = torch.arange(Sq)[:, None]
+    sl2 = 1.4426950408889634 / d**0.5
+    for k0 in range(0, k.shape[1], block_n):
+        s = qf @ kf[:, k0:k0 + block_n].transpose(1, 2)
+        if causal:
+            s = s.masked_fill(torch.arange(k0, k0 + block_n)[None, :] > rows, -1e30)
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2(s * sl2 - mn * sl2)
+        alpha = torch.exp2(m * sl2 - mn * sl2)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        pv, rest = torch.zeros_like(o), p
+        for _ in range(parts):
+            part = rest.bfloat16().float()
+            pv = pv + part @ vf[:, k0:k0 + block_n]
+            rest = rest - part
+        o = alpha * o + pv
+        m = mn
+    return (o / l.clamp_min(1e-30)).bfloat16()
+
+
+def test_bf16_kernel_scheme_passes_the_chip_check_where_one_bf16_p_fails():
+    """The bf16 kernel splits p into three bf16 parts for p v. Emulated at
+    BH = 2, S = 2048, d = 64, causal, it holds chip_smoke.py's check (one
+    bf16 ulp of the f32 plain version); p rounded to one bf16, the usual
+    flash-attention recipe, does not."""
+    chip_smoke = _chip_smoke()
+    q, k, v = _torch(_qkv(2, 2048, 2048, 64, seed=7), "bfloat16")
+    _, ulps = chip_smoke.check_attention(torch, ops, "three parts",
+                                         _emulate_bf16_kernel(q, k, v, True, parts=3),
+                                         q, k, v, True)
+    assert ulps <= 0.5 + 1e-3  # the output rounding only
+    with pytest.raises(AssertionError, match="bf16 ulps"):
+        chip_smoke.check_attention(torch, ops, "one part",
+                                   _emulate_bf16_kernel(q, k, v, True, parts=1), q, k, v, True)
+
+
+def test_two_bf16_parts_of_p_fail_the_chip_check_at_the_first_rows():
+    """Two bf16 parts hold p to 2^-18 of itself. At the first rows of a
+    head a few terms of ~0.1 can cancel to an output of ~1e-5, where the
+    check's bound is ~1e-6, and 2^-18 of the terms exceeds it: over 512
+    heads of 128 rows the two-part scheme fails, the three-part one holds
+    (both emulated)."""
+    chip_smoke = _chip_smoke()
+    q, k, v = _torch(_qkv(512, 128, 128, 128, seed=11), "bfloat16")
+    with pytest.raises(AssertionError, match="bf16 ulps"):
+        chip_smoke.check_attention(torch, ops, "two parts",
+                                   _emulate_bf16_kernel(q, k, v, True, parts=2), q, k, v, True)
+    _, ulps = chip_smoke.check_attention(torch, ops, "three parts",
+                                         _emulate_bf16_kernel(q, k, v, True, parts=3),
+                                         q, k, v, True)
+    assert ulps <= 0.5 + 1e-3
+
+
+def test_the_wrapper_routes_by_dtype_and_counts_each(monkeypatch):
+    """bf16 goes to the wgmma kernel and f32 to the CUDA-core one (the
+    launcher's bf16 flag), counted in launches_by_dtype beside launches; no
+    card: the device check and the launch are replaced."""
+    calls = []
+    monkeypatch.setattr(flash_attention, "check_cuda", lambda t: t.device)
+    monkeypatch.setattr(flash_attention, "_launch",
+                        lambda q, k, v, out, causal, bf16, device: calls.append(bf16))
+    monkeypatch.setattr(flash_attention, "launches", 0)
+    monkeypatch.setattr(flash_attention, "launches_by_dtype", {"float32": 0, "bfloat16": 0})
+    for dtype, n in (("bfloat16", 2), ("float32", 1)):
+        q, k, v = _torch(_qkv(2, 128, 256, 64, seed=3), dtype)
+        for _ in range(n):
+            out = flash_attention.flash_attention(q, k, v, True)
+            assert out.dtype == q.dtype and out.shape == q.shape
+    assert calls == [True, True, False]
+    assert flash_attention.launches_by_dtype == {"float32": 1, "bfloat16": 2}
+    assert flash_attention.launches == 3
+
+
 def test_chip_check_catches_a_dropped_key_tile():
     """chip_smoke.py's bf16 attention check holds outputs to one bf16 ulp of
     the f32 plain version. At long S the causal outputs are small (the
     softmax is near uniform), so a kernel that drops a key tile for the
     late rows stays within 2e-2 but not within that bound."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
+    chip_smoke = _chip_smoke()
     BH, S, d = 2, 2048, 64
     q, k, v = _torch(_qkv(BH, S, S, d, seed=7), "bfloat16")
     exact = ops.flash_attention(q, k, v, mode="reference")
@@ -135,7 +223,8 @@ def test_chip_check_catches_a_dropped_key_tile():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("BH,Sq,Sk,d,causal,dtype", CASES + [
-    (1, 256, 256, 256, True, "float32"), (2, 256, 256, 8, False, "bfloat16")])
+    (1, 256, 256, 256, True, "float32"), (2, 256, 256, 8, False, "bfloat16"),
+    (4, 128, 384, 32, False, "bfloat16"), (3, 128, 256, 8, True, "bfloat16")])
 def test_kernel_matches_plain_version_on_the_card(BH, Sq, Sk, d, causal, dtype):
     """The CUDA kernel against its plain version at chip_smoke.py's check
     shapes, one launch each."""
@@ -144,8 +233,10 @@ def test_kernel_matches_plain_version_on_the_card(BH, Sq, Sk, d, causal, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = _torch(_qkv(BH, Sq, Sk, d, seed=BH * Sq + Sk + d), dtype, device="cuda")
     flash_attention.launches = 0
+    flash_attention.launches_by_dtype.update(float32=0, bfloat16=0)
     got = ops.flash_attention(q, k, v, causal=causal)
     assert flash_attention.launches == 1 and got.dtype == q.dtype
+    assert flash_attention.launches_by_dtype[dtype] == 1
     plain = ops.flash_attention(q, k, v, causal=causal, mode="reference")
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), plain.float(), atol=tol, rtol=tol)

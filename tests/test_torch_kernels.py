@@ -5,6 +5,9 @@ Inputs are made with numpy from a seed. The int32 accumulators must be
 exact; tau-leap spins must be equal except where the uniform lies within
 P_BAND of the flip probability (the two frameworks' exp and sigmoid may
 round the last ulp differently)."""
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -19,6 +22,15 @@ from repro_torch.kernels import dense_field, ops, ref, tau_leap
 torch.set_num_threads(1)
 
 P_BAND = 1e-6
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _check_shapes():
+    """chip_smoke.py's CHECK_SHAPES: the (B, N) the card checks the kernels at."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke.CHECK_SHAPES
 
 
 def _inputs(B, N, seed):
@@ -142,3 +154,38 @@ def test_kernel_mode_on_cpu_raises_and_counts_nothing():
     with pytest.raises(ValueError, match="mode"):
         ops.dense_field(ts.to(torch.int8), tJ, tb, scale, mode="pallas")
     assert tau_leap.launches == 0 and dense_field.launches == 0
+
+
+@pytest.mark.parametrize("B,N", _check_shapes())
+def test_packed_spins_are_int8_spins_in_16_byte_rows_zero_padded(B, N):
+    """tau_leap_step's packing launch writes s as int8 into (B, ld) rows,
+    ld = N rounded up to 16 bytes: s.to(int8) on the live columns, 0 in the
+    padding (the plain version of that layout)."""
+    s, _, _, _ = _inputs(B, N, seed=B * N)
+    ld = tau_leap.padded_cols(N)
+    assert ld % 16 == 0 and N <= ld < N + 16
+    packed = ref.pack_spins_ref(torch.as_tensor(s), ld)
+    assert packed.dtype == torch.int8 and packed.shape == (B, ld) and packed.is_contiguous()
+    np.testing.assert_array_equal(packed[:, :N].numpy(), s.astype(np.int8))
+    assert not packed[:, N:].any()
+    # astype(int8) truncates toward zero, as the kernel's __float2int_rz
+    odd = torch.tensor([[0.7, -0.7, 1.9, -1.0]])
+    np.testing.assert_array_equal(ref.pack_spins_ref(odd, 16)[0, :4].numpy(), [0, 0, 1, -1])
+
+
+def test_tau_leap_wrapper_passes_a_padded_int8_scratch(monkeypatch):
+    """The wrapper allocates the packed spins as a (B, padded_cols(N)) int8
+    tensor on s's device and launches once per call; no card: the device
+    check and the launch are replaced."""
+    seen = []
+    monkeypatch.setattr(tau_leap, "check_cuda", lambda t: t.device)
+    monkeypatch.setattr(tau_leap, "_launch", lambda *args: seen.append(args))
+    monkeypatch.setattr(tau_leap, "launches", 0)
+    B, N = 3, 130
+    s, J, b, u = _t(*_inputs(B, N, seed=1))
+    out = tau_leap.tau_leap_step(s, J, b, torch.tensor(0.01), u, torch.tensor(0.3), torch.ones(B))
+    assert out.shape == (B, N) and out.dtype == torch.float32 and out.data_ptr() != s.data_ptr()
+    (args,) = seen
+    s8 = args[1]
+    assert s8.dtype == torch.int8 and s8.shape == (B, 144) and s8.is_contiguous()
+    assert s8.data_ptr() % 16 == 0 and tau_leap.launches == 1
