@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the int8 field mainloop's time goes, on one H100.
+"""Where the kernels' time goes, on one H100.
 
-    python3 chip_ablate.py    # from the repository root, on a machine with the card
+    python3 chip_ablate.py            # from the repository root, on a machine with the card
+    python3 chip_ablate.py int8       # only the int8 mainloop
+    python3 chip_ablate.py sparse     # only the two sparse kernels
 
-Builds variants of dense_field (src/repro_torch/kernels/csrc/dense_field.cu
+int8: builds variants of dense_field (src/repro_torch/kernels/csrc/dense_field.cu
 over int8_field.cuh), each with one thing compiled out or changed, and
 times each at (B, N) = (256, 2048) and (1024, 2048) with chip_smoke.py's
 CUDA-event median, beside torch._int_mm:
@@ -19,8 +21,35 @@ CUDA-event median, beside torch._int_mm:
             cluster and shared memory)
   empty_split1   the same without the cluster
 
-Prints one JSON line per (shape, variant), then the card's name and power
-limit. The variants are built from patched copies of the sources in
+sparse: times sparse_fields and colored_gibbs_sweep on
+random_3regular_maxcut(16384, 0) (D = 3, C = 4, the sweep at beta = 1.7)
+at B = 256 chains (the main path's shape) and 1024, through each variant
+library's launcher:
+
+  sparse_fields  rows R in {1, 2, 3} x threads in {256, 512, 1024} (base,
+                 at both B); at B = 256 also: global (the first port's
+                 one-thread-per-output kernel, the variant for long rows);
+                 unroll1 (one site a thread at a time); no_stage (rows not
+                 staged: time only)
+  colored_gibbs_sweep  one chain a block x threads in {256, 512, 1024}
+                 (base, at both B); at B = 256 also: generic (the table
+                 entry read slot by slot, not as two 16-byte loads at
+                 D <= 3); u_late (the uniforms
+                 loaded after the gathers); unroll1, unroll4 (entries a
+                 thread walks at once); in_place (new spins written to the
+                 state at once, no copy pass: exact for a proper colouring
+                 only); one_block (without ptxas's two-blocks-an-SM
+                 register cap); u128 (the uniforms loaded
+                 with the L2::128B fetch-size hint); no_u, no_gather,
+                 no_prob (the uniforms, the gathers or the sigmoid left
+                 out), u_cached (every uniform load of a thread at one
+                 address: L1 hits) and u_l2 (every block reads chain 0's
+                 uniforms: L2 hits) — these five time only; first_port (the first
+                 port's kernel: one block per chain, every phase over all n
+                 sites reading the masks)
+
+Prints one JSON line per (shape, variant) group, then the card's name and
+power limit. The variants are built from patched copies of the sources in
 src/repro_torch/kernels/_build/ablate/ (ignored by git); each patch is
 asserted to apply.
 """
@@ -85,42 +114,41 @@ def patched_kernel() -> str:
     return src.replace(old, old + "#ifdef ABL_EMPTY\n  return;\n#endif\n")
 
 
-def build() -> dict:
+def compile_all(jobs: dict) -> dict:
+    """{name: (source, extra flags)} -> {name: library path}, one nvcc per
+    job, all started together; raises with nvcc's output on a failure."""
     from repro_torch.kernels import _build
 
-    OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "int8_field.cuh").write_text(patched_header())
-    (OUT / "dense_field.cu").write_text(patched_kernel())
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     procs = {v: subprocess.Popen([_build._nvcc(), *flags, *extra, "-o", str(OUT / f"lib{v}.so"),
-                                  str(OUT / "dense_field.cu")],
+                                  str(src)],
                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for v, extra in VARIANTS.items()}
-    fns = {}
+             for v, (src, extra) in jobs.items()}
     for v, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on variant {v}:\n{log}")
-        fn = ctypes.CDLL(str(OUT / f"lib{v}.so")).dense_field_launch
+    return {v: OUT / f"lib{v}.so" for v in jobs}
+
+
+def build() -> dict:
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "int8_field.cuh").write_text(patched_header())
+    (OUT / "dense_field.cu").write_text(patched_kernel())
+    libs = compile_all({v: (OUT / "dense_field.cu", extra) for v, extra in VARIANTS.items()})
+    fns = {}
+    for v, path in libs.items():
+        fn = ctypes.CDLL(str(path)).dense_field_launch
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[v] = fn
     return fns
 
 
-def main() -> int:
-    import numpy as np
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_ablate.py: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
-    import chip_smoke
+def ablate_int8(torch, np, chip_smoke, dev) -> None:
     from repro_torch.kernels import ref
 
     fns = build()
-    dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     for B, N in SHAPES:
         s8 = torch.as_tensor(rng.choice([-1, 1], (B, N)).astype(np.int8), device=dev)
@@ -145,6 +173,276 @@ def main() -> int:
                 raise AssertionError(f"variant {v} at ({B}, {N}) is not exact")
             row[v] = {"ms": chip_smoke.time_ms(torch, call), "exact": exact}
         print(json.dumps(row), flush=True)
+
+
+# -- the sparse kernels ---------------------------------------------------------
+
+def patch(src: str, name: str, patches) -> str:
+    """`src` with each (old, new) replaced; raises unless each old occurs once."""
+    for old, new in patches:
+        if src.count(old) != 1:
+            raise RuntimeError(f"{name} no longer holds {old!r}: update the ablation")
+        src = src.replace(old, new)
+    return src
+
+
+def patched_fields() -> str:
+    """sparse_fields.cu with each ablation behind a macro."""
+    return patch((CSRC / "sparse_fields.cu").read_text(), "sparse_fields.cu", [
+        ("constexpr int kUnroll = 2;",
+         "#ifndef ABL_UNROLL\n#define ABL_UNROLL 2\n#endif\nconstexpr int kUnroll = ABL_UNROLL;"),
+        ("  if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {",
+         "#ifndef ABL_STAGE\n#define ABL_STAGE 1\n#endif\n"
+         "  if (ABL_STAGE && (n & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {"),
+        ("  } else {\n    sparse_gather::stream_in(src, total,",
+         "  } else if (ABL_STAGE) {\n    sparse_gather::stream_in(src, total,"),
+    ])
+
+
+def patched_sweep() -> str:
+    """colored_gibbs.cu with each ablation behind a macro."""
+    u_load = "        ur[q] = __ldg(uc + base + site[q]);\n"
+    gather = "      for (int q = 0; q < kUnroll; ++q) h[q] = e[q].field(cur, n, D);\n"
+    return patch((CSRC / "colored_gibbs.cu").read_text(), "colored_gibbs.cu", [
+        ("constexpr int kUnroll = 2;",
+         "#ifndef ABL_UNROLL\n#define ABL_UNROLL 2\n#endif\nconstexpr int kUnroll = ABL_UNROLL;\n"
+         "#ifndef ABL_MINB\n#define ABL_MINB 2\n#endif\n"
+         "#ifndef ABL_PACKED\n#define ABL_PACKED 1\n#endif\n"
+         "#ifndef ABL_DST\n#define ABL_DST nxt\n#endif\n"
+         "#if defined(ABL_NO_U)\n#define ABL_LOAD_U(uc, row, site, k) 0.5f\n"
+         "#elif defined(ABL_U_CACHED)\n#define ABL_LOAD_U(uc, row, site, k) __ldg((uc) + (k))\n"
+         "#elif defined(ABL_U_L2)\n#define ABL_LOAD_U(uc, row, site, k) __ldg((uc) + (site))\n"
+         "#elif defined(ABL_U_FETCH)\n#define ABL_LOAD_U(uc, row, site, k) ld_fetch((uc) + (row) + (site))\n"
+         "#else\n#define ABL_LOAD_U(uc, row, site, k) __ldg((uc) + (row) + (site))\n#endif\n"
+         "#ifdef ABL_NO_PROB\n#define ABL_PROB __fadd_rn(h[q], bias[q])\n#else\n"
+         "#define ABL_PROB glauber::prob_up(br, __fadd_rn(h[q], bias[q]))\n#endif"),
+        ("__device__ __forceinline__ int8_t spin(",
+         "#ifdef ABL_U_FETCH\n__device__ __forceinline__ float ld_fetch(const float* p) {\n"
+         "  float v;\n  asm(\"ld.global.nc.L2::\" ABL_U_FETCH \".f32 %0, [%1];\" : \"=f\"(v) : \"l\"(p));\n"
+         "  return v;\n}\n#endif\n__device__ __forceinline__ int8_t spin("),
+        ("      P == 4 ? launch<true>", "      ABL_PACKED && P == 4 ? launch<true>"),
+        ("__global__ void __launch_bounds__(1024, 2)\ncolored_gibbs_kernel",
+         "__global__ void __launch_bounds__(1024, ABL_MINB)\ncolored_gibbs_kernel"),
+        (u_load, "#ifndef ABL_U_LATE\n"
+                 "        ur[q] = ABL_LOAD_U(uc, base, site[q], t + q * T);\n#endif\n"),
+        (gather, "      for (int q = 0; q < kUnroll; ++q) {\n#ifndef ABL_NO_GATHER\n"
+                 "        h[q] = e[q].field(cur, n, D);\n#else\n        h[q] = 0.0f;\n#endif\n"
+                 "      }\n#ifdef ABL_U_LATE\n#pragma unroll\n"
+                 "      for (int q = 0; q < kUnroll; ++q) "
+                 "ur[q] = ABL_LOAD_U(uc, base, site[q], t + q * T);\n#endif\n"),
+        ("        nxt[site[q]] = ur[q] < glauber::prob_up(br, __fadd_rn(h[q], bias[q])) ? 1 : -1;",
+         "        ABL_DST[site[q]] = ur[q] < ABL_PROB ? 1 : -1;"),
+        ("    __syncthreads();\n    for (int j0 = beg + t; j0 < end; j0 += kUnroll * T) {\n"
+         "      int site[kUnroll];  // each entry's site",
+         "    __syncthreads();\n#ifndef ABL_IN_PLACE\n"
+         "    for (int j0 = beg + t; j0 < end; j0 += kUnroll * T) {\n"
+         "      int site[kUnroll];  // each entry's site"),
+        ("cur[site[q]] = nxt[site[q]];\n    }\n    __syncthreads();\n",
+         "cur[site[q]] = nxt[site[q]];\n    }\n    __syncthreads();\n#endif\n"),
+    ])
+
+
+# The first port's sweep (one block per chain; every phase walks all n sites,
+# reads the masks, and writes every site of the other buffer), for comparison.
+FIRST_PORT_SWEEP = r"""
+#include "glauber.cuh"
+namespace {
+__global__ void __launch_bounds__(1024)
+first_port_kernel(const float* __restrict__ s, const int* __restrict__ idx, const float* __restrict__ w,
+            const float* __restrict__ b, const float* __restrict__ u,
+            const float* __restrict__ masks, const float* __restrict__ beta,
+            float* __restrict__ out, int B, int n, int D, int C) {
+  extern __shared__ int8_t smem[];
+  int8_t* cur = smem;
+  int8_t* nxt = smem + n;
+  const int r = blockIdx.x;
+  const size_t base = static_cast<size_t>(r) * n;
+  const float br = beta[r];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) cur[i] = s[base + i] > 0.0f ? 1 : -1;
+  __syncthreads();
+  for (int c = 0; c < C; ++c) {
+    const float* m = masks + static_cast<size_t>(c) * n;
+    const float* uc = u + static_cast<size_t>(c) * B * n + base;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      int8_t v = cur[i];
+      if (__ldg(m + i) > 0.5f) {
+        const size_t row = static_cast<size_t>(i) * D;
+        float acc = 0.0f;
+        for (int k = 0; k < D; ++k) {
+          const int j = __ldg(idx + row + k);
+          if (static_cast<unsigned>(j) < static_cast<unsigned>(n))
+            acc = __fadd_rn(acc, __fmul_rn(__ldg(w + row + k), static_cast<float>(cur[j])));
+        }
+        v = uc[i] < glauber::prob_up(br, __fadd_rn(acc, __ldg(b + i))) ? 1 : -1;
+      }
+      nxt[i] = v;
+    }
+    __syncthreads();
+    int8_t* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) out[base + i] = static_cast<float>(cur[i]);
+}
+}  // namespace
+extern "C" int first_port_launch(const void* s, const void* idx, const void* w, const void* b,
+                           const void* u, const void* masks, const void* beta, void* out, int B,
+                           int n, int D, int C, void* stream) {
+  const size_t smem = 2 * static_cast<size_t>(n);
+  cudaError_t err = glauber::allow_smem(first_port_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  first_port_kernel<<<B, glauber::threads_for(n), smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(s), static_cast<const int*>(idx), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<const float*>(u),
+      static_cast<const float*>(masks), static_cast<const float*>(beta),
+      static_cast<float*>(out), B, n, D, C);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+FIELDS_VARIANTS = {"base": [], "unroll1": ["-DABL_UNROLL=1"], "no_stage": ["-DABL_STAGE=0"]}
+SWEEP_VARIANTS = {"base": [], "generic": ["-DABL_PACKED=0"], "u_late": ["-DABL_U_LATE"], "unroll1": ["-DABL_UNROLL=1"],
+                  "in_place": ["-DABL_IN_PLACE", "-DABL_DST=cur"], "one_block": ["-DABL_MINB=1"],
+                  "unroll4": ["-DABL_UNROLL=4"], "u128": ['-DABL_U_FETCH="128B"'], "no_u": ["-DABL_NO_U"],
+                  "u_cached": ["-DABL_U_CACHED"], "u_l2": ["-DABL_U_L2"],
+                  "no_gather": ["-DABL_NO_GATHER"], "no_prob": ["-DABL_NO_PROB"]}
+SPARSE_EXACT = ("base", "generic", "u128", "unroll1", "unroll4", "global", "u_late", "in_place", "one_block",
+                "first_port")
+SPARSE_CHAINS = (256, 1024)  # the main path's chains, then four times as many
+# (rows, threads) of the base runs; the sweep holds one chain a block
+ROWS_THREADS = {"sparse_fields": [(r, t) for r in (1, 2, 3) for t in (256, 512, 1024)],
+                "colored_gibbs_sweep": [(1, t) for t in (256, 512, 1024)]}
+
+
+def build_sparse() -> dict:
+    """{kernel: {variant: ctypes launcher}} of the two sparse libraries."""
+    import shutil
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    for header in ("sparse_gather.cuh", "glauber.cuh"):
+        shutil.copy(CSRC / header, OUT / header)
+    (OUT / "sparse_fields.cu").write_text(patched_fields())
+    (OUT / "colored_gibbs.cu").write_text(patched_sweep())
+    (OUT / "first_port_sweep.cu").write_text(FIRST_PORT_SWEEP)
+    jobs = {f"fields_{v}": (OUT / "sparse_fields.cu", x) for v, x in FIELDS_VARIANTS.items()}
+    jobs |= {f"sweep_{v}": (OUT / "colored_gibbs.cu", x) for v, x in SWEEP_VARIANTS.items()}
+    jobs["sweep_first_port"] = (OUT / "first_port_sweep.cu", [])
+    libs = compile_all(jobs)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fns = {"sparse_fields": {}, "colored_gibbs_sweep": {}}
+    for name, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        if name.startswith("fields_"):
+            fn, argtypes = lib.sparse_fields_launch, [P] * 5 + [I] * 5 + [P]
+            fns["sparse_fields"][name.removeprefix("fields_")] = fn
+        elif name == "sweep_first_port":
+            fn, argtypes = lib.first_port_launch, [P] * 8 + [I] * 4 + [P]
+            fns["colored_gibbs_sweep"]["first_port"] = fn
+        else:
+            fn, argtypes = lib.colored_gibbs_launch, [P] * 7 + [I] * 6 + [P]
+            fns["colored_gibbs_sweep"][name.removeprefix("sweep_")] = fn
+        fn.argtypes, fn.restype = argtypes, I
+    return fns
+
+
+def ablate_sparse(torch, np, chip_smoke, dev) -> None:
+    from repro_torch.core import problems
+    from repro_torch.kernels import ops, ref, sparse_gather
+
+    fns = build_sparse()
+    mc = problems.random_3regular_maxcut(16384, 0, device=dev)
+    n, D = mc.n, mc.max_deg
+    masks = mc.color_masks.float()
+    C = masks.shape[0]
+    zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+    plan = sparse_gather.colour_plan(mc.nbr_idx, mc.nbr_w, mc.b, masks)
+    csr = chip_smoke.sparse_csr(torch, mc)
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = sparse_gather._sm_count(dev)
+    rng = np.random.default_rng(0)
+    for B in SPARSE_CHAINS:
+        s = torch.as_tensor(rng.choice([-1.0, 1.0], (B, n)).astype(np.float32), device=dev)
+        u = torch.rand((C, B, n), device=dev)
+        beta = torch.full((B,), 1.7, dtype=torch.float32, device=dev)
+        out = torch.empty((B, n), dtype=torch.float32, device=dev)
+        want = {"sparse_fields": ref.sparse_fields_ref(s, mc.nbr_idx, mc.nbr_w, zeros),
+                "colored_gibbs_sweep": ops.colored_gibbs_sweep(s, mc.nbr_idx, mc.nbr_w, mc.b, u,
+                                                               masks, beta, mode="reference")}
+        band = chip_smoke.phase_band(
+            torch, lambda x: ref.sparse_fields_ref(x, mc.nbr_idx, mc.nbr_w, mc.b), s, u,
+            mc.color_masks, torch.zeros(n, dtype=torch.bool, device=dev), beta, chip_smoke.P_BAND)
+        calls = {
+            "sparse_fields": lambda fn, rows, threads: fn(
+                s.data_ptr(), mc.nbr_idx.data_ptr(), mc.nbr_w.data_ptr(), zeros.data_ptr(),
+                out.data_ptr(), B, n, D, rows, threads, stream),
+            "colored_gibbs_sweep": lambda fn, rows, threads: fn(
+                s.data_ptr(), plan.offsets.data_ptr(), plan.idx.data_ptr(), plan.w.data_ptr(),
+                u.data_ptr(), beta.data_ptr(), out.data_ptr(), B, n, D, plan.idx.shape[1], C,
+                threads, stream),
+            "first_port": lambda fn, rows, threads: fn(
+                s.data_ptr(), mc.nbr_idx.data_ptr(), mc.nbr_w.data_ptr(), mc.b.data_ptr(),
+                u.data_ptr(), masks.data_ptr(), beta.data_ptr(), out.data_ptr(), B, n, D, C,
+                stream)}
+        wrapper = {"sparse_fields": (sparse_gather.fields_rows(B, n, sms),
+                                     sparse_gather.BLOCK_THREADS),
+                   "colored_gibbs_sweep": (1, sparse_gather.BLOCK_THREADS)}
+        for kernel, variants in fns.items():
+            runs = [("base", r, t) for r, t in ROWS_THREADS[kernel]]
+            if B == SPARSE_CHAINS[0]:  # the variants at the main path's shape only
+                runs += [(v, *wrapper[kernel]) for v in variants if v != "base"]
+                if kernel == "sparse_fields":
+                    runs.append(("global", 0, 0))
+            row = {"kernel": kernel, "B": B, "n": n, "D": D, "colors": C,
+                   "wrapper_rows": wrapper[kernel][0], "wrapper_threads": wrapper[kernel][1]}
+            if kernel == "sparse_fields":
+                s_t = s.t().contiguous()
+                row["sparse_mm_ms"] = chip_smoke.time_ms(torch, lambda: torch.sparse.mm(csr, s_t))
+            for v, rows, threads in runs:
+                fn = variants["base" if v == "global" else v]
+                call = calls["first_port" if v == "first_port" else kernel]
+
+                def launch(fn=fn, call=call, rows=rows, threads=threads, v=v):
+                    code = call(fn, rows, threads)
+                    if code:
+                        raise RuntimeError(f"{kernel} variant {v}: CUDA error {code}")
+                out.fill_(float("nan"))
+                launch()
+                torch.cuda.synchronize()
+                differ = out != want[kernel]
+                if kernel == "colored_gibbs_sweep":
+                    differ &= ~band
+                if v in SPARSE_EXACT and bool(differ.any()):
+                    raise AssertionError(f"{kernel} variant {v} (R={rows}, threads={threads}) at "
+                                         f"B={B}: {int(differ.sum())} outputs differ from the "
+                                         "plain version")
+                label = f"R{rows}_T{threads}" if v == "base" else (
+                    v if (rows, threads) == wrapper[kernel] or v in ("global", "first_port")
+                    else f"{v}_R{rows}_T{threads}")
+                row[label] = {"ms": chip_smoke.time_ms(torch, launch),
+                              "exact": not bool(differ.any())}
+            print(json.dumps(row), flush=True)
+        del s, u, out, want, band
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ablate.py: no CUDA device", file=sys.stderr)
+        return 2
+    parts = sys.argv[1:] or ["int8", "sparse"]
+    if not set(parts) <= {"int8", "sparse"}:
+        print(f"chip_ablate.py: unknown parts {parts}; use int8 and/or sparse", file=sys.stderr)
+        return 2
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    import chip_smoke
+
+    dev = torch.device("cuda", 0)
+    if "int8" in parts:
+        ablate_int8(torch, np, chip_smoke, dev)
+    if "sparse" in parts:
+        ablate_sparse(torch, np, chip_smoke, dev)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     return 0

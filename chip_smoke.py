@@ -14,8 +14,10 @@ exits nonzero without printing the final result line:
                 in src/repro_torch/kernels/csrc (one nvcc per source, run
                 together), with ptxas's registers and spills.
      sass     — the toolkit's cuobjdump -sass of libflash_attention.so,
-                libtau_leap.so and libdense_field.so: the count of HGMMA,
-                UTMALDG, LDGSTS and IMMA instructions in each kernel. Fails
+                libtau_leap.so, libdense_field.so, libsparse_fields.so and
+                libcolored_gibbs.so: the count of HGMMA, UTMALDG, LDGSTS,
+                IMMA, LDG and LDS instructions in each kernel, and ptxas's
+                registers and spills of the two sparse libraries. Fails
                 unless every bf16 flash kernel has HGMMA (wgmma) and UTMALDG
                 (TMA loads), and the int8 kernels LDGSTS (cp.async) and IMMA.
   2. check    — each dense kernel against its plain PyTorch version on the
@@ -40,10 +42,17 @@ exits nonzero without printing the final result line:
      check_sparse — sparse_fields and colored_gibbs_sweep at (B, n, graph) =
                 (1, 5, dense random, random improper masks) (8, 100,
                 density 0.4) (3, 130, ragged)
-                (256, 16384, random_3regular_maxcut) (2, 40000, 3-regular):
-                fields within 2^-22 (sum_k |w_ik| + |b_i|), exactly for unit
-                weights; spins equal except where |u - p_up| <= beta_r/2 *
-                that bound + 1e-6.
+                (256, 16384, random_3regular_maxcut) (2, 40000, 3-regular)
+                (2, 65536, 3-regular: rows too long to stage, the
+                sparse_fields_global kernel) (298, 4096, 3-regular: three
+                staged rows a block, one in the last; the cases take
+                every rows count the wrapper can pick): fields within 2^-22
+                (sum_k |w_ik| + |b_i|), exactly for unit weights; spins
+                equal except where |u - p_up| <= beta_r/2 * that bound +
+                1e-6; each fields launch counted under the variant its n
+                takes; and, for each problem's own colouring, the sweep over
+                the colour plan that ColoredGibbs.init builds equal to the
+                sweep over the wrapper's own plan.
      check_flash — flash_attention against its plain version at (BH, Sq,
                 Sk, d, causal, dtype) = the JAX test's grid (2,256,256,64,
                 causal, f32) (4,128,384,32, f32) (1,512,512,128, causal,
@@ -62,7 +71,10 @@ exits nonzero without printing the final result line:
                 product, torch.sparse.mm for the sparse fields,
                 scaled_dot_product_attention for attention; timed here
                 only) and the device bound; the lattice sweep in f32 and
-                bf16, flash_attention at both main_attention shapes.
+                bf16, flash_attention at both main_attention shapes; the
+                coloured sweep also beside its sector floor (the bytes of
+                the 32-byte sectors its uniforms touch in the (C, B, n)
+                layout); sparse_fields_global at (64, 65536).
   4. main     — sampler_api.run(TauLeap(dt=0.1), backend="cuda") on SK
                 n=2048 seed 0, 256 chains x 2000 steps, geometric(0.3, 3.0)
                 annealing, with and without first_hit, and the same run on
@@ -153,7 +165,9 @@ LATTICE_SHAPES = [(1, 1, 1), (8, 8, 8), (4, 16, 16), (2, 32, 24), (3, 17, 23),
                   (16, 128, 128), (4096, 16, 16), (1, 200, 200)]
 # (B, n, graph): "dense" random couplings at a density, or a 3-regular MaxCut
 SPARSE_CASES = [(1, 5, "dense", 1.0), (8, 100, "dense", 0.4), (3, 130, "dense", 0.05),
-                (256, 16384, "3regular", 0), (2, 40000, "3regular", 1)]
+                (256, 16384, "3regular", 0), (2, 40000, "3regular", 1),
+                (2, 65536, "3regular", 2),  # n > 58112: sparse_fields_global
+                (298, 4096, "3regular", 3)]  # 3 staged rows a block, the last block 1
 FIELD_EPS = 2.0**-22  # |dh_i| <= FIELD_EPS * (sum_k |w_ik| + |b_i|)
 LATTICE_MAIN = dict(n_chains=4096, n_sweeps=500, sample_every=50)
 SPARSE_MAIN = dict(n=16384, n_chains=256, n_sweeps=1000, sample_every=100)
@@ -189,12 +203,17 @@ ATTENTION_S = 4096
 
 # -- the redesigned kernels (slice 4) ---------------------------------------------
 
-SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "IMMA")
-SASS_LIBS = ("flash_attention", "tau_leap", "dense_field")
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "IMMA", "LDG", "LDS")
+SASS_LIBS = ("flash_attention", "tau_leap", "dense_field", "sparse_fields", "colored_gibbs")
 # each kernel's name in the libraries' SASS, and the instructions it must hold
 SASS_KERNELS = {"flash_bf16_kernel": ("HGMMA", "UTMALDG"), "flash_f32_kernel": (),
                 "tau_leap_kernel": ("LDGSTS", "IMMA"), "pack_spins_kernel": (),
-                "dense_field_kernel": ("LDGSTS", "IMMA")}
+                "dense_field_kernel": ("LDGSTS", "IMMA"),
+                "sparse_fields_staged": ("LDS",), "sparse_fields_global": (),
+                "colored_gibbs_kernel": ("LDS",)}
+# the 64 x 65536-site rows sparse_fields_global is timed on: as many
+# outputs as the main path's (256, 16384)
+GLOBAL_FIELDS_SHAPE = (64, 65536)
 
 
 def counters():
@@ -241,24 +260,44 @@ def check_attention(torch, ops, what, out, q, k, v, causal):
     return float(e.max()), ulps
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's SASS_KERNELS name and, for a template, its integer and bool
+    arguments (flash_bf16_kernel<128>, colored_gibbs_kernel<1>)."""
+    import re
+
+    name = next((k for k in SASS_KERNELS if k in mangled), mangled)
+    args = re.search(r"I((?:L[ib]\d+E)+)E", mangled)
+    if args:
+        name += "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
+    return name
+
+
 def sass_counts(build_dir, cuobjdump) -> dict:
     """{library: {kernel: {op: count}}} from cuobjdump -sass of each library
-    in SASS_LIBS; a kernel is named by its SASS_KERNELS entry and, for a
-    template, its first argument (flash_bf16_kernel<128>)."""
+    in SASS_LIBS, each kernel under its `kernel_name`."""
     import re
 
     out = {}
     for lib in SASS_LIBS:
         sass = subprocess.run([str(cuobjdump), "-sass", str(build_dir / f"lib{lib}.so")],
                               capture_output=True, text=True, check=True, timeout=300).stdout
-        kernels = {}
-        for chunk in sass.split("Function : ")[1:]:
-            mangled = chunk.split("\n", 1)[0].strip()
-            name = next((k for k in SASS_KERNELS if k in mangled), mangled)
-            arg = re.search(r"ILi(\d+)EE", mangled)
-            name += f"<{arg.group(1)}>" if arg else ""
-            kernels[name] = {op: len(re.findall(rf"\b{op}\b", chunk)) for op in SASS_OPS}
-        out[lib] = kernels
+        out[lib] = {kernel_name(chunk.split("\n", 1)[0].strip()):
+                    {op: len(re.findall(rf"\b{op}\b", chunk)) for op in SASS_OPS}
+                    for chunk in sass.split("Function : ")[1:]}
+    return out
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """{kernel: [ptxas's spill line, its registers line]} from a -Xptxas -v log."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = kernel_name(entry.group(1))
+        elif name and ("spill" in line or "registers" in line):
+            out.setdefault(name, []).append(line.strip())
     return out
 
 
@@ -419,6 +458,16 @@ def cpu_gates() -> int:
     return 0
 
 
+def sparse_csr(torch, prob):
+    """The (n, n) CSR coupling matrix of a SparseIsing, padded slots dropped:
+    torch.sparse.mm(csr, s.T) is the fields without b (timed only)."""
+    n, D = prob.n, prob.max_deg
+    live = torch.arange(D, device=prob.device)[None, :] < prob.deg[:, None]
+    rows = torch.arange(n, device=prob.device)[:, None].expand(n, D)[live]
+    return torch.sparse_coo_tensor(torch.stack([rows, prob.nbr_idx[live].long()]),
+                                   prob.nbr_w[live], (n, n)).coalesce().to_sparse_csr()
+
+
 def sparse_target(prob) -> float:
     """first_hit energy of a unit-weight MaxCut instance: a cut of CUT_MIN
     of its edges."""
@@ -448,6 +497,7 @@ def main() -> int:
     from repro_torch.core.sparse import SparseIsing
     from repro_torch.kernels import (_build, dense_field, flash_attention, lattice_gibbs, ops, ref,
                                      sparse_gather, tau_leap)
+    from repro_torch.kernels._checks import MAX_SMEM_BYTES
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -483,7 +533,9 @@ def main() -> int:
                for op in SASS_KERNELS.get(kernel.split("<")[0], ()) if counts[op] == 0]
     found = {k.split("<")[0] for kernels in sass.values() for k in kernels}
     missing += [f"no {k} in the libraries" for k in SASS_KERNELS if k not in found]
-    emit({"phase": "sass", "counts": sass})
+    emit({"phase": "sass", "counts": sass, "ptxas": {
+        lib: ptxas_by_kernel((build_dir / f"{lib}.log").read_text())
+        for lib in ("sparse_fields", "colored_gibbs")}})
     if missing:
         raise AssertionError("SASS: " + "; ".join(missing))
 
@@ -539,7 +591,7 @@ def main() -> int:
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
     for name in ("lattice_gibbs_sweep", "lattice_gibbs_sweep_bf16", "sparse_fields",
-                 "colored_gibbs_sweep", "flash_attention"):
+                 "sparse_fields_global", "colored_gibbs_sweep", "flash_attention"):
         err[name], mism[name] = 0.0, 0
     for B, H, W in LATTICE_SHAPES:
         s = pm1((B, H, W))
@@ -611,6 +663,7 @@ def main() -> int:
               "field_mismatches": n_field, "field_sites_resolved": n_resolved,
               "free_sites": n_free, "zero_fields": n_zero})
 
+    rows_seen = set()  # fields rows a block the cases take (0: the global kernel)
     for B, n, graph, arg in SPARSE_CASES:
         if graph == "3regular":
             sp = problems.random_3regular_maxcut(n, arg, device=dev)
@@ -628,7 +681,15 @@ def main() -> int:
         C = masks_b.shape[0]
         u = f32(rng.random((C, B, n)))
         beta = f32(rng.uniform(0.3, 3.0, B))
+        # the fields kernel is chosen by n: rows that fit one block's shared memory are staged
+        variant = "sparse_fields" if n <= MAX_SMEM_BYTES // 4 else "sparse_fields_global"
+        rows = sparse_gather.fields_rows(B, n, sparse_gather._sm_count(dev))
+        rows_seen.add(rows)
+        before = dict(sparse_gather.launches)
         h_k = sparse_gather.sparse_fields(s, idx, w, b)
+        taken = {k: sparse_gather.launches[k] - before[k] for k in before}
+        if taken != dict({k: 0 for k in before}, **{variant: 1}):
+            raise AssertionError(f"sparse_fields ({B},{n}) launched {taken}, expected one {variant}")
         h_r = ref.sparse_fields_ref(s, idx, w, b)
         fbound = FIELD_EPS * (w.abs().sum(-1) + b.abs())
         dh = (h_k - h_r).abs()
@@ -641,18 +702,31 @@ def main() -> int:
                           nofreeze, beta, tol)
         differ = out_k != out_r
         bad = int((differ & ~band).sum())
-        if n_h or bad:
+        # the sweep over the plan ColoredGibbs.init keeps, where the masks are the problem's own
+        plan_differ = None
+        if masks_b is sp.color_masks:
+            masks_i, plan_i = ColoredGibbs(backend="cuda").init(
+                sp, torch.Generator(device=dev), s0=s).aux
+            out_p = sparse_gather.colored_gibbs_sweep(s, idx, w, b, u, masks_i, beta,
+                                                      plan=plan_i)
+            plan_differ = int((out_p != out_k).sum())
+        if n_h or bad or plan_differ:
             raise AssertionError(f"sparse ({B},{n},{graph}): {n_h} fields out of bound, "
-                                 f"{bad} spins differ outside the band")
-        err["sparse_fields"] = max(err["sparse_fields"], float(dh.max()))
-        mism["sparse_fields"] += int((dh != 0).sum())
+                                 f"{bad} spins differ outside the band, {plan_differ} differ "
+                                 "between the init's plan and the wrapper's")
+        err[variant] = max(err[variant], float(dh.max()))
+        mism[variant] += int((dh != 0).sum())
         mism["colored_gibbs_sweep"] += int(differ.sum())
         err["colored_gibbs_sweep"] = max(err["colored_gibbs_sweep"],
                                          float(((out_k - out_r).abs() * ~band).max()))
         emit({"phase": "check_sparse", "B": B, "n": n, "graph": graph, "max_deg": sp.max_deg,
-              "colors": C, "unit_weights": unit, "field_max_abs_err": float(dh.max()),
+              "colors": C, "unit_weights": unit, "fields_kernel": variant, "fields_rows": rows,
+              "init_plan_mismatches": plan_differ, "field_max_abs_err": float(dh.max()),
               "field_mismatches": int((dh != 0).sum()), "sweep_mismatches": int(differ.sum()),
               "sweep_in_band": int(band.sum())})
+    if rows_seen != set(range(sparse_gather.FIELDS_MAX_ROWS + 1)):
+        raise AssertionError(f"check_sparse took the fields kernel at rows {sorted(rows_seen)}: "
+                             f"every count 0..{sparse_gather.FIELDS_MAX_ROWS} must be checked")
     torch.cuda.synchronize()
 
     # flash_attention against its plain version; inputs from their own
@@ -740,18 +814,16 @@ def main() -> int:
     u = torch.rand((C, B, n), device=dev)
     beta = torch.full((B,), 1.7, dtype=torch.float32, device=dev)
     zeros = torch.zeros(n, dtype=torch.float32, device=dev)
-    live = torch.arange(D, device=dev)[None, :] < mc.deg[:, None]  # drop padded slots
-    rows = torch.arange(n, device=dev)[:, None].expand(n, D)[live]
-    csr = torch.sparse_coo_tensor(torch.stack([rows, mc.nbr_idx[live].long()]),
-                                  mc.nbr_w[live], (n, n)).coalesce().to_sparse_csr()
+    csr = sparse_csr(torch, mc)
     s_t = s.t().contiguous()
     ms["sparse_fields"] = time_ms(torch, lambda: sparse_gather.sparse_fields(
         s, mc.nbr_idx, mc.nbr_w, zeros))
     ms["sparse_fields_plain"] = time_ms(torch, lambda: ref.sparse_fields_ref(
         s, mc.nbr_idx, mc.nbr_w, zeros))
     ms["sparse_mm"] = time_ms(torch, lambda: torch.sparse.mm(csr, s_t))
+    plan = sparse_gather.colour_plan(mc.nbr_idx, mc.nbr_w, mc.b, masks)  # once, as init builds it
     ms["colored_gibbs_sweep"] = time_ms(torch, lambda: sparse_gather.colored_gibbs_sweep(
-        s, mc.nbr_idx, mc.nbr_w, mc.b, u, masks, beta))
+        s, mc.nbr_idx, mc.nbr_w, mc.b, u, masks, beta, plan=plan))
     ms["colored_gibbs_sweep_plain"] = time_ms(torch, lambda: ops.colored_gibbs_sweep(
         s, mc.nbr_idx, mc.nbr_w, mc.b, u, masks, beta, mode="reference"))
     updated = float(masks.sum())
@@ -760,13 +832,44 @@ def main() -> int:
     bounds["colored_gibbs_sweep"] = bound(
         4 * (2 * B * n + B * updated + 2 * n * D + n + C * n + B),
         B * updated * (2 * D + 6), FP32_OPS_PER_S)
+    # The sweep's sector floor: the uniforms a phase reads lie spread over its
+    # (B, n) plane, so in the (C, B, n) layout they cost every 32-byte sector
+    # they touch; plus s, the new s, the plan and beta.
+    u_sectors = sum(int(torch.unique(plan.sites[a:z] // 8).numel())
+                    for a, z in zip(plan.offsets[:-1].tolist(), plan.offsets[1:].tolist()))
+    plan_bytes = sum(x.numel() * x.element_size() for x in (plan.offsets, plan.idx, plan.w))
+    sector_floor_ms = (4 * 2 * B * n + 32 * B * u_sectors + plan_bytes + 4 * B) / HBM_BYTES_PER_S * 1e3
+
+    # sparse_fields_global, the kernel for rows too long to stage, at as many
+    # outputs as the main path's: its own bound, plain version and library call
+    Bg, ng = GLOBAL_FIELDS_SHAPE
+    mg = problems.random_3regular_maxcut(ng, 2, device=dev)
+    sg = pm1((Bg, ng))
+    zg = torch.zeros(ng, dtype=torch.float32, device=dev)
+    csr_g, sg_t = sparse_csr(torch, mg), sg.t().contiguous()
+    before = dict(sparse_gather.launches)
+    sparse_gather.sparse_fields(sg, mg.nbr_idx, mg.nbr_w, zg)
+    if sparse_gather.launches["sparse_fields_global"] != before["sparse_fields_global"] + 1:
+        raise AssertionError(f"sparse_fields at {GLOBAL_FIELDS_SHAPE} did not take the global kernel")
+    ms["sparse_fields_global"] = time_ms(torch, lambda: sparse_gather.sparse_fields(
+        sg, mg.nbr_idx, mg.nbr_w, zg))
+    ms["sparse_fields_global_plain"] = time_ms(torch, lambda: ref.sparse_fields_ref(
+        sg, mg.nbr_idx, mg.nbr_w, zg))
+    ms["sparse_mm_global"] = time_ms(torch, lambda: torch.sparse.mm(csr_g, sg_t))
+    bounds["sparse_fields_global"] = bound(4 * (2 * Bg * ng + 2 * ng * mg.max_deg + ng),
+                                           Bg * ng * (2 * mg.max_deg + 1), FP32_OPS_PER_S)
+    del mg, sg, zg, csr_g, sg_t
     emit({"phase": "timing_gibbs", "lattice_shape": lattice_shape, "sparse_shape": [B, n],
           "max_deg": D, "colors": C, "ms": {k: ms[k] for k in ms if k not in (
               "dense_field", "dense_field_plain", "tau_leap_step", "tau_leap_step_plain",
               "int_mm")},
           "bound_ms": {k: bounds[k][0] for k in (
               "lattice_gibbs_sweep", "lattice_gibbs_sweep_bf16", "sparse_fields",
-              "colored_gibbs_sweep")},
+              "sparse_fields_global", "colored_gibbs_sweep")},
+          "colored_gibbs_sweep_sector_floor_ms": sector_floor_ms,
+          "sparse_fields_global_shape": list(GLOBAL_FIELDS_SHAPE),
+          "sparse_fields_rows_per_block": sparse_gather.fields_rows(
+              B, n, sparse_gather._sm_count(dev)),
           "nvidia_smi": smi})
 
     # flash_attention at the main_attention shapes, causal bf16, beside its
@@ -1032,11 +1135,19 @@ def main() -> int:
              bf16_bound_ms=bounds["lattice_gibbs_sweep_bf16"][0],
              bf16_max_abs_err=err["lattice_gibbs_sweep_bf16"],
              bf16_mismatches=mism["lattice_gibbs_sweep_bf16"]),
-        entry("sparse_fields", csrc + "sparse_fields.cu", "src/repro/kernels/sparse_gather.py:90",
-              sparse_fields_launches["sparse_fields"], "sparse_mm"),
-        entry("colored_gibbs_sweep", csrc + "colored_gibbs.cu",
-              "src/repro/kernels/sparse_gather.py:126",
-              sp["cuda_first_hit"]["launches"]["colored_gibbs_sweep"], None),
+        dict(entry("sparse_fields", csrc + "sparse_fields.cu",
+                   "src/repro/kernels/sparse_gather.py:90",
+                   sparse_fields_launches["sparse_fields"], "sparse_mm"),
+             **{f"global_{key}": value for key, value in entry(
+                 "sparse_fields_global", csrc + "sparse_fields.cu",
+                 "src/repro/kernels/sparse_gather.py:90",
+                 sparse_fields_launches["sparse_fields_global"], "sparse_mm_global").items()
+                if key not in ("name", "route", "source", "replaces")},
+             global_shape=list(GLOBAL_FIELDS_SHAPE)),
+        dict(entry("colored_gibbs_sweep", csrc + "colored_gibbs.cu",
+                   "src/repro/kernels/sparse_gather.py:126",
+                   sp["cuda_first_hit"]["launches"]["colored_gibbs_sweep"], None),
+             sector_floor_ms=sector_floor_ms),
         dict(entry("flash_attention", csrc + "flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:85",
                    sum(a["launches"]["flash_attention"] for a in attention.values()), "sdpa"),

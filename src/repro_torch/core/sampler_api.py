@@ -74,6 +74,7 @@ from repro_torch.core.ising import DenseIsing, LatticeIsing, king_color_masks, r
 from repro_torch.core.sparse import SparseIsing
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import broadcast_rows
+from repro_torch.kernels.sparse_gather import colour_plan
 
 
 class NonFiniteEnergyError(ValueError):
@@ -417,10 +418,11 @@ class ColoredGibbs:
     1/lambda0 per sweep).
 
     `backend="cuda"` runs the whole sweep of all chains as ONE launch of
-    `ops.colored_gibbs_sweep`, each row with its own beta. The ref path
-    recomputes the gathered fields once per color phase. Both draw the
-    sweep's (C, n_chains, n) uniforms in one call and sum the fields in the
-    same slot order."""
+    `ops.colored_gibbs_sweep`, each row with its own beta, over the colour
+    plan that `init` builds once (its one wait for the device is there, not
+    in the step loop). The ref path recomputes the gathered fields once per
+    color phase. Both draw the sweep's (C, n_chains, n) uniforms in one call
+    and sum the fields in the same slot order."""
 
     backends = ("ref", "cuda")
     problem_kinds = ("sparse",)
@@ -442,18 +444,21 @@ class ColoredGibbs:
         if s0 is None:
             s0 = random_init(generator, (n_chains, problem.n), device=dev)
         masks = problem.color_masks
-        aux = masks.float() if self.backend == "cuda" else masks
+        aux = masks
+        if self.backend == "cuda":  # the plan of the very masks step() passes the kernel
+            fmasks = masks.float()
+            aux = (fmasks, colour_plan(problem.nbr_idx, problem.nbr_w, problem.b, fmasks))
         t0 = torch.zeros((s0.shape[0],), dtype=torch.float32, device=dev)
         return KernelState(s=s0, t=t0, e=None, aux=aux)
 
     def step(self, problem: SparseIsing, state, generator, beta) -> KernelState:
         """One sweep over the graph's color classes for every chain."""
         s = state.s
-        masks = state.aux
+        masks, plan = state.aux if self.backend == "cuda" else (state.aux, None)
         u = torch.rand((masks.shape[0],) + tuple(s.shape), generator=generator, device=s.device)
         if self.backend == "cuda":
             s = ops.colored_gibbs_sweep(
-                s, problem.nbr_idx, problem.nbr_w, problem.b, u, masks, beta=beta
+                s, problem.nbr_idx, problem.nbr_w, problem.b, u, masks, beta=beta, plan=plan
             )
         else:
             b = broadcast_rows(beta, s)

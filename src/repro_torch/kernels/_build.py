@@ -39,8 +39,8 @@ LAUNCHERS = {
     "dense_field": ("dense_field_launch", [_P, _P, _P, _P, _P, _I, _I, _P]),
     "tau_leap": ("tau_leap_launch", [_P] * 9 + [_I] * 3 + [_P]),
     "lattice_gibbs": ("lattice_gibbs_launch", [_P] * 9 + [_I] * 5 + [_P]),
-    "sparse_fields": ("sparse_fields_launch", [_P] * 5 + [_I] * 3 + [_P]),
-    "colored_gibbs": ("colored_gibbs_launch", [_P] * 8 + [_I] * 4 + [_P]),
+    "sparse_fields": ("sparse_fields_launch", [_P] * 5 + [_I] * 5 + [_P]),
+    "colored_gibbs": ("colored_gibbs_launch", [_P] * 7 + [_I] * 6 + [_P]),
     "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 6 + [_P]),
 }
 

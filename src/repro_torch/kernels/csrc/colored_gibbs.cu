@@ -2,80 +2,198 @@
 // of a sparse graph, all chains as the B rows of one launch. Replaces the
 // TPU kernel repro/kernels/sparse_gather.py::colored_gibbs_sweep.
 // Memory-bound: at (256, 16384), D = 3, C = 4 it must move about 51 MB,
-// 15 us at 3.35 TB/s (see kernels/sparse_gather.py).
+// 15 us at 3.35 TB/s, counting only the uniforms of the updated sites; the
+// (C, B, n) layout of the uniforms spreads those over 45 MB of 32-byte
+// sectors, so about 79 MB, 24 us, is the floor of any kernel that reads
+// them in that layout (see kernels/sparse_gather.py).
 //
 // For each colour c in order, at every site i with masks[c][i] > 0.5, from
 // the state before the phase:
 //   h_i  = the in-order slot sum of sparse_gather.cuh
 //   s[i] = u[c][r][i] < sigma(-2 * (beta_r * h_i)) ? +1 : -1
 //
-// s: (B, n) f32 +-1, nbr_idx: (n, D) int32, nbr_w: (n, D) f32, b: (n,),
-// u: (C, B, n), masks: (C, n) f32 {0,1}, beta: (B,), out: (B, n) f32
-// (never aliasing s).
+// The masks come as a colour plan (sparse_gather.colour_plan): for colour
+// c, the entries offsets[c] .. offsets[c+1]-1, one per site of the colour
+// in ascending order, each a row of P int32 (the D neighbour indices, pads,
+// the site last) and a row of P f32 (the D couplings, pads, b_i last), P a
+// multiple of 4 > D. So a phase reads contiguous table rows, one 16-byte
+// load of each at D <= 3, and never the masks.
 //
-// Design: one block per chain (row) holds the row's n spins in shared
-// memory as int8 +-1, in two buffers (2n bytes: 32 KB at n = 16384): each
-// phase reads one and writes every site of the other, then one barrier,
-// then the buffers swap. So every field of a phase sees the state before
-// the phase for any masks, as in JAX. The tables (nbr_idx, nbr_w, b, masks:
-// 0.7 MB at n = 16384, D = 3, C = 4) are read by every block through the
-// read-only cache and stay in L2.
+// s: (B, n) f32 +-1, u: (C, B, n), beta: (B,), out: (B, n) f32 (never
+// aliasing s).
+//
+// Design: a block holds one chain (row) in shared memory as int8 +-1, in
+// two buffers (2n bytes: 32 KB at n = 16384; two blocks of 1024 threads an
+// SM). Phase c: each thread takes entries of the colour's list, two at a
+// time; it loads both entries, then their uniforms u[c][r][site] (they
+// depend on the site, not the spins), then gathers their fields from
+// `cur`, and writes the new spins to `nxt`; barrier; the same entries copy
+// `nxt` back to `cur`; barrier. A phase touches only its own sites, and
+// every field of a phase sees the state before it, for any masks. What
+// holds it back (chip_ablate.py, PERF.md): the uniforms' scattered sectors
+// come from device memory while nothing else overlaps them, and the row's
+// load and store bracket the phases.
 #include "glauber.cuh"
 #include "sparse_gather.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(1024)
-colored_gibbs_kernel(const float* __restrict__ s, const int* __restrict__ idx,
-                     const float* __restrict__ w, const float* __restrict__ b,
-                     const float* __restrict__ u, const float* __restrict__ masks,
-                     const float* __restrict__ beta, float* __restrict__ out, int B, int n,
-                     int D, int C) {
-  extern __shared__ int8_t smem[];
-  int8_t* cur = smem;
-  int8_t* nxt = smem + n;
-  const int r = blockIdx.x;
-  const size_t base = static_cast<size_t>(r) * n;
-  const float br = beta[r];
+// A site's table entry: its index, its bias and its D slots (at most 3 and
+// held in registers when kPacked, P = 4).
+template <bool kPacked>
+struct Entry;
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) cur[i] = s[base + i] > 0.0f ? 1 : -1;
+template <>
+struct Entry<true> {
+  int4 idx;
+  float4 w;
+  Entry() = default;
+  __device__ __forceinline__ Entry(const int* tidx, const float* tw, int j, int) {
+    idx = __ldg(reinterpret_cast<const int4*>(tidx) + j);
+    w = __ldg(reinterpret_cast<const float4*>(tw) + j);
+  }
+  __device__ __forceinline__ int site() const { return idx.w; }
+  __device__ __forceinline__ float bias() const { return w.w; }
+  __device__ __forceinline__ float field(const int8_t* cur, int n, int D) const {
+    const int ix[3] = {idx.x, idx.y, idx.z};
+    const float wx[3] = {w.x, w.y, w.z};
+    float acc[1] = {0.0f};
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      if (k < D) sparse_gather::add_slot<1>(acc, cur, 0, ix[k], wx[k], n);
+    return acc[0];
+  }
+};
+
+template <>
+struct Entry<false> {
+  const int* idx;
+  const float* w;
+  int P;
+  Entry() = default;
+  __device__ __forceinline__ Entry(const int* tidx, const float* tw, int j, int P_)
+      : idx(tidx + static_cast<size_t>(j) * P_), w(tw + static_cast<size_t>(j) * P_), P(P_) {}
+  __device__ __forceinline__ int site() const { return __ldg(idx + P - 1); }
+  __device__ __forceinline__ float bias() const { return __ldg(w + P - 1); }
+  __device__ __forceinline__ float field(const int8_t* cur, int n, int D) const {
+    float acc[1] = {0.0f};
+    for (int k = 0; k < D; ++k)
+      sparse_gather::add_slot<1>(acc, cur, 0, __ldg(idx + k), __ldg(w + k), n);
+    return acc[0];
+  }
+};
+
+constexpr int kUnroll = 2;  // entries a thread walks at once, their loads issued together
+
+__device__ __forceinline__ int8_t spin(float v) { return v > 0.0f ? 1 : -1; }
+
+// Two 1024-thread blocks an SM: ptxas keeps the kernel to 32 registers.
+template <bool kPacked>
+__global__ void __launch_bounds__(1024, 2)
+colored_gibbs_kernel(const float* __restrict__ s, const int* __restrict__ offsets,
+                     const int* __restrict__ tidx, const float* __restrict__ tw,
+                     const float* __restrict__ u, const float* __restrict__ beta,
+                     float* __restrict__ out, int B, int n, int D, int P, int C) {
+  extern __shared__ __align__(16) int8_t smem[];
+  int8_t* cur = smem;      // [n]
+  int8_t* nxt = smem + n;  // [n]
+  const int T = blockDim.x, t = threadIdx.x;
+  const size_t base = static_cast<size_t>(blockIdx.x) * n;
+  const float br = __ldg(beta + blockIdx.x);
+  // rows of whole 16-byte groups: s and out move 16 bytes a thread
+  const bool vec = (n & 3) == 0 && (reinterpret_cast<uintptr_t>(s) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+
+  if (vec) {
+    char4* c4 = reinterpret_cast<char4*>(cur);
+    sparse_gather::stream_in(reinterpret_cast<const float4*>(s + base), n >> 2, t, T,
+                             [&](int q, float4 v) {
+                               c4[q] = make_char4(spin(v.x), spin(v.y), spin(v.z), spin(v.w));
+                             });
+  } else {
+    sparse_gather::stream_in(s + base, n, t, T, [&](int q, float v) { cur[q] = spin(v); });
+  }
   __syncthreads();
 
   for (int c = 0; c < C; ++c) {
-    const float* m = masks + static_cast<size_t>(c) * n;
-    const float* uc = u + static_cast<size_t>(c) * B * n + base;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      int8_t v = cur[i];
-      if (__ldg(m + i) > 0.5f) {
-        const float h = sparse_gather::field(cur, idx, w, b, i, n, D);
-        v = uc[i] < glauber::prob_up(br, h) ? 1 : -1;
+    const int beg = __ldg(offsets + c), end = __ldg(offsets + c + 1);
+    const float* uc = u + static_cast<size_t>(c) * B * n;
+    for (int j0 = beg + t; j0 < end; j0 += kUnroll * T) {
+      Entry<kPacked> e[kUnroll];
+      int site[kUnroll];
+      float ur[kUnroll], h[kUnroll], bias[kUnroll];
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q)  // a missing entry repeats j0: the same spin is written twice
+        e[q] = Entry<kPacked>(tidx, tw, j0 + q * T < end ? j0 + q * T : j0, P);
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) {
+        site[q] = e[q].site();
+        bias[q] = e[q].bias();
+        ur[q] = __ldg(uc + base + site[q]);
       }
-      nxt[i] = v;
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) h[q] = e[q].field(cur, n, D);
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q)
+        nxt[site[q]] = ur[q] < glauber::prob_up(br, __fadd_rn(h[q], bias[q])) ? 1 : -1;
     }
     __syncthreads();
-    int8_t* t = cur;
-    cur = nxt;
-    nxt = t;
+    for (int j0 = beg + t; j0 < end; j0 += kUnroll * T) {
+      int site[kUnroll];  // each entry's site, the last column of its row
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) {
+        const int j = j0 + q * T < end ? j0 + q * T : j0;
+        site[q] = __ldg(tidx + static_cast<size_t>(j) * P + P - 1);
+      }
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) cur[site[q]] = nxt[site[q]];
+    }
+    __syncthreads();
   }
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) out[base + i] = static_cast<float>(cur[i]);
+  if (vec) {
+    const char4* c4 = reinterpret_cast<const char4*>(cur);
+    float4* o4 = reinterpret_cast<float4*>(out + base);
+    for (int q = t; q < (n >> 2); q += T) {
+      const char4 v = c4[q];
+      o4[q] = make_float4(v.x, v.y, v.z, v.w);
+    }
+  } else {
+    for (int i = t; i < n; i += T) out[base + i] = static_cast<float>(cur[i]);
+  }
+}
+
+template <bool kPacked>
+cudaError_t launch(const float* s, const int* offsets, const int* tidx, const float* tw,
+                   const float* u, const float* beta, float* out, int B, int n, int D, int P,
+                   int C, int threads, cudaStream_t stream) {
+  const size_t smem = 2 * static_cast<size_t>(n);
+  const cudaError_t err = glauber::allow_smem(colored_gibbs_kernel<kPacked>, smem);
+  if (err != cudaSuccess) return err;
+  colored_gibbs_kernel<kPacked><<<B, threads, smem, stream>>>(s, offsets, tidx, tw, u, beta,
+                                                              out, B, n, D, P, C);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (or the attribute call's
-// error). The caller has checked that 2 * n bytes fit in one block.
-extern "C" int colored_gibbs_launch(const void* s, const void* idx, const void* w,
-                                    const void* b, const void* u, const void* masks,
-                                    const void* beta, void* out, int B, int n, int D, int C,
-                                    void* stream) {
-  const size_t smem = 2 * static_cast<size_t>(n);
-  cudaError_t err = glauber::allow_smem(colored_gibbs_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  colored_gibbs_kernel<<<B, glauber::threads_for(n), smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(s), static_cast<const int*>(idx),
-      static_cast<const float*>(w), static_cast<const float*>(b),
-      static_cast<const float*>(u), static_cast<const float*>(masks),
-      static_cast<const float*>(beta), static_cast<float*>(out), B, n, D, C);
-  return static_cast<int>(cudaGetLastError());
+// One block of `threads` threads a chain. Returns cudaGetLastError() after
+// the launch (or the attribute call's error). The caller has checked that
+// 2n bytes fit in one block and that the plan has P % 4 == 0, P > D.
+extern "C" int colored_gibbs_launch(const void* s_, const void* offsets_, const void* tidx_,
+                                    const void* tw_, const void* u_, const void* beta_,
+                                    void* out_, int B, int n, int D, int P, int C, int threads,
+                                    void* stream_) {
+  const auto* s = static_cast<const float*>(s_);
+  const auto* offsets = static_cast<const int*>(offsets_);
+  const auto* tidx = static_cast<const int*>(tidx_);
+  const auto* tw = static_cast<const float*>(tw_);
+  const auto* u = static_cast<const float*>(u_);
+  const auto* beta = static_cast<const float*>(beta_);
+  auto* out = static_cast<float*>(out_);
+  const auto stream = static_cast<cudaStream_t>(stream_);
+  const cudaError_t err =
+      P == 4 ? launch<true>(s, offsets, tidx, tw, u, beta, out, B, n, D, P, C, threads, stream)
+             : launch<false>(s, offsets, tidx, tw, u, beta, out, B, n, D, P, C, threads, stream);
+  return static_cast<int>(err);
 }

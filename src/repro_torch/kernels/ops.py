@@ -68,14 +68,16 @@ def sparse_fields(s, nbr_idx, nbr_w, b, mode: str = "auto") -> torch.Tensor:
 
 
 def colored_gibbs_sweep(
-    s, nbr_idx, nbr_w, b, uniforms, masks, beta=None, mode: str = "auto"
+    s, nbr_idx, nbr_w, b, uniforms, masks, beta=None, mode: str = "auto", plan=None
 ) -> torch.Tensor:
     """One fused chromatic Gibbs sweep over the (B,n) chains of a sparse
     graph: the JAX signature (masks as f32 {0,1}), with `beta` as in
-    `lattice_gibbs_sweep`."""
+    `lattice_gibbs_sweep`. `plan` is `sparse_gather.colour_plan` of these
+    tables and masks, built once per problem; without one the kernel's
+    wrapper builds it per call. The plain version reads the masks."""
     beta = _row_beta(beta, s)
     if _use_kernel(s, mode):
-        return _sg.colored_gibbs_sweep(s, nbr_idx, nbr_w, b, uniforms, masks, beta)
+        return _sg.colored_gibbs_sweep(s, nbr_idx, nbr_w, b, uniforms, masks, beta, plan)
     return _ref.colored_gibbs_sweep_ref(s, nbr_idx, nbr_w, b, uniforms, masks > 0.5, beta)
 
 

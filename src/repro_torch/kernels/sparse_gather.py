@@ -2,11 +2,12 @@
 
 Two kernels over the padded `SparseIsing` layout (`repro_torch.core.sparse`):
 
-  sparse_fields        — local fields h = gather(s, nbr_idx) . nbr_w + b,
-                         one thread per (row, site). Source
-                         `csrc/sparse_fields.cu`.
+  sparse_fields        — local fields h = gather(s, nbr_idx) . nbr_w + b.
+                         Source `csrc/sparse_fields.cu`, two kernels chosen
+                         by n (below), counted apart in `launches`.
   colored_gibbs_sweep  — one chromatic Gibbs sweep over all colour classes,
-                         one block per chain. Source `csrc/colored_gibbs.cu`.
+                         one chain a block, driven by a colour plan (below).
+                         Source `csrc/colored_gibbs.cu`.
 
 Both sum a site's slots in order through `csrc/sparse_gather.cuh`, as
 `ref.sparse_fields_ref` does, so each equals its plain version bit for bit.
@@ -19,29 +20,126 @@ in VMEM; the JAX driver vmaps a B = 1 sweep per chain with a scalar beta,
 here each row carries its own beta.
 
 What bounds them on the H100, at (B, n) = (256, 16384), D = 3, C = 4 (the
-greedy colouring of `random_3regular_maxcut(16384, 0)`):
+greedy colouring of `random_3regular_maxcut(16384, 0)`: classes of 6147,
+5997, 3807 and 433 sites):
   sparse_fields reads s (16.8 MB) and the tables (0.5 MB) and writes h
   (16.8 MB): about 34 MB, 10 µs at 3.35 TB/s.
   colored_gibbs_sweep reads s, one uniform per site (a proper colouring
   updates each site once: 16.8 MB of the (C, B, n) uniforms) and the
   tables (0.7 MB with the masks), and writes the new s: about 51 MB,
-  15 µs. Their arithmetic is negligible: both are memory-bound.
+  15 µs. But a phase's sites are spread over the index space, so its
+  uniforms touch 90%, 94%, 68% and 16% of the 32-byte sectors of the
+  phase's plane: 45 MB of sectors, so about 79 MB and 24 µs is the floor
+  of any kernel that reads the uniforms in the JAX layout.
+Their arithmetic is negligible: both are memory-bound.
 
-What the design does about it: the sweep keeps a chain's spins in shared
-memory (int8, two buffers: 32 KB at n = 16384), so its C phases gather from
-shared memory and touch device memory only for the uniforms of the sites
-they update; the tables come through the read-only cache and stay in L2 for
-every block. sparse_fields reads each row's spins from L1/L2 as it
-gathers them; its table reads are coalesced.
+What the designs do about it:
+  sparse_fields stages R whole rows of s in shared memory (R * 4n bytes)
+  and walks their sites, loading each site's table entry once for the R
+  rows: the tables are read B/R times, and the random gathers hit shared
+  memory instead of a 32-byte sector each. Rows of n > 58112 sites do not
+  fit one block (227 KB): they take the one-thread-per-output kernel that
+  gathers through the cache, `sparse_fields_global`. The choice is by n
+  (`fields_rows`), never a fallback.
+  colored_gibbs_sweep keeps one chain a block in shared memory (int8, two
+  buffers: 2n bytes, two blocks an SM) and walks, in each phase, only that
+  colour's entries of a colour plan (`colour_plan`): contiguous table
+  rows, one 16-byte load of indices and one of weights per site at D <= 3.
+  It reads no masks and gathers from shared memory; the new spins go to
+  the second buffer and are copied back after a barrier, so every phase
+  sees the state before it for any masks. The plan records the tables and
+  masks it was built from, and the kernel takes it only with those.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import MAX_SMEM_BYTES, check_cuda, check_tensor
 
-launches = {"sparse_fields": 0, "colored_gibbs_sweep": 0}  # chip_smoke.py resets and reads these
+# chip_smoke.py resets and reads these; "sparse_fields" counts the staged
+# kernel, "sparse_fields_global" the one for rows too long to stage
+launches = {"sparse_fields": 0, "sparse_fields_global": 0, "colored_gibbs_sweep": 0}
+
+# Rows a fields block stages, at most, and the threads of a block of
+# either kernel (chip_ablate.py times 1, 2 and 3 rows and 256, 512 and
+# 1024 threads).
+FIELDS_MAX_ROWS = 3
+BLOCK_THREADS = 1024
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _block_threads(n: int) -> int:
+    """Threads of a block that walks n sites: n rounded up to a warp, at most BLOCK_THREADS."""
+    return max(32, min(BLOCK_THREADS, (n + 31) // 32 * 32))
+
+
+def fields_rows(B: int, n: int, sms: int) -> int:
+    """Rows a block of `sparse_fields` stages: enough blocks to cover the
+    card's `sms` SMs, at most FIELDS_MAX_ROWS and what fits in one block's
+    shared memory; 0 when not one row fits (n > 58112): the global kernel."""
+    fit = MAX_SMEM_BYTES // (4 * n)
+    return min(FIELDS_MAX_ROWS, fit, max(1, -(-B // sms)))
+
+
+class ColourPlan(NamedTuple):
+    """The colour classes of a sparse problem as the sweep kernel walks them.
+
+    offsets: (C+1,) int32 — colour c's entries are offsets[c]:offsets[c+1].
+    idx:     (L, P) int32 — per entry the D neighbour indices, pads, and
+             the entry's site in the last column.
+    w:       (L, P) f32   — the D couplings, zero pads, and b_site last.
+    counts:  the C list lengths, on the host.
+    n, D:    the problem's sites and neighbour slots.
+    source:  (tensor, version) of each of nbr_idx, nbr_w, b and masks as
+             the plan read them: the kernel takes the plan only with these
+             very tensors, unchanged since (`check_plan`).
+
+    P is the least multiple of 4 above D, so an entry is 16 bytes of each
+    at D <= 3. A colour lists its sites in ascending order; a site in two
+    masks is in both lists, an empty colour has an empty list."""
+
+    offsets: torch.Tensor
+    idx: torch.Tensor
+    w: torch.Tensor
+    counts: tuple
+    n: int
+    D: int
+    source: tuple
+
+    @property
+    def sites(self) -> torch.Tensor:
+        """(L,) the site of every entry, colour by colour."""
+        return self.idx[:, -1]
+
+
+def colour_plan(nbr_idx: torch.Tensor, nbr_w: torch.Tensor, b: torch.Tensor,
+                masks: torch.Tensor) -> ColourPlan:
+    """The colour plan of (C, n) masks (bool, or f32 with a site in colour c
+    where masks[c] > 0.5) over the (n, D) tables, on the tables' device.
+    Waits for the device once (the lists' lengths): build it once per
+    problem, not per sweep, and pass the kernel these same tensors."""
+    n, D = nbr_idx.shape
+    sel = masks.to(torch.float32) > 0.5
+    counts = sel.sum(1)
+    _, sites = sel.nonzero(as_tuple=True)  # row-major: colour by colour, sites ascending
+    P = (D // 4 + 1) * 4
+    offsets = torch.zeros(sel.shape[0] + 1, dtype=torch.int32, device=nbr_idx.device)
+    offsets[1:] = counts.cumsum(0)
+    idx = sites.to(torch.int32)[:, None].repeat(1, P)  # pads and the last column: the site
+    idx[:, :D] = nbr_idx[sites]
+    w = torch.zeros((sites.shape[0], P), dtype=torch.float32, device=nbr_idx.device)
+    w[:, :D] = nbr_w[sites]
+    w[:, -1] = b[sites]
+    source = tuple((x, x._version) for x in (nbr_idx, nbr_w, b, masks))
+    return ColourPlan(offsets, idx, w, tuple(counts.tolist()), n, D, source)
 
 
 def _check_tables(s, nbr_idx, nbr_w, b):
@@ -63,22 +161,63 @@ def _check_tables(s, nbr_idx, nbr_w, b):
     return dev, B, n, D
 
 
+def check_plan(plan: ColourPlan, nbr_idx, nbr_w, b, masks) -> None:
+    """Raise unless `plan` is `colour_plan` of these very tensors, none of
+    them changed in place since, with well-formed tables on their device."""
+    if not isinstance(plan, ColourPlan):
+        raise TypeError(f"plan must be a ColourPlan (sparse_gather.colour_plan), got {type(plan)}")
+    (n, D), C, dev = nbr_idx.shape, masks.shape[0], nbr_idx.device
+    if (plan.n, plan.D, len(plan.counts)) != (n, D, C):
+        raise ValueError(f"the plan is of (n, D, C) = ({plan.n}, {plan.D}, {len(plan.counts)}), "
+                         f"the operands of ({n}, {D}, {C})")
+    for name, x, (src, version) in zip(("nbr_idx", "nbr_w", "b", "masks"),
+                                       (nbr_idx, nbr_w, b, masks), plan.source):
+        if x is not src:
+            raise ValueError(f"the plan was built from another {name}: build it with "
+                             "colour_plan from the tensors passed here")
+        if x._version != version:
+            raise ValueError(f"{name} changed in place after the plan was built: build it again")
+    L, P = sum(plan.counts), (D // 4 + 1) * 4
+    check_tensor("plan.offsets", plan.offsets, torch.int32, (C + 1,), dev)
+    check_tensor("plan.idx", plan.idx, torch.int32, (L, P), dev)
+    check_tensor("plan.w", plan.w, torch.float32, (L, P), dev)
+    if L >= 2**31:
+        raise ValueError(f"a plan of {L} entries overflows the kernel's int32 offsets")
+
+
+def _launch_fields(s, nbr_idx, nbr_w, b, out, rows: int, threads: int, device) -> None:
+    B, n = s.shape
+    code = _build.launcher("sparse_fields")(
+        s.data_ptr(), nbr_idx.data_ptr(), nbr_w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        B, n, nbr_idx.shape[1], rows, threads, torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check("sparse_fields", code)
+
+
+def _launch_sweep(s, plan: ColourPlan, uniforms, beta, out, threads: int, device) -> None:
+    B, n = s.shape
+    code = _build.launcher("colored_gibbs")(
+        s.data_ptr(), plan.offsets.data_ptr(), plan.idx.data_ptr(), plan.w.data_ptr(),
+        uniforms.data_ptr(), beta.data_ptr(), out.data_ptr(), B, n, plan.D, plan.idx.shape[1],
+        len(plan.counts), threads, torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check("colored_gibbs_sweep", code)
+
+
 def sparse_fields(
     s: torch.Tensor, nbr_idx: torch.Tensor, nbr_w: torch.Tensor, b: torch.Tensor
 ) -> torch.Tensor:
-    """Launch the CUDA kernel: (B,n) f32 spins, (n,D) int32 neighbour
+    """Launch the CUDA kernel: (B,n) f32 values, (n,D) int32 neighbour
     indices in [0, n), (n,D) f32 couplings and (n,) f32 bias, all contiguous
-    on one sm_90 device -> (B,n) f32 fields."""
+    on one sm_90 device -> (B,n) f32 fields. Rows of n <= 58112 sites go to
+    the staged kernel, longer ones to the global one (`fields_rows`)."""
     dev, B, n, D = _check_tables(s, nbr_idx, nbr_w, b)
     out = torch.empty((B, n), dtype=torch.float32, device=dev)
     if B == 0 or n == 0:
         return out
-    code = _build.launcher("sparse_fields")(
-        s.data_ptr(), nbr_idx.data_ptr(), nbr_w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        B, n, D, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check("sparse_fields", code)
-    launches["sparse_fields"] += 1
+    rows = fields_rows(B, n, _sm_count(dev))
+    _launch_fields(s, nbr_idx, nbr_w, b, out, rows, _block_threads(n), dev)
+    launches["sparse_fields" if rows else "sparse_fields_global"] += 1
     return out
 
 
@@ -90,10 +229,13 @@ def colored_gibbs_sweep(
     uniforms: torch.Tensor,
     masks: torch.Tensor,
     beta: torch.Tensor,
+    plan: ColourPlan | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel: the operands of `sparse_fields` plus (C,B,n)
     f32 uniforms, (C,n) f32 {0,1} colour masks and (B,) f32 per-row beta
-    -> new (B,n) f32 spins in a fresh tensor."""
+    -> new (B,n) f32 spins in a fresh tensor. `plan` is `colour_plan` of
+    these very tables and masks (`check_plan`); without one the call
+    builds it (and waits for the device once)."""
     dev, B, n, D = _check_tables(s, nbr_idx, nbr_w, b)
     C = masks.shape[0] if masks.ndim == 2 else -1
     check_tensor("masks", masks, torch.float32, (C, n), dev)
@@ -104,14 +246,12 @@ def colored_gibbs_sweep(
             f"n = {n} sites need {2 * n} bytes of shared memory per block (two "
             f"int8 copies of a chain); the card allows {MAX_SMEM_BYTES}"
         )
+    if plan is None:
+        plan = colour_plan(nbr_idx, nbr_w, b, masks)
+    check_plan(plan, nbr_idx, nbr_w, b, masks)
     out = torch.empty((B, n), dtype=torch.float32, device=dev)
     if B == 0 or n == 0:
         return out
-    code = _build.launcher("colored_gibbs")(
-        s.data_ptr(), nbr_idx.data_ptr(), nbr_w.data_ptr(), b.data_ptr(), uniforms.data_ptr(),
-        masks.data_ptr(), beta.data_ptr(), out.data_ptr(), B, n, D, C,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check("colored_gibbs_sweep", code)
+    _launch_sweep(s, plan, uniforms, beta, out, _block_threads(n), dev)
     launches["colored_gibbs_sweep"] += 1
     return out
