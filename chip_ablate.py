@@ -4,6 +4,7 @@
     python3 chip_ablate.py            # from the repository root, on a machine with the card
     python3 chip_ablate.py int8       # only the int8 mainloop
     python3 chip_ablate.py sparse     # only the two sparse kernels
+    python3 chip_ablate.py lattice    # only the lattice sweep
 
 int8: builds variants of dense_field (src/repro_torch/kernels/csrc/dense_field.cu
 over int8_field.cuh), each with one thing compiled out or changed, and
@@ -47,6 +48,29 @@ library's launcher:
                  uniforms: L2 hits) — these five time only; first_port (the first
                  port's kernel: one block per chain, every phase over all n
                  sites reading the masks)
+
+lattice: times the lattice sweep's two kernels on cal_problem() at
+(B, H, W) = (4096, 16, 16), the CAL main path's sweep (king masks, no
+frozen site, beta = 1.7), in f32 (bf16: the bases and the walking loop):
+
+  plan_*     the plan kernel (lattice_gibbs_sweep) at the wrapper's chains
+             a block: base; no_u (a constant for the uniforms); u_l2 (every
+             chain reads chain 0's uniforms: L2 hits); no_phases (the
+             chains loaded and stored only); empty (the launch alone);
+             minb1 (no register cap); store_early (each site written to
+             the output in its phase, no output pass: exact here, with
+             every site in one list and none frozen); base_cpbN (1 to 16 chains
+             a block, 64 to 1024 threads); loop (no prefetch: the walking
+             loop of large lattices)
+  generic_*  the two-buffer kernel (lattice_gibbs_generic, the first
+             port's design): base; no_u; u_first (the uniform loaded before the
+             stencil); in_place (one buffer); colour_only (in place, only
+             the colour's sites walked); w_smem (weights, b and masks
+             staged in shared memory); cpb1 (one chain, 256 threads a
+             block); t256, t512 (4 chains at 256 or 512 threads);
+             cpb16_t1024; empty; combined (u_first + colour_only +
+             w_smem). in_place, colour_only and combined are exact for
+             independent masks only.
 
 Prints one JSON line per (shape, variant) group, then the card's name and
 power limit. The variants are built from patched copies of the sources in
@@ -424,6 +448,202 @@ def ablate_sparse(torch, np, chip_smoke, dev) -> None:
         del s, u, out, want, band
 
 
+# -- the lattice sweep ----------------------------------------------------------
+
+def patched_lattice() -> str:
+    """lattice_gibbs.cu with each ablation of the plan kernel and of the
+    two-buffer kernel (`lattice_gibbs_generic`, the first port's design) behind a
+    macro."""
+    prob = "glauber::prob_up(beta[r0 + r], to_f32(h))"
+    update = "update<T>(ch, code[c], pw, __ldg(offsets + c) + lane, W, uv[c], br)"
+    return patch((CSRC / "lattice_gibbs.cu").read_text(), "lattice_gibbs.cu", [
+        # the plan kernel
+        ("constexpr int kMaxPrefetch = 4;",
+         "#ifndef ABL_MINB\n#define ABL_MINB 2\n#endif\n#ifndef ABL_NO_PHASES\n"
+         "#define ABL_NO_PHASES 0\n#endif\n#ifndef ABL_STORE_EARLY\n#define ABL_STORE_EARLY 0\n"
+         "#endif\nconstexpr int kMaxPrefetch = 4;"),
+        ("__launch_bounds__(1024, kPrefetch ? 2 : 1)", "__launch_bounds__(1024, kPrefetch ? ABL_MINB : 1)"),
+        ("  int8_t* chains = smem + halo_bytes(W);\n",
+         "  int8_t* chains = smem + halo_bytes(W);\n#ifdef ABL_EMPTY\n  return;\n#endif\n"),
+        ("  const T* ur = u + static_cast<size_t>(r) * HW;\n",
+         "#ifdef ABL_U_L2\n  const T* ur = u;\n#else\n  const T* ur = u + static_cast<size_t>(r) * HW;\n"
+         "#endif\n"),
+        ("      uv[c] = code[c] != kNoEntry ? to_f32(__ldg(ur + c * plane + (code[c] >> 8))) : 0.0f;\n",
+         "#ifdef ABL_NO_U\n      uv[c] = 0.5f;\n#else\n"
+         "      uv[c] = code[c] != kNoEntry ? to_f32(__ldg(ur + c * plane + (code[c] >> 8))) : 0.0f;\n"
+         "#endif\n"),
+        ("      if (c >= C) break;\n", "      if (c >= C || ABL_NO_PHASES) break;\n"),
+        (f"        ch[code[c] >> 8] = {update};\n",
+         f"      {{\n        const int8_t v_ = {update};\n        ch[code[c] >> 8] = v_;\n"
+         "        if (ABL_STORE_EARLY) out[base + static_cast<size_t>(lr) * HW + (code[c] >> 8)] = "
+         "round_to<T>(v_);\n      }\n"),
+        ("  if (vec) {\n    const char4* c4 = reinterpret_cast<const char4*>(chains);",
+         "  if (ABL_STORE_EARLY) {\n  } else if (vec) {\n"
+         "    const char4* c4 = reinterpret_cast<const char4*>(chains);"),
+        # the generic kernel
+        ("template <typename T>\n__global__ void __launch_bounds__(1024)\nlattice_gibbs_generic(",
+         "#ifndef ABL_CPB\n#define ABL_CPB 0\n#endif\n#ifndef ABL_THREADS\n#define ABL_THREADS 0\n"
+         "#endif\n#ifdef ABL_IN_PLACE\n#define ABL_BUFS 1\n#else\n#define ABL_BUFS 2\n#endif\n"
+         "template <typename T>\n__global__ void __launch_bounds__(1024)\nlattice_gibbs_generic("),
+        ("  int8_t* nxt = smem + static_cast<size_t>(cpb) * HW;\n",
+         "#ifdef ABL_EMPTY\n  return;\n#endif\n"
+         "#ifdef ABL_IN_PLACE\n  int8_t* nxt = smem;\n#else\n"
+         "  int8_t* nxt = smem + static_cast<size_t>(cpb) * HW;\n#endif\n"
+         "#ifdef ABL_W_SMEM\n"
+         "  T* wsm = reinterpret_cast<T*>(smem + ((ABL_BUFS * static_cast<size_t>(cpb) * HW + 15) & ~size_t(15)));\n"
+         "  for (int i = threadIdx.x; i < 8 * HW; i += blockDim.x) wsm[i] = w[i];\n"
+         "  for (int i = threadIdx.x; i < HW; i += blockDim.x) {\n"
+         "    wsm[8 * HW + i] = b[i];\n    wsm[9 * HW + i] = frozen[i];\n  }\n"
+         "  for (int i = threadIdx.x; i < C * HW; i += blockDim.x) wsm[10 * HW + i] = colors[i];\n"
+         "#define ABL_W(j) wsm[j]\n#define ABL_B(j) wsm[8 * HW + (j)]\n"
+         "#define ABL_FROZEN(j) wsm[9 * HW + (j)]\n#define ABL_COL(j) wsm[10 * HW + c * HW + (j)]\n"
+         "#else\n#define ABL_W(j) __ldg(w + (j))\n#define ABL_B(j) __ldg(b + (j))\n"
+         "#define ABL_FROZEN(j) __ldg(frozen + (j))\n#define ABL_COL(j) __ldg(col + (j))\n#endif\n"),
+        ("    for (int i = threadIdx.x; i < sites; i += blockDim.x) {\n"
+         "      const int r = i / HW, p = i - r * HW;\n",
+         "#ifdef ABL_COLOUR_ONLY\n"
+         "    const int cy = c >> 1, cx = c & 1, hh = (H - cy + 1) / 2, ww = (W - cx + 1) / 2;\n"
+         "    for (int q = threadIdx.x; q < (sites / HW) * hh * ww; q += blockDim.x) {\n"
+         "      const int r = q / (hh * ww), cell = q - r * (hh * ww);\n"
+         "      const int p = (cy + 2 * (cell / ww)) * W + cx + 2 * (cell % ww), i = r * HW + p;\n"
+         "#else\n"
+         "    for (int i = threadIdx.x; i < sites; i += blockDim.x) {\n"
+         "      const int r = i / HW, p = i - r * HW;\n#endif\n"),
+        ("      if (to_f32(__ldg(col + p)) > 0.5f && to_f32(__ldg(frozen + p)) <= 0.5f) {\n",
+         "      if (to_f32(ABL_COL(p)) > 0.5f && to_f32(ABL_FROZEN(p)) <= 0.5f) {\n"
+         "#ifdef ABL_U_FIRST\n        const float uv = to_f32(uc[i]);\n#endif\n"),
+        ("to_f32(__ldg(w + static_cast<size_t>(k) * HW + p))",
+         "to_f32(ABL_W(static_cast<size_t>(k) * HW + p))"),
+        ("to_f32(__ldg(b + p))", "to_f32(ABL_B(p))"),
+        (f"        v = to_f32(uc[i]) < {prob} ? 1 : -1;\n",
+         f"#if defined(ABL_NO_U)\n        v = 0.5f < {prob} ? 1 : -1;\n"
+         f"#elif defined(ABL_U_FIRST)\n        v = uv < {prob} ? 1 : -1;\n"
+         f"#else\n        v = to_f32(uc[i]) < {prob} ? 1 : -1;\n#endif\n"),
+        ("    out[base + i] = to_f32(__ldg(frozen + p)) > 0.5f ?",
+         "    out[base + i] = to_f32(ABL_FROZEN(p)) > 0.5f ?"),
+        ("  int cpb = HW >= 1024 ? 1 : 1024 / HW;\n",
+         "  int cpb = ABL_CPB ? ABL_CPB : (HW >= 1024 ? 1 : 1024 / HW);\n"),
+        ("  const size_t smem = 2 * static_cast<size_t>(cpb) * HW;\n",
+         "  size_t smem = ABL_BUFS * static_cast<size_t>(cpb) * HW;\n"
+         "#ifdef ABL_W_SMEM\n  smem = ((smem + 15) & ~size_t(15)) + (10 + C) * static_cast<size_t>(HW) * sizeof(T);\n"
+         "#endif\n"),
+        ("lattice_gibbs_generic<T><<<blocks, glauber::threads_for(static_cast<long long>(cpb) * HW),",
+         "lattice_gibbs_generic<T><<<blocks, ABL_THREADS ? ABL_THREADS : "
+         "glauber::threads_for(static_cast<long long>(cpb) * HW),"),
+    ])
+
+
+# variants of the two-buffer kernel: (macros); in_place, colour_only and
+# combined are exact only for independent masks (the king colouring here)
+GENERIC_VARIANTS = {
+    "base": [], "no_u": ["-DABL_NO_U"], "u_first": ["-DABL_U_FIRST"],
+    "in_place": ["-DABL_IN_PLACE"], "colour_only": ["-DABL_IN_PLACE", "-DABL_COLOUR_ONLY"],
+    "w_smem": ["-DABL_W_SMEM"], "cpb1": ["-DABL_CPB=1"],
+    "t256": ["-DABL_THREADS=256"], "t512": ["-DABL_THREADS=512"],
+    "cpb16_t1024": ["-DABL_CPB=16"], "empty": ["-DABL_EMPTY"],
+    "combined": ["-DABL_U_FIRST", "-DABL_IN_PLACE", "-DABL_COLOUR_ONLY", "-DABL_W_SMEM"],
+}
+# variants of the plan kernel, run at the wrapper's launch shape; the base
+# also at 1 to 16 chains a block (64 to 1024 threads) and without prefetch
+PLAN_VARIANTS = {
+    "base": [], "no_u": ["-DABL_NO_U"], "u_l2": ["-DABL_U_L2"],
+    "no_phases": ["-DABL_NO_PHASES=1"], "empty": ["-DABL_EMPTY"], "minb1": ["-DABL_MINB=1"],
+    "store_early": ["-DABL_STORE_EARLY=1"],
+}
+PLAN_CHAINS = (1, 2, 4, 8, 16)
+LATTICE_INEXACT = ("no_u", "empty", "u_l2", "no_phases")  # time only
+LATTICE_SHAPE = (4096, 16, 16)  # the CAL main path's sweep
+
+
+def build_lattice() -> dict:
+    """{label: (ctypes launcher, kind)} of the lattice variants."""
+    import shutil
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    shutil.copy(CSRC / "glauber.cuh", OUT / "glauber.cuh")
+    (OUT / "lattice_gibbs_abl.cu").write_text(patched_lattice())
+    jobs = {f"generic_{v}": (OUT / "lattice_gibbs_abl.cu", x) for v, x in GENERIC_VARIANTS.items()}
+    jobs |= {f"plan_{v}": (OUT / "lattice_gibbs_abl.cu", x) for v, x in PLAN_VARIANTS.items()}
+    libs = compile_all(jobs)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fns = {}
+    for name, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        if name.startswith("generic_"):
+            fn, kind = lib.lattice_gibbs_generic_launch, "generic"
+            fn.argtypes = [P] * 9 + [I] * 5 + [P]
+        else:
+            fn, kind = lib.lattice_gibbs_launch, "plan"
+            fn.argtypes = [P] * 9 + [I] * 9 + [P]
+        fn.restype = I
+        fns[name] = (fn, kind)
+    return fns
+
+
+def ablate_lattice(torch, np, chip_smoke, dev) -> None:
+    from repro_torch.core import problems
+    from repro_torch.core.ising import king_color_masks
+    from repro_torch.kernels import ops, ref
+
+    from repro_torch.kernels import lattice_gibbs
+
+    fns = build_lattice()
+    cal = problems.cal_problem(device=dev)
+    B, H, W = LATTICE_SHAPE
+    colors_b = king_color_masks(H, W, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(0)
+    s32 = torch.as_tensor(rng.choice([-1.0, 1.0], (B, H, W)).astype(np.float32), device=dev)
+    u32 = torch.rand((4, B, H, W), device=dev)
+    beta = torch.full((B,), 1.7, dtype=torch.float32, device=dev)
+    frozen_b = cal.frozen_mask
+    for dtype in (torch.float32, torch.bfloat16):
+        s, w, b, u, colors, frozen, clampv = (
+            t.to(dtype) for t in (s32, cal.w, cal.b, u32, colors_b.float(), frozen_b.float(),
+                                  cal.frozen_values))
+        out = torch.empty((B, H, W), dtype=dtype, device=dev)
+        want = ops.lattice_gibbs_sweep(s, w, b, u, colors, frozen, clampv, beta, mode="reference")
+        band = chip_smoke.phase_band(torch, lambda x: ref.lattice_fields_ref(x, w, b), s, u,
+                                     colors_b, frozen_b, beta, chip_smoke.P_BAND)
+        bf16 = int(dtype == torch.bfloat16)
+        plan = lattice_gibbs.lattice_plan(w, b, colors, frozen, clampv)
+        cpb, tpc, _ = lattice_gibbs.plan_launch(plan, B)
+        row = {"kernel": "lattice_gibbs", "dtype": str(dtype).removeprefix("torch."),
+               "B": B, "H": H, "W": W, "frozen": int(frozen_b.sum()),
+               "wrapper_chains_per_block": cpb, "threads_per_chain": tpc}
+        runs = [(label, fn, kind, cpb, True) for label, (fn, kind) in fns.items()]
+        runs += [(f"plan_base_cpb{n}", fns["plan_base"][0], "plan", n, True) for n in PLAN_CHAINS]
+        runs.append(("plan_loop", fns["plan_base"][0], "plan", cpb, False))
+        for label, fn, kind, chains, prefetch in runs:
+            if bf16 and label not in ("generic_base", "plan_base", "plan_loop"):
+                continue  # the bf16 kernels at their base only
+
+            def launch(fn=fn, kind=kind, label=label, chains=chains, prefetch=prefetch):
+                if kind == "generic":
+                    code = fn(s.data_ptr(), w.data_ptr(), b.data_ptr(), u.data_ptr(),
+                              colors.data_ptr(), frozen.data_ptr(), clampv.data_ptr(),
+                              beta.data_ptr(), out.data_ptr(), B, H, W, 4, bf16, stream)
+                else:
+                    code = fn(s.data_ptr(), plan.offsets.data_ptr(), plan.entry.data_ptr(),
+                              plan.w.data_ptr(), u.data_ptr(), beta.data_ptr(),
+                              plan.frozen.data_ptr(), plan.clamp.data_ptr(), out.data_ptr(),
+                              B, H, W, 4, plan.frozen.numel(), chains, tpc, int(prefetch), bf16,
+                              stream)
+                if code:
+                    raise RuntimeError(f"lattice variant {label}: CUDA error {code}")
+            out.fill_(float("nan"))
+            launch()
+            torch.cuda.synchronize()
+            differ = (out != want) & ~band
+            v = label.split("_", 1)[1]
+            if v not in LATTICE_INEXACT and bool(differ.any()):
+                raise AssertionError(f"lattice variant {label} ({row['dtype']}): "
+                                     f"{int(differ.sum())} spins differ from the plain version")
+            row[label] = {"ms": chip_smoke.time_ms(torch, launch), "exact": not bool(differ.any())}
+        print(json.dumps(row), flush=True)
+        del s, u, out, want, band
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -431,9 +651,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_ablate.py: no CUDA device", file=sys.stderr)
         return 2
-    parts = sys.argv[1:] or ["int8", "sparse"]
-    if not set(parts) <= {"int8", "sparse"}:
-        print(f"chip_ablate.py: unknown parts {parts}; use int8 and/or sparse", file=sys.stderr)
+    parts = sys.argv[1:] or ["int8", "sparse", "lattice"]
+    if not set(parts) <= {"int8", "sparse", "lattice"}:
+        print(f"chip_ablate.py: unknown parts {parts}; use int8, sparse and/or lattice",
+              file=sys.stderr)
         return 2
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import chip_smoke
@@ -443,6 +664,8 @@ def main() -> int:
         ablate_int8(torch, np, chip_smoke, dev)
     if "sparse" in parts:
         ablate_sparse(torch, np, chip_smoke, dev)
+    if "lattice" in parts:
+        ablate_lattice(torch, np, chip_smoke, dev)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     return 0

@@ -14,10 +14,11 @@ exits nonzero without printing the final result line:
                 in src/repro_torch/kernels/csrc (one nvcc per source, run
                 together), with ptxas's registers and spills.
      sass     — the toolkit's cuobjdump -sass of libflash_attention.so,
-                libtau_leap.so, libdense_field.so, libsparse_fields.so and
-                libcolored_gibbs.so: the count of HGMMA, UTMALDG, LDGSTS,
-                IMMA, LDG and LDS instructions in each kernel, and ptxas's
-                registers and spills of the two sparse libraries. Fails
+                libtau_leap.so, libdense_field.so, libsparse_fields.so,
+                libcolored_gibbs.so and liblattice_gibbs.so: the count of
+                HGMMA, UTMALDG, LDGSTS, IMMA, LDG and LDS instructions in
+                each kernel, and ptxas's registers and spills of the two
+                sparse libraries and the lattice library. Fails
                 unless every bf16 flash kernel has HGMMA (wgmma) and UTMALDG
                 (TMA loads), and the int8 kernels LDGSTS (cp.async) and IMMA.
   2. check    — each dense kernel against its plain PyTorch version on the
@@ -30,15 +31,23 @@ exits nonzero without printing the final result line:
                 (B,H,W) = (1,1,1) (8,8,8) (4,16,16) (2,32,24) (3,17,23)
                 (16,128,128) (4096,16,16) (1,200,200), random asymmetric w,
                 random frozen masks, king colour masks (random, improper
-                ones at (8,8,8)), per-row beta in [0.3, 3]: spins equal
-                except where |u - p_up| <= 1e-6 in the site's phase, frozen
-                sites equal to the clamp value, and the fields probed
-                through p_up (uniforms set to the plain p_up and one ulp
-                below it) equal bit for bit. The same in bf16 (all seven
-                operands bf16, beta f32), where the fields are probed with
-                the two bf16 uniforms that bracket the plain p_up, at beta
-                = +-16^k (k < 6): equal wherever the probe can tell a field
-                from its bf16 neighbours (the share is printed).
+                ones at (8,8,8)), per-row beta in [0.3, 3], through both
+                kernels, each launch's route asserted from the counters:
+                the plan kernel wherever the masks are independent sets
+                (all but (8,8,8)), the two-buffer lattice_gibbs_generic
+                everywhere (forced by a plan marked not independent).
+                Spins equal except where |u - p_up| <= 1e-6 in the site's
+                phase, frozen sites equal to the clamp value, and the
+                fields probed through p_up (uniforms set to the plain p_up
+                and one ulp below it; one phase per king colour on the plan
+                kernel, one all-sites phase on the generic one) equal bit
+                for bit. The same in bf16 (all seven operands bf16, beta
+                f32), where the fields are probed with the two bf16
+                uniforms that bracket the plain p_up, at beta = +-16^k
+                (k < 6): equal wherever the probe can tell a field from its
+                bf16 neighbours (the share is printed). Then the plan
+                ChromaticGibbs.init builds for CAL: equal to the wrapper's
+                own, and the sweep over it equal to the sweep over that.
      check_sparse — sparse_fields and colored_gibbs_sweep at (B, n, graph) =
                 (1, 5, dense random, random improper masks) (8, 100,
                 density 0.4) (3, 130, ragged)
@@ -71,10 +80,13 @@ exits nonzero without printing the final result line:
                 product, torch.sparse.mm for the sparse fields,
                 scaled_dot_product_attention for attention; timed here
                 only) and the device bound; the lattice sweep in f32 and
-                bf16, flash_attention at both main_attention shapes; the
-                coloured sweep also beside its sector floor (the bytes of
-                the 32-byte sectors its uniforms touch in the (C, B, n)
-                layout); sparse_fields_global at (64, 65536).
+                bf16 over the plan, beside its sector floor (the bytes of
+                the 32-byte sectors its uniforms touch in the (C, B, H, W)
+                layout) and beside the generic kernel at the same shape
+                and at (8, 8, 8) with random masks; flash_attention at both
+                main_attention shapes; the coloured sweep also beside its
+                sector floor (in the (C, B, n) layout);
+                sparse_fields_global at (64, 65536).
   4. main     — sampler_api.run(TauLeap(dt=0.1), backend="cuda") on SK
                 n=2048 seed 0, 256 chains x 2000 steps, geometric(0.3, 3.0)
                 annealing, with and without first_hit, and the same run on
@@ -163,6 +175,7 @@ def time_ms(torch, fn, n: int = 100, warmup: int = 10) -> float:
 
 LATTICE_SHAPES = [(1, 1, 1), (8, 8, 8), (4, 16, 16), (2, 32, 24), (3, 17, 23),
                   (16, 128, 128), (4096, 16, 16), (1, 200, 200)]
+GENERIC_SHAPE = (8, 8, 8)  # check_lattice's random masks: the generic kernel's timing
 # (B, n, graph): "dense" random couplings at a density, or a 3-regular MaxCut
 SPARSE_CASES = [(1, 5, "dense", 1.0), (8, 100, "dense", 0.4), (3, 130, "dense", 0.05),
                 (256, 16384, "3regular", 0), (2, 40000, "3regular", 1),
@@ -204,13 +217,15 @@ ATTENTION_S = 4096
 # -- the redesigned kernels (slice 4) ---------------------------------------------
 
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "IMMA", "LDG", "LDS")
-SASS_LIBS = ("flash_attention", "tau_leap", "dense_field", "sparse_fields", "colored_gibbs")
+SASS_LIBS = ("flash_attention", "tau_leap", "dense_field", "sparse_fields", "colored_gibbs",
+             "lattice_gibbs")
 # each kernel's name in the libraries' SASS, and the instructions it must hold
 SASS_KERNELS = {"flash_bf16_kernel": ("HGMMA", "UTMALDG"), "flash_f32_kernel": (),
                 "tau_leap_kernel": ("LDGSTS", "IMMA"), "pack_spins_kernel": (),
                 "dense_field_kernel": ("LDGSTS", "IMMA"),
                 "sparse_fields_staged": ("LDS",), "sparse_fields_global": (),
-                "colored_gibbs_kernel": ("LDS",)}
+                "colored_gibbs_kernel": ("LDS",), "lattice_gibbs_plan": ("LDS",),
+                "lattice_gibbs_generic": ("LDS",)}
 # the 64 x 65536-site rows sparse_fields_global is timed on: as many
 # outputs as the main path's (256, 16384)
 GLOBAL_FIELDS_SHAPE = (64, 65536)
@@ -222,15 +237,16 @@ def counters():
                                      tau_leap)
 
     def reset():
-        tau_leap.launches = dense_field.launches = lattice_gibbs.launches = 0
+        tau_leap.launches = dense_field.launches = 0
         flash_attention.launches = 0
-        for counts in (sparse_gather.launches, flash_attention.launches_by_dtype):
+        for counts in (lattice_gibbs.launches, sparse_gather.launches,
+                       flash_attention.launches_by_dtype):
             for k in counts:
                 counts[k] = 0
 
     def read():
         return {"tau_leap_step": tau_leap.launches, "dense_field": dense_field.launches,
-                "lattice_gibbs_sweep": lattice_gibbs.launches, **sparse_gather.launches,
+                **lattice_gibbs.launches, **sparse_gather.launches,
                 "flash_attention": flash_attention.launches,
                 "flash_attention_bf16": flash_attention.launches_by_dtype["bfloat16"],
                 "flash_attention_f32": flash_attention.launches_by_dtype["float32"]}
@@ -261,14 +277,17 @@ def check_attention(torch, ops, what, out, q, k, v, causal):
 
 
 def kernel_name(mangled: str) -> str:
-    """A kernel's SASS_KERNELS name and, for a template, its integer and bool
-    arguments (flash_bf16_kernel<128>, colored_gibbs_kernel<1>)."""
+    """A kernel's SASS_KERNELS name and, for a template, its float, bf16,
+    integer and bool arguments (flash_bf16_kernel<128>,
+    colored_gibbs_kernel<1>, lattice_gibbs_plan<bf16,1>)."""
     import re
 
     name = next((k for k in SASS_KERNELS if k in mangled), mangled)
-    args = re.search(r"I((?:L[ib]\d+E)+)E", mangled)
+    args = re.search(r"I((?:f|13__nv_bfloat16|L[ib]\d+E)+)E", mangled)
     if args:
-        name += "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
+        name += "<" + ",".join(
+            "f32" if m.group(1) else "bf16" if m.group(2) else m.group(3)
+            for m in re.finditer(r"(f)|(13__nv_bfloat16)|L[ib](\d+)E", args.group(1))) + ">"
     return name
 
 
@@ -325,9 +344,10 @@ def bf16_bracket(torch, p):
     return lo.to(torch.bfloat16), hi.to(torch.bfloat16)
 
 
-def bf16_field_probe(torch, sweep, s, w, b, frozen, clampv):
-    """The bf16 sweep's fields probed through p_up, one phase updating every
-    free site of len(PROBE_BETAS) copies of the chains, copy k at beta =
+def bf16_field_probe(torch, sweep, s, w, b, frozen, clampv, masks):
+    """The bf16 sweep's fields probed through p_up, one phase a mask of
+    `masks` (each (1, H, W); together they hold every site) updating its
+    free sites of len(PROBE_BETAS) copies of the chains, copy k at beta =
     PROBE_BETAS[k]: uniforms at `hi` (the smallest bf16 >= the plain p_up)
     give -1 and at `lo` (the largest bf16 below it) +1 unless the kernel's
     p_up leaves (lo, hi]. Where p_up at both bf16 neighbours of the plain
@@ -360,14 +380,29 @@ def bf16_field_probe(torch, sweep, s, w, b, frozen, clampv):
     for q in (p_up(up), p_up(down)):
         resolved = resolved & ~((lo_f < q) & (q <= hi_f))
     s_n = s.repeat(n, 1, 1)
-    all_sites = torch.ones((1, H, W), dtype=s.dtype, device=s.device)
-    out_hi = sweep(s_n, w, b, hi[None].contiguous(), all_sites, frozen, clampv, beta)
-    out_lo = sweep(s_n, w, b, lo[None].contiguous(), all_sites, frozen, clampv, beta)
     free = ~(frozen > 0.5)
-    n_field = int((((out_hi != -1.0) | (out_lo != 1.0)) & valid & free).sum())
+    n_field = 0
+    for m in masks:  # one phase each; together they probe every free site once
+        out_hi = sweep(s_n, w, b, hi[None].contiguous(), m, frozen, clampv, beta)
+        out_lo = sweep(s_n, w, b, lo[None].contiguous(), m, frozen, clampv, beta)
+        probed = free & (m[0] > 0.5)
+        n_field += int((((out_hi != -1.0) | (out_lo != 1.0)) & valid & probed).sum())
     n_resolved = int((resolved.reshape(n, B, H, W).any(0) & free).sum())
     n_zero = int(((h[:B] == 0) & free).sum())
     return n_field, n_resolved, int(free.sum()) * B, n_zero
+
+
+def lattice_sector_floor_ms(torch, plan, B, itemsize):
+    """The lattice sweep's sector floor (ms): the uniforms a phase reads lie
+    spread over its (B, H, W) plane, so in the (C, B, H, W) layout they cost
+    every 32-byte sector they touch; plus s, the new s, the plan and beta."""
+    H, W = plan.shape
+    rows = torch.arange(B, device=plan.entry.device)[:, None] * (H * W)
+    offsets = plan.offsets.tolist()
+    sectors = sum(int(torch.unique((rows + plan.sites[a:z].long()[None]) // (32 // itemsize))
+                      .numel()) for a, z in zip(offsets[:-1], offsets[1:]))
+    plan_bytes = sum(x.numel() * x.element_size() for x in plan[:5])
+    return (2 * B * H * W * itemsize + 32 * sectors + plan_bytes + 4 * B) / HBM_BYTES_PER_S * 1e3
 
 
 def cut_fraction(prob, s):
@@ -518,7 +553,7 @@ def main() -> int:
     ptxas = {
         name: [ln.strip() for ln in (build_dir / f"{name}.log").read_text().splitlines()
                if "registers" in ln or "spill" in ln]
-        for name in _build.LAUNCHERS
+        for name in _build.LIBRARIES
     }
     emit({"phase": "device", "nvidia_smi": smi, "capability": list(cap),
           "name": torch.cuda.get_device_name(0), "torch": torch.__version__,
@@ -535,7 +570,7 @@ def main() -> int:
     missing += [f"no {k} in the libraries" for k in SASS_KERNELS if k not in found]
     emit({"phase": "sass", "counts": sass, "ptxas": {
         lib: ptxas_by_kernel((build_dir / f"{lib}.log").read_text())
-        for lib in ("sparse_fields", "colored_gibbs")}})
+        for lib in ("sparse_fields", "colored_gibbs", "lattice_gibbs")}})
     if missing:
         raise AssertionError("SASS: " + "; ".join(missing))
 
@@ -590,78 +625,148 @@ def main() -> int:
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    for name in ("lattice_gibbs_sweep", "lattice_gibbs_sweep_bf16", "sparse_fields",
+    for name in ("lattice_gibbs_sweep", "lattice_gibbs_sweep_bf16", "lattice_gibbs_generic",
+                 "lattice_gibbs_generic_bf16", "sparse_fields",
                  "sparse_fields_global", "colored_gibbs_sweep", "flash_attention"):
         err[name], mism[name] = 0.0, 0
+    def lattice_route(route):
+        """The sweep through one route, asserting the route taken: the plan
+        kernel over the plan of the call's masks, the generic kernel over
+        that plan marked not independent (it is exact for any masks)."""
+        def sweep(s, w, b, u, colors, frozen, clampv, beta):
+            plan = lattice_gibbs.lattice_plan(w, b, colors, frozen, clampv)
+            if route == "lattice_gibbs_generic":
+                plan = plan._replace(independent=False)
+            before = dict(lattice_gibbs.launches)
+            out = lattice_gibbs.lattice_gibbs_sweep(s, w, b, u, colors, frozen, clampv, beta,
+                                                    plan=plan)
+            taken = {k: n - before[k] for k, n in lattice_gibbs.launches.items()}
+            if taken != dict(dict.fromkeys(taken, 0), **{route: 1}):
+                raise AssertionError(f"{route} at {tuple(s.shape)}: launched {taken}")
+            return out
+        return sweep
+
+    lattice_routes = {}  # (B, H, W) -> the routes checked there
     for B, H, W in LATTICE_SHAPES:
         s = pm1((B, H, W))
         w = f32(rng.normal(0.0, 0.5, (8, H, W)))  # asymmetric: pure arithmetic
         b = f32(rng.normal(0.0, 0.3, (H, W)))
         u = f32(rng.random((4, B, H, W)))
-        colors_b = king_color_masks(H, W, device=dev)
+        king_b = king_color_masks(H, W, device=dev)
+        colors_b = king_b
         if (B, H, W) == (8, 8, 8):  # an improper colouring: phases see the state before them
             colors_b = torch.as_tensor(rng.random((4, H, W)) < 0.5, device=dev)
         frozen_b = torch.as_tensor(rng.random((H, W)) < 0.2, device=dev)
         clampv = pm1((H, W))
         beta = f32(rng.uniform(0.3, 3.0, B))
         colors, frozen = colors_b.float(), frozen_b.float()
-        out_k = lattice_gibbs.lattice_gibbs_sweep(s, w, b, u, colors, frozen, clampv, beta)
-        out_r = ops.lattice_gibbs_sweep(s, w, b, u, colors, frozen, clampv, beta,
-                                        mode="reference")
-        band = phase_band(torch, lambda x: ref.lattice_fields_ref(x, w, b), s, u, colors_b,
-                          frozen_b, beta, P_BAND)
-        differ = out_k != out_r
-        bad = int((differ & ~band).sum())
-        n_clamp = int((out_k[:, frozen_b] != clampv[frozen_b]).sum())
-        # Fields through p_up, one phase updating every free site: uniforms at
-        # the plain p_up give -1 unless the kernel's p_up is larger, one ulp
-        # below it +1 unless it is smaller. p_up is formed as the kernel forms it.
+        # the wrapper's own choice: the plan kernel for the king colouring
+        plan = lattice_gibbs.lattice_plan(w, b, colors, frozen, clampv)
+        routes = ["lattice_gibbs_generic"]
+        if plan.independent:
+            routes.insert(0, "lattice_gibbs_sweep")
+        elif colors_b is king_b:
+            raise AssertionError(f"the king colouring at {(H, W)} is not independent")
+        lattice_routes[(B, H, W)] = routes
+        # The field probes: one phase updating every probed free site. The
+        # plan kernel takes one king colour a call, the generic kernel one
+        # mask of every site.
+        probe_masks = {"lattice_gibbs_sweep": [king_b[c:c + 1].float() for c in range(4)],
+                       "lattice_gibbs_generic": [torch.ones((1, H, W), device=dev)]}
         x = -2.0 * (beta[:, None, None] * ref.lattice_fields_ref(s, w, b))
-        p = 1.0 / (1.0 + torch.exp(-x))
-        all_sites = torch.ones((1, H, W), dtype=torch.float32, device=dev)
-        hi = lattice_gibbs.lattice_gibbs_sweep(s, w, b, p[None].contiguous(), all_sites, frozen,
-                                               clampv, beta)
-        lo = lattice_gibbs.lattice_gibbs_sweep(
-            s, w, b, torch.nextafter(p, torch.tensor(-1.0, device=dev))[None].contiguous(),
-            all_sites, frozen, clampv, beta)
+        p = 1.0 / (1.0 + torch.exp(-x))  # p_up formed as the kernels form it
         free = ~frozen_b
-        n_field = int(((hi != -1.0) & free).sum() + ((lo != 1.0) & free).sum())
-        if bad or n_clamp or n_field:
-            raise AssertionError(
-                f"lattice_gibbs_sweep ({B},{H},{W}): {bad} spins differ outside the band, "
-                f"{n_clamp} frozen sites off their clamp value, {n_field} fields differ")
-        mism["lattice_gibbs_sweep"] += int(differ.sum())
-        err["lattice_gibbs_sweep"] = max(err["lattice_gibbs_sweep"],
-                                         float(((out_k - out_r).abs() * ~band).max()))
-        emit({"phase": "check_lattice", "dtype": "float32", "B": B, "H": H, "W": W,
-              "mismatches": int(differ.sum()), "in_band": int(band.sum()),
-              "field_mismatches": n_field,
-              "sigmoid_vs_kernel_formula": int((torch.sigmoid(x) != p).sum())})
+        for route in routes:
+            sweep = lattice_route(route)
+            out_k = sweep(s, w, b, u, colors, frozen, clampv, beta)
+            out_r = ops.lattice_gibbs_sweep(s, w, b, u, colors, frozen, clampv, beta,
+                                            mode="reference")
+            band = phase_band(torch, lambda x: ref.lattice_fields_ref(x, w, b), s, u, colors_b,
+                              frozen_b, beta, P_BAND)
+            differ = out_k != out_r
+            bad = int((differ & ~band).sum())
+            n_clamp = int((out_k[:, frozen_b] != clampv[frozen_b]).sum())
+            # Fields through p_up: uniforms at the plain p_up give -1 unless
+            # the kernel's p_up is larger, one ulp below it +1 unless it is
+            # smaller.
+            n_field = 0
+            for m in probe_masks[route]:
+                hi = sweep(s, w, b, p[None].contiguous(), m, frozen, clampv, beta)
+                lo = sweep(s, w, b, torch.nextafter(p, torch.tensor(-1.0, device=dev))[None]
+                           .contiguous(), m, frozen, clampv, beta)
+                probed = free & (m[0] > 0.5)
+                n_field += int(((hi != -1.0) & probed).sum() + ((lo != 1.0) & probed).sum())
+            if bad or n_clamp or n_field:
+                raise AssertionError(
+                    f"lattice_gibbs_sweep ({B},{H},{W}) through {route}: {bad} spins differ "
+                    f"outside the band, {n_clamp} frozen sites off their clamp value, {n_field} "
+                    "fields differ")
+            mism[route] += int(differ.sum())
+            err[route] = max(err[route], float(((out_k - out_r).abs() * ~band).max()))
+            emit({"phase": "check_lattice", "dtype": "float32", "B": B, "H": H, "W": W,
+                  "route": route, "launch": (lattice_gibbs.plan_launch(plan, B)
+                                             if route == "lattice_gibbs_sweep" else None),
+                  "mismatches": int(differ.sum()), "in_band": int(band.sum()),
+                  "field_mismatches": n_field,
+                  "sigmoid_vs_kernel_formula": int((torch.sigmoid(x) != p).sum())})
 
         # bf16: the same inputs rounded to bf16, beta still f32
         sb, wb, bb, ub, cb, fb, cvb = (t.to(torch.bfloat16)
                                        for t in (s, w, b, u, colors, frozen, clampv))
-        out_k = lattice_gibbs.lattice_gibbs_sweep(sb, wb, bb, ub, cb, fb, cvb, beta)
-        out_r = ops.lattice_gibbs_sweep(sb, wb, bb, ub, cb, fb, cvb, beta, mode="reference")
-        band = phase_band(torch, lambda x: ref.lattice_fields_ref(x, wb, bb), sb, ub, colors_b,
-                          frozen_b, beta, P_BAND)
-        differ = out_k != out_r
-        bad = int((differ & ~band).sum())
-        n_clamp = int((out_k[:, frozen_b] != cvb[frozen_b]).sum())
-        n_field, n_resolved, n_free, n_zero = bf16_field_probe(
-            torch, lattice_gibbs.lattice_gibbs_sweep, sb, wb, bb, fb, cvb)
-        if out_k.dtype != torch.bfloat16 or bad or n_clamp or n_field or n_resolved < n_free - n_zero:
-            raise AssertionError(
-                f"bf16 lattice_gibbs_sweep ({B},{H},{W}): out {out_k.dtype}, {bad} spins differ "
-                f"outside the band, {n_clamp} frozen sites off their clamp value, {n_field} "
-                f"fields differ, {n_free - n_zero - n_resolved} nonzero fields unresolved")
-        mism["lattice_gibbs_sweep_bf16"] += int(differ.sum())
-        err["lattice_gibbs_sweep_bf16"] = max(err["lattice_gibbs_sweep_bf16"],
-                                              float(((out_k - out_r).float().abs() * ~band).max()))
-        emit({"phase": "check_lattice", "dtype": "bfloat16", "B": B, "H": H, "W": W,
-              "mismatches": int(differ.sum()), "in_band": int(band.sum()),
-              "field_mismatches": n_field, "field_sites_resolved": n_resolved,
-              "free_sites": n_free, "zero_fields": n_zero})
+        for route in routes:
+            sweep = lattice_route(route)
+            out_k = sweep(sb, wb, bb, ub, cb, fb, cvb, beta)
+            out_r = ops.lattice_gibbs_sweep(sb, wb, bb, ub, cb, fb, cvb, beta, mode="reference")
+            band = phase_band(torch, lambda x: ref.lattice_fields_ref(x, wb, bb), sb, ub,
+                              colors_b, frozen_b, beta, P_BAND)
+            differ = out_k != out_r
+            bad = int((differ & ~band).sum())
+            n_clamp = int((out_k[:, frozen_b] != cvb[frozen_b]).sum())
+            n_field, n_resolved, n_free, n_zero = bf16_field_probe(
+                torch, sweep, sb, wb, bb, fb, cvb,
+                [m.to(torch.bfloat16) for m in probe_masks[route]])
+            if (out_k.dtype != torch.bfloat16 or bad or n_clamp or n_field
+                    or n_resolved < n_free - n_zero):
+                raise AssertionError(
+                    f"bf16 lattice_gibbs_sweep ({B},{H},{W}) through {route}: out {out_k.dtype}, "
+                    f"{bad} spins differ outside the band, {n_clamp} frozen sites off their "
+                    f"clamp value, {n_field} fields differ, {n_free - n_zero - n_resolved} "
+                    "nonzero fields unresolved")
+            mism[route + "_bf16"] += int(differ.sum())
+            err[route + "_bf16"] = max(err[route + "_bf16"],
+                                       float(((out_k - out_r).float().abs() * ~band).max()))
+            emit({"phase": "check_lattice", "dtype": "bfloat16", "B": B, "H": H, "W": W,
+                  "route": route, "mismatches": int(differ.sum()), "in_band": int(band.sum()),
+                  "field_mismatches": n_field, "field_sites_resolved": n_resolved,
+                  "free_sites": n_free, "zero_fields": n_zero})
+    if lattice_routes[(8, 8, 8)] != ["lattice_gibbs_generic"] or any(
+            r != ["lattice_gibbs_sweep", "lattice_gibbs_generic"]
+            for shape, r in lattice_routes.items() if shape != (8, 8, 8)):
+        raise AssertionError(f"check_lattice took the routes {lattice_routes}")
+
+    # The plan ChromaticGibbs.init builds for CAL: equal to the wrapper's own,
+    # and the sweep over it equal to the sweep over a plan built per call.
+    cal = problems.cal_problem(device=dev)
+    s = pm1((LATTICE_MAIN["n_chains"],) + cal.shape)
+    u = torch.rand((4,) + tuple(s.shape), device=dev)
+    beta = f32(rng.uniform(0.3, 3.0, s.shape[0]))
+    colors_i, frozen_i, clamp_i, plan_i = ChromaticGibbs(backend="cuda").init(
+        cal, torch.Generator(device=dev), s0=s).aux
+    own = lattice_gibbs.lattice_plan(cal.w, cal.b, colors_i, frozen_i, clamp_i)
+    same_plan = own.independent == plan_i.independent and own.counts == plan_i.counts and all(
+        torch.equal(x, y) for x, y in zip(plan_i[:5], own[:5]))
+    args = (s, cal.w, cal.b, u, colors_i, frozen_i, clamp_i, beta)
+    reset, read = counters()
+    reset()
+    init_differ = int((lattice_gibbs.lattice_gibbs_sweep(*args, plan=plan_i)
+                       != lattice_gibbs.lattice_gibbs_sweep(*args)).sum())
+    init_launches = read()
+    if not same_plan or init_differ or init_launches["lattice_gibbs_sweep"] != 2:
+        raise AssertionError(f"CAL: the init's plan equal to the wrapper's {same_plan}, "
+                             f"{init_differ} spins differ, launches {init_launches}")
+    emit({"phase": "check_lattice_init_plan", "problem": "cal_problem()",
+          "n_chains": s.shape[0], "plan_equal": same_plan, "mismatches": init_differ,
+          "counts": list(plan_i.counts), "launch": lattice_gibbs.plan_launch(plan_i, s.shape[0])})
 
     rows_seen = set()  # fields rows a block the cases take (0: the global kernel)
     for B, n, graph, arg in SPARSE_CASES:
@@ -786,24 +891,57 @@ def main() -> int:
     clampv = cal.frozen_values
     u = torch.rand((4, B, H, W), device=dev)
     beta = torch.full((B,), 1.7, dtype=torch.float32, device=dev)
+    lat_plan = lattice_gibbs.lattice_plan(cal.w, cal.b, colors, frozen, clampv)  # as init builds it
     ms["lattice_gibbs_sweep"] = time_ms(torch, lambda: lattice_gibbs.lattice_gibbs_sweep(
-        s, cal.w, cal.b, u, colors, frozen, clampv, beta))
+        s, cal.w, cal.b, u, colors, frozen, clampv, beta, plan=lat_plan))
     ms["lattice_gibbs_sweep_plain"] = time_ms(torch, lambda: ops.lattice_gibbs_sweep(
         s, cal.w, cal.b, u, colors, frozen, clampv, beta, mode="reference"))
+    # the other device work of a CAL sweep: its (4, B, H, W) uniforms
+    ms["cal_sweep_uniforms"] = time_ms(torch, lambda: torch.rand((4, B, H, W), device=dev))
     updated = float((colors * (1.0 - frozen)).sum())  # sites updated per chain and sweep
     HW = H * W
     bounds["lattice_gibbs_sweep"] = bound(
         4 * (2 * B * HW + B * updated + 8 * HW + HW + 4 * HW + 2 * HW + B),
         B * updated * 22, FP32_OPS_PER_S)  # 8 mul + 9 add, beta, -2, exp, add, div
+    # the first port's design, the generic kernel, at the same shape (a plan marked
+    # not independent takes it)
+    generic_plan = lat_plan._replace(independent=False)
+    ms["lattice_gibbs_generic_cal"] = time_ms(torch, lambda: lattice_gibbs.lattice_gibbs_sweep(
+        s, cal.w, cal.b, u, colors, frozen, clampv, beta, plan=generic_plan))
     lat_bf16 = [t.to(torch.bfloat16) for t in (s, cal.w, cal.b, u, colors, frozen, clampv)]
+    plan_bf16 = lattice_gibbs.lattice_plan(*lat_bf16[1:3], *lat_bf16[4:])
     ms["lattice_gibbs_sweep_bf16"] = time_ms(torch, lambda: lattice_gibbs.lattice_gibbs_sweep(
-        *lat_bf16, beta))
+        *lat_bf16, beta, plan=plan_bf16))
     ms["lattice_gibbs_sweep_bf16_plain"] = time_ms(torch, lambda: ops.lattice_gibbs_sweep(
         *lat_bf16, beta, mode="reference"))
     bounds["lattice_gibbs_sweep_bf16"] = bound(
         2 * (2 * B * HW + B * updated + 8 * HW + HW + 4 * HW + 2 * HW) + 4 * B,
         B * updated * 22, FP32_OPS_PER_S)
+    generic_plan_bf16 = plan_bf16._replace(independent=False)
+    ms["lattice_gibbs_generic_cal_bf16"] = time_ms(
+        torch, lambda: lattice_gibbs.lattice_gibbs_sweep(*lat_bf16, beta, plan=generic_plan_bf16))
+    lattice_floor_ms = lattice_sector_floor_ms(torch, lat_plan, B, 4)
+    lattice_floor_bf16_ms = lattice_sector_floor_ms(torch, plan_bf16, B, 2)
     del lat_bf16
+    # the generic kernel at the random-mask shape of check_lattice
+    Bg, Hg, Wg = GENERIC_SHAPE
+    grng = np.random.default_rng(8)
+    gen = [pm1((Bg, Hg, Wg)), f32(grng.normal(0.0, 0.5, (8, Hg, Wg))),
+           f32(grng.normal(0.0, 0.3, (Hg, Wg))), f32(grng.random((4, Bg, Hg, Wg))),
+           f32(grng.random((4, Hg, Wg)) < 0.5), f32(grng.random((Hg, Wg)) < 0.2), pm1((Hg, Wg)),
+           f32(grng.uniform(0.3, 3.0, Bg))]
+    plan_g = lattice_gibbs.lattice_plan(*gen[1:3], *gen[4:7])
+    if plan_g.independent:
+        raise AssertionError(f"the random masks at {GENERIC_SHAPE} are independent sets")
+    ms["lattice_gibbs_generic"] = time_ms(torch, lambda: lattice_gibbs.lattice_gibbs_sweep(
+        *gen, plan=plan_g))
+    ms["lattice_gibbs_generic_plain"] = time_ms(torch, lambda: ops.lattice_gibbs_sweep(
+        *gen, mode="reference"))
+    updated_g = float((gen[4] * (1.0 - gen[5])).sum())
+    bounds["lattice_gibbs_generic"] = bound(
+        4 * (2 * Bg * Hg * Wg + Bg * updated_g + 8 * Hg * Wg + Hg * Wg + 4 * Hg * Wg
+             + 2 * Hg * Wg + Bg), Bg * updated_g * 22, FP32_OPS_PER_S)
+    del gen
     lattice_shape = [B, H, W]
 
     mc = problems.random_3regular_maxcut(SPARSE_MAIN["n"], 0, device=dev)
@@ -864,9 +1002,13 @@ def main() -> int:
               "dense_field", "dense_field_plain", "tau_leap_step", "tau_leap_step_plain",
               "int_mm")},
           "bound_ms": {k: bounds[k][0] for k in (
-              "lattice_gibbs_sweep", "lattice_gibbs_sweep_bf16", "sparse_fields",
-              "sparse_fields_global", "colored_gibbs_sweep")},
+              "lattice_gibbs_sweep", "lattice_gibbs_sweep_bf16", "lattice_gibbs_generic",
+              "sparse_fields", "sparse_fields_global", "colored_gibbs_sweep")},
           "colored_gibbs_sweep_sector_floor_ms": sector_floor_ms,
+          "lattice_gibbs_sweep_sector_floor_ms": lattice_floor_ms,
+          "lattice_gibbs_sweep_bf16_sector_floor_ms": lattice_floor_bf16_ms,
+          "lattice_launch": lattice_gibbs.plan_launch(lat_plan, LATTICE_MAIN["n_chains"]),
+          "generic_shape": list(GENERIC_SHAPE),
           "sparse_fields_global_shape": list(GLOBAL_FIELDS_SHAPE),
           "sparse_fields_rows_per_block": sparse_gather.fields_rows(
               B, n, sparse_gather._sm_count(dev)),
@@ -1134,7 +1276,18 @@ def main() -> int:
              bf16_plain_ms=ms["lattice_gibbs_sweep_bf16_plain"],
              bf16_bound_ms=bounds["lattice_gibbs_sweep_bf16"][0],
              bf16_max_abs_err=err["lattice_gibbs_sweep_bf16"],
-             bf16_mismatches=mism["lattice_gibbs_sweep_bf16"]),
+             bf16_mismatches=mism["lattice_gibbs_sweep_bf16"],
+             sector_floor_ms=lattice_floor_ms, bf16_sector_floor_ms=lattice_floor_bf16_ms,
+             **{f"generic_{key}": value for key, value in entry(
+                 "lattice_gibbs_generic", csrc + "lattice_gibbs.cu",
+                 "src/repro/kernels/lattice_gibbs.py:102",
+                 lat["cuda_first_hit"]["launches"]["lattice_gibbs_generic"], None).items()
+                if key not in ("route", "source", "replaces")},
+             generic_shape=list(GENERIC_SHAPE),
+             generic_bf16_max_abs_err=err["lattice_gibbs_generic_bf16"],
+             generic_bf16_mismatches=mism["lattice_gibbs_generic_bf16"],
+             generic_at_main_shape_ms=ms["lattice_gibbs_generic_cal"],
+             generic_at_main_shape_bf16_ms=ms["lattice_gibbs_generic_cal_bf16"]),
         dict(entry("sparse_fields", csrc + "sparse_fields.cu",
                    "src/repro/kernels/sparse_gather.py:90",
                    sparse_fields_launches["sparse_fields"], "sparse_mm"),

@@ -74,6 +74,7 @@ from repro_torch.core.ising import DenseIsing, LatticeIsing, king_color_masks, r
 from repro_torch.core.sparse import SparseIsing
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import broadcast_rows
+from repro_torch.kernels.lattice_gibbs import lattice_plan
 from repro_torch.kernels.sparse_gather import colour_plan
 
 
@@ -348,7 +349,9 @@ class ChromaticGibbs:
 
     `backend="cuda"` runs the whole sweep of all chains as ONE launch of
     `ops.lattice_gibbs_sweep` (the CUDA kernel on CUDA tensors, its plain
-    version on CPU tensors), each row with its own beta. The ref path
+    version on CPU tensors), each row with its own beta, over the lattice
+    plan that `init` builds once (its one wait for the device is there, not
+    in the step loop). The ref path
     recomputes the full stencil field once per color phase. Both draw the
     sweep's (4, n_chains, H, W) uniforms in one call, so on one device they
     follow the same stream. Trims are ref-only.
@@ -368,7 +371,8 @@ class ChromaticGibbs:
 
     def init(self, problem: LatticeIsing, generator, s0=None, n_chains=1) -> KernelState:
         """Initial state on the clamped lattice; the color, frozen and clamp
-        planes the sweep takes are made once here."""
+        planes the sweep takes, and on the cuda backend their lattice plan,
+        are made once here."""
         if self.backend not in self.backends:
             raise ValueError(f"backend must be 'ref' | 'cuda', got {self.backend!r}")
         if self.backend == "cuda" and self.trim is not None:
@@ -379,8 +383,9 @@ class ChromaticGibbs:
         s0 = problem.apply_clamps(s0)
         colors = king_color_masks(*problem.shape, device=dev)
         frozen = problem.frozen_mask
-        if self.backend == "cuda":
-            aux = (colors.float(), frozen.float(), problem.frozen_values.float())
+        if self.backend == "cuda":  # the plan of the very planes step() passes the kernel
+            planes = (colors.float(), frozen.float(), problem.frozen_values.float())
+            aux = planes + (lattice_plan(problem.w, problem.b, *planes),)
         else:
             aux = (colors, frozen)
         t0 = torch.zeros((s0.shape[0],), dtype=torch.float32, device=dev)
@@ -392,9 +397,9 @@ class ChromaticGibbs:
         C = state.aux[0].shape[0]
         u = torch.rand((C,) + tuple(s.shape), generator=generator, device=s.device)
         if self.backend == "cuda":
-            colors, frozen, clamp = state.aux
+            colors, frozen, clamp, plan = state.aux
             s = ops.lattice_gibbs_sweep(
-                s, problem.w, problem.b, u, colors, frozen, clamp, beta=beta
+                s, problem.w, problem.b, u, colors, frozen, clamp, beta=beta, plan=plan
             )
         else:
             colors, frozen = state.aux

@@ -33,19 +33,24 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signature of each library's launcher: (symbol, argtypes). Pointers and
-# the stream are c_void_p, so ctypes passes them as 64-bit values.
+# C signature of each launcher: (symbol, argtypes). Pointers and the stream
+# are c_void_p, so ctypes passes them as 64-bit values.
 LAUNCHERS = {
     "dense_field": ("dense_field_launch", [_P, _P, _P, _P, _P, _I, _I, _P]),
     "tau_leap": ("tau_leap_launch", [_P] * 9 + [_I] * 3 + [_P]),
-    "lattice_gibbs": ("lattice_gibbs_launch", [_P] * 9 + [_I] * 5 + [_P]),
+    "lattice_gibbs": ("lattice_gibbs_launch", [_P] * 9 + [_I] * 9 + [_P]),
+    "lattice_gibbs_generic": ("lattice_gibbs_generic_launch", [_P] * 9 + [_I] * 5 + [_P]),
     "sparse_fields": ("sparse_fields_launch", [_P] * 5 + [_I] * 5 + [_P]),
     "colored_gibbs": ("colored_gibbs_launch", [_P] * 7 + [_I] * 6 + [_P]),
     "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 6 + [_P]),
 }
+# The library of a launcher that does not live in csrc/<its name>.cu
+LIBRARY = {"lattice_gibbs_generic": "lattice_gibbs"}
+LIBRARIES = tuple(dict.fromkeys(LIBRARY.get(n, n) for n in LAUNCHERS))
 
 _lock = threading.Lock()
 _loaded: dict = {}  # name -> ctypes launcher, loaded once per process
+_libs: dict = {}  # library -> ctypes.CDLL, loaded once per process
 
 
 def _nvcc() -> str:
@@ -69,7 +74,7 @@ def _build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build_all(names=tuple(LAUNCHERS)) -> Path:
+def build_all(names=LIBRARIES) -> Path:
     """Compile every library in `names` that is not built yet, one nvcc
     process per source, all started together. Returns the build directory."""
     out_dir = _build_dir()
@@ -99,11 +104,14 @@ def build_all(names=tuple(LAUNCHERS)) -> Path:
 
 
 def launcher(name: str):
-    """The ctypes launcher of library `name`, building it on first use."""
+    """The ctypes launcher `name`, building its library on first use."""
     with _lock:
         fn = _loaded.get(name)
         if fn is None:
-            lib = ctypes.CDLL(str(build_all((name,)) / f"lib{name}.so"))
+            library = LIBRARY.get(name, name)
+            lib = _libs.get(library)
+            if lib is None:
+                lib = _libs[library] = ctypes.CDLL(str(build_all((library,)) / f"lib{library}.so"))
             symbol, argtypes = LAUNCHERS[name]
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes

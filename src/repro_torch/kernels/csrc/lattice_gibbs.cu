@@ -1,12 +1,13 @@
 // lattice_gibbs_sweep: one chromatic Gibbs sweep on the king's-move lattice,
 // all chains as the B rows of one launch. Replaces the TPU kernel
 // repro/kernels/lattice_gibbs.py::lattice_gibbs_sweep. Memory-bound: at
-// (4096, 16, 16) it must move about 12.6 MB, 3.8 us at 3.35 TB/s (the
-// bound's count and the design's reasons: kernels/lattice_gibbs.py).
+// (4096, 16, 16) it must move about 12.6 MB, 3.8 us at 3.35 TB/s; a colour's
+// uniforms touch every 32-byte sector of half the lattice rows, so about
+// 16.8 MB, 5.0 us, is the floor of any kernel that reads them in the
+// (C, B, H, W) layout (the counts: kernels/lattice_gibbs.py).
 //
 // For each colour c in order, at every site p of the colour that is not
-// frozen (colors[c][p] > 0.5, frozen[p] <= 0.5), from the state before the
-// phase:
+// frozen, from the state before the phase:
 //   h    = ((0 + w[0][p] s[p+o0]) + w[1][p] s[p+o1]) + ... + w[7][p] s[p+o7]) + b[p]
 //   up   = u[c][r][p] < sigma(-2 * (beta_r * h))
 //   s[p] = up ? +1 : -1
@@ -14,24 +15,52 @@
 // order; a neighbour beyond the edge is skipped, which is exact: the JAX
 // stencil adds w * 0 = +-0 there to a sum that is never -0.
 //
-// s: (B, H, W) +-1, w: (8, H, W), b: (H, W), u: (C, B, H, W),
-// colors: (C, H, W) {0,1}, frozen and clamp: (H, W), out: (B, H, W) (never
-// aliasing s), all f32 or all bf16; beta: (B,) f32.
-//
 // In bf16 every add and multiply of the stencil rounds to bf16, as torch
 // and XLA compute a bf16 op (in f32, then rounded to nearest even):
 //   acc = bf16(acc + bf16(w[k][p] s[p+ok])),  h = bf16(acc + b[p]);
 // h is then promoted to f32 for sigma(-2 * (beta_r * h)), and the bf16
 // uniform is compared with that f32 p_up.
 //
-// Design: a block holds `cpb` whole chains (one chain when H*W > 1024) in
-// shared memory as int8 +-1, in two buffers: each phase reads one and
-// writes every site of the other (the proposal or the old spin), then one
-// barrier, then the buffers swap. So every field of a phase sees the state
-// before the phase for any masks, as in JAX, also for an improper colouring.
-// w, b and the masks are read through the read-only cache (8 KB of weights
-// at 16x16, L2-resident across blocks).
+// Two kernels, chosen by the wrapper from the lattice plan
+// (kernels/lattice_gibbs.py::lattice_plan), never as a fallback:
+//
+// lattice_gibbs_plan — when every colour's list of updated sites is an
+//   independent set of the king graph (the king colouring, the CAL path).
+//   A site's field then never reads a site of its own phase, so the block
+//   updates its `cpb` chains in place: one int8 buffer in shared memory, no
+//   copy pass. The plan lists, per colour, the updated sites in ascending
+//   order, each as (site << 8 | edge bits) and a row of 12 f32 (the 8
+//   weights, 0 for a neighbour beyond the edge, b, three pads: three
+//   16-byte loads); `tpc` threads a chain each own fixed entries of every
+//   list. With kPrefetch (C <= 4 and one entry a colour a thread, so 16x16
+//   is one 2x2 cell a thread, 64 threads a chain) a thread loads its C
+//   entries and their uniforms before the chains, so the C device-memory
+//   trips of the uniforms overlap with each other and with the chains'
+//   load; each phase then reads its weights (L1-resident: 12 KB at 16x16)
+//   and 8 neighbours from shared memory, writes its own site and ends in
+//   one barrier. The sweep is bound by instructions issued (about 1M site
+//   updates), so the stencil has no edge test and no multiply: a zero
+//   weight beyond the edge (the chains sit between two halos of shared
+//   memory) and a sign flip for w * s. Without it (large
+//   lattices) a thread walks its entries two at a time, loading each
+//   phase's uniforms in that phase. Frozen sites keep their input spin
+//   through the phases; at the end they are marked 0 in shared memory and
+//   written with the plan's clamp values, and every other site is written
+//   from shared memory.
+//
+// lattice_gibbs_generic — any other masks (the first port's design): a block
+//   holds `cpb` whole chains in two int8 buffers; each phase reads one and
+//   writes every site of the other (the proposal or the old spin), then one
+//   barrier, then the buffers swap. So every field of a phase sees the
+//   state before the phase for any masks, as in JAX. w, b and the masks
+//   are read through the read-only cache.
+//
+// s: (B, H, W) +-1, u: (C, B, H, W), out: (B, H, W) (never aliasing s), all
+// f32 or all bf16 with the generic kernel's w (8, H, W), b, frozen and
+// clamp (H, W) and colors (C, H, W) {0,1}; beta: (B,) f32.
 #include <cuda_bf16.h>
+
+#include <cstdint>
 
 #include "glauber.cuh"
 
@@ -52,9 +81,183 @@ __device__ __forceinline__ __nv_bfloat16 round_to<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// -- the plan kernel -----------------------------------------------------------
+
+// Colours whose entry a thread of the prefetching kernel holds in registers
+// from the start: the king colouring's four.
+constexpr int kMaxPrefetch = 4;
+constexpr int kNoEntry = -1;  // entry codes are site << 8 | edges >= 0
+
+__device__ __forceinline__ int8_t spin(float v) { return v > 0.0f ? 1 : -1; }
+
+// Four consecutive spins of s as one load: 16 bytes of f32, 8 of bf16.
+__device__ __forceinline__ char4 load_spins4(const float* p) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  return make_char4(spin(v.x), spin(v.y), spin(v.z), spin(v.w));
+}
+__device__ __forceinline__ char4 load_spins4(const __nv_bfloat16* p) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_char4(spin(__uint_as_float(v.x << 16)), spin(__uint_as_float(v.x & 0xFFFF0000u)),
+                    spin(__uint_as_float(v.y << 16)), spin(__uint_as_float(v.y & 0xFFFF0000u)));
+}
+
+// Four +-1 spins stored as one 16-byte (f32) or 8-byte (bf16) write.
+__device__ __forceinline__ void store_spins4(float* p, char4 v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v.x, v.y, v.z, v.w);
+}
+__device__ __forceinline__ unsigned bf16_bits(int8_t v) { return v > 0 ? 0x3F80u : 0xBF80u; }
+__device__ __forceinline__ void store_spins4(__nv_bfloat16* p, char4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(bf16_bits(v.x) | bf16_bits(v.y) << 16,
+                                            bf16_bits(v.z) | bf16_bits(v.w) << 16);
+}
+
+// Bytes of shared memory before and after the chains, so that a site's
+// neighbour beyond the lattice's edge reads some byte of the block's
+// allocation (its weight is 0 in the plan); a multiple of 16, so the chains
+// stay 16-byte aligned.
+__host__ __device__ __forceinline__ int halo_bytes(int W) { return (W + 1 + 15) & ~15; }
+
+// w * s for s = +-1 held as int8: w with its sign flipped where s < 0,
+// which is the rounded product exactly (and +-0 for a zero weight).
+__device__ __forceinline__ float times_spin(float w, int8_t s) {
+  return __int_as_float(__float_as_int(w) ^ (static_cast<int>(s) & static_cast<int>(0x80000000)));
+}
+
+// The new spin of plan entry j (code = site << 8 | edges) of the chain `ch`
+// in shared memory, from its uniform and the row's beta. The plan's weight
+// of a neighbour beyond the edge is 0: adding w * s = +-0 there leaves the
+// sum as skipping it does (the sum is never -0).
+template <typename T>
+__device__ __forceinline__ int8_t update(const int8_t* ch, int code, const float* __restrict__ pw,
+                                         int j, int W, float uv, float br) {
+  const float4* row = reinterpret_cast<const float4*>(pw) + 3 * static_cast<size_t>(j);
+  const float4 w0 = __ldg(row), w1 = __ldg(row + 1);
+  const float bias = __ldg(row + 2).x;
+  const float wk[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+  const int8_t* c = ch + (code >> 8);
+  const int8_t nb[8] = {c[-W - 1], c[-W], c[-W + 1], c[-1], c[1], c[W - 1], c[W], c[W + 1]};
+  T acc = round_to<T>(0.0f);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc = round_to<T>(__fadd_rn(to_f32(acc), times_spin(wk[k], nb[k])));
+  const T h = round_to<T>(__fadd_rn(to_f32(acc), bias));
+  return uv < glauber::prob_up(br, to_f32(h)) ? 1 : -1;
+}
+
+// With kPrefetch, two 1024-thread blocks an SM: ptxas keeps the kernel to
+// 32 registers (2048 threads an SM, the 4096 CAL chains in one wave). The
+// walking loop (one chain of 1024 threads a block) may take 64, and spills
+// nothing there.
+template <typename T, bool kPrefetch>
+__global__ void __launch_bounds__(1024, kPrefetch ? 2 : 1)
+lattice_gibbs_plan(const T* __restrict__ s, const int* __restrict__ offsets,
+                   const int* __restrict__ entry, const float* __restrict__ pw,
+                   const T* __restrict__ u, const float* __restrict__ beta,
+                   const int* __restrict__ fsite, const float* __restrict__ fval,
+                   T* __restrict__ out, int B, int H, int W, int C, int F, int cpb, int tpc) {
+  extern __shared__ __align__(16) int8_t smem[];  // halo, [cpb][H * W], halo
+  int8_t* chains = smem + halo_bytes(W);
+  const int HW = H * W, t = threadIdx.x, T_ = blockDim.x;
+  const int r0 = blockIdx.x * cpb, nch = min(cpb, B - r0);
+  const int lr = t / tpc, lane = t - lr * tpc;  // this thread's chain in the block, its lane
+  const bool live = lr < nch;
+  const int r = r0 + (live ? lr : 0);
+  int8_t* ch = chains + static_cast<size_t>(lr) * HW;
+  const float br = __ldg(beta + r);
+  const size_t base = static_cast<size_t>(r0) * HW, plane = static_cast<size_t>(B) * HW;
+  const T* ur = u + static_cast<size_t>(r) * HW;
+
+  // This thread's entry of each colour and its uniform, before the chains.
+  int code[kMaxPrefetch];
+  float uv[kMaxPrefetch];
+  if constexpr (kPrefetch) {
+#pragma unroll
+    for (int c = 0; c < kMaxPrefetch; ++c) {
+      code[c] = kNoEntry;
+      if (live && c < C) {
+        const int j = __ldg(offsets + c) + lane;
+        if (j < __ldg(offsets + c + 1)) code[c] = __ldg(entry + j);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kMaxPrefetch; ++c)
+      uv[c] = code[c] != kNoEntry ? to_f32(__ldg(ur + c * plane + (code[c] >> 8))) : 0.0f;
+  }
+
+  // The block's chains into shared memory as int8 +-1.
+  const int n = nch * HW;
+  const bool vec = (HW & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(s) & (4 * sizeof(T) - 1)) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & (4 * sizeof(T) - 1)) == 0;
+  if (vec) {
+    char4* c4 = reinterpret_cast<char4*>(chains);
+#pragma unroll 4
+    for (int q = t; q < (n >> 2); q += T_) c4[q] = load_spins4(s + base + 4 * static_cast<size_t>(q));
+  } else {
+#pragma unroll 4
+    for (int i = t; i < n; i += T_) chains[i] = spin(to_f32(s[base + i]));
+  }
+  __syncthreads();
+
+  if constexpr (kPrefetch) {
+#pragma unroll
+    for (int c = 0; c < kMaxPrefetch; ++c) {
+      if (c >= C) break;
+      if (code[c] != kNoEntry)
+        ch[code[c] >> 8] = update<T>(ch, code[c], pw, __ldg(offsets + c) + lane, W, uv[c], br);
+      __syncthreads();
+    }
+  } else {
+    for (int c = 0; c < C; ++c) {
+      const int beg = __ldg(offsets + c), end = __ldg(offsets + c + 1);
+      const T* uc = ur + c * plane;
+      for (int j0 = beg + lane; live && j0 < end; j0 += 2 * tpc) {
+        const int j1 = j0 + tpc < end ? j0 + tpc : j0;  // a missing second entry repeats the first
+        const int c0 = __ldg(entry + j0), c1 = __ldg(entry + j1);
+        const float u0 = to_f32(__ldg(uc + (c0 >> 8))), u1 = to_f32(__ldg(uc + (c1 >> 8)));
+        const int8_t v0 = update<T>(ch, c0, pw, j0, W, u0, br);
+        const int8_t v1 = update<T>(ch, c1, pw, j1, W, u1, br);
+        ch[c0 >> 8] = v0;
+        ch[c1 >> 8] = v1;
+      }
+      __syncthreads();
+    }
+  }
+
+  // Frozen sites: their clamp values, and a 0 in shared memory that keeps
+  // the pass below off them.
+  if (F > 0) {
+    for (int i = t; i < nch * F; i += T_) {
+      const int rr = i / F, f = i - rr * F, p = __ldg(fsite + f);
+      chains[rr * HW + p] = 0;
+      out[base + static_cast<size_t>(rr) * HW + p] = round_to<T>(__ldg(fval + f));
+    }
+    __syncthreads();
+  }
+  if (vec) {
+    const char4* c4 = reinterpret_cast<const char4*>(chains);
+    for (int q = t; q < (n >> 2); q += T_) {
+      const char4 v = c4[q];
+      T* o = out + base + 4 * static_cast<size_t>(q);
+      if (v.x && v.y && v.z && v.w) {
+        store_spins4(o, v);
+      } else {
+        if (v.x) o[0] = round_to<T>(v.x);
+        if (v.y) o[1] = round_to<T>(v.y);
+        if (v.z) o[2] = round_to<T>(v.z);
+        if (v.w) o[3] = round_to<T>(v.w);
+      }
+    }
+  } else {
+    for (int i = t; i < n; i += T_)
+      if (chains[i]) out[base + i] = round_to<T>(chains[i]);
+  }
+}
+
+// -- the generic kernel --------------------------------------------------------
+
 template <typename T>
 __global__ void __launch_bounds__(1024)
-lattice_gibbs_kernel(const T* __restrict__ s, const T* __restrict__ w,
+lattice_gibbs_generic(const T* __restrict__ s, const T* __restrict__ w,
                      const T* __restrict__ b, const T* __restrict__ u,
                      const T* __restrict__ colors, const T* __restrict__ frozen,
                      const T* __restrict__ clampv, const float* __restrict__ beta,
@@ -109,17 +312,17 @@ lattice_gibbs_kernel(const T* __restrict__ s, const T* __restrict__ w,
 }
 
 template <typename T>
-cudaError_t launch(const void* s, const void* w, const void* b, const void* u,
+cudaError_t launch_generic(const void* s, const void* w, const void* b, const void* u,
                    const void* colors, const void* frozen, const void* clampv, const void* beta,
                    void* out, int B, int H, int W, int C, cudaStream_t stream) {
   const int HW = H * W;
   int cpb = HW >= 1024 ? 1 : 1024 / HW;
   if (cpb > B) cpb = B;
   const size_t smem = 2 * static_cast<size_t>(cpb) * HW;
-  cudaError_t err = glauber::allow_smem(lattice_gibbs_kernel<T>, smem);
+  cudaError_t err = glauber::allow_smem(lattice_gibbs_generic<T>, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (B + cpb - 1) / cpb;
-  lattice_gibbs_kernel<T><<<blocks, glauber::threads_for(static_cast<long long>(cpb) * HW), smem,
+  lattice_gibbs_generic<T><<<blocks, glauber::threads_for(static_cast<long long>(cpb) * HW), smem,
                             stream>>>(
       static_cast<const T*>(s), static_cast<const T*>(w), static_cast<const T*>(b),
       static_cast<const T*>(u), static_cast<const T*>(colors), static_cast<const T*>(frozen),
@@ -128,18 +331,62 @@ cudaError_t launch(const void* s, const void* w, const void* b, const void* u,
   return cudaGetLastError();
 }
 
+
+template <typename T, bool kPrefetch>
+cudaError_t launch_plan(const void* s, const void* offsets, const void* entry, const void* pw,
+                        const void* u, const void* beta, const void* fsite, const void* fval,
+                        void* out, int B, int H, int W, int C, int F, int cpb, int tpc,
+                        cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(cpb) * H * W + 2 * halo_bytes(W);
+  const cudaError_t err = glauber::allow_smem(lattice_gibbs_plan<T, kPrefetch>, smem);
+  if (err != cudaSuccess) return err;
+  lattice_gibbs_plan<T, kPrefetch><<<(B + cpb - 1) / cpb, cpb * tpc, smem, stream>>>(
+      static_cast<const T*>(s), static_cast<const int*>(offsets), static_cast<const int*>(entry),
+      static_cast<const float*>(pw), static_cast<const T*>(u), static_cast<const float*>(beta),
+      static_cast<const int*>(fsite), static_cast<const float*>(fval), static_cast<T*>(out), B, H,
+      W, C, F, cpb, tpc);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (or the attribute call's
-// error). bf16 != 0: the seven operands and out are bf16, else f32. The
-// caller has checked that 2 * H * W bytes fit in one block.
-extern "C" int lattice_gibbs_launch(const void* s, const void* w, const void* b,
+// The generic kernel. Returns cudaGetLastError() after the launch (or the
+// attribute call's error). bf16 != 0: the seven operands and out are bf16,
+// else f32. The caller has checked that 2 * H * W bytes fit in one block.
+extern "C" int lattice_gibbs_generic_launch(const void* s, const void* w, const void* b,
                                     const void* u, const void* colors, const void* frozen,
                                     const void* clampv, const void* beta, void* out, int B,
                                     int H, int W, int C, int bf16, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? launch<__nv_bfloat16>(s, w, b, u, colors, frozen, clampv, beta, out, B, H, W, C, st)
-           : launch<float>(s, w, b, u, colors, frozen, clampv, beta, out, B, H, W, C, st);
+      bf16 ? launch_generic<__nv_bfloat16>(s, w, b, u, colors, frozen, clampv, beta, out, B, H, W,
+                                         C, st)
+         : launch_generic<float>(s, w, b, u, colors, frozen, clampv, beta, out, B, H, W, C, st);
+  return static_cast<int>(err);
+}
+
+// The plan kernel: `cpb` chains a block of cpb * tpc threads. Returns
+// cudaGetLastError() after the launch (or the attribute call's error).
+// bf16 != 0: s, u and out are bf16, else f32. The caller has checked that
+// the plan's lists are independent sets, that cpb * H * W bytes fit in one
+// block and cpb * tpc threads <= 1024, and, with prefetch, that C <= 4 and
+// no list is longer than tpc.
+extern "C" int lattice_gibbs_launch(const void* s, const void* offsets, const void* entry,
+                                    const void* pw, const void* u, const void* beta,
+                                    const void* fsite, const void* fval, void* out, int B, int H,
+                                    int W, int C, int F, int cpb, int tpc, int prefetch, int bf16,
+                                    void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (bf16)
+    err = prefetch ? launch_plan<__nv_bfloat16, true>(s, offsets, entry, pw, u, beta, fsite, fval,
+                                                      out, B, H, W, C, F, cpb, tpc, st)
+                   : launch_plan<__nv_bfloat16, false>(s, offsets, entry, pw, u, beta, fsite,
+                                                       fval, out, B, H, W, C, F, cpb, tpc, st);
+  else
+    err = prefetch ? launch_plan<float, true>(s, offsets, entry, pw, u, beta, fsite, fval, out, B,
+                                              H, W, C, F, cpb, tpc, st)
+                   : launch_plan<float, false>(s, offsets, entry, pw, u, beta, fsite, fval, out,
+                                               B, H, W, C, F, cpb, tpc, st);
   return static_cast<int>(err);
 }

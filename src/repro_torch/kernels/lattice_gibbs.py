@@ -1,10 +1,11 @@
-"""CUDA kernel: fused chromatic Gibbs sweep on the king's-move lattice.
+"""CUDA kernels: fused chromatic Gibbs sweep on the king's-move lattice.
 
 One sweep over the colour classes of every chain, all chains as the B rows
 of one launch: per colour, the 8-neighbour stencil fields at that colour's
 sites, sigma(-2*(beta*h)), the proposal from the colour's uniforms, the
 update where colour and not frozen; then the clamp. Source
-`csrc/lattice_gibbs.cu`.
+`csrc/lattice_gibbs.cu`, two kernels chosen by the lattice plan (below) and
+counted apart in `launches`.
 
 Replaces the TPU kernel `repro/kernels/lattice_gibbs.py::lattice_gibbs_sweep`
 (`_sweep_kernel`, the `pl.pallas_call` at line 102). The TPU kernel grids
@@ -13,33 +14,218 @@ computes the whole field plane in every colour phase, because its vector
 unit shifts whole planes. The JAX driver vmaps a B = 1 call per chain with
 a scalar beta; here each row carries its own beta.
 
-The TPU kernel is generic in its dtype; this one takes f32 or bf16, and in
-bf16 rounds every add and multiply of the stencil to bf16, as torch and
+The TPU kernel is generic in its dtype; these take f32 or bf16, and in
+bf16 round every add and multiply of the stencil to bf16, as torch and
 XLA do.
 
 What bounds it on the H100: at (B, H, W) = (4096, 16, 16) in f32 it must read s
 (4.2 MB) and, since each site of a proper colouring is updated once, one
 uniform per free site (4.2 MB), and write the new s (4.2 MB): about
 12.6 MB, 3.8 µs at 3.35 TB/s (half in bf16). Its arithmetic (8
-multiply-adds and one exp per site) is negligible. It is memory-bound.
+multiply-adds and one exp per site) is negligible. It is memory-bound. A
+colour of the king colouring takes every other site of every other row,
+so its uniforms touch every 32-byte sector of half the rows of its
+(B, H, W) plane: 8.4 MB of sectors for the four colours, about 16.8 MB and
+5.0 µs in all, is the floor of any kernel that reads the uniforms in the
+(C, B, H, W) layout `torch.rand` draws them in.
 
-What the design does about it: a block keeps whole chains in shared
-memory (int8, two buffers, 2 KB per 16x16 chain), so the four phases
-touch device memory only for the uniforms of the sites they update; each
-phase computes fields only at its colour's sites, a quarter of the work
-the TPU kernel does; the weight planes and masks (10 KB at 16x16) come
-through the read-only cache and stay in L2 for all blocks.
+What the designs do about it (`chip_ablate.py lattice`, `PERF.md`):
+
+  lattice_gibbs_sweep  — the plan kernel, for masks whose lists are
+      independent sets of the king graph (`LatticePlan.independent`; the
+      king colouring of every `ChromaticGibbs` run). A block updates its
+      chains in place in one int8 buffer in shared memory and walks only
+      the plan's lists: `tpc` threads a chain each own fixed entries of
+      every colour. At 16x16 (lists of at most 64) every thread holds one
+      entry a colour and loads its four uniforms before the chains, so the
+      four phases' device-memory trips overlap into one; each phase reads
+      its weights from L1 and its neighbours from shared memory and ends in
+      one barrier. Lists longer than 1024 (lattices above 64x64) are walked
+      two entries at a time with the uniforms loaded in their phase.
+  lattice_gibbs_generic — any other masks (improper colourings, a mask
+      holding every site): the first port's kernel, two buffers a block, each
+      phase writing every site of the other, so every field sees the state
+      before its phase, as in JAX.
+
+The plan is built once per problem (`lattice_plan`, one wait for the
+device) and records the tensors it was built from; the kernels take it
+only with those (`check_plan`).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from repro_torch.core.ising import KING_OFFSETS, shift2d
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import MAX_SMEM_BYTES, check_cuda, check_tensor
 
-launches = 0  # kernel launches in this process; chip_smoke.py resets and reads it
+# chip_smoke.py resets and reads these: the plan kernel, and the two-buffer
+# kernel for masks that are not independent sets
+launches = {"lattice_gibbs_sweep": 0, "lattice_gibbs_generic": 0}
 
 DTYPES = (torch.float32, torch.bfloat16)  # as the TPU kernel, generic in its dtype
+
+# Threads a block of the plan kernel aims at (chip_ablate.py lattice times
+# 64 to 1024), and the colours a thread can hold from the start.
+BLOCK_THREADS = 64
+MAX_PREFETCH = 4
+W_COLUMNS = 12  # a plan entry's f32 row: 8 weights, b, three zero pads
+
+
+class LatticePlan(NamedTuple):
+    """A lattice's colour masks as the plan kernel walks them.
+
+    offsets: (C+1,) int32 — colour c's entries are offsets[c]:offsets[c+1].
+    entry:   (L,) int32   — per entry site << 8 | edges: the site y*W + x,
+             and bit k of `edges` set where the neighbour KING_OFFSETS[k]
+             lies on the lattice.
+    w:       (L, 12) f32  — the site's 8 weights in KING_OFFSETS order, 0
+             for a neighbour beyond the edge, b, three zero pads (bf16
+             operands are exact in f32).
+    frozen:  (F,) int32   — the frozen sites, ascending.
+    clamp:   (F,) f32     — their clamp values.
+    counts:  the C list lengths, on the host.
+    independent: on the host — no two king-adjacent sites share a list, so
+             a phase's fields never read a site of that phase and the
+             sweep may update in place.
+    shape:   (H, W).
+    source:  (tensor, version) of each of w, b, colors, frozen and
+             clamp_value as the plan read them: the kernels take the plan
+             only with these very tensors, unchanged since (`check_plan`).
+
+    A colour lists its updated sites (colour and not frozen) in ascending
+    order; a site in two masks is in both lists, an empty colour has an
+    empty list."""
+
+    offsets: torch.Tensor
+    entry: torch.Tensor
+    w: torch.Tensor
+    frozen: torch.Tensor
+    clamp: torch.Tensor
+    counts: tuple
+    independent: bool
+    shape: tuple
+    source: tuple
+
+    @property
+    def sites(self) -> torch.Tensor:
+        """(L,) the site of every entry, colour by colour."""
+        return self.entry >> 8
+
+    @property
+    def edges(self) -> torch.Tensor:
+        """(L,) the edge bits of every entry."""
+        return self.entry & 0xFF
+
+
+def lattice_plan(w: torch.Tensor, b: torch.Tensor, colors: torch.Tensor, frozen: torch.Tensor,
+                 clamp_value: torch.Tensor) -> LatticePlan:
+    """The plan of (C, H, W) colour masks and an (H, W) frozen mask (bool,
+    or f32/bf16 {0,1} read as > 0.5) over (8, H, W) weights, (H, W) b and
+    clamp values, on their device. Reads the masks on the host once (one
+    wait for the device): build it once per problem, not per sweep, and
+    pass the kernel these same tensors."""
+    H, W = b.shape
+    dev = b.device
+    sel = colors.to(torch.float32) > 0.5
+    fz = frozen.to(torch.float32) > 0.5
+    upd = (sel & ~fz).cpu()
+    fz = fz.cpu()
+    C = upd.shape[0]
+    # the 4 forward offsets cover every adjacent pair once
+    independent = not any(bool((upd & shift2d(upd.to(torch.int8), dy, dx).bool()).any())
+                          for dy, dx in KING_OFFSETS[4:])
+    counts = upd.reshape(C, -1).sum(1)
+    _, sites = upd.reshape(C, -1).nonzero(as_tuple=True)  # row-major: colour by colour, ascending
+    y, x = sites // W, sites % W
+    edges = torch.zeros_like(sites)
+    for k, (dy, dx) in enumerate(KING_OFFSETS):
+        on = (y + dy >= 0) & (y + dy < H) & (x + dx >= 0) & (x + dx < W)
+        edges |= on.long() << k
+    offsets = torch.zeros(C + 1, dtype=torch.int32)
+    offsets[1:] = counts.cumsum(0)
+    frozen_sites = fz.reshape(-1).nonzero()[:, 0]
+    at = sites.to(dev)
+    pw = torch.zeros((sites.shape[0], W_COLUMNS), dtype=torch.float32, device=dev)
+    on = (edges[:, None] >> torch.arange(8) & 1).bool().to(dev)
+    pw[:, :8] = torch.where(on, w.reshape(8, -1)[:, at].t().float(), 0.0)
+    pw[:, 8] = b.reshape(-1)[at].float()
+    source = tuple((t, t._version) for t in (w, b, colors, frozen, clamp_value))
+    return LatticePlan(
+        offsets.to(dev), ((sites << 8) | edges).to(torch.int32).to(dev), pw,
+        frozen_sites.to(torch.int32).to(dev),
+        clamp_value.reshape(-1)[frozen_sites.to(dev)].float(), tuple(counts.tolist()),
+        independent, (H, W), source)
+
+
+def check_plan(plan: LatticePlan, w, b, colors, frozen, clamp_value) -> None:
+    """Raise unless `plan` is `lattice_plan` of these very tensors, none of
+    them changed in place since, with well-formed tables on their device."""
+    if not isinstance(plan, LatticePlan):
+        raise TypeError(f"plan must be a LatticePlan (lattice_gibbs.lattice_plan), got {type(plan)}")
+    (H, W), C, dev = b.shape, colors.shape[0], b.device
+    if (plan.shape, len(plan.counts)) != ((H, W), C):
+        raise ValueError(f"the plan is of (H, W) = {plan.shape} and {len(plan.counts)} colours, "
+                         f"the operands of {(H, W)} and {C}")
+    names = ("w", "b", "colors", "frozen", "clamp_value")
+    for name, x, (src, version) in zip(names, (w, b, colors, frozen, clamp_value), plan.source):
+        if x is not src:
+            raise ValueError(f"the plan was built from another {name}: build it with "
+                             "lattice_plan from the tensors passed here")
+        if x._version != version:
+            raise ValueError(f"{name} changed in place after the plan was built: build it again")
+    L, F = sum(plan.counts), plan.frozen.numel()
+    check_tensor("plan.offsets", plan.offsets, torch.int32, (C + 1,), dev)
+    check_tensor("plan.entry", plan.entry, torch.int32, (L,), dev)
+    check_tensor("plan.w", plan.w, torch.float32, (L, W_COLUMNS), dev)
+    check_tensor("plan.frozen", plan.frozen, torch.int32, (F,), dev)
+    check_tensor("plan.clamp", plan.clamp, torch.float32, (F,), dev)
+
+
+def plan_launch(plan: LatticePlan, B: int) -> tuple[int, int, bool]:
+    """(chains a block, threads a chain, prefetch) of the plan kernel:
+    threads a chain cover the longest list (a warp at least, 1024 at
+    most); chains a block fill BLOCK_THREADS and fit shared memory; with
+    prefetch (C <= MAX_PREFETCH and no list longer than the threads a
+    chain) each thread holds one entry a colour from the start."""
+    H, W = plan.shape
+    longest = max(plan.counts, default=0)
+    tpc = max(32, min(1024, -(-longest // 32) * 32))
+    prefetch = len(plan.counts) <= MAX_PREFETCH and longest <= tpc
+    fit = (MAX_SMEM_BYTES - 2 * halo_bytes(W)) // max(1, H * W)
+    cpb = max(1, min(B, BLOCK_THREADS // tpc, fit))
+    return cpb, tpc, prefetch
+
+
+def halo_bytes(W: int) -> int:
+    """Shared memory before and after a plan block's chains (csrc
+    `halo_bytes`): a neighbour beyond the edge stays inside the block."""
+    return (W + 1 + 15) // 16 * 16
+
+
+def _launch_plan(s, plan: LatticePlan, uniforms, beta, out, cpb: int, tpc: int,
+                 prefetch: bool, device) -> None:
+    B, H, W = s.shape
+    code = _build.launcher("lattice_gibbs")(
+        s.data_ptr(), plan.offsets.data_ptr(), plan.entry.data_ptr(), plan.w.data_ptr(),
+        uniforms.data_ptr(), beta.data_ptr(), plan.frozen.data_ptr(), plan.clamp.data_ptr(),
+        out.data_ptr(), B, H, W, len(plan.counts), plan.frozen.shape[0], cpb, tpc,
+        int(prefetch), int(s.dtype == torch.bfloat16), torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check("lattice_gibbs_sweep", code)
+
+
+def _launch_generic(s, w, b, uniforms, colors, frozen, clamp_value, beta, out, device) -> None:
+    B, H, W = s.shape
+    code = _build.launcher("lattice_gibbs_generic")(
+        s.data_ptr(), w.data_ptr(), b.data_ptr(), uniforms.data_ptr(), colors.data_ptr(),
+        frozen.data_ptr(), clamp_value.data_ptr(), beta.data_ptr(), out.data_ptr(),
+        B, H, W, colors.shape[0], int(s.dtype == torch.bfloat16),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check("lattice_gibbs_generic", code)
 
 
 def lattice_gibbs_sweep(
@@ -51,14 +237,17 @@ def lattice_gibbs_sweep(
     frozen: torch.Tensor,
     clamp_value: torch.Tensor,
     beta: torch.Tensor,
+    plan: LatticePlan | None = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel: (B,H,W) ±1 spins, (8,H,W) weight planes,
+    """Launch a CUDA kernel: (B,H,W) ±1 spins, (8,H,W) weight planes,
     (H,W) bias, (C,B,H,W) uniforms, (C,H,W) {0,1} colour masks, (H,W) {0,1}
     frozen mask and ±1 clamp values, all f32 or all bf16, and (B,) f32
     per-row beta, all contiguous on one sm_90 device -> new (B,H,W) spins
     of the operands' dtype in a fresh tensor. In bf16 the fields round as
-    the plain version's do (`ref.lattice_fields_ref`)."""
-    global launches
+    the plain version's do (`ref.lattice_fields_ref`). `plan` is
+    `lattice_plan` of these very w, b and masks (`check_plan`); without one
+    the call builds it (and waits for the device once). Independent lists
+    take the plan kernel, any others the generic one."""
     operands = {"s": s, "w": w, "b": b, "uniforms": uniforms, "colors": colors,
                 "frozen": frozen, "clamp_value": clamp_value}
     dtype = s.dtype
@@ -77,19 +266,28 @@ def lattice_gibbs_sweep(
     for name, t in operands.items():
         check_tensor(name, t, dtype, shapes[name], dev)
     check_tensor("beta", beta, torch.float32, (B,), dev)
-    if 2 * H * W > MAX_SMEM_BYTES:
+    if H * W + 2 * halo_bytes(W) > MAX_SMEM_BYTES:
         raise ValueError(
-            f"a {H}x{W} lattice needs {2 * H * W} bytes of shared memory per "
-            f"block (two int8 copies of a chain); the card allows {MAX_SMEM_BYTES}"
+            f"a {H}x{W} lattice needs {H * W + 2 * halo_bytes(W)} bytes of shared memory "
+            f"per block (an int8 copy of a chain between two halos); the card allows "
+            f"{MAX_SMEM_BYTES}"
+        )
+    if plan is None:
+        plan = lattice_plan(w, b, colors, frozen, clamp_value)
+    check_plan(plan, w, b, colors, frozen, clamp_value)
+    if not plan.independent and 2 * H * W > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"masks that are not independent sets take the two-buffer kernel: a {H}x{W} "
+            f"lattice needs {2 * H * W} bytes of shared memory per block (two int8 copies "
+            f"of a chain); the card allows {MAX_SMEM_BYTES}"
         )
     out = torch.empty((B, H, W), dtype=dtype, device=dev)
     if B == 0 or H * W == 0:
         return out
-    code = _build.launcher("lattice_gibbs")(
-        s.data_ptr(), w.data_ptr(), b.data_ptr(), uniforms.data_ptr(), colors.data_ptr(),
-        frozen.data_ptr(), clamp_value.data_ptr(), beta.data_ptr(), out.data_ptr(),
-        B, H, W, C, int(dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check("lattice_gibbs_sweep", code)
-    launches += 1
+    if plan.independent:
+        _launch_plan(s, plan, uniforms, beta, out, *plan_launch(plan, B), dev)
+        launches["lattice_gibbs_sweep"] += 1
+    else:
+        _launch_generic(s, w, b, uniforms, colors, frozen, clamp_value, beta, out, dev)
+        launches["lattice_gibbs_generic"] += 1
     return out

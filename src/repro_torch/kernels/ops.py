@@ -45,16 +45,18 @@ def _row_beta(beta, s: torch.Tensor) -> torch.Tensor:
 
 
 def lattice_gibbs_sweep(
-    s, w, b, uniforms, colors, frozen, clamp_value, beta=None, mode: str = "auto"
+    s, w, b, uniforms, colors, frozen, clamp_value, beta=None, mode: str = "auto", plan=None
 ) -> torch.Tensor:
     """One fused chromatic Gibbs sweep over the (B,H,W) chains of `s`.
 
     The JAX signature (colors, frozen as f32 {0,1}), with `beta` a float, a
     () tensor or a (B,) per-row inverse temperature: row r rounds as the JAX
-    call with scalar beta[r]."""
+    call with scalar beta[r]. `plan` is `lattice_gibbs.lattice_plan` of
+    these w, b and masks, built once per problem; without one the kernel's
+    wrapper builds it per call. The plain version reads the masks."""
     beta = _row_beta(beta, s)
     if _use_kernel(s, mode):
-        return _lg.lattice_gibbs_sweep(s, w, b, uniforms, colors, frozen, clamp_value, beta)
+        return _lg.lattice_gibbs_sweep(s, w, b, uniforms, colors, frozen, clamp_value, beta, plan)
     return _ref.lattice_gibbs_sweep_ref(
         s, w, b, uniforms, colors > 0.5, frozen > 0.5, clamp_value, beta
     )
