@@ -51,17 +51,17 @@ library's launcher:
 
 lattice: times the lattice sweep's two kernels on cal_problem() at
 (B, H, W) = (4096, 16, 16), the CAL main path's sweep (king masks, no
-frozen site, beta = 1.7), in f32 (bf16: the bases and the walking loop):
+frozen site, beta = 1.7), in f32 (bf16: the bases):
 
-  plan_*     the plan kernel (lattice_gibbs_sweep) at the wrapper's chains
-             a block: base; no_u (a constant for the uniforms); u_l2 (every
-             chain reads chain 0's uniforms: L2 hits); no_phases (the
-             chains loaded and stored only); empty (the launch alone);
-             minb1 (no register cap); store_early (each site written to
-             the output in its phase, no output pass: exact here, with
-             every site in one list and none frozen); base_cpbN (1 to 16 chains
-             a block, 64 to 1024 threads); loop (no prefetch: the walking
-             loop of large lattices)
+  plan_*     the plan kernel (lattice_gibbs_sweep, one chain a block of
+             the plan's 64 threads): base; no_u (a constant for the
+             uniforms); u_l2 (every chain reads chain 0's uniforms: L2
+             hits); no_phases (the chains loaded and stored only); empty
+             (the launch alone); minb1 (no register cap); store_early (each
+             site written to the output in its phase, no output pass:
+             exact here, with every site in one list and none frozen);
+             cpbN (N = 2 to 16 chains a block of N x 64 threads, the chains
+             side by side in shared memory)
   generic_*  the two-buffer kernel (lattice_gibbs_generic, the first
              port's design): base; no_u; u_first (the uniform loaded before the
              stencil); in_place (one buffer); colour_only (in place, only
@@ -71,6 +71,10 @@ frozen site, beta = 1.7), in f32 (bf16: the bases and the walking loop):
              cpb16_t1024; empty; combined (u_first + colour_only +
              w_smem). in_place, colour_only and combined are exact for
              independent masks only.
+
+and then, through the wrapper, the king colouring at (16, 128, 128) and
+(1, 200, 200), whose lists are longer than a block's threads, so the plan
+sends them to the two-buffer kernel (the route asserted from the counters).
 
 Prints one JSON line per (shape, variant) group, then the card's name and
 power limit. The variants are built from patched copies of the sources in
@@ -455,31 +459,41 @@ def patched_lattice() -> str:
     two-buffer kernel (`lattice_gibbs_generic`, the first port's design) behind a
     macro."""
     prob = "glauber::prob_up(beta[r0 + r], to_f32(h))"
-    update = "update<T>(ch, code[c], pw, __ldg(offsets + c) + lane, W, uv[c], br)"
+    update = "update<T>(ch, code[c], pw, __ldg(offsets + c) + t, W, uv[c], br)"
+    plan_head = ("  const int HW = H * W, t = threadIdx.x, T_ = blockDim.x, r = blockIdx.x;\n"
+                 "  int8_t* ch = smem + halo_bytes(W);\n")
     return patch((CSRC / "lattice_gibbs.cu").read_text(), "lattice_gibbs.cu", [
         # the plan kernel
-        ("constexpr int kMaxPrefetch = 4;",
+        ("constexpr int kMaxColours = 4;",
          "#ifndef ABL_MINB\n#define ABL_MINB 2\n#endif\n#ifndef ABL_NO_PHASES\n"
          "#define ABL_NO_PHASES 0\n#endif\n#ifndef ABL_STORE_EARLY\n#define ABL_STORE_EARLY 0\n"
-         "#endif\nconstexpr int kMaxPrefetch = 4;"),
-        ("__launch_bounds__(1024, kPrefetch ? 2 : 1)", "__launch_bounds__(1024, kPrefetch ? ABL_MINB : 1)"),
-        ("  int8_t* chains = smem + halo_bytes(W);\n",
-         "  int8_t* chains = smem + halo_bytes(W);\n#ifdef ABL_EMPTY\n  return;\n#endif\n"),
-        ("  const T* ur = u + static_cast<size_t>(r) * HW;\n",
-         "#ifdef ABL_U_L2\n  const T* ur = u;\n#else\n  const T* ur = u + static_cast<size_t>(r) * HW;\n"
+         "#endif\n#ifndef ABL_PLAN_CPB\n#define ABL_PLAN_CPB 1\n#endif\n"
+         "constexpr int kMaxColours = 4;"),
+        ("__launch_bounds__(1024, 2)\nlattice_gibbs_plan(",
+         "__launch_bounds__(1024, ABL_MINB)\nlattice_gibbs_plan("),
+        (plan_head,
+         "#if ABL_PLAN_CPB > 1\n"
+         "  const int HW = H * W, T_ = blockDim.x / ABL_PLAN_CPB, lr_ = threadIdx.x / T_;\n"
+         "  const int t = threadIdx.x - lr_ * T_, r = blockIdx.x * ABL_PLAN_CPB + lr_;\n"
+         "  int8_t* ch = smem + halo_bytes(W) + lr_ * HW;\n#else\n" + plan_head + "#endif\n"
+         "#ifdef ABL_EMPTY\n  return;\n#endif\n"),
+        ("  const T* ur = u + base;\n",
+         "#ifdef ABL_U_L2\n  const T* ur = u;\n#else\n  const T* ur = u + base;\n#endif\n"),
+        ("    uv[c] = code[c] != kNoEntry ? to_f32(__ldg(ur + c * plane + (code[c] >> 8))) : 0.0f;\n",
+         "#ifdef ABL_NO_U\n    uv[c] = 0.5f;\n#else\n"
+         "    uv[c] = code[c] != kNoEntry ? to_f32(__ldg(ur + c * plane + (code[c] >> 8))) : 0.0f;\n"
          "#endif\n"),
-        ("      uv[c] = code[c] != kNoEntry ? to_f32(__ldg(ur + c * plane + (code[c] >> 8))) : 0.0f;\n",
-         "#ifdef ABL_NO_U\n      uv[c] = 0.5f;\n#else\n"
-         "      uv[c] = code[c] != kNoEntry ? to_f32(__ldg(ur + c * plane + (code[c] >> 8))) : 0.0f;\n"
-         "#endif\n"),
-        ("      if (c >= C) break;\n", "      if (c >= C || ABL_NO_PHASES) break;\n"),
-        (f"        ch[code[c] >> 8] = {update};\n",
-         f"      {{\n        const int8_t v_ = {update};\n        ch[code[c] >> 8] = v_;\n"
-         "        if (ABL_STORE_EARLY) out[base + static_cast<size_t>(lr) * HW + (code[c] >> 8)] = "
-         "round_to<T>(v_);\n      }\n"),
-        ("  if (vec) {\n    const char4* c4 = reinterpret_cast<const char4*>(chains);",
+        ("    if (c >= C) break;\n", "    if (c >= C || ABL_NO_PHASES) break;\n"),
+        (f"      ch[code[c] >> 8] = {update};\n",
+         f"    {{\n      const int8_t v_ = {update};\n      ch[code[c] >> 8] = v_;\n"
+         "      if (ABL_STORE_EARLY) out[base + (code[c] >> 8)] = round_to<T>(v_);\n    }\n"),
+        ("  if (vec) {\n    const char4* c4 = reinterpret_cast<const char4*>(ch);",
          "  if (ABL_STORE_EARLY) {\n  } else if (vec) {\n"
-         "    const char4* c4 = reinterpret_cast<const char4*>(chains);"),
+         "    const char4* c4 = reinterpret_cast<const char4*>(ch);"),
+        ("  const size_t smem = static_cast<size_t>(H) * W + 2 * halo_bytes(W);\n",
+         "  const size_t smem = ABL_PLAN_CPB * static_cast<size_t>(H) * W + 2 * halo_bytes(W);\n"),
+        ("lattice_gibbs_plan<T><<<B, threads, smem, stream>>>(",
+         "lattice_gibbs_plan<T><<<B / ABL_PLAN_CPB, threads * ABL_PLAN_CPB, smem, stream>>>("),
         # the generic kernel
         ("template <typename T>\n__global__ void __launch_bounds__(1024)\nlattice_gibbs_generic(",
          "#ifndef ABL_CPB\n#define ABL_CPB 0\n#endif\n#ifndef ABL_THREADS\n#define ABL_THREADS 0\n"
@@ -543,16 +557,17 @@ GENERIC_VARIANTS = {
     "cpb16_t1024": ["-DABL_CPB=16"], "empty": ["-DABL_EMPTY"],
     "combined": ["-DABL_U_FIRST", "-DABL_IN_PLACE", "-DABL_COLOUR_ONLY", "-DABL_W_SMEM"],
 }
-# variants of the plan kernel, run at the wrapper's launch shape; the base
-# also at 1 to 16 chains a block (64 to 1024 threads) and without prefetch
+# variants of the plan kernel, each at the plan's threads a chain; cpbN puts
+# N chains in a block of N times those threads
+PLAN_CHAINS = (2, 4, 8, 16)
 PLAN_VARIANTS = {
     "base": [], "no_u": ["-DABL_NO_U"], "u_l2": ["-DABL_U_L2"],
     "no_phases": ["-DABL_NO_PHASES=1"], "empty": ["-DABL_EMPTY"], "minb1": ["-DABL_MINB=1"],
     "store_early": ["-DABL_STORE_EARLY=1"],
-}
-PLAN_CHAINS = (1, 2, 4, 8, 16)
+} | {f"cpb{n}": [f"-DABL_PLAN_CPB={n}"] for n in PLAN_CHAINS}
 LATTICE_INEXACT = ("no_u", "empty", "u_l2", "no_phases")  # time only
 LATTICE_SHAPE = (4096, 16, 16)  # the CAL main path's sweep
+LATTICE_LARGE = ((16, 128, 128), (1, 200, 200))  # lists longer than a block's threads
 
 
 def build_lattice() -> dict:
@@ -574,7 +589,7 @@ def build_lattice() -> dict:
             fn.argtypes = [P] * 9 + [I] * 5 + [P]
         else:
             fn, kind = lib.lattice_gibbs_launch, "plan"
-            fn.argtypes = [P] * 9 + [I] * 9 + [P]
+            fn.argtypes = [P] * 9 + [I] * 7 + [P]
         fn.restype = I
         fns[name] = (fn, kind)
     return fns
@@ -607,18 +622,17 @@ def ablate_lattice(torch, np, chip_smoke, dev) -> None:
                                      colors_b, frozen_b, beta, chip_smoke.P_BAND)
         bf16 = int(dtype == torch.bfloat16)
         plan = lattice_gibbs.lattice_plan(w, b, colors, frozen, clampv)
-        cpb, tpc, _ = lattice_gibbs.plan_launch(plan, B)
+        if B % max(PLAN_CHAINS) or not plan.threads:
+            raise AssertionError(f"{LATTICE_SHAPE}: {plan.threads} threads a chain, B not a "
+                                 "multiple of the chains a block")
         row = {"kernel": "lattice_gibbs", "dtype": str(dtype).removeprefix("torch."),
                "B": B, "H": H, "W": W, "frozen": int(frozen_b.sum()),
-               "wrapper_chains_per_block": cpb, "threads_per_chain": tpc}
-        runs = [(label, fn, kind, cpb, True) for label, (fn, kind) in fns.items()]
-        runs += [(f"plan_base_cpb{n}", fns["plan_base"][0], "plan", n, True) for n in PLAN_CHAINS]
-        runs.append(("plan_loop", fns["plan_base"][0], "plan", cpb, False))
-        for label, fn, kind, chains, prefetch in runs:
-            if bf16 and label not in ("generic_base", "plan_base", "plan_loop"):
+               "threads_per_chain": plan.threads}
+        for label, (fn, kind) in fns.items():
+            if bf16 and label not in ("generic_base", "plan_base"):
                 continue  # the bf16 kernels at their base only
 
-            def launch(fn=fn, kind=kind, label=label, chains=chains, prefetch=prefetch):
+            def launch(fn=fn, kind=kind, label=label):
                 if kind == "generic":
                     code = fn(s.data_ptr(), w.data_ptr(), b.data_ptr(), u.data_ptr(),
                               colors.data_ptr(), frozen.data_ptr(), clampv.data_ptr(),
@@ -627,8 +641,7 @@ def ablate_lattice(torch, np, chip_smoke, dev) -> None:
                     code = fn(s.data_ptr(), plan.offsets.data_ptr(), plan.entry.data_ptr(),
                               plan.w.data_ptr(), u.data_ptr(), beta.data_ptr(),
                               plan.frozen.data_ptr(), plan.clamp.data_ptr(), out.data_ptr(),
-                              B, H, W, 4, plan.frozen.numel(), chains, tpc, int(prefetch), bf16,
-                              stream)
+                              B, H, W, 4, plan.frozen.numel(), plan.threads, bf16, stream)
                 if code:
                     raise RuntimeError(f"lattice variant {label}: CUDA error {code}")
             out.fill_(float("nan"))
@@ -642,6 +655,33 @@ def ablate_lattice(torch, np, chip_smoke, dev) -> None:
             row[label] = {"ms": chip_smoke.time_ms(torch, launch), "exact": not bool(differ.any())}
         print(json.dumps(row), flush=True)
         del s, u, out, want, band
+
+    # the large lattices, through the wrapper: the route the plan gives them
+    for B, H, W in LATTICE_LARGE:
+        s = torch.as_tensor(rng.choice([-1.0, 1.0], (B, H, W)).astype(np.float32), device=dev)
+        w = torch.as_tensor(rng.normal(0.0, 0.5, (8, H, W)).astype(np.float32), device=dev)
+        b = torch.as_tensor(rng.normal(0.0, 0.3, (H, W)).astype(np.float32), device=dev)
+        u = torch.rand((4, B, H, W), device=dev)
+        colors_b = king_color_masks(H, W, device=dev)
+        frozen_b = torch.zeros((H, W), dtype=torch.bool, device=dev)
+        colors, frozen, clampv = colors_b.float(), frozen_b.float(), torch.ones((H, W), device=dev)
+        beta = torch.full((B,), 1.7, dtype=torch.float32, device=dev)
+        plan = lattice_gibbs.lattice_plan(w, b, colors, frozen, clampv)
+        args = (s, w, b, u, colors, frozen, clampv, beta)
+        before = dict(lattice_gibbs.launches)
+        got = lattice_gibbs.lattice_gibbs_sweep(*args, plan=plan)
+        taken = {k: n - before[k] for k, n in lattice_gibbs.launches.items()}
+        want = ops.lattice_gibbs_sweep(*args, mode="reference")
+        band = chip_smoke.phase_band(torch, lambda x: ref.lattice_fields_ref(x, w, b), s, u,
+                                     colors_b, frozen_b, beta, chip_smoke.P_BAND)
+        bad = int(((got != want) & ~band).sum())
+        if taken != {"lattice_gibbs_sweep": 0, "lattice_gibbs_generic": 1} or bad:
+            raise AssertionError(f"lattice {(B, H, W)}: launched {taken}, {bad} spins differ")
+        print(json.dumps({"kernel": "lattice_gibbs", "dtype": "float32", "B": B, "H": H, "W": W,
+                          "longest_list": max(plan.counts), "route": "lattice_gibbs_generic",
+                          "ms": chip_smoke.time_ms(torch, lambda: lattice_gibbs.lattice_gibbs_sweep(
+                              *args, plan=plan))}), flush=True)
+        del s, u, got, want, band
 
 
 def main() -> int:

@@ -34,8 +34,11 @@ exits nonzero without printing the final result line:
                 ones at (8,8,8)), per-row beta in [0.3, 3], through both
                 kernels, each launch's route asserted from the counters:
                 the plan kernel wherever the masks are independent sets
-                (all but (8,8,8)), the two-buffer lattice_gibbs_generic
-                everywhere (forced by a plan marked not independent).
+                and every list fits a block's threads (all but (8,8,8),
+                (16,128,128) and (1,200,200), which take the generic
+                kernel by the plan's own choice), the two-buffer
+                lattice_gibbs_generic everywhere (forced by a plan marked
+                not independent).
                 Spins equal except where |u - p_up| <= 1e-6 in the site's
                 phase, frozen sites equal to the clamp value, and the
                 fields probed through p_up (uniforms set to the plain p_up
@@ -83,7 +86,9 @@ exits nonzero without printing the final result line:
                 bf16 over the plan, beside its sector floor (the bytes of
                 the 32-byte sectors its uniforms touch in the (C, B, H, W)
                 layout) and beside the generic kernel at the same shape
-                and at (8, 8, 8) with random masks; flash_attention at both
+                and at (8, 8, 8) with random masks, and the wrapper's host
+                cost per call at the CAL shape (the launch replaced by
+                nothing; check_plan alone); flash_attention at both
                 main_attention shapes; the coloured sweep also beside its
                 sector floor (in the (C, B, n) layout);
                 sparse_fields_global at (64, 65536).
@@ -176,6 +181,9 @@ def time_ms(torch, fn, n: int = 100, warmup: int = 10) -> float:
 LATTICE_SHAPES = [(1, 1, 1), (8, 8, 8), (4, 16, 16), (2, 32, 24), (3, 17, 23),
                   (16, 128, 128), (4096, 16, 16), (1, 200, 200)]
 GENERIC_SHAPE = (8, 8, 8)  # check_lattice's random masks: the generic kernel's timing
+# the shapes only the generic kernel takes: the random masks, and king lists
+# longer than a block's threads
+GENERIC_ONLY = (GENERIC_SHAPE, (16, 128, 128), (1, 200, 200))
 # (B, n, graph): "dense" random couplings at a density, or a 3-regular MaxCut
 SPARSE_CASES = [(1, 5, "dense", 1.0), (8, 100, "dense", 0.4), (3, 130, "dense", 0.05),
                 (256, 16384, "3regular", 0), (2, 40000, "3regular", 1),
@@ -279,7 +287,7 @@ def check_attention(torch, ops, what, out, q, k, v, causal):
 def kernel_name(mangled: str) -> str:
     """A kernel's SASS_KERNELS name and, for a template, its float, bf16,
     integer and bool arguments (flash_bf16_kernel<128>,
-    colored_gibbs_kernel<1>, lattice_gibbs_plan<bf16,1>)."""
+    colored_gibbs_kernel<1>, lattice_gibbs_plan<bf16>)."""
     import re
 
     name = next((k for k in SASS_KERNELS if k in mangled), mangled)
@@ -403,6 +411,33 @@ def lattice_sector_floor_ms(torch, plan, B, itemsize):
                       .numel()) for a, z in zip(offsets[:-1], offsets[1:]))
     plan_bytes = sum(x.numel() * x.element_size() for x in plan[:5])
     return (2 * B * H * W * itemsize + 32 * sectors + plan_bytes + 4 * B) / HBM_BYTES_PER_S * 1e3
+
+
+def lattice_host_us(lattice_gibbs, args, plan, n: int = 1000, rounds: int = 5) -> dict:
+    """Host µs per call of the lattice wrapper on these operands and plan:
+    the whole wrapper with its launch replaced by nothing (its launch count
+    put back after), and check_plan alone. Median of `rounds` rounds of n
+    calls on the host clock."""
+    def per_call(fn):
+        walls = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            walls.append((time.perf_counter() - t0) / n * 1e6)
+        return statistics.median(walls)
+
+    count, real = dict(lattice_gibbs.launches), lattice_gibbs._launch_plan
+    lattice_gibbs._launch_plan = lambda *a: None
+    try:
+        wrapper = per_call(lambda: lattice_gibbs.lattice_gibbs_sweep(*args, plan=plan))
+    finally:
+        lattice_gibbs._launch_plan = real
+        lattice_gibbs.launches.update(count)
+    w, b, _, colors, frozen, clampv, _ = args[1:]
+    return {"wrapper_without_launch": wrapper,
+            "check_plan": per_call(lambda: lattice_gibbs.check_plan(plan, w, b, colors, frozen,
+                                                                    clampv))}
 
 
 def cut_fraction(prob, s):
@@ -661,12 +696,13 @@ def main() -> int:
         beta = f32(rng.uniform(0.3, 3.0, B))
         colors, frozen = colors_b.float(), frozen_b.float()
         # the wrapper's own choice: the plan kernel for the king colouring
+        # wherever its lists fit a block's threads
         plan = lattice_gibbs.lattice_plan(w, b, colors, frozen, clampv)
-        routes = ["lattice_gibbs_generic"]
-        if plan.independent:
-            routes.insert(0, "lattice_gibbs_sweep")
-        elif colors_b is king_b:
+        if colors_b is king_b and not plan.independent:
             raise AssertionError(f"the king colouring at {(H, W)} is not independent")
+        routes = ["lattice_gibbs_generic"]
+        if plan.independent and plan.threads:
+            routes.insert(0, "lattice_gibbs_sweep")
         lattice_routes[(B, H, W)] = routes
         # The field probes: one phase updating every probed free site. The
         # plan kernel takes one king colour a call, the generic kernel one
@@ -704,8 +740,8 @@ def main() -> int:
             mism[route] += int(differ.sum())
             err[route] = max(err[route], float(((out_k - out_r).abs() * ~band).max()))
             emit({"phase": "check_lattice", "dtype": "float32", "B": B, "H": H, "W": W,
-                  "route": route, "launch": (lattice_gibbs.plan_launch(plan, B)
-                                             if route == "lattice_gibbs_sweep" else None),
+                  "route": route,
+                  "threads": plan.threads if route == "lattice_gibbs_sweep" else None,
                   "mismatches": int(differ.sum()), "in_band": int(band.sum()),
                   "field_mismatches": n_field,
                   "sigmoid_vs_kernel_formula": int((torch.sigmoid(x) != p).sum())})
@@ -739,9 +775,9 @@ def main() -> int:
                   "route": route, "mismatches": int(differ.sum()), "in_band": int(band.sum()),
                   "field_mismatches": n_field, "field_sites_resolved": n_resolved,
                   "free_sites": n_free, "zero_fields": n_zero})
-    if lattice_routes[(8, 8, 8)] != ["lattice_gibbs_generic"] or any(
-            r != ["lattice_gibbs_sweep", "lattice_gibbs_generic"]
-            for shape, r in lattice_routes.items() if shape != (8, 8, 8)):
+    if any(r != (["lattice_gibbs_generic"] if shape in GENERIC_ONLY else
+                 ["lattice_gibbs_sweep", "lattice_gibbs_generic"])
+           for shape, r in lattice_routes.items()):
         raise AssertionError(f"check_lattice took the routes {lattice_routes}")
 
     # The plan ChromaticGibbs.init builds for CAL: equal to the wrapper's own,
@@ -753,7 +789,8 @@ def main() -> int:
     colors_i, frozen_i, clamp_i, plan_i = ChromaticGibbs(backend="cuda").init(
         cal, torch.Generator(device=dev), s0=s).aux
     own = lattice_gibbs.lattice_plan(cal.w, cal.b, colors_i, frozen_i, clamp_i)
-    same_plan = own.independent == plan_i.independent and own.counts == plan_i.counts and all(
+    same_plan = (own.independent, own.counts, own.threads) == (
+        plan_i.independent, plan_i.counts, plan_i.threads) and all(
         torch.equal(x, y) for x, y in zip(plan_i[:5], own[:5]))
     args = (s, cal.w, cal.b, u, colors_i, frozen_i, clamp_i, beta)
     reset, read = counters()
@@ -766,7 +803,7 @@ def main() -> int:
                              f"{init_differ} spins differ, launches {init_launches}")
     emit({"phase": "check_lattice_init_plan", "problem": "cal_problem()",
           "n_chains": s.shape[0], "plan_equal": same_plan, "mismatches": init_differ,
-          "counts": list(plan_i.counts), "launch": lattice_gibbs.plan_launch(plan_i, s.shape[0])})
+          "counts": list(plan_i.counts), "threads": plan_i.threads})
 
     rows_seen = set()  # fields rows a block the cases take (0: the global kernel)
     for B, n, graph, arg in SPARSE_CASES:
@@ -923,6 +960,8 @@ def main() -> int:
     lattice_floor_ms = lattice_sector_floor_ms(torch, lat_plan, B, 4)
     lattice_floor_bf16_ms = lattice_sector_floor_ms(torch, plan_bf16, B, 2)
     del lat_bf16
+    lat_host_us = lattice_host_us(lattice_gibbs, (s, cal.w, cal.b, u, colors, frozen, clampv, beta),
+                                  lat_plan)
     # the generic kernel at the random-mask shape of check_lattice
     Bg, Hg, Wg = GENERIC_SHAPE
     grng = np.random.default_rng(8)
@@ -1007,7 +1046,7 @@ def main() -> int:
           "colored_gibbs_sweep_sector_floor_ms": sector_floor_ms,
           "lattice_gibbs_sweep_sector_floor_ms": lattice_floor_ms,
           "lattice_gibbs_sweep_bf16_sector_floor_ms": lattice_floor_bf16_ms,
-          "lattice_launch": lattice_gibbs.plan_launch(lat_plan, LATTICE_MAIN["n_chains"]),
+          "lattice_threads": lat_plan.threads, "lattice_wrapper_host_us": lat_host_us,
           "generic_shape": list(GENERIC_SHAPE),
           "sparse_fields_global_shape": list(GLOBAL_FIELDS_SHAPE),
           "sparse_fields_rows_per_block": sparse_gather.fields_rows(

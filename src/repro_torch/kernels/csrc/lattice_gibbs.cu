@@ -25,33 +25,31 @@
 // (kernels/lattice_gibbs.py::lattice_plan), never as a fallback:
 //
 // lattice_gibbs_plan — when every colour's list of updated sites is an
-//   independent set of the king graph (the king colouring, the CAL path).
-//   A site's field then never reads a site of its own phase, so the block
-//   updates its `cpb` chains in place: one int8 buffer in shared memory, no
-//   copy pass. The plan lists, per colour, the updated sites in ascending
-//   order, each as (site << 8 | edge bits) and a row of 12 f32 (the 8
-//   weights, 0 for a neighbour beyond the edge, b, three pads: three
-//   16-byte loads); `tpc` threads a chain each own fixed entries of every
-//   list. With kPrefetch (C <= 4 and one entry a colour a thread, so 16x16
-//   is one 2x2 cell a thread, 64 threads a chain) a thread loads its C
-//   entries and their uniforms before the chains, so the C device-memory
-//   trips of the uniforms overlap with each other and with the chains'
-//   load; each phase then reads its weights (L1-resident: 12 KB at 16x16)
-//   and 8 neighbours from shared memory, writes its own site and ends in
-//   one barrier. The sweep is bound by instructions issued (about 1M site
-//   updates), so the stencil has no edge test and no multiply: a zero
-//   weight beyond the edge (the chains sit between two halos of shared
-//   memory) and a sign flip for w * s. Without it (large
-//   lattices) a thread walks its entries two at a time, loading each
-//   phase's uniforms in that phase. Frozen sites keep their input spin
-//   through the phases; at the end they are marked 0 in shared memory and
-//   written with the plan's clamp values, and every other site is written
-//   from shared memory.
+//   independent set of the king graph (the king colouring, the CAL path),
+//   there are at most 4 colours and no list is longer than 1024. A site's
+//   field then never reads a site of its own phase, so the block updates its
+//   one chain in place: one int8 buffer in shared memory, no copy pass. The
+//   plan lists, per colour, the updated sites in ascending order, each as
+//   (site << 8 | edge bits) and a row of 12 f32 (the 8 weights, 0 for a
+//   neighbour beyond the edge, b, three pads: three 16-byte loads). Thread t
+//   owns entry t of every list (at 16x16 one 2x2 cell a thread, 64 threads a
+//   block): it loads its C entries and their uniforms before the chain, so
+//   the C device-memory trips of the uniforms overlap with each other and
+//   with the chain's load; each phase then reads its weights (L1-resident:
+//   12 KB at 16x16) and 8 neighbours from shared memory, writes its own site
+//   and ends in one barrier. The sweep is bound by instructions issued
+//   (about 1M site updates), so the stencil has no edge test and no
+//   multiply: a zero weight beyond the edge (the chain sits between two
+//   halos of shared memory) and a sign flip for w * s. Frozen sites keep
+//   their input spin through the phases; at the end they are marked 0 in
+//   shared memory and written with the plan's clamp values, and every other
+//   site is written from shared memory.
 //
-// lattice_gibbs_generic — any other masks (the first port's design): a block
-//   holds `cpb` whole chains in two int8 buffers; each phase reads one and
-//   writes every site of the other (the proposal or the old spin), then one
-//   barrier, then the buffers swap. So every field of a phase sees the
+// lattice_gibbs_generic — any other masks, more colours or longer lists
+//   (lattices above 64x64; the first port's design): a block holds `cpb`
+//   whole chains in two int8 buffers; each phase reads one and writes every
+//   site of the other (the proposal or the old spin), then one barrier, then
+//   the buffers swap. So every field of a phase sees the
 //   state before the phase for any masks, as in JAX. w, b and the masks
 //   are read through the read-only cache.
 //
@@ -83,9 +81,9 @@ __device__ __forceinline__ __nv_bfloat16 round_to<__nv_bfloat16>(float x) {
 
 // -- the plan kernel -----------------------------------------------------------
 
-// Colours whose entry a thread of the prefetching kernel holds in registers
-// from the start: the king colouring's four.
-constexpr int kMaxPrefetch = 4;
+// Colours whose entry a thread holds in registers from the start: the king
+// colouring's four.
+constexpr int kMaxColours = 4;
 constexpr int kNoEntry = -1;  // entry codes are site << 8 | edges >= 0
 
 __device__ __forceinline__ int8_t spin(float v) { return v > 0.0f ? 1 : -1; }
@@ -143,99 +141,73 @@ __device__ __forceinline__ int8_t update(const int8_t* ch, int code, const float
   return uv < glauber::prob_up(br, to_f32(h)) ? 1 : -1;
 }
 
-// With kPrefetch, two 1024-thread blocks an SM: ptxas keeps the kernel to
-// 32 registers (2048 threads an SM, the 4096 CAL chains in one wave). The
-// walking loop (one chain of 1024 threads a block) may take 64, and spills
-// nothing there.
-template <typename T, bool kPrefetch>
-__global__ void __launch_bounds__(1024, kPrefetch ? 2 : 1)
+// Two 1024-thread blocks an SM in the bounds: ptxas keeps the kernel to 32
+// registers, so 32 blocks of 64 threads fill an SM (the 4096 CAL chains in
+// one wave).
+template <typename T>
+__global__ void __launch_bounds__(1024, 2)
 lattice_gibbs_plan(const T* __restrict__ s, const int* __restrict__ offsets,
                    const int* __restrict__ entry, const float* __restrict__ pw,
                    const T* __restrict__ u, const float* __restrict__ beta,
                    const int* __restrict__ fsite, const float* __restrict__ fval,
-                   T* __restrict__ out, int B, int H, int W, int C, int F, int cpb, int tpc) {
-  extern __shared__ __align__(16) int8_t smem[];  // halo, [cpb][H * W], halo
-  int8_t* chains = smem + halo_bytes(W);
-  const int HW = H * W, t = threadIdx.x, T_ = blockDim.x;
-  const int r0 = blockIdx.x * cpb, nch = min(cpb, B - r0);
-  const int lr = t / tpc, lane = t - lr * tpc;  // this thread's chain in the block, its lane
-  const bool live = lr < nch;
-  const int r = r0 + (live ? lr : 0);
-  int8_t* ch = chains + static_cast<size_t>(lr) * HW;
+                   T* __restrict__ out, int B, int H, int W, int C, int F) {
+  extern __shared__ __align__(16) int8_t smem[];  // halo, [H * W], halo
+  const int HW = H * W, t = threadIdx.x, T_ = blockDim.x, r = blockIdx.x;
+  int8_t* ch = smem + halo_bytes(W);
   const float br = __ldg(beta + r);
-  const size_t base = static_cast<size_t>(r0) * HW, plane = static_cast<size_t>(B) * HW;
-  const T* ur = u + static_cast<size_t>(r) * HW;
+  const size_t base = static_cast<size_t>(r) * HW, plane = static_cast<size_t>(B) * HW;
+  const T* ur = u + base;
 
-  // This thread's entry of each colour and its uniform, before the chains.
-  int code[kMaxPrefetch];
-  float uv[kMaxPrefetch];
-  if constexpr (kPrefetch) {
+  // This thread's entry of each colour and its uniform, before the chain.
+  int code[kMaxColours];
+  float uv[kMaxColours];
 #pragma unroll
-    for (int c = 0; c < kMaxPrefetch; ++c) {
-      code[c] = kNoEntry;
-      if (live && c < C) {
-        const int j = __ldg(offsets + c) + lane;
-        if (j < __ldg(offsets + c + 1)) code[c] = __ldg(entry + j);
-      }
+  for (int c = 0; c < kMaxColours; ++c) {
+    code[c] = kNoEntry;
+    if (c < C) {
+      const int j = __ldg(offsets + c) + t;
+      if (j < __ldg(offsets + c + 1)) code[c] = __ldg(entry + j);
     }
-#pragma unroll
-    for (int c = 0; c < kMaxPrefetch; ++c)
-      uv[c] = code[c] != kNoEntry ? to_f32(__ldg(ur + c * plane + (code[c] >> 8))) : 0.0f;
   }
+#pragma unroll
+  for (int c = 0; c < kMaxColours; ++c)
+    uv[c] = code[c] != kNoEntry ? to_f32(__ldg(ur + c * plane + (code[c] >> 8))) : 0.0f;
 
-  // The block's chains into shared memory as int8 +-1.
-  const int n = nch * HW;
+  // The chain into shared memory as int8 +-1.
   const bool vec = (HW & 3) == 0 &&
                    (reinterpret_cast<uintptr_t>(s) & (4 * sizeof(T) - 1)) == 0 &&
                    (reinterpret_cast<uintptr_t>(out) & (4 * sizeof(T) - 1)) == 0;
   if (vec) {
-    char4* c4 = reinterpret_cast<char4*>(chains);
+    char4* c4 = reinterpret_cast<char4*>(ch);
 #pragma unroll 4
-    for (int q = t; q < (n >> 2); q += T_) c4[q] = load_spins4(s + base + 4 * static_cast<size_t>(q));
+    for (int q = t; q < (HW >> 2); q += T_) c4[q] = load_spins4(s + base + 4 * static_cast<size_t>(q));
   } else {
 #pragma unroll 4
-    for (int i = t; i < n; i += T_) chains[i] = spin(to_f32(s[base + i]));
+    for (int i = t; i < HW; i += T_) ch[i] = spin(to_f32(s[base + i]));
   }
   __syncthreads();
 
-  if constexpr (kPrefetch) {
 #pragma unroll
-    for (int c = 0; c < kMaxPrefetch; ++c) {
-      if (c >= C) break;
-      if (code[c] != kNoEntry)
-        ch[code[c] >> 8] = update<T>(ch, code[c], pw, __ldg(offsets + c) + lane, W, uv[c], br);
-      __syncthreads();
-    }
-  } else {
-    for (int c = 0; c < C; ++c) {
-      const int beg = __ldg(offsets + c), end = __ldg(offsets + c + 1);
-      const T* uc = ur + c * plane;
-      for (int j0 = beg + lane; live && j0 < end; j0 += 2 * tpc) {
-        const int j1 = j0 + tpc < end ? j0 + tpc : j0;  // a missing second entry repeats the first
-        const int c0 = __ldg(entry + j0), c1 = __ldg(entry + j1);
-        const float u0 = to_f32(__ldg(uc + (c0 >> 8))), u1 = to_f32(__ldg(uc + (c1 >> 8)));
-        const int8_t v0 = update<T>(ch, c0, pw, j0, W, u0, br);
-        const int8_t v1 = update<T>(ch, c1, pw, j1, W, u1, br);
-        ch[c0 >> 8] = v0;
-        ch[c1 >> 8] = v1;
-      }
-      __syncthreads();
-    }
+  for (int c = 0; c < kMaxColours; ++c) {
+    if (c >= C) break;
+    if (code[c] != kNoEntry)
+      ch[code[c] >> 8] = update<T>(ch, code[c], pw, __ldg(offsets + c) + t, W, uv[c], br);
+    __syncthreads();
   }
 
   // Frozen sites: their clamp values, and a 0 in shared memory that keeps
   // the pass below off them.
   if (F > 0) {
-    for (int i = t; i < nch * F; i += T_) {
-      const int rr = i / F, f = i - rr * F, p = __ldg(fsite + f);
-      chains[rr * HW + p] = 0;
-      out[base + static_cast<size_t>(rr) * HW + p] = round_to<T>(__ldg(fval + f));
+    for (int f = t; f < F; f += T_) {
+      const int p = __ldg(fsite + f);
+      ch[p] = 0;
+      out[base + p] = round_to<T>(__ldg(fval + f));
     }
     __syncthreads();
   }
   if (vec) {
-    const char4* c4 = reinterpret_cast<const char4*>(chains);
-    for (int q = t; q < (n >> 2); q += T_) {
+    const char4* c4 = reinterpret_cast<const char4*>(ch);
+    for (int q = t; q < (HW >> 2); q += T_) {
       const char4 v = c4[q];
       T* o = out + base + 4 * static_cast<size_t>(q);
       if (v.x && v.y && v.z && v.w) {
@@ -248,8 +220,8 @@ lattice_gibbs_plan(const T* __restrict__ s, const int* __restrict__ offsets,
       }
     }
   } else {
-    for (int i = t; i < n; i += T_)
-      if (chains[i]) out[base + i] = round_to<T>(chains[i]);
+    for (int i = t; i < HW; i += T_)
+      if (ch[i]) out[base + i] = round_to<T>(ch[i]);
   }
 }
 
@@ -332,19 +304,19 @@ cudaError_t launch_generic(const void* s, const void* w, const void* b, const vo
 }
 
 
-template <typename T, bool kPrefetch>
+template <typename T>
 cudaError_t launch_plan(const void* s, const void* offsets, const void* entry, const void* pw,
                         const void* u, const void* beta, const void* fsite, const void* fval,
-                        void* out, int B, int H, int W, int C, int F, int cpb, int tpc,
+                        void* out, int B, int H, int W, int C, int F, int threads,
                         cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(cpb) * H * W + 2 * halo_bytes(W);
-  const cudaError_t err = glauber::allow_smem(lattice_gibbs_plan<T, kPrefetch>, smem);
+  const size_t smem = static_cast<size_t>(H) * W + 2 * halo_bytes(W);
+  const cudaError_t err = glauber::allow_smem(lattice_gibbs_plan<T>, smem);
   if (err != cudaSuccess) return err;
-  lattice_gibbs_plan<T, kPrefetch><<<(B + cpb - 1) / cpb, cpb * tpc, smem, stream>>>(
+  lattice_gibbs_plan<T><<<B, threads, smem, stream>>>(
       static_cast<const T*>(s), static_cast<const int*>(offsets), static_cast<const int*>(entry),
       static_cast<const float*>(pw), static_cast<const T*>(u), static_cast<const float*>(beta),
       static_cast<const int*>(fsite), static_cast<const float*>(fval), static_cast<T*>(out), B, H,
-      W, C, F, cpb, tpc);
+      W, C, F);
   return cudaGetLastError();
 }
 
@@ -365,28 +337,21 @@ extern "C" int lattice_gibbs_generic_launch(const void* s, const void* w, const 
   return static_cast<int>(err);
 }
 
-// The plan kernel: `cpb` chains a block of cpb * tpc threads. Returns
+// The plan kernel: one chain a block of `threads` threads. Returns
 // cudaGetLastError() after the launch (or the attribute call's error).
 // bf16 != 0: s, u and out are bf16, else f32. The caller has checked that
-// the plan's lists are independent sets, that cpb * H * W bytes fit in one
-// block and cpb * tpc threads <= 1024, and, with prefetch, that C <= 4 and
-// no list is longer than tpc.
+// the plan's lists are independent sets, that C <= 4, that no list is
+// longer than `threads` <= 1024, and that H * W bytes and the halos fit in
+// one block.
 extern "C" int lattice_gibbs_launch(const void* s, const void* offsets, const void* entry,
                                     const void* pw, const void* u, const void* beta,
                                     const void* fsite, const void* fval, void* out, int B, int H,
-                                    int W, int C, int F, int cpb, int tpc, int prefetch, int bf16,
-                                    void* stream) {
+                                    int W, int C, int F, int threads, int bf16, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (bf16)
-    err = prefetch ? launch_plan<__nv_bfloat16, true>(s, offsets, entry, pw, u, beta, fsite, fval,
-                                                      out, B, H, W, C, F, cpb, tpc, st)
-                   : launch_plan<__nv_bfloat16, false>(s, offsets, entry, pw, u, beta, fsite,
-                                                       fval, out, B, H, W, C, F, cpb, tpc, st);
-  else
-    err = prefetch ? launch_plan<float, true>(s, offsets, entry, pw, u, beta, fsite, fval, out, B,
-                                              H, W, C, F, cpb, tpc, st)
-                   : launch_plan<float, false>(s, offsets, entry, pw, u, beta, fsite, fval, out,
-                                               B, H, W, C, F, cpb, tpc, st);
+  const cudaError_t err =
+      bf16 ? launch_plan<__nv_bfloat16>(s, offsets, entry, pw, u, beta, fsite, fval, out, B, H, W,
+                                        C, F, threads, st)
+           : launch_plan<float>(s, offsets, entry, pw, u, beta, fsite, fval, out, B, H, W, C, F,
+                                threads, st);
   return static_cast<int>(err);
 }

@@ -33,19 +33,18 @@ What the designs do about it (`chip_ablate.py lattice`, `PERF.md`):
 
   lattice_gibbs_sweep  — the plan kernel, for masks whose lists are
       independent sets of the king graph (`LatticePlan.independent`; the
-      king colouring of every `ChromaticGibbs` run). A block updates its
-      chains in place in one int8 buffer in shared memory and walks only
-      the plan's lists: `tpc` threads a chain each own fixed entries of
-      every colour. At 16x16 (lists of at most 64) every thread holds one
-      entry a colour and loads its four uniforms before the chains, so the
-      four phases' device-memory trips overlap into one; each phase reads
-      its weights from L1 and its neighbours from shared memory and ends in
-      one barrier. Lists longer than 1024 (lattices above 64x64) are walked
-      two entries at a time with the uniforms loaded in their phase.
+      king colouring of every `ChromaticGibbs` run), at most 4 colours of
+      at most 1024 entries (`LatticePlan.threads`; lattices up to 64x64).
+      A block updates its one chain in place in one int8 buffer in shared
+      memory and walks only the plan's lists: thread t owns entry t of
+      every colour (at 16x16 64 threads a block) and loads its uniforms
+      before the chain, so the phases' device-memory trips overlap into
+      one; each phase reads its weights from L1 and its neighbours from
+      shared memory and ends in one barrier.
   lattice_gibbs_generic — any other masks (improper colourings, a mask
-      holding every site): the first port's kernel, two buffers a block, each
-      phase writing every site of the other, so every field sees the state
-      before its phase, as in JAX.
+      holding every site) and longer lists: the first port's kernel, two
+      buffers a block, each phase writing every site of the other, so every
+      field sees the state before its phase, as in JAX.
 
 The plan is built once per problem (`lattice_plan`, one wait for the
 device) and records the tensors it was built from; the kernels take it
@@ -67,10 +66,10 @@ launches = {"lattice_gibbs_sweep": 0, "lattice_gibbs_generic": 0}
 
 DTYPES = (torch.float32, torch.bfloat16)  # as the TPU kernel, generic in its dtype
 
-# Threads a block of the plan kernel aims at (chip_ablate.py lattice times
-# 64 to 1024), and the colours a thread can hold from the start.
-BLOCK_THREADS = 64
-MAX_PREFETCH = 4
+# The plan kernel's limits: a thread holds one entry of each of at most
+# MAX_COLOURS colours, a block of at most MAX_THREADS threads walks one chain.
+MAX_COLOURS = 4
+MAX_THREADS = 1024
 W_COLUMNS = 12  # a plan entry's f32 row: 8 weights, b, three zero pads
 
 
@@ -89,8 +88,13 @@ class LatticePlan(NamedTuple):
     counts:  the C list lengths, on the host.
     independent: on the host — no two king-adjacent sites share a list, so
              a phase's fields never read a site of that phase and the
-             sweep may update in place.
+             sweep may update in place. A caller may set it False (the
+             two-buffer kernel is exact for any masks), never True.
     shape:   (H, W).
+    threads: the plan kernel's threads a block (`plan_threads`): the
+             longest list rounded up to a warp; 0 where it cannot walk the
+             lists (more than MAX_COLOURS colours or MAX_THREADS entries).
+    found_independent: `independent` as `lattice_plan` found it.
     source:  (tensor, version) of each of w, b, colors, frozen and
              clamp_value as the plan read them: the kernels take the plan
              only with these very tensors, unchanged since (`check_plan`).
@@ -107,6 +111,8 @@ class LatticePlan(NamedTuple):
     counts: tuple
     independent: bool
     shape: tuple
+    threads: int
+    found_independent: bool
     source: tuple
 
     @property
@@ -153,11 +159,23 @@ def lattice_plan(w: torch.Tensor, b: torch.Tensor, colors: torch.Tensor, frozen:
     pw[:, :8] = torch.where(on, w.reshape(8, -1)[:, at].t().float(), 0.0)
     pw[:, 8] = b.reshape(-1)[at].float()
     source = tuple((t, t._version) for t in (w, b, colors, frozen, clamp_value))
+    counts = tuple(counts.tolist())
     return LatticePlan(
         offsets.to(dev), ((sites << 8) | edges).to(torch.int32).to(dev), pw,
         frozen_sites.to(torch.int32).to(dev),
-        clamp_value.reshape(-1)[frozen_sites.to(dev)].float(), tuple(counts.tolist()),
-        independent, (H, W), source)
+        clamp_value.reshape(-1)[frozen_sites.to(dev)].float(), counts,
+        independent, (H, W), plan_threads(counts), independent, source)
+
+
+def plan_threads(counts) -> int:
+    """Threads a block of the plan kernel for lists of these lengths: the
+    longest rounded up to a warp (32 at least), one entry of each colour a
+    thread; 0 for more than MAX_COLOURS lists or one longer than
+    MAX_THREADS, which the plan kernel cannot walk."""
+    longest = max(counts, default=0)
+    if len(counts) > MAX_COLOURS or longest > MAX_THREADS:
+        return 0
+    return max(32, -(-longest // 32) * 32)
 
 
 def check_plan(plan: LatticePlan, w, b, colors, frozen, clamp_value) -> None:
@@ -176,6 +194,11 @@ def check_plan(plan: LatticePlan, w, b, colors, frozen, clamp_value) -> None:
                              "lattice_plan from the tensors passed here")
         if x._version != version:
             raise ValueError(f"{name} changed in place after the plan was built: build it again")
+    if plan.independent and not plan.found_independent:
+        raise ValueError("the plan is marked independent, but lattice_plan found lists that are "
+                         "not independent sets: the in-place sweep would be wrong for them")
+    if plan.threads != plan_threads(plan.counts):
+        raise ValueError(f"the plan's threads {plan.threads} are not plan_threads of its counts")
     L, F = sum(plan.counts), plan.frozen.numel()
     check_tensor("plan.offsets", plan.offsets, torch.int32, (C + 1,), dev)
     check_tensor("plan.entry", plan.entry, torch.int32, (L,), dev)
@@ -184,35 +207,19 @@ def check_plan(plan: LatticePlan, w, b, colors, frozen, clamp_value) -> None:
     check_tensor("plan.clamp", plan.clamp, torch.float32, (F,), dev)
 
 
-def plan_launch(plan: LatticePlan, B: int) -> tuple[int, int, bool]:
-    """(chains a block, threads a chain, prefetch) of the plan kernel:
-    threads a chain cover the longest list (a warp at least, 1024 at
-    most); chains a block fill BLOCK_THREADS and fit shared memory; with
-    prefetch (C <= MAX_PREFETCH and no list longer than the threads a
-    chain) each thread holds one entry a colour from the start."""
-    H, W = plan.shape
-    longest = max(plan.counts, default=0)
-    tpc = max(32, min(1024, -(-longest // 32) * 32))
-    prefetch = len(plan.counts) <= MAX_PREFETCH and longest <= tpc
-    fit = (MAX_SMEM_BYTES - 2 * halo_bytes(W)) // max(1, H * W)
-    cpb = max(1, min(B, BLOCK_THREADS // tpc, fit))
-    return cpb, tpc, prefetch
-
-
 def halo_bytes(W: int) -> int:
     """Shared memory before and after a plan block's chains (csrc
     `halo_bytes`): a neighbour beyond the edge stays inside the block."""
     return (W + 1 + 15) // 16 * 16
 
 
-def _launch_plan(s, plan: LatticePlan, uniforms, beta, out, cpb: int, tpc: int,
-                 prefetch: bool, device) -> None:
+def _launch_plan(s, plan: LatticePlan, uniforms, beta, out, device) -> None:
     B, H, W = s.shape
     code = _build.launcher("lattice_gibbs")(
         s.data_ptr(), plan.offsets.data_ptr(), plan.entry.data_ptr(), plan.w.data_ptr(),
         uniforms.data_ptr(), beta.data_ptr(), plan.frozen.data_ptr(), plan.clamp.data_ptr(),
-        out.data_ptr(), B, H, W, len(plan.counts), plan.frozen.shape[0], cpb, tpc,
-        int(prefetch), int(s.dtype == torch.bfloat16), torch.cuda.current_stream(device).cuda_stream,
+        out.data_ptr(), B, H, W, len(plan.counts), plan.frozen.shape[0], plan.threads,
+        int(s.dtype == torch.bfloat16), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check("lattice_gibbs_sweep", code)
 
@@ -247,7 +254,8 @@ def lattice_gibbs_sweep(
     the plain version's do (`ref.lattice_fields_ref`). `plan` is
     `lattice_plan` of these very w, b and masks (`check_plan`); without one
     the call builds it (and waits for the device once). Independent lists
-    take the plan kernel, any others the generic one."""
+    that the plan kernel can walk (`LatticePlan.threads`) take it, any
+    others the generic one."""
     operands = {"s": s, "w": w, "b": b, "uniforms": uniforms, "colors": colors,
                 "frozen": frozen, "clamp_value": clamp_value}
     dtype = s.dtype
@@ -266,26 +274,22 @@ def lattice_gibbs_sweep(
     for name, t in operands.items():
         check_tensor(name, t, dtype, shapes[name], dev)
     check_tensor("beta", beta, torch.float32, (B,), dev)
-    if H * W + 2 * halo_bytes(W) > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"a {H}x{W} lattice needs {H * W + 2 * halo_bytes(W)} bytes of shared memory "
-            f"per block (an int8 copy of a chain between two halos); the card allows "
-            f"{MAX_SMEM_BYTES}"
-        )
     if plan is None:
         plan = lattice_plan(w, b, colors, frozen, clamp_value)
     check_plan(plan, w, b, colors, frozen, clamp_value)
-    if not plan.independent and 2 * H * W > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"masks that are not independent sets take the two-buffer kernel: a {H}x{W} "
-            f"lattice needs {2 * H * W} bytes of shared memory per block (two int8 copies "
-            f"of a chain); the card allows {MAX_SMEM_BYTES}"
-        )
+    in_place = plan.independent and plan.threads > 0
+    smem = H * W + 2 * halo_bytes(W) if in_place else 2 * H * W
+    if smem > MAX_SMEM_BYTES:
+        held = ("an int8 copy of a chain between two halos" if in_place else
+                "two int8 copies of a chain: the two-buffer kernel, for masks that are not "
+                "independent sets or lists the plan kernel cannot walk")
+        raise ValueError(f"a {H}x{W} lattice needs {smem} bytes of shared memory per block "
+                         f"({held}); the card allows {MAX_SMEM_BYTES}")
     out = torch.empty((B, H, W), dtype=dtype, device=dev)
     if B == 0 or H * W == 0:
         return out
-    if plan.independent:
-        _launch_plan(s, plan, uniforms, beta, out, *plan_launch(plan, B), dev)
+    if in_place:
+        _launch_plan(s, plan, uniforms, beta, out, dev)
         launches["lattice_gibbs_sweep"] += 1
     else:
         _launch_generic(s, w, b, uniforms, colors, frozen, clamp_value, beta, out, dev)

@@ -9,9 +9,9 @@ the two-buffer kernel). The kernels run only on the card, so here the plan
 kernel's phase loop is emulated in plain torch, one entry at a time in
 place, and held bit for bit against the plain version, and within the
 phase band of tests/test_torch_lattice.py against the JAX oracle and the
-Pallas kernel in interpret mode. The wrapper's choices (route, launch
-shape, the plan and the operands it was built from) are checked with the
-launches replaced.
+Pallas kernel in interpret mode. The wrapper's choices (route, the plan
+kernel's threads, the plan and the operands it was built from) are checked
+with the launches replaced.
 
 Inputs are made with numpy from a seed and go through both packages."""
 import dataclasses
@@ -49,13 +49,16 @@ def _bf16(a):
 def _lattice(H, W, seed, masks="king", frozen=True):
     """Numpy (w, b, colors, frozen, clamp) of a random lattice: asymmetric
     weight planes, king colour masks (or random ones, or one mask holding
-    every site), a random frozen plane and ±1 clamp values."""
+    every site, or the king masks of the top-left 64x64 corner only), a
+    random frozen plane and ±1 clamp values."""
     rng = np.random.default_rng(seed)
     w = rng.normal(0, 0.5, (8, H, W)).astype(np.float32)
     b = rng.normal(0, 0.3, (H, W)).astype(np.float32)
     colors = {"king": lambda: np.array(jising.king_color_masks(H, W)),
               "random": lambda: rng.random((4, H, W)) < 0.5,
-              "all_sites": lambda: np.ones((1, H, W), bool)}[masks]()
+              "all_sites": lambda: np.ones((1, H, W), bool),
+              "corner": lambda: np.array(jising.king_color_masks(H, W))
+              & (np.arange(H)[:, None] < 64) & (np.arange(W) < 64)}[masks]()
     fz = (rng.random((H, W)) < 0.2) if frozen else np.zeros((H, W), bool)
     clampv = rng.choice([-1.0, 1.0], (H, W)).astype(np.float32)
     return w, b, colors, fz, clampv
@@ -148,20 +151,21 @@ def test_lattice_plan_round_trips_the_masks(H, W, masks, frozen):
     plan_b = lattice_gibbs.lattice_plan(ops_[0], ops_[1], torch.as_tensor(colors),
                                         torch.as_tensor(fz), ops_[4])
     for p, q in zip(plan[:-1], plan_b[:-1]):
-        assert p == q if isinstance(p, (bool, tuple)) else torch.equal(p, q)
+        assert p == q if isinstance(p, (int, tuple)) else torch.equal(p, q)
 
 
 @pytest.mark.parametrize("frozen", [False, True])
 @pytest.mark.parametrize("H,W", LATTICE_HW)
 def test_king_colour_masks_give_an_independent_plan(H, W, frozen):
     plan = lattice_gibbs.lattice_plan(*_plan_operands(*_lattice(H, W, 1, frozen=frozen)))
-    assert plan.independent
-    # the route a chip_smoke.py shape takes: one entry a colour a thread
-    # while every list fits one block's threads, else the walking loop
-    cpb, tpc, prefetch = lattice_gibbs.plan_launch(plan, 4096)
-    assert prefetch == (max(plan.counts) <= 1024)
-    assert tpc == max(32, min(1024, -(-max(plan.counts) // 32) * 32)) and cpb * tpc <= 1024
-    assert cpb * H * W <= MAX_SMEM_BYTES
+    assert plan.independent and plan.found_independent
+    # the route a chip_smoke.py shape takes: the plan kernel, one entry a
+    # colour a thread, while every list fits one block's threads; else the
+    # two-buffer kernel
+    longest = max(plan.counts)
+    assert plan.threads == (max(32, -(-longest // 32) * 32) if longest <= 1024 else 0)
+    smem = H * W + 2 * lattice_gibbs.halo_bytes(W) if plan.threads else 2 * H * W
+    assert smem <= MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("masks", ["random", "all_sites"])
@@ -183,15 +187,22 @@ def test_masks_that_are_not_independent_sets_are_marked(masks):
 
 
 @pytest.mark.parametrize("B,H,W,launch", [
-    (4096, 16, 16, (1, 64, True)),  # the CAL main path: one chain of 64 threads a block
-    (4096, 1, 1, (2, 32, True)),
-    (3, 17, 23, (1, 128, True)),  # lists of up to 102
-    (16, 128, 128, (1, 1024, False)),  # lists of ~4096: two entries at a time
-    (1, 200, 200, (1, 1024, False)),
+    (4096, 16, 16, (64, "lattice_gibbs_sweep")),  # the CAL main path: 64 threads a block
+    (4096, 1, 1, (32, "lattice_gibbs_sweep")),
+    (3, 17, 23, (128, "lattice_gibbs_sweep")),  # lists of up to 108
+    (16, 128, 128, (0, "lattice_gibbs_generic")),  # lists of 4096: the two-buffer kernel
+    (1, 200, 200, (0, "lattice_gibbs_generic")),
 ])
-def test_plan_launch_shape(B, H, W, launch):
+def test_plan_launch_shape(no_card, B, H, W, launch):
+    """The plan kernel's threads a block, computed once in the plan, and
+    the route of chip_smoke.py's lattice shapes."""
     plan = lattice_gibbs.lattice_plan(*_plan_operands(*_lattice(H, W, 3, frozen=False)))
-    assert lattice_gibbs.plan_launch(plan, B) == launch
+    threads, route = launch
+    assert plan.threads == lattice_gibbs.plan_threads(plan.counts) == threads
+    args = _sweep_args(H, W, "king", B=B, seed=3, frozen=False)
+    lattice_gibbs.lattice_gibbs_sweep(*args)
+    assert lattice_gibbs.launches == dict.fromkeys(lattice_gibbs.launches, 0) | {route: 1}
+    assert no_card == ([("plan", threads)] if threads else [("generic",)])
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +282,7 @@ def test_plan_sweep_matches_jax_oracle_and_pallas_per_row(B, H, W, dtype):
 def _assert_same_plan(a, b):
     """The two plans list the same entries (their sources aside)."""
     for x, y in zip(a[:-1], b[:-1]):
-        assert x == y if isinstance(x, (bool, tuple)) else torch.equal(x, y)
+        assert x == y if isinstance(x, (int, tuple)) else torch.equal(x, y)
 
 
 def test_chromatic_gibbs_cuda_backend_builds_the_plan_once_in_init(monkeypatch):
@@ -318,24 +329,24 @@ def no_card(monkeypatch):
     calls = []
     monkeypatch.setattr(lattice_gibbs, "check_cuda", lambda t: t.device)
     monkeypatch.setattr(lattice_gibbs, "_launch_plan",
-                        lambda s, plan, u, beta, out, cpb, tpc, prefetch, dev:
-                        calls.append(("plan", plan, cpb, tpc, prefetch)))
+                        lambda s, plan, u, beta, out, dev: calls.append(("plan", plan.threads)))
     monkeypatch.setattr(lattice_gibbs, "_launch_generic",
                         lambda *a: calls.append(("generic",)))
     monkeypatch.setattr(lattice_gibbs, "launches", dict.fromkeys(lattice_gibbs.launches, 0))
     return calls
 
 
-def _sweep_args(H, W, masks, B=3, seed=4):
-    w, b, colors, fz, clampv = _plan_operands(*_lattice(H, W, seed, masks=masks))
+def _sweep_args(H, W, masks, B=3, seed=4, frozen=True):
+    w, b, colors, fz, clampv = _plan_operands(*_lattice(H, W, seed, masks=masks, frozen=frozen))
     C = colors.shape[0]
     return [torch.ones((B, H, W)), w, b, torch.rand((C, B, H, W)), colors, fz, clampv,
             torch.ones(B)]
 
 
 @pytest.mark.parametrize("H,W,masks,route", [
-    (16, 16, "king", "lattice_gibbs_sweep"), (200, 200, "king", "lattice_gibbs_sweep"),
+    (16, 16, "king", "lattice_gibbs_sweep"), (64, 64, "king", "lattice_gibbs_sweep"),
     (8, 8, "random", "lattice_gibbs_generic"), (16, 16, "all_sites", "lattice_gibbs_generic"),
+    (200, 200, "king", "lattice_gibbs_generic"),  # lists longer than a block's threads
 ])
 def test_the_plan_chooses_the_route_and_each_route_is_counted(no_card, H, W, masks, route):
     args = _sweep_args(H, W, masks)
@@ -347,9 +358,8 @@ def test_the_plan_chooses_the_route_and_each_route_is_counted(no_card, H, W, mas
     if route == "lattice_gibbs_generic":
         assert no_card == [("generic",)] * 2
         return
-    (_, built, *shape), (_, given, *shape2) = no_card
-    assert given is plan and shape == shape2 == list(lattice_gibbs.plan_launch(plan, 3))
-    _assert_same_plan(built, plan)
+    assert no_card == [("plan", plan.threads)] * 2
+    assert plan.threads == -(-max(plan.counts) // 32) * 32
 
 
 def _other_operands(name, args):
@@ -391,7 +401,7 @@ def test_sweep_takes_a_plan_only_with_its_own_operands(no_card, name):
     if error is None:
         lattice_gibbs.check_plan(plan, *args[1:3], *args[4:7])
         lattice_gibbs.lattice_gibbs_sweep(*args, plan=plan)
-        assert [c[:2] for c in no_card] == [("plan", plan)]
+        assert no_card == [("plan", plan.threads)]
         return
     with pytest.raises(ValueError, match=error):
         lattice_gibbs.check_plan(plan, *args[1:3], *args[4:7])
@@ -411,18 +421,40 @@ def test_wrapper_refuses_malformed_plans_and_lattices_too_large(no_card):
         lattice_gibbs.lattice_gibbs_sweep(*args, plan=plan._replace(w=plan.w[:-1].contiguous()))
     with pytest.raises(ValueError, match="the plan is of"):
         lattice_gibbs.lattice_gibbs_sweep(*args, plan=plan._replace(counts=plan.counts[:3]))
-    # one int8 copy of a chain fits a block: the plan kernel takes the lattice ...
+    with pytest.raises(ValueError, match="threads"):
+        lattice_gibbs.lattice_gibbs_sweep(*args, plan=plan._replace(threads=1024))
+    # one int8 copy of a chain fits a block: the plan kernel takes a lattice
+    # whose lists it can walk (the king masks of one 64x64 corner) ...
     H = W = 342  # 116964 sites: one copy fits in 232448 bytes, two do not
-    big = _sweep_args(H, W, "king", B=1)
-    lattice_gibbs.lattice_gibbs_sweep(*big)
-    assert no_card[-1][0] == "plan"
-    # ... but masks that are not independent need two copies, and a lattice
-    # past the limit fits neither kernel
+    corner = _sweep_args(H, W, "corner", B=1, frozen=False)  # lists of 1024
+    lattice_gibbs.lattice_gibbs_sweep(*corner)
+    assert no_card == [("plan", 1024)]
+    # ... but masks that are not independent, or lists too long for the plan
+    # kernel, need two copies, and a lattice past the limit fits neither kernel
     with pytest.raises(ValueError, match="two int8 copies"):
         lattice_gibbs.lattice_gibbs_sweep(*_sweep_args(H, W, "all_sites", B=1))
-    with pytest.raises(ValueError, match="shared memory"):
-        lattice_gibbs.lattice_gibbs_sweep(*_sweep_args(483, 483, "king", B=1))
+    with pytest.raises(ValueError, match="two int8 copies"):
+        lattice_gibbs.lattice_gibbs_sweep(*_sweep_args(H, W, "king", B=1))
+    with pytest.raises(ValueError, match="an int8 copy of a chain between two halos"):
+        lattice_gibbs.lattice_gibbs_sweep(*_sweep_args(483, 483, "corner", B=1))
     assert lattice_gibbs.launches == {"lattice_gibbs_sweep": 1, "lattice_gibbs_generic": 0}
+
+
+@pytest.mark.parametrize("masks", ["random", "all_sites"])
+def test_a_plan_may_be_marked_not_independent_but_never_independent(no_card, masks):
+    """Lowering `independent` only sends the sweep to the two-buffer kernel,
+    which is exact for any masks; raising it would update in place where a
+    phase reads its own sites, so check_plan refuses it."""
+    args = _sweep_args(8, 8, masks)
+    plan = lattice_gibbs.lattice_plan(*args[1:3], *args[4:7])
+    assert not plan.independent and not plan.found_independent
+    with pytest.raises(ValueError, match="marked independent"):
+        lattice_gibbs.lattice_gibbs_sweep(*args, plan=plan._replace(independent=True))
+    king = _sweep_args(8, 8, "king")
+    plan_k = lattice_gibbs.lattice_plan(*king[1:3], *king[4:7])
+    lattice_gibbs.lattice_gibbs_sweep(*king, plan=plan_k._replace(independent=False))
+    assert no_card == [("generic",)]
+    assert lattice_gibbs.launches == {"lattice_gibbs_sweep": 0, "lattice_gibbs_generic": 1}
 
 
 @pytest.mark.cuda
