@@ -5,6 +5,7 @@
     python3 chip_ablate.py int8       # only the int8 mainloop
     python3 chip_ablate.py sparse     # only the two sparse kernels
     python3 chip_ablate.py lattice    # only the lattice sweep
+    python3 chip_ablate.py ctmc_tree  # only the sparse CTMC's tree: two repairs, a rebuild
 
 int8: builds variants of dense_field (src/repro_torch/kernels/csrc/dense_field.cu
 over int8_field.cuh), each with one thing compiled out or changed, and
@@ -76,6 +77,17 @@ and then, through the wrapper, the king colouring at (16, 128, 128) and
 (1, 200, 200), whose lists are longer than a block's threads, so the plan
 sends them to the two-buffer kernel (the route asserted from the counters).
 
+ctmc_tree: the sparse CTMC of chip_smoke.py's ctmc_sparse phase (256 chains
+on random_3regular_maxcut(16384, 0) at beta = 3, graphed), 5000 and 20000
+events, and 2000 events on the graphs of n = 65536 and 262144, three ways: the carried tree repaired as run() does it
+(`event_tree.repair_`, the affected paths recomputed from their children),
+the carried tree with the JAX package's repair (leaf deltas added along the
+paths, as `event_tree.update_many` does, in place, padded slots masked),
+and a fresh build every event (the path of a changing beta). Per event:
+the wall of one pass; for the carried trees, after the run: the root
+against a fresh build of the rates of the final s and h (relative error),
+the leaves against those rates (max absolute error).
+
 Prints one JSON line per (shape, variant) group, then the card's name and
 power limit. The variants are built from patched copies of the sources in
 src/repro_torch/kernels/_build/ablate/ (ignored by git); each patch is
@@ -87,6 +99,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -684,6 +697,77 @@ def ablate_lattice(torch, np, chip_smoke, dev) -> None:
         del s, u, got, want, band
 
 
+# (n, events): the ctmc_sparse shape at two lengths, then wider graphs, where
+# a rebuild's O(n) pass grows and the repair's O(log n) paths barely do
+CTMC_TREE_CASES = ((16384, 5000), (16384, 20000), (65536, 2000), (262144, 2000))
+CTMC_TREE_SIZES = sorted({n for n, _ in CTMC_TREE_CASES})
+
+
+def ablate_ctmc_tree(torch, np, chip_smoke, dev) -> None:
+    import dataclasses
+
+    from repro_torch.core import event_tree, problems
+    from repro_torch.core.sampler_api import CTMC, _make_run
+
+    @dataclasses.dataclass(frozen=True)
+    class RebuildCTMC(CTMC):
+        """The CTMC that never carries its tree: a fresh build every event."""
+
+        def carries_tree(self, problem) -> bool:
+            return False
+
+    repair_ = event_tree.repair_
+
+    def delta_repair_(tree, idx, rates):
+        """The JAX package's repair, in place: leaf deltas added along the
+        root paths, one scatter-add a slot. A padded slot aliases site i
+        (slot 0), so masking the slots equal to slot 0 is the degree mask."""
+        live = torch.ones_like(idx, dtype=torch.bool)
+        live[:, 1:] = idx[:, 1:] != idx[:, :1]
+        delta = torch.where(live, rates - event_tree.leaves_at(tree, idx), 0.0)
+        m = tree.shape[-1] // 2
+        paths = (m + idx)[..., None] >> torch.arange(event_tree.depth(tree) + 1, device=dev)
+        for j in range(idx.shape[-1]):
+            tree.scatter_add_(-1, paths[:, j], delta[:, j, None].expand(paths[:, j].shape))
+        return tree
+
+    c = chip_smoke.CTMC_MAIN
+    beta = torch.full((c["n_chains"],), c["sparse_beta"], dtype=torch.float32, device=dev)
+    variants = (("port_repair", CTMC(), repair_), ("jax_delta_repair", CTMC(), delta_repair_),
+                ("rebuild_every_event", RebuildCTMC(), repair_))
+    graphs = {n: problems.random_3regular_maxcut(n, 0, device=dev) for n in CTMC_TREE_SIZES}
+    for n, events in CTMC_TREE_CASES:
+        mc = graphs[n]
+        for name, kernel, repair in variants:
+            event_tree.repair_ = repair
+            try:
+                make = _make_run(mc, kernel, 0, n_steps=events, n_chains=c["n_chains"],
+                                 schedule=c["sparse_beta"])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                make()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                event_tree.repair_ = repair_
+            st = make.final_state
+            if (st.aux.tree_beta is None) != (name == "rebuild_every_event"):
+                raise AssertionError(f"ctmc_tree {name}: carried {st.aux.tree_beta is not None}")
+            rates = kernel.rates(mc, st.s, st.aux.h, beta)
+            fresh = event_tree.total(event_tree.build(rates))
+            out = {"ablation": "ctmc_tree", "variant": name, "n_events": events,
+                   "n_chains": c["n_chains"], "n": mc.n, "beta": c["sparse_beta"],
+                   "us_per_event": wall / events * 1e6, "total_median": float(fresh.median())}
+            if name != "rebuild_every_event":  # a rebuilt tree is the last draw's, pre-flip
+                root = event_tree.total(st.aux.tree)
+                out.update(
+                    root_max_rel_err=float(((root - fresh).abs() / fresh).max()),
+                    root_median_rel_err=float(((root - fresh).abs() / fresh).median()),
+                    leaf_max_abs_err=float((event_tree.leaves(st.aux.tree, mc.n) - rates)
+                                           .abs().max()))
+            print(json.dumps(out), flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -691,10 +775,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_ablate.py: no CUDA device", file=sys.stderr)
         return 2
-    parts = sys.argv[1:] or ["int8", "sparse", "lattice"]
-    if not set(parts) <= {"int8", "sparse", "lattice"}:
-        print(f"chip_ablate.py: unknown parts {parts}; use int8, sparse and/or lattice",
-              file=sys.stderr)
+    parts = sys.argv[1:] or ["int8", "sparse", "lattice", "ctmc_tree"]
+    if not set(parts) <= {"int8", "sparse", "lattice", "ctmc_tree"}:
+        print(f"chip_ablate.py: unknown parts {parts}; use int8, sparse, lattice and/or "
+              "ctmc_tree", file=sys.stderr)
         return 2
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import chip_smoke
@@ -706,6 +790,8 @@ def main() -> int:
         ablate_sparse(torch, np, chip_smoke, dev)
     if "lattice" in parts:
         ablate_lattice(torch, np, chip_smoke, dev)
+    if "ctmc_tree" in parts:
+        ablate_ctmc_tree(torch, np, chip_smoke, dev)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     return 0

@@ -97,7 +97,8 @@ exits nonzero without printing the final result line:
                 annealing, with and without first_hit, and the same run on
                 backend="ref"; then the int8 fields of the final states
                 through ops.dense_field. Launch counters are zeroed before
-                and read after each path.
+                and read after each path; under the CUDA graph of run()'s
+                step loop they count the launches the replays ran.
      main_lattice — ChromaticGibbs on cal_problem() (the chip's 16x16 core),
                 4096 chains x 500 sweeps, geometric(0.3, 3.0), the same
                 three runs with first_hit = the template energy: hit
@@ -122,8 +123,36 @@ exits nonzero without printing the final result line:
      stats_gibbs — TV to exact enumeration below 0.03 for a 2x3 lattice with
                 random couplings and one clamped site (lattice kernel) and
                 an 8-site random weighted graph (coloured kernel).
+  6. graph_vs_eager — every run() above replays captured CUDA graphs of
+                blocks of steps (repro_torch.core.graph_loop); here five
+                paths (SK tau-leap, CAL chromatic Gibbs, maxcut3r coloured
+                Gibbs, SK CTMC, maxcut3r CTMC at beta = 3), each with and
+                without first_hit, run graphed and through the private
+                eager loop on the same seed (timeit, 300-500 steps):
+                s, t, samples, times, energies, t_hit and hit identical,
+                the launch counts equal (the graphed ones are the launches
+                the replays ran), per-step walls of both.
+     ctmc_dense — CTMC (tree draw, unroll "auto" = 2) on SK n=2048, 256
+                chains x 20000 events, geometric(0.3, 3.0), first_hit =
+                -0.70 n: chain-events/s, hit fraction; the incremental
+                energy of the final states within 5e-3 + 1e-4 |E| of
+                problem.energy.
+     ctmc_sparse — CTMC on maxcut3r n=16384 at a constant beta = 3.0, so
+                run() carries the tree and repairs it in place (no O(n)
+                build an event; asserted from the final state), 256 x 20000
+                events: the same energy gate; the carried tree's leaves
+                within 1e-5 (relative) of the rates of the final s and h,
+                its root within 1e-3 (relative) of a fresh build of those
+                rates.
+     random_scan — RandomScanGibbs on SK, 256 x 20000 steps: the energy gate.
+     fidelity — a 5-spin dense problem through the graph, 256 chains x 2000
+                steps: random-scan empirical and CTMC time-weighted
+                distributions within TV 0.03 of exact enumeration.
+     diagnostics — run(diagnostics=True) on the CAL path: every sampled value
+                equal to the run without it, flips > 0.
 
-The last two lines are the kernels summary and
+The last two lines are the kernels summary (with the script's elapsed
+seconds, the build included) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -195,6 +224,16 @@ SPARSE_MAIN = dict(n=16384, n_chains=256, n_sweeps=1000, sample_every=100)
 CAL_HIT_MIN, CAL_HIT_GAP = 0.5, 0.05
 CUT_MIN, CUT_REL_GAP = 0.85, 0.01
 TV_GIBBS_MAX = 0.03  # the JAX bound, tests/test_core_samplers.py
+# The exact CTMC and the sync baseline at full width: SK n=2048 and maxcut3r
+# n=16384, 256 chains; the sparse run at a constant beta (the incremental tree).
+CTMC_MAIN = dict(n_chains=256, n_events=20000, sparse_beta=3.0)
+# |e - E(s)| <= ENERGY_ATOL + ENERGY_RTOL |E|: the JAX bound at n=16
+# (tests/test_sampler_api.py:276-283), plus f32 rounding of 20000 adds at |E| ~ 1400
+ENERGY_ATOL, ENERGY_RTOL = 5e-3, 1e-4
+# the sparse CTMC's carried tree: leaves against the rates of the final s and
+# h, each relative to its rate; the root against a fresh build of those rates
+TREE_LEAF_RTOL, TREE_ROOT_RTOL = 1e-5, 1e-3
+FIDELITY = dict(n_chains=256, n_steps=2000, burn_in=20)  # 5 spins, sample_every=1
 # |beta| of the bf16 field probe's copies: each resolves the fields with
 # 2 <= beta |h| <= 40 or so, so together 2^-20 < |h| < 40; both signs put
 # every p_up where bf16 uniforms are fine (near 0, not near 1).
@@ -546,6 +585,7 @@ def sparse_target(prob) -> float:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke.py: {SRC / 'repro_torch'} not found; run from a checkout "
               "of the repository", file=sys.stderr)
@@ -1294,6 +1334,178 @@ def main() -> int:
                      "n_chains": sp_chains, "n_steps": sp_sweeps, "tv": tv_sp,
                      "launches": sp_launches}})
 
+    # -- 6. the graph, the sync baseline and the exact CTMC ------------------
+    from repro_torch.core import ctmc as ctmc_mod
+    from repro_torch.core import event_tree
+    from repro_torch.core.graph_loop import GRAPH_STEPS
+    from repro_torch.core.sampler_api import CTMC, _make_run, constant
+
+    def incremental_energy_gap(label, problem, state):
+        """|e - E(s)| of the final states, held to ENERGY_ATOL + ENERGY_RTOL |E|."""
+        e_true = problem.energy(state.s)
+        gap = (state.e - e_true).abs()
+        over = int((gap > ENERGY_ATOL + ENERGY_RTOL * e_true.abs()).sum())
+        if over or not bool(torch.isfinite(state.e).all()):
+            raise AssertionError(f"{label}: the incremental energy of {over} final states is "
+                                 f"off by more than {ENERGY_ATOL} + {ENERGY_RTOL} |E| "
+                                 f"(max gap {float(gap.max())})")
+        return float(gap.max())
+
+    def timed_pass(make):
+        """One pass of a _Run, timed from the host with the device synced."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = make()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # Graph against eager: each path graphed and through the private eager
+    # loop on the same seed, with and without first_hit; of two passes (as
+    # run's timeit) the second gives the per-step wall. Every path here is
+    # deterministic (no atomics meet at an address): results must be identical.
+    sched = geometric(0.3, 3.0)
+    graph_paths = (
+        ("sk_tau_leap", prob, TauLeap(dt=0.1), "cuda", -0.70 * n, 256, 500, 100, sched),
+        ("cal_chromatic", cal, ChromaticGibbs(), "cuda", e_t, LATTICE_MAIN["n_chains"], 500, 50,
+         sched),
+        ("maxcut3r_colored", mc, ColoredGibbs(), "cuda", e_cut, 256, 500, 100, sched),
+        ("sk_ctmc", prob, CTMC(), None, -0.70 * n, 256, 300, 50, sched),
+        ("maxcut3r_ctmc", mc, CTMC(), None, e_cut, 256, 300, 50, constant(3.0)),
+    )
+    graph_eager = {}
+    for name, problem, kernel, backend, target, chains, steps, every, schedule in graph_paths:
+        for first_hit in (None, target):
+            label = name + ("_first_hit" if first_hit is not None else "")
+            out = {}
+            for mode in ("graph", "eager"):
+                reset()
+                make = _make_run(problem, kernel, 5, n_steps=steps, n_chains=chains,
+                                 sample_every=every, schedule=schedule, first_hit=first_hit,
+                                 backend=backend, eager=mode == "eager")
+                _, first_s = timed_pass(make)
+                res, wall = timed_pass(make)
+                out[mode] = (res, read(), wall, first_s)
+            (g, g_launch, g_wall, g_first), (e, e_launch, e_wall, _) = out["graph"], out["eager"]
+            fields = ("s", "t", "samples", "times", "energies", "t_hit", "hit")
+            differ = [f for f in fields if getattr(g, f) is not None
+                      and not torch.equal(getattr(g, f), getattr(e, f))]
+            if differ:
+                raise AssertionError(f"graph against eager, {label}: {differ} differ")
+            if g_launch != e_launch:
+                raise AssertionError(f"graph against eager, {label}: launches {g_launch} "
+                                     f"graphed, {e_launch} eager")
+            kname = {"sk_tau_leap": "tau_leap_step", "cal_chromatic": "lattice_gibbs_sweep",
+                     "maxcut3r_colored": "colored_gibbs_sweep"}.get(name)
+            expect(f"graph {label}", g_launch, **({kname: 2 * steps} if kname else {}))
+            graph_eager[label] = {
+                "n_chains": chains, "n_steps": steps, "identical": list(fields),
+                "graph_us_per_step": g_wall / steps * 1e6,
+                "eager_us_per_step": e_wall / steps * 1e6,
+                "graph_first_pass_extra_s": g_first - g_wall,
+                "launches": {k: v for k, v in g_launch.items() if v}}
+    emit({"phase": "graph_vs_eager", "graph_steps": GRAPH_STEPS, "paths": graph_eager,
+          "nvidia_smi": smi})
+
+    # The exact CTMC, dense: the tree draw on SK, unroll "auto" (= 2).
+    if CTMC().preferred_unroll(prob) != 2 or CTMC().resolved_site_draw(prob) != "tree":
+        raise AssertionError("CTMC on SK n=2048 does not resolve to the tree draw at unroll 2")
+    c = CTMC_MAIN
+    reset()
+    make = _make_run(prob, CTMC(), 0, n_steps=c["n_events"], n_chains=c["n_chains"],
+                     schedule=sched, first_hit=-0.70 * n)
+    res, wall = timed_pass(make)
+    expect("ctmc_dense", read())
+    gap = incremental_energy_gap("ctmc_dense", prob, make.final_state)
+    emit({"phase": "ctmc_dense", "problem": f"sk_instance({n}, 0)", **c, "unroll": 2,
+          "graph_steps": GRAPH_STEPS, "first_hit": -0.70 * n, "wall_s": wall,
+          "chain_events_per_s": c["n_events"] * c["n_chains"] / wall,
+          "hit_fraction": float(res.hit.float().mean()),
+          "final_energy_per_spin": float(prob.energy(res.s).mean()) / n,
+          "max_energy_gap": gap, "nvidia_smi": smi})
+
+    # The exact CTMC, sparse: maxcut3r at a constant beta, the incremental
+    # tree path; the carried tree against the rates of the final s and h.
+    reset()
+    make = _make_run(mc, CTMC(), 0, n_steps=c["n_events"], n_chains=c["n_chains"],
+                     schedule=c["sparse_beta"], first_hit=e_cut)
+    res, wall = timed_pass(make)
+    expect("ctmc_sparse", read())
+    st = make.final_state
+    if st.aux.tree_beta is None:
+        raise AssertionError("ctmc_sparse: the constant-beta run did not carry its tree")
+    gap = incremental_energy_gap("ctmc_sparse", mc, st)
+    beta3 = torch.full((c["n_chains"],), c["sparse_beta"], dtype=torch.float32, device=dev)
+    rates = CTMC().rates(mc, st.s, st.aux.h, beta3)
+    leaf_rel = float(((event_tree.leaves(st.aux.tree, mc.n) - rates).abs() / rates).max())
+    fresh = event_tree.total(event_tree.build(rates))
+    root_rel = float(((event_tree.total(st.aux.tree) - fresh).abs() / fresh).max())
+    h_gap = float((st.aux.h - mc.local_fields(st.s)).abs().max())
+    if not (leaf_rel <= TREE_LEAF_RTOL and root_rel <= TREE_ROOT_RTOL):
+        raise AssertionError(f"ctmc_sparse: the carried tree's leaves are off the rates by "
+                             f"{leaf_rel} (relative, bound {TREE_LEAF_RTOL}), its root off a "
+                             f"fresh build by {root_rel} (bound {TREE_ROOT_RTOL})")
+    emit({"phase": "ctmc_sparse", "problem": f"random_3regular_maxcut({mc.n}, 0)", **c,
+          "unroll": CTMC().preferred_unroll(mc), "wall_s": wall,
+          "chain_events_per_s": c["n_events"] * c["n_chains"] / wall,
+          "cut_fraction": float(cut_fraction(mc, res.s).mean()),
+          "hit_fraction": float(res.hit.float().mean()), "max_energy_gap": gap,
+          "tree_leaf_max_rel_err": leaf_rel, "tree_root_max_rel_err": root_rel,
+          "fields_max_abs_err": h_gap, "nvidia_smi": smi})
+
+    # The synchronous baseline: random-scan Gibbs on SK.
+    reset()
+    make = _make_run(prob, "random_scan_gibbs", 0, n_steps=c["n_events"],
+                     n_chains=c["n_chains"], schedule=sched)
+    res, wall = timed_pass(make)
+    expect("random_scan", read())
+    gap = incremental_energy_gap("random_scan", prob, make.final_state)
+    emit({"phase": "random_scan", "problem": f"sk_instance({n}, 0)", **c, "wall_s": wall,
+          "chain_steps_per_s": c["n_events"] * c["n_chains"] / wall,
+          "final_energy_per_spin": float(prob.energy(res.s).mean()) / n,
+          "max_energy_gap": gap, "nvidia_smi": smi})
+
+    # Fidelity through the graph: the 5-spin problem of the JAX tests,
+    # chains as rows, against exact enumeration.
+    frng = np.random.default_rng(0)
+    A5 = frng.normal(0, 0.7, (5, 5))
+    p5 = ising.DenseIsing.from_numpy(np.triu(A5, 1) + np.triu(A5, 1).T, frng.normal(0, 0.4, 5),
+                                     device=dev)
+    _, p5_exact = ising.enumerate_boltzmann(p5)
+    f = FIDELITY
+    rs = run(p5, "random_scan_gibbs", 1, n_steps=f["n_steps"], n_chains=f["n_chains"],
+             sample_every=1)
+    tv_rs = tv_to(p5_exact, rs.samples[:, f["burn_in"]:], 5)
+    ct = run(p5, CTMC(), 2, n_steps=f["n_steps"], n_chains=f["n_chains"], sample_every=1)
+    w = ctmc_mod.time_weighted_distribution(ctmc_mod.CTMCRun.from_result(ct), 5)
+    tv_ct = 0.5 * float(np.abs(w.double().mean(0).cpu().numpy() - p5_exact).sum())
+    if not (tv_rs < TV_GIBBS_MAX and tv_ct < TV_GIBBS_MAX):
+        raise AssertionError(f"fidelity: TV {tv_rs} (random scan), {tv_ct} (CTMC, time-"
+                             f"weighted) not below {TV_GIBBS_MAX}")
+    emit({"phase": "fidelity", "n": 5, **f, "tv_random_scan": tv_rs,
+          "tv_ctmc_time_weighted": tv_ct, "bound": TV_GIBBS_MAX})
+
+    # diagnostics=True on the CAL path: nothing sampled changes.
+    kw = dict(n_steps=200, n_chains=LATTICE_MAIN["n_chains"], sample_every=50, schedule=sched,
+              first_hit=e_t, backend="cuda")
+    reset()
+    plain = run(cal, ChromaticGibbs(), 4, **kw)
+    plain_launches = read()
+    reset()
+    with_diag = run(cal, ChromaticGibbs(), 4, diagnostics=True, **kw)
+    diag_launches = read()
+    expect("diagnostics", diag_launches, lattice_gibbs_sweep=200)
+    differ = [f for f in ("s", "t", "samples", "times", "energies", "t_hit", "hit")
+              if not torch.equal(getattr(plain, f), getattr(with_diag, f))]
+    d = with_diag.diagnostics
+    if differ or plain_launches != diag_launches or not int(d.flips.sum()) > 0:
+        raise AssertionError(f"diagnostics on CAL: {differ} differ, launches {plain_launches} / "
+                             f"{diag_launches}, flips {int(d.flips.sum())}")
+    emit({"phase": "diagnostics", "problem": "cal_problem()", "n_chains": kw["n_chains"],
+          "n_steps": 200, "flips": int(d.flips.sum()),
+          "flip_rate_mean": float(d.flip_rate.mean()),
+          "first_hit_step_median": float(d.first_hit_step.float().median()),
+          "energy_mean": float(d.energy_mean.mean()), "launches": diag_launches})
+
     # -- summary -------------------------------------------------------------
     def entry(name, source, replaces, launches, library):
         bms, by = bounds[name]
@@ -1346,7 +1558,7 @@ def main() -> int:
              **{f"{name}_{key}": attention_timing[name][key]
                 for name, *_ in ATTENTION_MAIN[1:]
                 for key in ("ms", "plain_ms", "bound_ms", "library_ms")}),
-    ], "tau_leap_in_band": near})
+    ], "tau_leap_in_band": near, "elapsed_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -15,8 +15,11 @@ Kernel protocol (state is a `KernelState` of (n_chains, ...) tensors):
 kernel call, here every chain is a row of one batched step, so a
 per-chain schedule is a per-row beta.
 
-Kernels ported so far, registered by name:
+Kernels, registered by name (every kernel of the JAX registry):
 
+    "random_scan_gibbs" — the paper's SYNCHRONOUS baseline (dense or sparse
+        problems): one uniformly random site resampled per chain per step,
+        incremental fields and energy, model time 1/lambda0 per step.
     "chromatic_gibbs" — exact parallel Gibbs on the king's-move lattice via
         the 4-coloring; one step = one sweep = 4 color phases. Under
         `backend="cuda"` every sweep is ONE launch of the hand-written
@@ -32,6 +35,17 @@ Kernels ported so far, registered by name:
         int8 once at init and runs every step through the hand-written
         `tau_leap_step` kernel; lattice and sparse problems are ref-only,
         as in JAX.
+    "ctmc"            — the exact event-driven CTMC (Gillespie) on dense or
+        sparse problems; one step = one flip event per chain, stochastic
+        model-time advance. `site_draw` selects the event selection: the
+        O(n) Gumbel-max ("scan") or the sum-tree descent ("tree": ONE
+        uniform + O(log n), see `repro_torch.core.event_tree`); "auto"
+        picks by size. On `SparseIsing` under a constant schedule the tree
+        is carried and repaired at the <= max_deg affected leaves per event.
+
+Random-scan Gibbs and the CTMC are plain torch on every device (the JAX
+package has no Pallas kernel for them); each splits a step into a `draw`
+from the generator and a pure `update` given the draws.
 
 On CPU tensors a cuda backend runs each kernel's plain PyTorch version, as
 the JAX package runs its Pallas kernels in interpret mode off-TPU. Both
@@ -39,14 +53,14 @@ backends of a kernel draw the same uniforms from the generator: the Gibbs
 sweeps draw all (C, n_chains, ...) uniforms of a sweep in one call before
 the first color phase.
 
-The other kernels of the JAX registry ("random_scan_gibbs", "ctmc"),
-`faults=` and `diagnostics=True` raise NotImplementedError naming the
-slice of the port that brings them (see ROADMAP.md).
+`faults=` raises NotImplementedError naming the slice of the port that
+brings it (see ROADMAP.md).
 
 Driver:
 
     run(problem, kernel, seed_or_generator, n_steps=..., schedule=...,
-        n_chains=..., sample_every=..., first_hit=..., backend=...) -> RunResult
+        n_chains=..., sample_every=..., first_hit=..., backend=...,
+        unroll=..., diagnostics=...) -> RunResult
 
 `schedule` accepts None (beta=1), a float, a `(n_steps,)` array, a
 `(n_chains, n_steps)` array (per-chain schedules), or a Schedule object
@@ -55,21 +69,31 @@ Driver:
 the kernel has a CUDA path, "ref" otherwise; an explicit "cuda" request on
 a kernel without a CUDA path raises ValueError.
 
-The step loop is a Python loop that never waits on the device: the model
-time, the first-hit time and the hit flags stay device tensors updated with
-`torch.where`, the per-step betas are rows of one device tensor, and the
-only host synchronisation is the finite-energy probe before the loop.
+The step loop never waits on the device: the model time, the first-hit
+time, the hit flags, the diagnostics and the step and sample counters stay
+device tensors. The host synchronises only before the loop: the
+finite-energy probe and, for a kernel that can carry state across steps of
+one beta (the sparse tree CTMC), whether each chain's schedule is constant.
+On a CUDA problem the loop runs as replays of captured CUDA graphs of
+blocks of steps (`repro_torch.core.graph_loop`), the port's counterpart of
+the JAX driver's compiled `lax.scan`; on CPU tensors it runs eagerly.
+`unroll` is validated as in the JAX package and changes nothing here: the
+graph's blocks do not depend on it, nor do the results.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
+import weakref
 from typing import Any, NamedTuple, Optional, Protocol, Union, runtime_checkable
 
 import torch
 
-from repro_torch.core import glauber
+from repro_torch.core import diagnostics as diag
+from repro_torch.core import event_tree, glauber
+from repro_torch.core.diagnostics import RunDiagnostics  # noqa: F401  (re-export)
+from repro_torch.core.graph_loop import GRAPH_STEPS, StepLoop, plan_blocks
 from repro_torch.core.ising import DenseIsing, LatticeIsing, king_color_masks, resolve_device
 from repro_torch.core.sparse import SparseIsing
 from repro_torch.kernels import ops
@@ -181,12 +205,6 @@ class SamplerKernel(Protocol):
 
 KERNELS: dict[str, type] = {}
 
-# Kernels of the JAX registry that later slices of the port bring.
-LATER_KERNELS = {
-    "random_scan_gibbs": "the sync-baseline and exact-CTMC slice",
-    "ctmc": "the sync-baseline and exact-CTMC slice",
-}
-
 
 def register_kernel(name: str):
     """Class decorator: register a kernel under `name` for by-name lookup."""
@@ -202,11 +220,6 @@ def register_kernel(name: str):
 
 def get_kernel(name: str, **config) -> "SamplerKernel":
     """Instantiate a registered kernel by name."""
-    if name in LATER_KERNELS:
-        raise NotImplementedError(
-            f"sampler kernel {name!r} is not ported yet; it arrives with "
-            f"{LATER_KERNELS[name]} (see ROADMAP.md)"
-        )
     if name not in KERNELS:
         raise KeyError(f"unknown sampler kernel {name!r}; have {sorted(KERNELS)}")
     return KERNELS[name](**config)
@@ -553,6 +566,306 @@ class TauLeap:
         )
 
 
+def _apply_field_delta(problem, h, i, delta, nbr=None):
+    """Incremental local-field update after s_i changes by `delta`, one site
+    i[c] and one delta[c] per chain (row) c.
+
+    Dense: add the row J[i_c] (J is symmetric, and its rows are contiguous)
+    times delta_c: O(n). Sparse: scatter-add nbr_w[i_c] * delta_c into
+    nbr_idx[i_c] (`nbr` is nbr_idx as int64): O(max_deg). Padded slots point
+    at i_c itself with zero weight, so the scatter needs no degree mask, and
+    a row's nonzero adds meet at no address. h_i itself is untouched (zero
+    diagonal)."""
+    if isinstance(problem, SparseIsing):
+        return h.scatter_add(1, nbr[i], problem.nbr_w[i] * delta[:, None])
+    return h + problem.J[i] * delta[:, None]
+
+
+def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[c, i[c]] for every row c of a (B, n) tensor."""
+    return x.gather(1, i[:, None])[:, 0]
+
+
+class LocalFields(NamedTuple):
+    """Random-scan Gibbs' kernel-private state: the incremental local fields
+    and, on a sparse problem, nbr_idx as int64 (None on a dense one)."""
+
+    h: torch.Tensor
+    nbr: Optional[torch.Tensor]
+
+
+@register_kernel("random_scan_gibbs")
+@dataclasses.dataclass(frozen=True)
+class RandomScanGibbs:
+    """Serial random-scan Gibbs — the paper's synchronous baseline. One
+    uniformly random site per chain per step, dt = 1/lambda0 per step (the
+    chip comparison runs the serial system at the single-neuron rate).
+    Keeps the local fields and the energy incrementally: O(n) per step on
+    a dense problem, O(max_deg) on a sparse one.
+
+    A step is a `draw` (one site and one uniform per chain, from the
+    generator) and a pure `update` given them, so the update can be held
+    against the JAX step fed the draws JAX takes from its key. Plain torch
+    on every device: the JAX package has no Pallas kernel for it."""
+
+    problem_kinds = ("dense", "sparse")
+
+    lambda0: float = 1.0
+
+    def init(self, problem, generator, s0=None, n_chains=1) -> KernelState:
+        """Initial state with incremental fields and energy."""
+        dev = problem.device
+        if s0 is None:
+            s0 = random_init(generator, (n_chains, problem.n), device=dev)
+        nbr = problem.nbr_idx.long() if isinstance(problem, SparseIsing) else None
+        return KernelState(
+            s=s0, t=torch.zeros((s0.shape[0],), dtype=torch.float32, device=dev),
+            e=problem.energy(s0), aux=LocalFields(problem.local_fields(s0), nbr),
+        )
+
+    def draw(self, problem, state, generator, beta=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(site, uniform) per chain: the step's random numbers (beta unused)."""
+        B, dev = state.s.shape[0], state.s.device
+        i = torch.randint(0, problem.n, (B,), generator=generator, device=dev)
+        return i, torch.rand((B,), generator=generator, device=dev)
+
+    def update(self, problem, state, beta, i, u) -> KernelState:
+        """Resample site i[c] of chain c from its conditional at beta[c],
+        given the uniform u[c]."""
+        s, h = state.s, state.aux.h
+        hi = _at(h, i)
+        p_up = glauber.prob_up(beta * hi)
+        new_si = torch.where(u < p_up, 1.0, -1.0)
+        delta = new_si - _at(s, i)
+        # dE for changing s_i by delta: delta * h_i (h is the raw, beta-free
+        # field including b and the full J row)
+        e = state.e + delta * hi
+        h = _apply_field_delta(problem, h, i, delta, state.aux.nbr)
+        s = s.scatter(1, i[:, None], new_si[:, None])
+        return KernelState(s=s, t=state.t + 1.0 / self.lambda0, e=e,
+                           aux=LocalFields(h, state.aux.nbr))
+
+    def step(self, problem, state, generator, beta) -> KernelState:
+        """One random-scan update of every chain."""
+        return self.update(problem, state, beta, *self.draw(problem, state, generator, beta))
+
+
+# Total-rate floor for the CTMC: below this the chain is treated as frozen
+# (the dwell time is clamped to ~1e30 and no flip is performed). Shared by
+# the denominator clamp and the aliveness test; above it the dwell time and
+# the site draw are both unclamped and exact.
+RATE_FLOOR = 1e-30
+
+# site_draw="auto" switches to the sum-tree draw at this problem size (as
+# in the JAX package, which keeps the scan draw's random stream below it).
+TREE_SITE_DRAW_MIN_N = 64
+
+# Event-block size "auto" unrolling picks for the tree path on big problems
+# (see CTMC.preferred_unroll).
+CTMC_TREE_BLOCK_EVENTS = 2
+CTMC_TREE_BLOCK_MIN_N = 512
+
+
+class CTMCAux(NamedTuple):
+    """The CTMC's kernel-private state, (n_chains, ...) tensors.
+
+    h:         incremental local fields.
+    tree:      the rate tree (tree draw; None on the scan draw): the tree
+               the last event was drawn from, or, when carried, the current
+               state's rates at tree_beta.
+    tree_beta: the beta of each row's carried tree (sparse tree draw, when
+               `init` was given the run's constant beta); None where every
+               event draws from a fresh build.
+    nbr:       nbr_idx as int64 (sparse problems; else None).
+    """
+
+    h: torch.Tensor
+    tree: Optional[torch.Tensor]
+    tree_beta: Optional[torch.Tensor]
+    nbr: Optional[torch.Tensor]
+
+
+@register_kernel("ctmc")
+@dataclasses.dataclass(frozen=True)
+class CTMC:
+    """Exact event-driven continuous-time Glauber dynamics (Gillespie/SSA).
+    One step = one flip event per chain: an Exp(sum_i lambda_i) waiting
+    time, a site drawn proportionally to lambda_i = lambda0 * sigma(2 beta
+    h_i s_i). The embedded chain is statistically exact — the fidelity
+    reference for tau-leap and the hardware. Incremental fields: O(n) per
+    event on a dense problem.
+
+    site_draw selects the event selection (statistically identical laws,
+    different random streams):
+
+      "scan" — Gumbel-max over log(rates): one Gumbel per site per event
+          (`jax.random.categorical`'s draw). log(rates) has no additive
+          floor, so the draw stays exactly proportional however small the
+          rates get; all-zero rates degenerate to site 0, which the
+          aliveness test discards.
+      "tree" — the `event_tree` sum tree: ONE uniform and an O(log n)
+          descent. The tree is built at the step's beta before every draw.
+      "auto" — "tree" for n >= TREE_SITE_DRAW_MIN_N, else "scan".
+
+    On a SparseIsing the tree path can be incremental: after a flip at
+    site i only i and its <= max_deg neighbours change rate. When `init` is
+    given the beta every step will take (`run()` does so when each chain's
+    schedule is constant), the tree is built once at that beta and carried:
+    each event draws from it and then repairs it in place at those leaves
+    and their root paths — O(max_deg log n) per event, no O(n) pass. The
+    repair recomputes each path node from its children (`event_tree.
+    repair_`), so the carried tree equals a fresh build of the current
+    rates bit for bit, and the carried and the rebuilding path draw the
+    same events. The JAX package decides per event instead (`lax.cond(beta
+    == tree_beta)`, under its vmap over chains a select that evaluates both
+    branches) and adds leaf deltas along the paths (`event_tree.
+    update_many`), whose root drifts from the rates' sum over a long run.
+
+    Below RATE_FLOOR total rate a chain is frozen: the dwell denominator is
+    clamped AND the flip suppressed, on both draw paths.
+
+    A step is a `draw` (the site draw and one Exp(1) per chain) and an
+    `update` given them: on the tree path the draw is a uniform per chain,
+    on the scan path the site index itself. The update is pure except on a
+    carried tree, which it repairs in place (the state it returns holds the
+    same tensor). Plain torch on every device: the JAX package has no
+    Pallas kernel for it."""
+
+    problem_kinds = ("dense", "sparse")
+
+    lambda0: float = 1.0
+    site_draw: str = "auto"  # "scan" | "tree" | "auto"
+
+    def resolved_site_draw(self, problem) -> str:
+        """The concrete draw mechanism for this problem size."""
+        if self.site_draw not in ("scan", "tree", "auto"):
+            raise ValueError(
+                f"site_draw must be 'scan' | 'tree' | 'auto', got {self.site_draw!r}"
+            )
+        if self.site_draw == "auto":
+            return "tree" if problem.n >= TREE_SITE_DRAW_MIN_N else "scan"
+        return self.site_draw
+
+    def preferred_unroll(self, problem) -> int:
+        """Event-block size for run(unroll="auto"): CTMC_TREE_BLOCK_EVENTS
+        on big tree-draw problems, 1 elsewhere (the JAX rule)."""
+        if (
+            self.resolved_site_draw(problem) == "tree"
+            and problem.n >= CTMC_TREE_BLOCK_MIN_N
+        ):
+            return CTMC_TREE_BLOCK_EVENTS
+        return 1
+
+    def carries_tree(self, problem) -> bool:
+        """Whether `init(..., beta=)` makes this problem's tree incremental:
+        the tree draw on a SparseIsing."""
+        return isinstance(problem, SparseIsing) and self.resolved_site_draw(problem) == "tree"
+
+    def _scaled(self, p: torch.Tensor) -> torch.Tensor:
+        """lambda0 * p (x * 1.0 is x: the default rate skips the pass)."""
+        return p if self.lambda0 == 1.0 else self.lambda0 * p
+
+    def rates(self, problem, s, h, beta) -> torch.Tensor:
+        """(B, n) flip rates lambda0 * sigma(2 beta_c h_ci s_ci)."""
+        return self._scaled(glauber.flip_prob(beta[:, None] * h, s))
+
+    def init(self, problem, generator, s0=None, n_chains=1,
+             beta: Optional[torch.Tensor] = None) -> KernelState:
+        """Initial state with fields and, on the tree path, a rate tree.
+
+        `beta` ((n_chains,), optional) promises that every step will be
+        given it; where `carries_tree(problem)`, the tree is then built at
+        it and carried (class docstring). Otherwise the tree is built at
+        beta = 1 as in the JAX package, and each step builds its own."""
+        dev = problem.device
+        if s0 is None:
+            s0 = random_init(generator, (n_chains, problem.n), device=dev)
+        h = problem.local_fields(s0)
+        sparse = isinstance(problem, SparseIsing)
+        tree = tree_beta = None
+        if self.resolved_site_draw(problem) == "tree":
+            if beta is not None and self.carries_tree(problem):
+                tree_beta = beta.to(device=dev, dtype=torch.float32).expand(s0.shape[0]).clone()
+            at = tree_beta if tree_beta is not None else torch.ones(
+                (s0.shape[0],), dtype=torch.float32, device=dev)
+            tree = event_tree.build(self.rates(problem, s0, h, at))
+        return KernelState(
+            s=s0, t=torch.zeros((s0.shape[0],), dtype=torch.float32, device=dev),
+            e=problem.energy(s0),
+            aux=CTMCAux(h, tree, tree_beta, problem.nbr_idx.long() if sparse else None),
+        )
+
+    def draw(self, problem, state, generator, beta) -> tuple[torch.Tensor, torch.Tensor]:
+        """(site draw, Exp(1)) per chain: a uniform on the tree path; on the
+        scan path the site of the Gumbel-max over the current log-rates."""
+        B, dev = state.s.shape[0], state.s.device
+        expo = torch.empty((B,), dtype=torch.float32, device=dev).exponential_(
+            generator=generator)
+        if self.resolved_site_draw(problem) == "tree":
+            return torch.rand((B,), generator=generator, device=dev), expo
+        u = torch.rand((B, problem.n), generator=generator, device=dev)
+        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+        rates = self.rates(problem, state.s, state.aux.h, beta)
+        return torch.argmax(torch.log(rates) + gumbel, dim=1), expo
+
+    def update(self, problem, state, beta, site, expo) -> KernelState:
+        """One Gillespie event per chain given its site draw and Exp(1).
+        On a carried tree `beta` must be its tree_beta (`init`)."""
+        s, aux = state.s, state.aux
+        h = aux.h
+        if self.resolved_site_draw(problem) == "scan":
+            i = site
+            total = torch.sum(self.rates(problem, s, h, beta), dim=1)
+        elif aux.tree_beta is not None:
+            return self._carried_tree_update(problem, state, beta, site, expo)
+        else:
+            # a scheduled beta rescales every leaf, and on dense couplings
+            # every field changes per event: build before every draw
+            tree = event_tree.build(self.rates(problem, s, h, beta))
+            total = event_tree.total(tree)
+            i = torch.clamp(event_tree.descend(tree, site), max=problem.n - 1)
+            aux = aux._replace(tree=tree)
+        alive = total > RATE_FLOOR
+        dt = expo / torch.clamp(total, min=RATE_FLOOR)
+        delta = torch.where(alive, -2.0 * _at(s, i), 0.0)
+        e = state.e + delta * _at(h, i)
+        h = _apply_field_delta(problem, h, i, delta, aux.nbr)
+        s = s.scatter_add(1, i[:, None], delta[:, None])
+        return KernelState(s=s, t=state.t + dt, e=e, aux=aux._replace(h=h))
+
+    def _carried_tree_update(self, problem: SparseIsing, state, beta, u, expo) -> KernelState:
+        """One event drawn from the carried tree, which is then repaired in
+        place: O(max_deg log n), no O(n) pass.
+
+        After the flip only site i and its neighbours changed rate: their
+        leaves are set to the new rates and their root paths recomputed
+        from the children (`event_tree.repair_`), so the tree stays `build`
+        of the current rates bit for bit. Padded neighbour slots alias site
+        i and carry its own new rate, so no degree mask is needed. The
+        reference adds leaf deltas along the paths (`update_many`, with a
+        degree mask) and its root drifts from the rates' sum as the total
+        falls; the draws and the model time read that root."""
+        s, aux = state.s, state.aux
+        h, nbr, tree = aux.h, aux.nbr, aux.tree
+        total = event_tree.total(tree)  # a view: read before the repair
+        i = torch.clamp(event_tree.descend(tree, u), max=problem.n - 1)
+        alive = total > RATE_FLOOR
+        dt = expo / torch.clamp(total, min=RATE_FLOOR)
+        delta = torch.where(alive, -2.0 * _at(s, i), 0.0)
+        e = state.e + delta * _at(h, i)
+        h = _apply_field_delta(problem, h, i, delta, nbr)
+        s = s.scatter_add(1, i[:, None], delta[:, None])
+        affected = torch.cat([i[:, None], nbr[i]], dim=1)  # (B, 1 + max_deg)
+        new_rates = self._scaled(glauber.flip_prob(
+            beta[:, None] * h.gather(1, affected), s.gather(1, affected)))
+        event_tree.repair_(tree, affected, new_rates)
+        return KernelState(s=s, t=state.t + dt, e=e, aux=aux._replace(h=h))
+
+    def step(self, problem, state, generator, beta) -> KernelState:
+        """One Gillespie event of every chain."""
+        return self.update(problem, state, beta, *self.draw(problem, state, generator, beta))
+
+
 # ---------------------------------------------------------------------------
 # The driver
 # ---------------------------------------------------------------------------
@@ -591,7 +904,10 @@ class RunResult(NamedTuple):
               None when first_hit was not requested.
     hit:      whether the target was reached; None when not requested.
     timing:   RunTiming when run(..., timeit=True); None otherwise.
-    diagnostics: always None in this slice of the port.
+    diagnostics: RunDiagnostics when run(..., diagnostics=True) — per-chain
+              flip counters, Welford energy mean/variance and first-hit
+              step index collected inside the step loop (see
+              `repro_torch.core.diagnostics`); None otherwise.
     """
 
     s: torch.Tensor
@@ -636,60 +952,138 @@ def _resolve_backend(backend: Optional[str], kernel=None, problem=None) -> Optio
     return backend
 
 
-def _run_core(
-    problem, kernel, generator, s0, betas, e_target, *,
-    n_steps, sample_every, track_hit, n_chains,
-):
-    """All chains at once, as the rows of each step: the one loop every
-    sampling entry point shares. `betas` is (n_steps, n_chains)."""
-    state = kernel.init(problem, generator, s0, n_chains)
-    e0 = state.e if state.e is not None else problem.energy(state.s)
-    hit = (e0 <= e_target) & track_hit
-    t_hit = torch.where(hit, 0.0, math.inf)
+def _resolve_unroll(unroll, kernel, problem) -> int:
+    """Resolve the event-block size as the JAX driver does: "auto" asks the
+    kernel (CTMC blocks events on big problems), an int is validated and
+    used as-is. The port's graph blocks do not depend on it."""
+    if unroll == "auto":
+        fn = getattr(kernel, "preferred_unroll", None)
+        return fn(problem) if fn is not None else 1
+    if not isinstance(unroll, int) or isinstance(unroll, bool) or unroll < 1:
+        raise ValueError(f"unroll must be 'auto' or an int >= 1, got {unroll!r}")
+    return unroll
 
-    def advance(state, t_hit, hit, lo, hi):
-        """Steps lo..hi-1, with first-hit tracking kept on the device."""
-        for i in range(lo, hi):
-            state = kernel.step(problem, state, generator, betas[i])
-            if track_hit:
-                e = state.e if state.e is not None else problem.energy(state.s)
-                new_hit = (e <= e_target) & ~hit
-                t_hit = torch.where(new_hit, state.t, t_hit)
+
+class _Carry(NamedTuple):
+    """What the step loop carries from block to block (rows = chains)."""
+
+    state: KernelState
+    t_hit: torch.Tensor
+    hit: torch.Tensor
+    acc: Optional[diag.DiagAcc]
+    pos: torch.Tensor  # () int64: the index of the next step (row of betas)
+    k: torch.Tensor  # (1,) int64: the index of the next recorded sample
+
+
+class _Run:
+    """One `run()` call: all chains as the rows of every step.
+
+    The steps run in blocks (`graph_loop.plan_blocks`, at most GRAPH_STEPS
+    steps each); a block gathers its betas by the device step counter,
+    records samples at its fixed offsets, and tracks first-hit and
+    diagnostics on the device, so no step waits on the host. On a CUDA
+    problem the blocks are replays of captured CUDA graphs
+    (`graph_loop.StepLoop`); on CPU tensors they run eagerly. Both run the
+    same operations in the same order. `timeit`'s two passes share the
+    loop: the second replays the graphs the first captured. `init_beta`,
+    when given, is passed to the kernel's `init` (each chain's constant
+    beta). `eager=True` runs a CUDA problem's blocks eagerly too (no
+    graph): for comparing the two."""
+
+    def __init__(self, problem, kernel, generator, s0, betas, e_target, *, n_steps,
+                 sample_every, track_hit, n_chains, diagnostics, init_beta=None, eager=False):
+        self.problem, self.kernel, self.generator, self.s0 = problem, kernel, generator, s0
+        self.gen_start = generator.get_state()
+        self.betas, self.e_target = betas, e_target
+        self.n_steps, self.sample_every, self.n_chains = n_steps, sample_every, n_chains
+        self.track_hit, self.diagnostics = track_hit, diagnostics
+        self.init_kw = {} if init_beta is None else {"beta": init_beta}
+        self.blocks = plan_blocks(n_steps, sample_every, GRAPH_STEPS)
+        self.n_samples = n_steps // sample_every if sample_every > 0 else 0
+        self.offsets = torch.arange(GRAPH_STEPS, device=problem.device)
+        # the loop holds the run weakly: a finished run, its graphs and their
+        # memory go when the run does, not at a cyclic collection (which
+        # could fall inside another run's capture)
+        this = weakref.ref(self)
+        self.loop = StepLoop(lambda *args: this().block(*args), generator, problem.device,
+                             problem.device.type == "cuda" and not eager)
+        self.samples = self.times = self.energies = None  # made at the first pass
+        self.final_state: Optional[KernelState] = None  # the last pass's, for checks
+
+    def block(self, carry: _Carry, steps: int, records: tuple) -> _Carry:
+        """`steps` steps of every chain, recording the state after the
+        steps at `records`: the body the loop runs eagerly or captures."""
+        problem, kernel = self.problem, self.kernel
+        state, t_hit, hit, acc, pos, k = carry
+        betas = self.betas.index_select(0, pos + self.offsets[:steps])
+        for j in range(steps):
+            new = kernel.step(problem, state, self.generator, betas[j])
+            e = new_hit = None
+            if self.track_hit or self.diagnostics:
+                e = new.e if new.e is not None else problem.energy(new.s)
+            if self.track_hit:
+                new_hit = (e <= self.e_target) & ~hit
+                t_hit = torch.where(new_hit, new.t, t_hit)
                 hit = hit | new_hit
-        return state, t_hit, hit
+            if self.diagnostics:
+                n_flipped = (new.s != state.s).flatten(1).sum(1)
+                acc = diag.acc_update(acc, n_flipped, e, new_hit)
+            if j in records:
+                self.samples.index_copy_(1, k, new.s.unsqueeze(1))
+                self.times.index_copy_(1, k, new.t.unsqueeze(1))
+                if self.energies is not None:
+                    self.energies.index_copy_(1, k, new.e.unsqueeze(1))
+                k = k + 1
+            state = new
+        # new counters even where nothing was recorded (graph_loop docstring)
+        return _Carry(state, t_hit, hit, acc, pos + steps, k + 0)
 
-    s = state.s
-    if sample_every > 0:
-        n_samples = n_steps // sample_every
-        samples = torch.empty((n_chains, n_samples) + s.shape[1:], dtype=s.dtype, device=s.device)
-        times = torch.empty((n_chains, n_samples), dtype=torch.float32, device=s.device)
-        for k in range(n_samples):
-            state, t_hit, hit = advance(
-                state, t_hit, hit, k * sample_every, (k + 1) * sample_every
-            )
-            samples[:, k] = state.s
-            times[:, k] = state.t
-        m = n_samples * sample_every
-        if m < n_steps:  # remainder steps after the last observation
-            state, t_hit, hit = advance(state, t_hit, hit, m, n_steps)
-        energies = problem.energy(samples)
-    else:
-        state, t_hit, hit = advance(state, t_hit, hit, 0, n_steps)
-        samples = torch.zeros((n_chains, 0) + s.shape[1:], dtype=s.dtype, device=s.device)
-        times = torch.zeros((n_chains, 0), dtype=torch.float32, device=s.device)
-        # e0 has the energy dtype both recording branches produce, not the
-        # state dtype, so empty and sampled results concatenate cleanly
-        energies = torch.zeros((n_chains, 0), dtype=e0.dtype, device=s.device)
-
-    return RunResult(
-        s=state.s,
-        t=state.t,
-        samples=samples,
-        times=times,
-        energies=energies,
-        t_hit=t_hit if track_hit else None,
-        hit=hit if track_hit else None,
-    )
+    def __call__(self) -> RunResult:
+        """One full pass from the generator's starting state (every pass
+        draws the same numbers)."""
+        problem, kernel = self.problem, self.kernel
+        self.generator.set_state(self.gen_start)
+        state = kernel.init(problem, self.generator, self.s0, self.n_chains, **self.init_kw)
+        e0 = state.e if state.e is not None else problem.energy(state.s)
+        hit = (e0 <= self.e_target) & self.track_hit
+        t_hit = torch.where(hit, 0.0, math.inf)
+        acc = None
+        if self.diagnostics:
+            acc = diag.acc_init(e0, hit if self.track_hit else None)
+        s, dev = state.s, state.s.device
+        if self.samples is None:
+            B, shape = self.n_chains, tuple(s.shape[1:])
+            self.samples = torch.empty((B, self.n_samples) + shape, dtype=s.dtype, device=dev)
+            self.times = torch.empty((B, self.n_samples), dtype=torch.float32, device=dev)
+            if state.e is not None:  # kernels that keep e record it, as in JAX
+                self.energies = torch.empty((B, self.n_samples), dtype=e0.dtype, device=dev)
+        pos = torch.zeros((), dtype=torch.int64, device=dev)
+        k = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.loop.start(_Carry(state, t_hit, hit, acc, pos, k))
+        for steps, records in self.blocks:
+            self.loop.run(steps, records)
+        state, t_hit, hit, acc, _, _ = self.loop.result()
+        self.final_state = state
+        # the buffers serve every pass (and the graphs): hand out copies
+        samples, times = self.samples.clone(), self.times.clone()
+        if self.energies is not None:
+            energies = self.energies.clone()
+        elif self.n_samples:
+            energies = problem.energy(samples)
+        else:
+            # e0 has the energy dtype both recording branches produce, not
+            # the state dtype, so empty and sampled results concatenate
+            energies = torch.zeros((self.n_chains, 0), dtype=e0.dtype, device=dev)
+        return RunResult(
+            s=state.s,
+            t=state.t,
+            samples=samples,
+            times=times,
+            energies=energies,
+            t_hit=t_hit if self.track_hit else None,
+            hit=hit if self.track_hit else None,
+            diagnostics=None if acc is None else diag.acc_finalize(acc, math.prod(s.shape[1:])),
+        )
 
 
 def _generator(seed_or_generator, device: torch.device) -> torch.Generator:
@@ -713,50 +1107,22 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(
-    problem,
-    kernel: Union[SamplerKernel, str],
-    seed: Union[int, torch.Generator],
-    *,
-    n_steps: int,
-    s0: Optional[torch.Tensor] = None,
-    schedule: ScheduleLike = None,
-    n_chains: int = 1,
-    sample_every: int = 0,
-    first_hit: Optional[float] = None,
-    backend: Optional[str] = None,
-    timeit: bool = False,
-    diagnostics: bool = False,
-    faults: Any = None,
-) -> RunResult:
-    """Run `n_steps` of `kernel` on `problem` — the single sampling driver.
+def _first_chain(res: RunResult) -> RunResult:
+    """A one-chain result without its chain dimension."""
+    fields = [x[0] if isinstance(x, torch.Tensor) else x for x in res]
+    if res.diagnostics is not None:
+        fields[-1] = diag.RunDiagnostics(*(x[0] for x in res.diagnostics))
+    return RunResult(*fields)
 
-    Runs on the device the problem's tensors live on.
 
-    Args:
-      problem: DenseIsing, LatticeIsing or SparseIsing (the port's; any
-        other type raises TypeError).
-      kernel: a SamplerKernel instance, or a registered kernel name.
-      seed: an int (seeds a fresh torch.Generator on the problem's device)
-        or a torch.Generator on that device; it draws the initial states
-        and the per-step uniforms.
-      n_steps: kernel steps.
-      s0: optional initial state — (n_chains,) + state_shape(problem) when
-        n_chains > 1, state_shape(problem) otherwise ((H, W) on a lattice);
-        random ±1 init per chain when omitted.
-      schedule: beta schedule — None (beta=1), float, Schedule object,
-        (n_steps,) array, or (n_chains, n_steps) per-chain array.
-      n_chains: independent chains, batched as the rows of every step.
-      sample_every: observation stride (the chip's FPGA-side observer
-        clock); 0 records nothing.
-      first_hit: energy target — tracks (t_hit, hit) per chain.
-      backend: "ref" | "cuda" | "auto" — overrides the kernel's backend
-        field. "cuda" on a kernel without a CUDA path raises ValueError.
-      timeit: run twice (first-use pass, then a steady-state pass with the
-        same random stream, identical results) and attach a RunTiming.
-      diagnostics, faults: not ported yet; diagnostics=True or a fault
-        model raise NotImplementedError.
-    """
+def _make_run(
+    problem, kernel, seed, *, n_steps, s0=None, schedule=None, n_chains=1, sample_every=0,
+    first_hit=None, backend=None, unroll="auto", diagnostics=False, faults=None, eager=False,
+) -> _Run:
+    """Validate `run()`'s arguments and build its `_Run`: each call of the
+    result is one pass, batched over chains; its `final_state` is the last
+    pass's final KernelState (for checks of a kernel's private state).
+    `eager=True` turns the CUDA graph off (`_Run`): run() never does."""
     if isinstance(kernel, str):
         kernel = get_kernel(kernel)
     check_problem_kind(kernel, problem)
@@ -765,16 +1131,14 @@ def run(
             "run(faults=...) is not ported yet; the device-fault model arrives "
             "with the faults slice of the port (see ROADMAP.md)"
         )
-    if diagnostics:
-        raise NotImplementedError(
-            "run(diagnostics=True) is not ported yet; the in-loop diagnostics "
-            "arrive with the diagnostics slice of the port (see ROADMAP.md)"
-        )
     if n_chains < 1:
         raise ValueError(f"n_chains must be >= 1, got {n_chains}")
     resolved = _resolve_backend(backend, kernel, problem)
     if resolved is not None and hasattr(kernel, "backend") and kernel.backend != resolved:
         kernel = dataclasses.replace(kernel, backend=resolved)
+    if hasattr(kernel, "resolved_site_draw"):
+        kernel.resolved_site_draw(problem)  # validates site_draw
+    _resolve_unroll(unroll, kernel, problem)  # validated as in JAX; the graph ignores it
 
     dev = problem.device
     # The one host synchronisation: fail loudly on couplings/biases that
@@ -788,6 +1152,13 @@ def run(
 
     betas = resolve_schedule(schedule, n_steps, n_chains, device=dev)
     betas = betas.expand(n_chains, n_steps).T.contiguous()  # row i: step i's per-chain betas
+    # A kernel that can carry state across steps of one beta (the sparse
+    # tree CTMC) is told each chain's beta when it never changes: a host
+    # decision, made once here, so no step branches on the device.
+    init_beta = None
+    carries = getattr(kernel, "carries_tree", None)
+    if n_steps and carries is not None and carries(problem) and bool((betas == betas[:1]).all()):
+        init_beta = betas[0]
     track_hit = first_hit is not None
     e_target = torch.tensor(
         first_hit if track_hit else math.inf, dtype=torch.float32, device=dev
@@ -802,23 +1173,86 @@ def run(
                 f"{(n_chains,) + state_shape(problem)} for n_chains={n_chains}"
             )
 
-    gen = _generator(seed, dev)
-    gen_start = gen.get_state()
+    return _Run(
+        problem, kernel, _generator(seed, dev), s0, betas, e_target, n_steps=n_steps,
+        sample_every=sample_every, track_hit=track_hit, n_chains=n_chains,
+        diagnostics=diagnostics, init_beta=init_beta, eager=eager,
+    )
+
+
+def run(
+    problem,
+    kernel: Union[SamplerKernel, str],
+    seed: Union[int, torch.Generator],
+    *,
+    n_steps: int,
+    s0: Optional[torch.Tensor] = None,
+    schedule: ScheduleLike = None,
+    n_chains: int = 1,
+    sample_every: int = 0,
+    first_hit: Optional[float] = None,
+    backend: Optional[str] = None,
+    unroll: Union[int, str] = "auto",
+    timeit: bool = False,
+    diagnostics: bool = False,
+    faults: Any = None,
+) -> RunResult:
+    """Run `n_steps` of `kernel` on `problem` — the single sampling driver.
+
+    Runs on the device the problem's tensors live on; on a CUDA device the
+    step loop runs as replays of captured CUDA graphs (`_Run`).
+
+    Args:
+      problem: DenseIsing, LatticeIsing or SparseIsing (the port's; any
+        other type raises TypeError).
+      kernel: a SamplerKernel instance, or a registered kernel name.
+      seed: an int (seeds a fresh torch.Generator on the problem's device)
+        or a torch.Generator on that device; it draws the initial states
+        and the per-step random numbers.
+      n_steps: kernel steps (sweeps for the Gibbs sweeps, events for ctmc).
+      s0: optional initial state — (n_chains,) + state_shape(problem) when
+        n_chains > 1, state_shape(problem) otherwise ((H, W) on a lattice);
+        random ±1 init per chain when omitted.
+      schedule: beta schedule — None (beta=1), float, Schedule object,
+        (n_steps,) array, or (n_chains, n_steps) per-chain array.
+      n_chains: independent chains, batched as the rows of every step.
+      sample_every: observation stride (the chip's FPGA-side observer
+        clock); 0 records nothing.
+      first_hit: energy target — tracks (t_hit, hit) per chain.
+      backend: "ref" | "cuda" | "auto" — overrides the kernel's backend
+        field. "cuda" on a kernel without a CUDA path raises ValueError.
+      unroll: the event-block size ("auto" or an int >= 1), validated and
+        resolved as in the JAX package ("auto" asks the kernel's
+        `preferred_unroll(problem)`), where it sets the steps of one
+        `lax.scan` iteration. It does not change the port's graph: a
+        captured block holds up to `graph_loop.GRAPH_STEPS` steps whatever
+        unroll is. Results are bit-identical for every unroll.
+      timeit: run twice (first-use pass, then a steady-state pass with the
+        same random stream, identical results) and attach a RunTiming. The
+        second pass replays the graphs the first captured.
+      diagnostics: collect in-loop run diagnostics (per-chain flip
+        counters, Welford energy mean/variance, first-hit step index) into
+        `RunResult.diagnostics` as a `RunDiagnostics` (see
+        `repro_torch.core.diagnostics`). Sampled values are identical with
+        or without it; kernels without an incremental energy pay one
+        `problem.energy` per step while it is on.
+      faults: not ported yet; a fault model raises NotImplementedError.
+    """
+    one_run = _make_run(
+        problem, kernel, seed, n_steps=n_steps, s0=s0, schedule=schedule, n_chains=n_chains,
+        sample_every=sample_every, first_hit=first_hit, backend=backend, unroll=unroll,
+        diagnostics=diagnostics, faults=faults,
+    )
 
     def call() -> RunResult:
         """One full driver pass from the generator's starting state."""
-        gen.set_state(gen_start)
-        res = _run_core(
-            problem, kernel, gen, s0, betas, e_target, n_steps=n_steps,
-            sample_every=sample_every, track_hit=track_hit, n_chains=n_chains,
-        )
-        if n_chains == 1:
-            res = RunResult(*(x[0] if isinstance(x, torch.Tensor) else x for x in res))
-        return res
+        res = one_run()
+        return _first_chain(res) if n_chains == 1 else res
 
     if not timeit:
         return call()
 
+    dev = problem.device
     _sync(dev)
     t0 = time.perf_counter()
     call()

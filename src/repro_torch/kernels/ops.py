@@ -26,6 +26,33 @@ from repro_torch.kernels import tau_leap as _tl
 
 MODES = ("auto", "kernel", "reference")
 
+# Every wrapper's launch counter: (module, attribute) for an int counter,
+# (module, attribute, key) for an entry of a dict of counters.
+_COUNTERS = (
+    (_tl, "launches"), (_df, "launches"), (_fa, "launches"),
+    *((_fa, "launches_by_dtype", k) for k in _fa.launches_by_dtype),
+    *((_lg, "launches", k) for k in _lg.launches),
+    *((_sg, "launches", k) for k in _sg.launches),
+)
+
+
+def launch_counts() -> tuple[int, ...]:
+    """The value of every kernel wrapper's launch counter, in one order."""
+    return tuple(getattr(c[0], c[1]) if len(c) == 2 else getattr(c[0], c[1])[c[2]]
+                 for c in _COUNTERS)
+
+
+def add_launch_counts(delta, times: int = 1) -> None:
+    """Add `times` x `delta` (a difference of two `launch_counts()`) to the
+    counters. A captured CUDA graph launches its kernels at each replay,
+    not where their wrappers counted them: the graph driver takes the
+    wrappers' counts back after a capture and adds them at every replay."""
+    for c, d in zip(_COUNTERS, delta):
+        if len(c) == 2:
+            setattr(c[0], c[1], getattr(c[0], c[1]) + times * d)
+        else:
+            getattr(c[0], c[1])[c[2]] += times * d
+
 
 def _use_kernel(t: torch.Tensor, mode: str) -> bool:
     if mode not in MODES:

@@ -1,7 +1,13 @@
 """The port imports neither JAX nor the JAX package: every module under
-src/repro_torch and chip_smoke.py is walked as an AST."""
+src/repro_torch and chip_smoke.py is walked as an AST, and a fresh
+interpreter that imports every module of the port finds neither `jax` nor
+any `repro.` module in sys.modules (a transitive import would show there)."""
 import ast
+import json
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -40,3 +46,28 @@ def test_the_check_matches_by_module_name():
         "from repro_torch.core import ising\nimport reprolib\n"
     )
     assert [m for m in _imported_modules(tree) if _forbidden(m)] == ["jax.numpy", "repro.core"]
+
+
+def _port_modules():
+    src = REPO / "src"
+    return sorted(".".join(p.relative_to(src).with_suffix("").parts).removesuffix(".__init__")
+                  for p in (src / "repro_torch").rglob("*.py"))
+
+
+def test_importing_every_port_module_loads_no_jax_and_no_repro():
+    modules = _port_modules()
+    assert "repro_torch.core.sampler_api" in modules and len(modules) >= 18, modules
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "print(json.dumps({'loaded': len(sys.modules), 'bad': bad}))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, timeout=300, cwd=str(REPO))
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == [], out["bad"]

@@ -450,7 +450,8 @@ def test_tau_leap_on_a_lattice_bias_shrinks_with_dt():
 def test_lattice_dispatch_and_errors():
     lat, _ = _small_lattice()
     trim = glauber.SigmoidTrim(a=torch.ones(()), b=torch.zeros(()))
-    assert sampler_api.kernel_names() == ["chromatic_gibbs", "colored_gibbs", "tau_leap"]
+    assert sampler_api.kernel_names() == [
+        "chromatic_gibbs", "colored_gibbs", "ctmc", "random_scan_gibbs", "tau_leap"]
     assert sampler_api.problem_kind_of(lat) == "lattice"
     assert sampler_api.state_shape(lat) == (2, 3)
     with pytest.raises(ValueError, match="does not support backend 'cuda'"):

@@ -270,14 +270,18 @@ def test_s0_is_the_initial_state():
 
 
 def test_registry_and_error_paths():
-    assert sampler_api.kernel_names() == ["chromatic_gibbs", "colored_gibbs", "tau_leap"]
+    assert sampler_api.kernel_names() == sorted(jsa.KERNELS) == [
+        "chromatic_gibbs", "colored_gibbs", "ctmc", "random_scan_gibbs", "tau_leap"]
     assert isinstance(sampler_api.get_kernel("tau_leap", dt=0.5), TauLeap)
     prob = _dense_problem(n=8)
     with pytest.raises(KeyError, match="unknown sampler kernel"):
         run(prob, "metropolis_lights_out", 0, n_steps=10)
-    for later in ("random_scan_gibbs", "ctmc"):
-        with pytest.raises(NotImplementedError, match="CTMC slice"):
-            run(prob, later, 0, n_steps=10)
+    # every kernel of the JAX registry runs: the sync baseline and the CTMC
+    for name in ("random_scan_gibbs", "ctmc"):
+        res = run(prob, name, 0, n_steps=10)
+        assert res.s.shape == (8,) and float(res.t) > 0
+        with pytest.raises(NotImplementedError, match="faults"):
+            run(prob, name, 0, n_steps=4, faults=object())
     # the Gibbs sweeps are ported, for their own problem kinds
     for name, kind in (("chromatic_gibbs", "lattice"), ("colored_gibbs", "sparse")):
         with pytest.raises(ValueError, match=f"supported problem kinds: \\('{kind}',\\)"):
@@ -303,8 +307,10 @@ def test_registry_and_error_paths():
             run(jax_problem, TauLeap(), 0, n_steps=4)
     with pytest.raises(NotImplementedError, match="faults"):
         run(prob, TauLeap(), 0, n_steps=4, faults=object())
-    with pytest.raises(NotImplementedError, match="diagnostics"):
-        run(prob, TauLeap(), 0, n_steps=4, diagnostics=True)
+    diag = run(prob, TauLeap(), 0, n_steps=4, diagnostics=True).diagnostics
+    assert isinstance(diag, sampler_api.RunDiagnostics) and int(diag.n_steps) == 4
+    with pytest.raises(NotImplementedError, match="faults"):
+        run(prob, TauLeap(), 0, n_steps=4, diagnostics=True, faults=object())
     with pytest.raises(TypeError, match="seed"):
         run(prob, TauLeap(), jax.random.key(0), n_steps=4)
     with pytest.raises(ValueError, match="n_chains"):
