@@ -6,6 +6,7 @@
     python3 chip_ablate.py sparse     # only the two sparse kernels
     python3 chip_ablate.py lattice    # only the lattice sweep
     python3 chip_ablate.py ctmc_tree  # only the sparse CTMC's tree: two repairs, a rebuild
+    python3 chip_ablate.py faults     # only the fault variants against their base kernels
 
 int8: builds variants of dense_field (src/repro_torch/kernels/csrc/dense_field.cu
 over int8_field.cuh), each with one thing compiled out or changed, and
@@ -87,6 +88,16 @@ and a fresh build every event (the path of a changing beta). Per event:
 the wall of one pass; for the carried trees, after the run: the root
 against a fresh build of the rates of the final s and h (relative error),
 the leaves against those rates (max absolute error).
+
+faults: each of the three fault variants (the per-row bias b + eta of
+field noise, the keep mask of update dropout) against its base kernel at
+the same shape and inputs, through the wrappers, in turns (base, variant,
+variant, base; the median of the two times of each): tau_leap_step at the
+SK main path's (256, 2048) with a (B, N) bias; the lattice sweep at the CAL
+main path's (4096, 16, 16) through the plan kernel and the two-buffer
+kernel (a plan marked not independent), with the bias, the keep mask or
+both; the coloured sweep at the maxcut3r main path's (256, 16384) with the
+bias, the keep mask or both. What the extra operands cost on the card.
 
 Prints one JSON line per (shape, variant) group, then the card's name and
 power limit. The variants are built from patched copies of the sources in
@@ -261,7 +272,7 @@ def patched_sweep() -> str:
          "#ifdef ABL_U_FETCH\n__device__ __forceinline__ float ld_fetch(const float* p) {\n"
          "  float v;\n  asm(\"ld.global.nc.L2::\" ABL_U_FETCH \".f32 %0, [%1];\" : \"=f\"(v) : \"l\"(p));\n"
          "  return v;\n}\n#endif\n__device__ __forceinline__ int8_t spin("),
-        ("      P == 4 ? launch<true>", "      ABL_PACKED && P == 4 ? launch<true>"),
+        ("      P == 4 ? launch<true, kFaults>", "      ABL_PACKED && P == 4 ? launch<true, kFaults>"),
         ("__global__ void __launch_bounds__(1024, 2)\ncolored_gibbs_kernel",
          "__global__ void __launch_bounds__(1024, ABL_MINB)\ncolored_gibbs_kernel"),
         (u_load, "#ifndef ABL_U_LATE\n"
@@ -271,8 +282,9 @@ def patched_sweep() -> str:
                  "      }\n#ifdef ABL_U_LATE\n#pragma unroll\n"
                  "      for (int q = 0; q < kUnroll; ++q) "
                  "ur[q] = ABL_LOAD_U(uc, base, site[q], t + q * T);\n#endif\n"),
-        ("        nxt[site[q]] = ur[q] < glauber::prob_up(br, __fadd_rn(h[q], bias[q])) ? 1 : -1;",
-         "        ABL_DST[site[q]] = ur[q] < ABL_PROB ? 1 : -1;"),
+        ("        const int8_t v = ur[q] < glauber::prob_up(br, __fadd_rn(h[q], bias[q])) ? 1 : -1;",
+         "        const int8_t v = ur[q] < ABL_PROB ? 1 : -1;"),
+        ("        else nxt[site[q]] = v;", "        else ABL_DST[site[q]] = v;"),
         ("    __syncthreads();\n    for (int j0 = beg + t; j0 < end; j0 += kUnroll * T) {\n"
          "      int site[kUnroll];  // each entry's site",
          "    __syncthreads();\n#ifndef ABL_IN_PLACE\n"
@@ -497,21 +509,23 @@ def patched_lattice() -> str:
          "    uv[c] = code[c] != kNoEntry ? to_f32(__ldg(ur + c * plane + (code[c] >> 8))) : 0.0f;\n"
          "#endif\n"),
         ("    if (c >= C) break;\n", "    if (c >= C || ABL_NO_PHASES) break;\n"),
-        (f"      ch[code[c] >> 8] = {update};\n",
-         f"    {{\n      const int8_t v_ = {update};\n      ch[code[c] >> 8] = v_;\n"
-         "      if (ABL_STORE_EARLY) out[base + (code[c] >> 8)] = round_to<T>(v_);\n    }\n"),
+        (f"        ch[code[c] >> 8] = {update};\n",
+         f"      {{\n        const int8_t v_ = {update};\n        ch[code[c] >> 8] = v_;\n"
+         "        if (ABL_STORE_EARLY) out[base + (code[c] >> 8)] = round_to<T>(v_);\n      }\n"),
         ("  if (vec) {\n    const char4* c4 = reinterpret_cast<const char4*>(ch);",
          "  if (ABL_STORE_EARLY) {\n  } else if (vec) {\n"
          "    const char4* c4 = reinterpret_cast<const char4*>(ch);"),
         ("  const size_t smem = static_cast<size_t>(H) * W + 2 * halo_bytes(W);\n",
          "  const size_t smem = ABL_PLAN_CPB * static_cast<size_t>(H) * W + 2 * halo_bytes(W);\n"),
-        ("lattice_gibbs_plan<T><<<B, threads, smem, stream>>>(",
-         "lattice_gibbs_plan<T><<<B / ABL_PLAN_CPB, threads * ABL_PLAN_CPB, smem, stream>>>("),
+        ("lattice_gibbs_plan<T, kFaults><<<B, threads, smem, stream>>>(",
+         "lattice_gibbs_plan<T, kFaults><<<B / ABL_PLAN_CPB, threads * ABL_PLAN_CPB, smem, stream>>>("),
         # the generic kernel
-        ("template <typename T>\n__global__ void __launch_bounds__(1024)\nlattice_gibbs_generic(",
+        ("template <typename T, bool kFaults>\n__global__ void __launch_bounds__(1024)\n"
+         "lattice_gibbs_generic(",
          "#ifndef ABL_CPB\n#define ABL_CPB 0\n#endif\n#ifndef ABL_THREADS\n#define ABL_THREADS 0\n"
          "#endif\n#ifdef ABL_IN_PLACE\n#define ABL_BUFS 1\n#else\n#define ABL_BUFS 2\n#endif\n"
-         "template <typename T>\n__global__ void __launch_bounds__(1024)\nlattice_gibbs_generic("),
+         "template <typename T, bool kFaults>\n__global__ void __launch_bounds__(1024)\n"
+         "lattice_gibbs_generic("),
         ("  int8_t* nxt = smem + static_cast<size_t>(cpb) * HW;\n",
          "#ifdef ABL_EMPTY\n  return;\n#endif\n"
          "#ifdef ABL_IN_PLACE\n  int8_t* nxt = smem;\n#else\n"
@@ -536,9 +550,10 @@ def patched_lattice() -> str:
          "#else\n"
          "    for (int i = threadIdx.x; i < sites; i += blockDim.x) {\n"
          "      const int r = i / HW, p = i - r * HW;\n#endif\n"),
-        ("      if (to_f32(__ldg(col + p)) > 0.5f && to_f32(__ldg(frozen + p)) <= 0.5f) {\n",
-         "      if (to_f32(ABL_COL(p)) > 0.5f && to_f32(ABL_FROZEN(p)) <= 0.5f) {\n"
-         "#ifdef ABL_U_FIRST\n        const float uv = to_f32(uc[i]);\n#endif\n"),
+        ("      bool upd = to_f32(__ldg(col + p)) > 0.5f && to_f32(__ldg(frozen + p)) <= 0.5f;\n",
+         "      bool upd = to_f32(ABL_COL(p)) > 0.5f && to_f32(ABL_FROZEN(p)) <= 0.5f;\n"),
+        ("      if (upd) {\n",
+         "      if (upd) {\n#ifdef ABL_U_FIRST\n        const float uv = to_f32(uc[i]);\n#endif\n"),
         ("to_f32(__ldg(w + static_cast<size_t>(k) * HW + p))",
          "to_f32(ABL_W(static_cast<size_t>(k) * HW + p))"),
         ("to_f32(__ldg(b + p))", "to_f32(ABL_B(p))"),
@@ -554,8 +569,8 @@ def patched_lattice() -> str:
          "  size_t smem = ABL_BUFS * static_cast<size_t>(cpb) * HW;\n"
          "#ifdef ABL_W_SMEM\n  smem = ((smem + 15) & ~size_t(15)) + (10 + C) * static_cast<size_t>(HW) * sizeof(T);\n"
          "#endif\n"),
-        ("lattice_gibbs_generic<T><<<blocks, glauber::threads_for(static_cast<long long>(cpb) * HW),",
-         "lattice_gibbs_generic<T><<<blocks, ABL_THREADS ? ABL_THREADS : "
+        ("lattice_gibbs_generic<T, kFaults><<<blocks, glauber::threads_for(static_cast<long long>(cpb) * HW),",
+         "lattice_gibbs_generic<T, kFaults><<<blocks, ABL_THREADS ? ABL_THREADS : "
          "glauber::threads_for(static_cast<long long>(cpb) * HW),"),
     ])
 
@@ -768,6 +783,72 @@ def ablate_ctmc_tree(torch, np, chip_smoke, dev) -> None:
             print(json.dumps(out), flush=True)
 
 
+def ablate_faults(torch, np, chip_smoke, dev) -> None:
+    from repro_torch.core import problems
+    from repro_torch.core.ising import king_color_masks
+    from repro_torch.kernels import lattice_gibbs, sparse_gather, tau_leap
+
+    def turns(base, variant) -> tuple:
+        """(base ms, variant ms): base, variant, variant, base, each a
+        CUDA-event median; the mean of each kernel's two."""
+        t = [chip_smoke.time_ms(torch, f) for f in (base, variant, variant, base)]
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+    rng = np.random.default_rng(0)
+    B, N = chip_smoke.TIME_SHAPE
+    s = torch.as_tensor(rng.choice([-1.0, 1.0], (B, N)).astype(np.float32), device=dev)
+    J = torch.as_tensor(rng.integers(-127, 128, (N, N)).astype(np.int8), device=dev)
+    b = torch.as_tensor(rng.normal(0.0, 0.2, N).astype(np.float32), device=dev)
+    rows = b + 0.1 * torch.randn((B, N), device=dev)
+    u = torch.rand((B, N), device=dev)
+    beta = torch.full((B,), 1.7, device=dev)
+    scale = torch.tensor(1.0 / 127.0, device=dev)
+    dt = torch.tensor(0.1, device=dev)
+    base, var = turns(lambda: tau_leap.tau_leap_step(s, J, b, scale, u, dt, beta),
+                      lambda: tau_leap.tau_leap_step(s, J, rows, scale, u, dt, beta))
+    print(json.dumps({"ablation": "faults", "kernel": "tau_leap_step", "shape": [B, N],
+                      "base_ms": base, "bias_rows_ms": var}), flush=True)
+
+    cal = problems.cal_problem(device=dev)
+    H, W = cal.shape
+    B = chip_smoke.LATTICE_MAIN["n_chains"]
+    s = torch.where(torch.rand((B, H, W), device=dev) < 0.5, 1.0, -1.0)
+    u = torch.rand((4, B, H, W), device=dev)
+    beta = torch.full((B,), 1.7, device=dev)
+    colors = king_color_masks(H, W, device=dev).float()
+    frozen, clampv = cal.frozen_mask.float(), cal.frozen_values
+    rows = cal.b + 0.1 * torch.randn((B, H, W), device=dev)
+    keep = torch.rand((B, H, W), device=dev) >= 0.1
+    plan = lattice_gibbs.lattice_plan(cal.w, cal.b, colors, frozen, clampv)
+    args = (s, cal.w, cal.b, u, colors, frozen, clampv, beta)
+    for route, p in (("plan", plan), ("generic", plan._replace(independent=False))):
+        out = {"ablation": "faults", "kernel": f"lattice_gibbs_{route}", "shape": [B, H, W]}
+        for label, kw in (("bias_rows", dict(bias_rows=rows)), ("keep", dict(keep=keep)),
+                          ("both", dict(bias_rows=rows, keep=keep))):
+            base, var = turns(lambda: lattice_gibbs.lattice_gibbs_sweep(*args, plan=p),
+                              lambda: lattice_gibbs.lattice_gibbs_sweep(*args, plan=p, **kw))
+            out[f"base_ms_{label}"], out[f"{label}_ms"] = base, var
+        print(json.dumps(out), flush=True)
+
+    mc = problems.random_3regular_maxcut(chip_smoke.SPARSE_MAIN["n"], 0, device=dev)
+    B, n = chip_smoke.SPARSE_MAIN["n_chains"], mc.n
+    masks = mc.color_masks.float()
+    s = torch.where(torch.rand((B, n), device=dev) < 0.5, 1.0, -1.0)
+    u = torch.rand((masks.shape[0], B, n), device=dev)
+    beta = torch.full((B,), 1.7, device=dev)
+    rows = mc.b + 0.1 * torch.randn((B, n), device=dev)
+    keep = torch.rand((B, n), device=dev) >= 0.1
+    plan = sparse_gather.colour_plan(mc.nbr_idx, mc.nbr_w, mc.b, masks)
+    args = (s, mc.nbr_idx, mc.nbr_w, mc.b, u, masks, beta)
+    out = {"ablation": "faults", "kernel": "colored_gibbs_sweep", "shape": [B, n]}
+    for label, kw in (("bias_rows", dict(bias_rows=rows)), ("keep", dict(keep=keep)),
+                      ("both", dict(bias_rows=rows, keep=keep))):
+        base, var = turns(lambda: sparse_gather.colored_gibbs_sweep(*args, plan=plan),
+                          lambda: sparse_gather.colored_gibbs_sweep(*args, plan=plan, **kw))
+        out[f"base_ms_{label}"], out[f"{label}_ms"] = base, var
+    print(json.dumps(out), flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -775,10 +856,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_ablate.py: no CUDA device", file=sys.stderr)
         return 2
-    parts = sys.argv[1:] or ["int8", "sparse", "lattice", "ctmc_tree"]
-    if not set(parts) <= {"int8", "sparse", "lattice", "ctmc_tree"}:
-        print(f"chip_ablate.py: unknown parts {parts}; use int8, sparse, lattice and/or "
-              "ctmc_tree", file=sys.stderr)
+    known = ["int8", "sparse", "lattice", "ctmc_tree", "faults"]
+    parts = sys.argv[1:] or known
+    if not set(parts) <= set(known):
+        print(f"chip_ablate.py: unknown parts {parts}; use {', '.join(known[:-1])} and/or "
+              f"{known[-1]}", file=sys.stderr)
         return 2
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import chip_smoke
@@ -792,6 +874,8 @@ def main() -> int:
         ablate_lattice(torch, np, chip_smoke, dev)
     if "ctmc_tree" in parts:
         ablate_ctmc_tree(torch, np, chip_smoke, dev)
+    if "faults" in parts:
+        ablate_faults(torch, np, chip_smoke, dev)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     return 0

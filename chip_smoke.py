@@ -18,7 +18,8 @@ exits nonzero without printing the final result line:
                 libcolored_gibbs.so and liblattice_gibbs.so: the count of
                 HGMMA, UTMALDG, LDGSTS, IMMA, LDG and LDS instructions in
                 each kernel, and ptxas's registers and spills of the two
-                sparse libraries and the lattice library. Fails
+                sparse libraries, the lattice library and the tau-leap
+                library (the fault variants' among them). Fails
                 unless every bf16 flash kernel has HGMMA (wgmma) and UTMALDG
                 (TMA loads), and the int8 kernels LDGSTS (cp.async) and IMMA.
   2. check    — each dense kernel against its plain PyTorch version on the
@@ -150,9 +151,47 @@ exits nonzero without printing the final result line:
                 distributions within TV 0.03 of exact enumeration.
      diagnostics — run(diagnostics=True) on the CAL path: every sampled value
                 equal to the run without it, flips > 0.
+  7. faults   — the full-width main paths (SK n=2048 TauLeap and CAL
+                ChromaticGibbs and maxcut3r n=16384 ColoredGibbs on the cuda
+                backend; the SK and maxcut3r CTMC; random scan on SK; 256
+                chains, CAL 4096; 200 steps) under FaultModel(5% stuck sites
+                from make_stuck, quantize_bits=4, field_noise_std=0.1,
+                dropout=0.1), the middle of benchmarks/robustness.py's grid:
+                graphed against the private eager loop identical (s, t,
+                samples, times, energies, t_hit, hit, launch counts); the
+                three kernels' launches all fault variants (tau_leap_step_
+                faults, lattice_gibbs_sweep_faults, colored_gibbs_sweep_faults:
+                2 x 200, none of the base kernels), and all base launches
+                without faults; FaultModel() identical to faults=None, launch
+                counts included; stuck sites never leave their values;
+                dropout=1.0 freezes the state (the CTMC's model time still
+                advances); graphed µs a step with and without faults.
+     apps     — Boltzmann CD: 3 cd_steps on a noisy 16x16 digit batch at the
+                JAX default CDConfig (the 'pass' sampler: lattice tau-leap,
+                plain torch on the card, no launch) and with
+                sampler='chromatic' (every sweep through the lattice plan
+                kernel: 3 x 64 launches); reconstruct of the digit with its top
+                half clamped (kept exactly); parallel tempering on SK n=2048,
+                8 rounds at benchmarks/figures.py's ladder (0.3, 0.6, 1.0,
+                1.8), the replicas' energies those of their states; and
+                decision.simulate at its default DecisionConfig (220 outer
+                steps, one run() each); walls, swaps, arrival.
+  Since slice 8 the checks also hold the three fault variants:
+     check_faults_kernels — each variant against its plain version with
+                random per-row biases b + eta and keep masks: tau_leap_step
+                at the dense check shapes (dropped sites' uniforms warped to
+                1.0, as TauLeap passes them), the lattice sweep at the
+                lattice shapes through both kernels where check_lattice
+                takes both, the coloured sweep at the sparse cases: spins
+                equal outside the band of the base checks, kept sites equal
+                to the input, frozen sites at their clamp, each call counted
+                as its variant and not as the base kernel;
+     timing_faults — each variant at its base kernel's timing shape with a
+                bias on every row and dropout 0.1, beside its plain version
+                and its bound.
 
-The last two lines are the kernels summary (with the script's elapsed
-seconds, the build included) and
+The last two lines are the kernels summary (the six kernels and the four
+fault variants, with the script's elapsed seconds, the build included) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -284,16 +323,19 @@ def counters():
                                      tau_leap)
 
     def reset():
-        tau_leap.launches = dense_field.launches = 0
+        tau_leap.launches = tau_leap.launches_faults = dense_field.launches = 0
         flash_attention.launches = 0
         for counts in (lattice_gibbs.launches, sparse_gather.launches,
+                       lattice_gibbs.launches_faults, sparse_gather.launches_faults,
                        flash_attention.launches_by_dtype):
             for k in counts:
                 counts[k] = 0
 
     def read():
         return {"tau_leap_step": tau_leap.launches, "dense_field": dense_field.launches,
+                "tau_leap_step_faults": tau_leap.launches_faults,
                 **lattice_gibbs.launches, **sparse_gather.launches,
+                **lattice_gibbs.launches_faults, **sparse_gather.launches_faults,
                 "flash_attention": flash_attention.launches,
                 "flash_attention_bf16": flash_attention.launches_by_dtype["bfloat16"],
                 "flash_attention_f32": flash_attention.launches_by_dtype["float32"]}
@@ -479,6 +521,400 @@ def lattice_host_us(lattice_gibbs, args, plan, n: int = 1000, rounds: int = 5) -
                                                                     clampv))}
 
 
+# -- the device-fault model and the applications (slice 8) ---------------------
+
+# The fault variants of the three run() kernels, by their launch-counter names
+FAULT_VARIANTS = ("tau_leap_step_faults", "lattice_gibbs_sweep_faults",
+                  "lattice_gibbs_generic_faults", "colored_gibbs_sweep_faults")
+# The middle of benchmarks/robustness.py's fault grid: 5% stuck sites
+# (make_stuck), 4-bit couplings, field noise 0.1, dropout 0.1.
+FAULTS = dict(fraction=0.05, quantize_bits=4, field_noise_std=0.1, dropout=0.1)
+FAULT_STEPS, FAULT_SAMPLE_EVERY = 200, 50
+# the ladder of benchmarks/figures.py's parallel-tempering runs
+TEMPERING = dict(betas=(0.3, 0.6, 1.0, 1.8), n_rounds=8, steps_per_round=8)
+CD_STEPS = 3
+DECISION_TARGETS = ((-300.0, 1000.0), (300.0, 1000.0))  # tests/test_ml_and_decision.py's
+
+
+def _fault_inputs(torch, np, rng, shape, dev):
+    """Per-row bias noise (0.3 randn) and a keep mask (0.8 kept) of `shape`."""
+    eta = torch.as_tensor((0.3 * rng.normal(size=shape)).astype(np.float32), device=dev)
+    keep = torch.as_tensor(rng.random(shape) >= 0.2, device=dev)
+    return eta, keep
+
+
+def check_faults_kernels(torch, np, dev, read) -> tuple[dict, dict]:
+    """Each fault variant against its plain version on the card, at the
+    check shapes of its base kernel (the full-width ones included), with
+    random per-row biases and keep masks: spins equal outside the band the
+    base checks use, kept sites bit-equal to the input, frozen sites at
+    their clamp, and each call counted as its variant and not as the base
+    kernel. Returns ({variant: max |err| outside the band}, {variant:
+    mismatches})."""
+    from repro_torch.core import ising, problems
+    from repro_torch.core.ising import king_color_masks
+    from repro_torch.core.sparse import SparseIsing
+    from repro_torch.kernels import lattice_gibbs, ops, ref, sparse_gather, tau_leap
+
+    rng = np.random.default_rng(18)
+    err, mism = dict.fromkeys(FAULT_VARIANTS, 0.0), dict.fromkeys(FAULT_VARIANTS, 0)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def pm1(shape):
+        return f32(rng.choice([-1.0, 1.0], shape))
+
+    def counted(label, before, variant):
+        delta = {k: v - before[k] for k, v in read().items()}
+        if delta != dict(dict.fromkeys(delta, 0), **{variant: 1}):
+            raise AssertionError(f"{label}: launched {delta}, expected one {variant}")
+
+    def record(name, label, out_k, out_r, band, kept, s):
+        differ = out_k != out_r
+        bad = int((differ & ~band).sum())
+        n_kept = int((out_k[kept] != s[kept]).sum())
+        if bad or n_kept:
+            raise AssertionError(f"{name} {label}: {bad} spins differ outside the band, "
+                                 f"{n_kept} kept sites changed")
+        mism[name] += int(differ.sum())
+        err[name] = max(err[name], float(((out_k - out_r).abs() * ~band).max()))
+        emit({"phase": "check_faults_kernels", "kernel": name, "shape": list(s.shape),
+              "case": label, "mismatches": int(differ.sum()), "in_band": int(band.sum()),
+              "kept_sites": int(kept.sum())})
+
+    scale = torch.tensor(1.0 / 127.0, device=dev)
+    dt = torch.tensor(0.3, device=dev)
+    for B, N in CHECK_SHAPES:
+        s = pm1((B, N))
+        J = torch.as_tensor(rng.integers(-127, 128, (N, N)).astype(np.int8), device=dev)
+        b = f32(rng.normal(0.0, 0.2, N))
+        u = f32(rng.random((B, N)))
+        beta = f32(rng.uniform(0.3, 3.0, B))
+        eta, keep = _fault_inputs(torch, np, rng, (B, N), dev)
+        rows = b + eta
+        # dropped sites take u = 1.0, as TauLeap passes them: a flip needs u < p <= 1
+        u_w = torch.where(keep, u, 1.0)
+        before = read()
+        out_k = tau_leap.tau_leap_step(s, J, rows, scale, u_w, dt, beta)
+        counted(f"tau_leap_step_faults ({B},{N})", before, "tau_leap_step_faults")
+        p = ref.tau_leap_flip_prob_ref(s, J, beta[:, None] * rows, (beta * scale)[:, None], dt)
+        out_r = ops.tau_leap_step(s, J, b, scale, u_w, dt, beta=beta, mode="reference",
+                                  bias_rows=rows)
+        record("tau_leap_step_faults", "bias_rows", out_k, out_r, (u_w - p).abs() <= P_BAND,
+               ~keep, s)
+
+    for B, H, W in LATTICE_SHAPES:
+        s = pm1((B, H, W))
+        w = f32(rng.normal(0.0, 0.5, (8, H, W)))
+        b = f32(rng.normal(0.0, 0.3, (H, W)))
+        u = f32(rng.random((4, B, H, W)))
+        colors_b = king_color_masks(H, W, device=dev)
+        if (B, H, W) == (8, 8, 8):  # an improper colouring, as check_lattice
+            colors_b = torch.as_tensor(rng.random((4, H, W)) < 0.5, device=dev)
+        frozen_b = torch.as_tensor(rng.random((H, W)) < 0.2, device=dev)
+        clampv = pm1((H, W))
+        beta = f32(rng.uniform(0.3, 3.0, B))
+        eta, keep = _fault_inputs(torch, np, rng, (B, H, W), dev)
+        rows = b + eta
+        colors, frozen = colors_b.float(), frozen_b.float()
+        plan = lattice_gibbs.lattice_plan(w, b, colors, frozen, clampv)
+        routes = [("lattice_gibbs_generic_faults", plan._replace(independent=False))]
+        if plan.independent and plan.threads:
+            routes.insert(0, ("lattice_gibbs_sweep_faults", plan))
+        args = (s, w, b, u, colors, frozen, clampv, beta)
+        out_r = ops.lattice_gibbs_sweep(*args, mode="reference", bias_rows=rows, keep=keep)
+        band = phase_band(torch, lambda x: ref.lattice_fields_ref(x, w, rows), s, u,
+                          colors_b[:, None] & keep, frozen_b, beta, P_BAND)
+        for name, route_plan in routes:
+            before = read()
+            out_k = lattice_gibbs.lattice_gibbs_sweep(*args, plan=route_plan, bias_rows=rows,
+                                                      keep=keep)
+            counted(f"{name} ({B},{H},{W})", before, name)
+            n_clamp = int((out_k[:, frozen_b] != clampv[frozen_b]).sum())
+            if n_clamp:
+                raise AssertionError(f"{name} ({B},{H},{W}): {n_clamp} frozen sites off clamp")
+            record(name, "bias_rows+keep", out_k, out_r, band, ~keep & ~frozen_b, s)
+
+    for B, n, graph, arg in SPARSE_CASES:
+        if graph == "3regular":
+            sp = problems.random_3regular_maxcut(n, arg, device=dev)
+        else:
+            A = rng.normal(0.0, 0.6, (n, n)) * (rng.random((n, n)) < arg)
+            J = np.triu(A, 1)
+            sp = SparseIsing.from_dense(ising.DenseIsing.from_numpy(
+                J + J.T, rng.normal(0.0, 0.3, n), device=dev))
+        idx, w, b = sp.nbr_idx, sp.nbr_w, sp.b
+        s = pm1((B, n))
+        masks_b = sp.color_masks
+        C = masks_b.shape[0]
+        u = f32(rng.random((C, B, n)))
+        beta = f32(rng.uniform(0.3, 3.0, B))
+        eta, keep = _fault_inputs(torch, np, rng, (B, n), dev)
+        rows = b + eta
+        before = read()
+        out_k = sparse_gather.colored_gibbs_sweep(s, idx, w, b, u, masks_b.float(), beta,
+                                                  bias_rows=rows, keep=keep)
+        counted(f"colored_gibbs_sweep_faults ({B},{n})", before, "colored_gibbs_sweep_faults")
+        out_r = ops.colored_gibbs_sweep(s, idx, w, b, u, masks_b.float(), beta,
+                                        mode="reference", bias_rows=rows, keep=keep)
+        fbound = FIELD_EPS * (w.abs().sum(-1) + rows.abs())
+        band = phase_band(torch, lambda x: ref.sparse_fields_ref(x, idx, w, rows), s, u,
+                          masks_b[:, None] & keep, torch.zeros(n, dtype=torch.bool, device=dev),
+                          beta, beta[:, None] / 2 * fbound + P_BAND)
+        record("colored_gibbs_sweep_faults", graph, out_k, out_r, band, ~keep, s)
+    torch.cuda.synchronize()
+    return err, mism
+
+
+def time_fault_variants(torch, np, dev, ms, bounds) -> None:
+    """Each fault variant at its base kernel's timing shape, with a bias
+    (noise 0.1) and a keep mask (dropout 0.1) on every row: its CUDA-event
+    median, its plain version's, and its bound (each input read once: of
+    the uniforms, the biases and the neighbours only those of the sites a
+    phase updates and does not drop; the keep bytes of the updated sites),
+    into `ms` and `bounds`."""
+    from repro_torch.core import problems
+    from repro_torch.core.ising import king_color_masks
+    from repro_torch.kernels import lattice_gibbs, ops, sparse_gather, tau_leap
+
+    rng = np.random.default_rng(19)
+    B, N = TIME_SHAPE
+    s = torch.as_tensor(rng.choice([-1.0, 1.0], (B, N)).astype(np.float32), device=dev)
+    J = torch.as_tensor(rng.integers(-127, 128, (N, N)).astype(np.int8), device=dev)
+    b = torch.zeros(N, dtype=torch.float32, device=dev)
+    rows = b + 0.1 * torch.randn((B, N), device=dev)
+    u = torch.rand((B, N), device=dev)
+    beta = torch.full((B,), 1.7, dtype=torch.float32, device=dev)
+    scale, dt = torch.tensor(1.0 / 127.0, device=dev), torch.tensor(0.1, device=dev)
+    ms["tau_leap_step_faults"] = time_ms(
+        torch, lambda: tau_leap.tau_leap_step(s, J, rows, scale, u, dt, beta))
+    ms["tau_leap_step_faults_plain"] = time_ms(torch, lambda: ops.tau_leap_step(
+        s, J, b, scale, u, dt, beta=beta, mode="reference", bias_rows=rows))
+    bounds["tau_leap_step_faults"] = bound(N * N + 4 * 4 * B * N + 4 * B + 8, 2.0 * B * N * N)
+
+    def lattice(shape, masks_of, frozen_b, w, bias, clampv, plan_of, name):
+        B, H, W = shape
+        HW = H * W
+        s = torch.where(torch.rand(shape, device=dev) < 0.5, 1.0, -1.0)
+        u = torch.rand((4,) + shape, device=dev)
+        beta = torch.full((B,), 1.7, dtype=torch.float32, device=dev)
+        colors, frozen = masks_of.float(), frozen_b.float()
+        rows = bias + 0.1 * torch.randn(shape, device=dev)
+        keep = torch.rand(shape, device=dev) >= 0.1
+        plan = plan_of(lattice_gibbs.lattice_plan(w, bias, colors, frozen, clampv))
+        args = (s, w, bias, u, colors, frozen, clampv, beta)
+        ms[name] = time_ms(torch, lambda: lattice_gibbs.lattice_gibbs_sweep(
+            *args, plan=plan, bias_rows=rows, keep=keep))
+        ms[name + "_plain"] = time_ms(torch, lambda: ops.lattice_gibbs_sweep(
+            *args, mode="reference", bias_rows=rows, keep=keep))
+        upd = masks_of & ~frozen_b  # (C, H, W)
+        updated = float(upd.sum())
+        live = float((upd[:, None] & keep).sum())  # updated and not dropped, every row
+        bounds[name] = bound(4 * (2 * B * HW + 8 * HW + HW + 4 * HW + 2 * HW + B)
+                             + B * updated + 8 * live, live * 22, FP32_OPS_PER_S)
+
+    cal = problems.cal_problem(device=dev)
+    H, W = cal.shape
+    lattice((LATTICE_MAIN["n_chains"], H, W), king_color_masks(H, W, device=dev),
+            cal.frozen_mask, cal.w, cal.b, cal.frozen_values, lambda p: p,
+            "lattice_gibbs_sweep_faults")
+    Bg, Hg, Wg = GENERIC_SHAPE
+    grng = np.random.default_rng(8)  # check_lattice's random masks, as the base entry
+    lattice(GENERIC_SHAPE, torch.as_tensor(grng.random((4, Hg, Wg)) < 0.5, device=dev),
+            torch.as_tensor(grng.random((Hg, Wg)) < 0.2, device=dev),
+            torch.as_tensor(grng.normal(0.0, 0.5, (8, Hg, Wg)).astype(np.float32), device=dev),
+            torch.as_tensor(grng.normal(0.0, 0.3, (Hg, Wg)).astype(np.float32), device=dev),
+            torch.ones((Hg, Wg), device=dev), lambda p: p._replace(independent=False),
+            "lattice_gibbs_generic_faults")
+
+    mc = problems.random_3regular_maxcut(SPARSE_MAIN["n"], 0, device=dev)
+    B, n, D = SPARSE_MAIN["n_chains"], mc.n, mc.max_deg
+    masks = mc.color_masks.float()
+    C = masks.shape[0]
+    s = torch.where(torch.rand((B, n), device=dev) < 0.5, 1.0, -1.0)
+    u = torch.rand((C, B, n), device=dev)
+    beta = torch.full((B,), 1.7, dtype=torch.float32, device=dev)
+    rows = mc.b + 0.1 * torch.randn((B, n), device=dev)
+    keep = torch.rand((B, n), device=dev) >= 0.1
+    plan = sparse_gather.colour_plan(mc.nbr_idx, mc.nbr_w, mc.b, masks)
+    args = (s, mc.nbr_idx, mc.nbr_w, mc.b, u, masks, beta)
+    ms["colored_gibbs_sweep_faults"] = time_ms(torch, lambda: sparse_gather.colored_gibbs_sweep(
+        *args, plan=plan, bias_rows=rows, keep=keep))
+    ms["colored_gibbs_sweep_faults_plain"] = time_ms(torch, lambda: ops.colored_gibbs_sweep(
+        *args, mode="reference", bias_rows=rows, keep=keep))
+    updated = float(masks.sum())
+    live = float((mc.color_masks[:, None] & keep).sum())
+    bounds["colored_gibbs_sweep_faults"] = bound(
+        4 * (2 * B * n + 2 * n * D + n + C * n + B) + B * updated + 8 * live,
+        live * (2 * D + 6), FP32_OPS_PER_S)
+
+
+def fault_paths(torch, dev, sk, cal, mc, targets, reset, read, smi) -> dict:
+    """The full-width main paths under the FAULTS model (module docstring,
+    phase `faults`); returns the graphed faulted runs' launch counts."""
+    from repro_torch.core.faults import FaultModel, make_stuck
+    from repro_torch.core.sampler_api import (CTMC, ChromaticGibbs, ColoredGibbs, TauLeap,
+                                              _make_run, constant, geometric, run, state_shape)
+
+    sched = geometric(0.3, 3.0)
+    paths = (
+        ("sk_tau_leap", sk, TauLeap(dt=0.1), "cuda", 256, sched, "tau_leap_step"),
+        ("cal_chromatic", cal, ChromaticGibbs(), "cuda", LATTICE_MAIN["n_chains"], sched,
+         "lattice_gibbs_sweep"),
+        ("maxcut3r_colored", mc, ColoredGibbs(), "cuda", 256, sched, "colored_gibbs_sweep"),
+        ("sk_ctmc", sk, CTMC(), None, 256, sched, None),
+        ("maxcut3r_ctmc", mc, CTMC(), None, 256, constant(3.0), None),
+        ("sk_random_scan", sk, "random_scan_gibbs", None, 256, sched, None),
+    )
+    fields = ("s", "t", "samples", "times", "energies", "t_hit", "hit")
+    zero = dict.fromkeys(read(), 0)
+    out, launches = {}, {}
+    for name, problem, kernel, backend, chains, schedule, kname in paths:
+        mask, values = make_stuck(torch.Generator(device=dev).manual_seed(18), problem,
+                                  FAULTS["fraction"])
+        faults = FaultModel(stuck_mask=mask, stuck_values=values,
+                            **{k: v for k, v in FAULTS.items() if k != "fraction"})
+        runs = {}
+        for mode, fm, eager in (("faults", faults, False), ("faults_eager", faults, True),
+                                ("clean", None, False), ("noop", FaultModel(), False)):
+            reset()
+            make = _make_run(problem, kernel, 5, n_steps=FAULT_STEPS, n_chains=chains,
+                             sample_every=FAULT_SAMPLE_EVERY, schedule=schedule,
+                             first_hit=targets[name], backend=backend, faults=fm, eager=eager)
+            walls = []
+            for _ in range(2):  # a first pass (captures), then the timed one
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = make()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            runs[mode] = (res, read(), walls[1])
+        (f_res, f_l, f_wall), (e_res, e_l, e_wall) = runs["faults"], runs["faults_eager"]
+        (c_res, c_l, c_wall), (n_res, n_l, _) = runs["clean"], runs["noop"]
+        for label, (a, la), (b, lb) in (("graph against eager under faults", (f_res, f_l),
+                                         (e_res, e_l)),
+                                        ("FaultModel() against faults=None", (n_res, n_l),
+                                         (c_res, c_l))):
+            differ = [f for f in fields if not torch.equal(getattr(a, f), getattr(b, f))]
+            if differ or la != lb:
+                raise AssertionError(f"faults {name}, {label}: {differ} differ, launches "
+                                     f"{la} / {lb}")
+        if kname is not None:
+            want_f = dict(zero, **{kname + "_faults": 2 * FAULT_STEPS})
+            want_c = dict(zero, **{kname: 2 * FAULT_STEPS})
+        else:
+            want_f = want_c = zero
+        if f_l != want_f or c_l != want_c:
+            raise AssertionError(f"faults {name}: launches {f_l} under faults (expected "
+                                 f"{want_f}), {c_l} without (expected {want_c})")
+        m = mask.reshape(-1)
+        v = values.reshape(-1)[m]
+        stuck_ok = bool((f_res.s.flatten(1)[:, m] == v).all()
+                        and (f_res.samples.flatten(2)[:, :, m] == v).all())
+        if not stuck_ok:
+            raise AssertionError(f"faults {name}: a stuck site left its value")
+        # dropout = 1: every update lost, the state frozen (the CTMC's clock runs on)
+        s0 = torch.where(torch.rand((chains,) + state_shape(problem), device=dev) < 0.5,
+                         1.0, -1.0)
+        reset()
+        frozen = run(problem, kernel, 7, n_steps=20, s0=s0, n_chains=chains, backend=backend,
+                     faults=FaultModel(dropout=1.0))
+        drop_l = read()
+        t_ok = not isinstance(kernel, CTMC) or bool((frozen.t > 0).all())
+        if not torch.equal(frozen.s, s0) or not t_ok:
+            raise AssertionError(f"faults {name}: dropout=1 changed the state or stopped the "
+                                 f"CTMC's clock (t > 0: {t_ok})")
+        launches[name] = f_l
+        out[name] = {
+            "n_chains": chains, "n_steps": FAULT_STEPS, "stuck_sites": int(mask.sum()),
+            "identical_graph_eager": list(fields), "noop_identical_to_none": True,
+            "stuck_never_left": stuck_ok, "dropout_1_frozen": True,
+            "launches": {k: c for k, c in f_l.items() if c},
+            "launches_clean": {k: c for k, c in c_l.items() if c},
+            "launches_dropout_1": {k: c for k, c in drop_l.items() if c},
+            "graph_us_per_step_faults": f_wall / FAULT_STEPS * 1e6,
+            "graph_us_per_step_clean": c_wall / FAULT_STEPS * 1e6,
+            "eager_us_per_step_faults": e_wall / FAULT_STEPS * 1e6,
+            "hit_fraction_faults": float(f_res.hit.float().mean()),
+            "hit_fraction_clean": float(c_res.hit.float().mean()),
+        }
+    emit({"phase": "faults", "faults": {k: v for k, v in FAULTS.items()}, "paths": out,
+          "nvidia_smi": smi})
+    return launches
+
+
+def apps_phase(torch, dev, sk, reset, read, smi) -> None:
+    """The applications on the card (module docstring, phase `apps`)."""
+    from repro_torch.core import boltzmann, decision, tempering
+    from repro_torch.data import digits
+
+    def walled(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    zero = dict.fromkeys(read(), 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = digits.digit_batch(3, 64, gen, 0.05, device=dev)
+    cd = {}
+    state = None
+    for label, cfg in (("default", boltzmann.CDConfig()),
+                       ("chromatic", boltzmann.CDConfig(sampler="chromatic"))):
+        state = boltzmann.init_cd(gen, 16, 16, cfg, device=dev)
+        e0 = float(boltzmann.free_energy_proxy(state.problem, batch))
+        reset()
+
+        def train(state=state, cfg=cfg):
+            for _ in range(CD_STEPS):
+                state = boltzmann.cd_step(state, batch, gen, cfg)
+            return state
+
+        state, wall = walled(train)
+        launches = read()
+        want = zero if cfg.sampler == "pass" else dict(
+            zero, lattice_gibbs_sweep=CD_STEPS * cfg.n_model_steps)
+        e1 = float(boltzmann.free_energy_proxy(state.problem, batch))
+        if launches != want or not abs(e1) < float("inf"):
+            raise AssertionError(f"cd {label}: launches {launches} (expected {want}), "
+                                 f"data energy {e1}")
+        cd[label] = {"config": {k: v for k, v in vars(cfg).items()}, "cd_steps": CD_STEPS,
+                     "wall_s": wall, "data_energy_before": e0, "data_energy_after": e1,
+                     "launches": {k: c for k, c in launches.items() if c}}
+    known = torch.zeros((16, 16), dtype=torch.bool, device=dev)
+    known[:8] = True
+    rec, rec_wall = walled(lambda: boltzmann.reconstruct(state.problem, gen, batch[0], known))
+    if not torch.equal(rec[:8], batch[0][:8]):
+        raise AssertionError("reconstruct changed the clamped half")
+    template = torch.as_tensor(digits.digit_template(3), device=dev)
+
+    t = TEMPERING
+    st = tempering.init(sk, gen, list(t["betas"]))
+    (st, trace), pt_wall = walled(lambda: tempering.run(
+        sk, gen, st, n_rounds=t["n_rounds"], steps_per_round=t["steps_per_round"]))
+    if not torch.allclose(st.energies, sk.energy(st.s), rtol=1e-5, atol=1e-3):
+        raise AssertionError("tempering: the replicas' energies are not their states'")
+
+    cfg = decision.DecisionConfig()
+    traj, dec_wall = walled(lambda: decision.simulate(0, DECISION_TARGETS, cfg, device=dev))
+    if not bool(torch.isfinite(traj.positions).all()):
+        raise AssertionError("decision: non-finite positions")
+    emit({"phase": "apps", "boltzmann_cd": cd, "reconstruct": {
+              "wall_s": rec_wall, "clamped_half_exact": True,
+              "free_half_agreement_with_template": float(
+                  (rec[8:] == template[8:]).float().mean())},
+          "tempering": {"problem": f"sk_instance({sk.n}, 0)", **t, "wall_s": pt_wall,
+                        "swaps": int(st.n_swaps), "best_energy_per_spin":
+                        float(trace.min()) / sk.n},
+          "decision": {"config": vars(cfg), "wall_s": dec_wall,
+                       "arrived": bool(traj.arrived),
+                       "bifurcation_distance": float(decision.bifurcation_distance(
+                           traj.positions, DECISION_TARGETS))},
+          "nvidia_smi": smi})
+
+
 def cut_fraction(prob, s):
     """Fraction of a unit-weight MaxCut instance's edges cut by each state."""
     n_edges = float(prob.deg.sum()) / 2
@@ -645,7 +1081,7 @@ def main() -> int:
     missing += [f"no {k} in the libraries" for k in SASS_KERNELS if k not in found]
     emit({"phase": "sass", "counts": sass, "ptxas": {
         lib: ptxas_by_kernel((build_dir / f"{lib}.log").read_text())
-        for lib in ("sparse_fields", "colored_gibbs", "lattice_gibbs")}})
+        for lib in ("tau_leap", "sparse_fields", "colored_gibbs", "lattice_gibbs")}})
     if missing:
         raise AssertionError("SASS: " + "; ".join(missing))
 
@@ -932,6 +1368,11 @@ def main() -> int:
         del q, k, v, out_k
     torch.cuda.synchronize()
 
+    # the fault variants of the three run() kernels against their plain versions
+    fault_err, fault_mism = check_faults_kernels(torch, np, dev, read)
+    err.update(fault_err)
+    mism.update(fault_mism)
+
     # -- 3. timings at the main path's shape --------------------------------
     B, N = TIME_SHAPE
     s = torch.as_tensor(rng.choice([-1.0, 1.0], (B, N)).astype(np.float32), device=dev)
@@ -1091,6 +1532,12 @@ def main() -> int:
           "sparse_fields_global_shape": list(GLOBAL_FIELDS_SHAPE),
           "sparse_fields_rows_per_block": sparse_gather.fields_rows(
               B, n, sparse_gather._sm_count(dev)),
+          "nvidia_smi": smi})
+    time_fault_variants(torch, np, dev, ms, bounds)
+    emit({"phase": "timing_faults", "ms": {k: ms[k] for k in ms if "_faults" in k},
+          "bound_ms": {k: bounds[k][0] for k in FAULT_VARIANTS},
+          "base_ms": {k: ms[k.removesuffix("_faults")] for k in FAULT_VARIANTS
+                      if k.removesuffix("_faults") in ms},
           "nvidia_smi": smi})
 
     # flash_attention at the main_attention shapes, causal bf16, beside its
@@ -1506,8 +1953,15 @@ def main() -> int:
           "first_hit_step_median": float(d.first_hit_step.float().median()),
           "energy_mean": float(d.energy_mean.mean()), "launches": diag_launches})
 
+    # -- 7. the device-fault model and the applications ----------------------
+    targets = {"sk_tau_leap": -0.70 * n, "cal_chromatic": e_t, "maxcut3r_colored": e_cut,
+               "sk_ctmc": -0.70 * n, "maxcut3r_ctmc": e_cut, "sk_random_scan": -0.70 * n}
+    fault_launches = fault_paths(torch, dev, prob, cal, mc, targets, reset, read, smi)
+    apps_phase(torch, dev, prob, reset, read, smi)
+
     # -- summary -------------------------------------------------------------
     def entry(name, source, replaces, launches, library):
+        """The kernels line's entry of one kernel or variant."""
         bms, by = bounds[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err[name], "mismatches": mism[name],
@@ -1558,6 +2012,18 @@ def main() -> int:
              **{f"{name}_{key}": attention_timing[name][key]
                 for name, *_ in ATTENTION_MAIN[1:]
                 for key in ("ms", "plain_ms", "bound_ms", "library_ms")}),
+        # the fault variants: launches on the faults phase's graphed runs
+        entry("tau_leap_step_faults", csrc + "tau_leap.cu", "src/repro/kernels/tau_leap.py:82",
+              fault_launches["sk_tau_leap"]["tau_leap_step_faults"], "int_mm"),
+        entry("lattice_gibbs_sweep_faults", csrc + "lattice_gibbs.cu",
+              "src/repro/kernels/lattice_gibbs.py:102",
+              fault_launches["cal_chromatic"]["lattice_gibbs_sweep_faults"], None),
+        entry("lattice_gibbs_generic_faults", csrc + "lattice_gibbs.cu",
+              "src/repro/kernels/lattice_gibbs.py:102",
+              fault_launches["cal_chromatic"]["lattice_gibbs_generic_faults"], None),
+        entry("colored_gibbs_sweep_faults", csrc + "colored_gibbs.cu",
+              "src/repro/kernels/sparse_gather.py:126",
+              fault_launches["maxcut3r_colored"]["colored_gibbs_sweep_faults"], None),
     ], "tau_leap_in_band": near, "elapsed_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -28,8 +28,9 @@ Reference-energy kinds:
   "estimated" — best of multi-restart greedy descent (deterministic in the
                 instance seed).
 
-"boltzmann_ml" is registered, and raises NotImplementedError: it needs the
-digit templates of the applications slice (see ROADMAP.md).
+"boltzmann_ml" draws its digit batch from a torch.Generator, so its
+instance equals the JAX zoo's only when built from the JAX zoo's batch
+(`boltzmann_ml_from_batch`).
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ from repro_torch.core.ising import (
     LatticeIsing,
     king_color_masks,
     lattice_from_pairs,
+    resolve_device,
 )
 from repro_torch.core.sparse import SparseIsing
 
@@ -581,14 +583,79 @@ def cal_zoo(size: int = 16, seed: int = 0, coupling: float = 1.0, device=None) -
     )
 
 
+def boltzmann_ml_lattice(batch: torch.Tensor, size: int, scale: float = 1.0) -> LatticeIsing:
+    """The Hebbian lattice Boltzmann machine of a (B, >= size, >= size) ±1
+    batch, cropped to its top-left size x size: the one-shot multiplier-free
+    CD limit J = -scale * E[s s'] (negative J favors the data
+    correlations), b = -scale * E[s], on the batch's device. The same
+    numbers as the JAX zoo's construction for the same batch."""
+    from repro_torch.core.boltzmann import batch_mean, pair_correlations
+
+    batch = batch[:, :size, :size]
+    w = -scale * pair_correlations(batch, size, size)
+    b = -scale * batch_mean(batch)
+    dev = batch.device
+    return LatticeIsing(
+        w=w.to(torch.float32),
+        b=b.to(torch.float32),
+        clamp_mask=torch.zeros((size, size), dtype=torch.bool, device=dev),
+        clamp_value=-torch.ones((size, size), dtype=torch.float32, device=dev),
+        dead_mask=torch.zeros((size, size), dtype=torch.bool, device=dev),
+    )
+
+
+def boltzmann_ml_from_batch(
+    batch: torch.Tensor,
+    size: int = 16,
+    seed: int = 0,
+    digits: tuple = (0, 1, 2),
+    n_each: int = 16,
+    flip_prob: float = 0.05,
+    scale: float = 1.0,
+) -> ZooProblem:
+    """The `boltzmann_ml` zoo instance of a given digit batch (the JAX zoo's
+    instance when given the JAX zoo's batch): the lattice of
+    `boltzmann_ml_lattice`, and its reference energy estimated from 8
+    random restarts (from `seed`) and the digits' templates."""
+    from repro_torch.data import digits as digit_data
+
+    if size > 16:
+        raise ValueError("digit templates are 16x16; size must be <= 16")
+    problem = boltzmann_ml_lattice(batch, size, scale)
+    starts = [digit_data.digit_template(d)[:size, :size] for d in digits]
+    ref = estimate_reference(problem, seed, n_restarts=8, starts=starts)
+    return ZooProblem(
+        name="boltzmann_ml",
+        instance=f"boltzmann_ml-L{size}-s{seed}",
+        problem=problem,
+        ref_energy=ref,
+        ref_kind="estimated",
+        meta={"digits": list(digits), "n_each": n_each, "flip_prob": flip_prob},
+    )
+
+
 @register_problem("boltzmann_ml", kind="lattice")
-def boltzmann_ml_zoo(size: int = 16, seed: int = 0, **kw) -> ZooProblem:
+def boltzmann_ml_zoo(
+    size: int = 16,
+    seed: int = 0,
+    digits: tuple = (0, 1, 2),
+    n_each: int = 16,
+    flip_prob: float = 0.05,
+    scale: float = 1.0,
+    device=None,
+) -> ZooProblem:
     """Hebbian lattice Boltzmann machine — the paper's ML workload (Fig. 4).
 
-    Not ported yet: it needs the digit templates and the Boltzmann-machine
-    correlations, which arrive with the applications slice of the port
-    (see ROADMAP.md)."""
-    raise NotImplementedError(
-        "zoo problem 'boltzmann_ml' is not ported yet; it arrives with the "
-        "applications slice of the port (see ROADMAP.md)"
-    )
+    Couplings are the one-shot multiplier-free CD limit over a noisy digit
+    batch (`boltzmann_ml_from_batch`), the batch drawn from a
+    torch.Generator seeded with `seed` on `device` (None: the CUDA device).
+    It is another draw than the JAX zoo's batch of the same seed, so the
+    instance is the JAX one only when built from the JAX batch."""
+    from repro_torch.data import digits as digit_data
+
+    if size > 16:
+        raise ValueError("digit templates are 16x16; size must be <= 16")
+    dev = resolve_device(device)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    batch = digit_data.mixed_batch(list(digits), n_each, generator, flip_prob, device=dev)
+    return boltzmann_ml_from_batch(batch, size, seed, digits, n_each, flip_prob, scale)

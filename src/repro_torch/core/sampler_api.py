@@ -8,12 +8,15 @@ dispatch onto the CUDA kernels.
 
 Kernel protocol (state is a `KernelState` of (n_chains, ...) tensors):
 
-    kernel.init(problem, generator, s0=None, n_chains=1) -> KernelState
-    kernel.step(problem, state, generator, beta) -> KernelState
+    kernel.init(problem, generator, s0=None, n_chains=1, faults=None) -> KernelState
+    kernel.step(problem, state, generator, beta, faults=None) -> KernelState
 
 `beta` is an (n_chains,) tensor: the JAX driver vmaps one chain per
 kernel call, here every chain is a row of one batched step, so a
-per-chain schedule is a per-row beta.
+per-chain schedule is a per-row beta. The driver passes `faults` only when
+`run(..., faults=...)` leaves a residual `repro_torch.core.faults.
+FaultModel` after `bind()`, so a kernel that never heard of faults, and
+the fault-free program, are untouched.
 
 Kernels, registered by name (every kernel of the JAX registry):
 
@@ -44,8 +47,10 @@ Kernels, registered by name (every kernel of the JAX registry):
         is carried and repaired at the <= max_deg affected leaves per event.
 
 Random-scan Gibbs and the CTMC are plain torch on every device (the JAX
-package has no Pallas kernel for them); each splits a step into a `draw`
-from the generator and a pure `update` given the draws.
+package has no Pallas kernel for them). Every kernel splits a step into a
+`draw` from the generator and an `update` given the draws (pure, except
+the CTMC's carried tree, repaired in place), so a CPU test can feed the
+update the draws the JAX step takes from its key.
 
 On CPU tensors a cuda backend runs each kernel's plain PyTorch version, as
 the JAX package runs its Pallas kernels in interpret mode off-TPU. Both
@@ -53,14 +58,25 @@ backends of a kernel draw the same uniforms from the generator: the Gibbs
 sweeps draw all (C, n_chains, ...) uniforms of a sweep in one call before
 the first color phase.
 
-`faults=` raises NotImplementedError naming the slice of the port that
-brings it (see ROADMAP.md).
+Device faults (`run(..., faults=FaultModel(...))`, semantics in
+`repro_torch.core.faults`): `run()` validates the model and binds it to
+the problem once (quantized couplings; lattice stuck sites become clamps);
+a residual with nothing dynamic left runs the exact fault-free program.
+Otherwise each step draws, after its own draws and in this order, the
+field noise eta ((n_chains,) + state shape; (n_chains,) for random scan)
+when `field_noise_std > 0`, then the dropout keep mask (one uniform per
+site, or per chain for random scan and the CTMC, kept where >= dropout)
+when `dropout > 0`. Under the cuda backend the three kernels take them as
+operands of their fault variants: the per-row bias b + eta (tau-leap:
+beta_r (b + eta_r), formed in the kernel) and, for the two sweeps, the
+keep mask; tau-leap warps the uniform of a stuck or dropped site to 1.0
+instead.
 
 Driver:
 
     run(problem, kernel, seed_or_generator, n_steps=..., schedule=...,
         n_chains=..., sample_every=..., first_hit=..., backend=...,
-        unroll=..., diagnostics=...) -> RunResult
+        unroll=..., diagnostics=..., faults=...) -> RunResult
 
 `schedule` accepts None (beta=1), a float, a `(n_steps,)` array, a
 `(n_chains, n_steps)` array (per-chain schedules), or a Schedule object
@@ -93,6 +109,7 @@ import torch
 from repro_torch.core import diagnostics as diag
 from repro_torch.core import event_tree, glauber
 from repro_torch.core.diagnostics import RunDiagnostics  # noqa: F401  (re-export)
+from repro_torch.core.faults import FaultModel
 from repro_torch.core.graph_loop import GRAPH_STEPS, StepLoop, plan_blocks
 from repro_torch.core.ising import DenseIsing, LatticeIsing, king_color_masks, resolve_device
 from repro_torch.core.sparse import SparseIsing
@@ -297,15 +314,35 @@ class geometric(Schedule):
 ScheduleLike = Union[None, float, torch.Tensor, Schedule]
 
 
-def _tau_leap_flip(s, h, u, dt, trim, frozen=None):
+def _tau_leap_flip(s, h, u, dt, trim, frozen=None, keep=None):
     """One tau-leap update given (beta-scaled) fields h and uniforms u: each
-    spin flips w.p. 1-exp(-dt*lambda_i/lambda0); frozen (clamped/dead)
-    sites never do."""
+    spin flips w.p. 1-exp(-dt*lambda_i/lambda0); frozen (clamped, dead or
+    stuck) sites never do, and sites outside `keep` (update dropout) lose
+    their flip after the uniform is compared."""
     rate = glauber.flip_prob(h, s, trim)
     p_flip = 1.0 - torch.exp(-dt * rate)
     if frozen is not None:
         p_flip = torch.where(frozen, torch.zeros_like(p_flip), p_flip)
-    return torch.where(u < p_flip, -s, s)
+    flips = u < p_flip
+    if keep is not None:
+        flips = flips & keep
+    return torch.where(flips, -s, s)
+
+
+def _fault_draws(faults, generator: torch.Generator, shape, keep_shape=None) -> tuple:
+    """(eta, keep) of one step, drawn after the step's own numbers: the
+    `shape` field noise, then the dropout keep mask (of `keep_shape`,
+    default `shape`), each only when its fault is on (None otherwise)."""
+    if faults is None:
+        return None, None
+    eta = faults.field_noise(generator, shape) if faults.noisy else None
+    keep = faults.keep_mask(generator, keep_shape or shape) if faults.drops else None
+    return eta, keep
+
+
+def _stuck(faults) -> Optional[torch.Tensor]:
+    """The (n,) stuck mask a step's update takes (None without one)."""
+    return None if faults is None else faults.stuck_flat()
 
 
 def resolve_schedule(
@@ -369,6 +406,12 @@ class ChromaticGibbs:
     sweep's (4, n_chains, H, W) uniforms in one call, so on one device they
     follow the same stream. Trims are ref-only.
 
+    Faults: stuck sites arrive as clamps (`FaultModel.bind`), so the plan
+    is built from the bound problem. Field noise is one (n_chains, H, W)
+    draw a sweep, shared by its 4 phases, added to b; dropped sites keep
+    their spin for the sweep. On the cuda backend both are operands of the
+    kernel's fault variant (`ops.lattice_gibbs_sweep(bias_rows=, keep=)`).
+
     Lattice-only: the arbitrary-graph generalization is `colored_gibbs`."""
 
     backends = ("ref", "cuda")
@@ -382,10 +425,12 @@ class ChromaticGibbs:
         """Backends valid for this kernel config (trims are ref-only)."""
         return ("ref",) if self.trim is not None else self.backends
 
-    def init(self, problem: LatticeIsing, generator, s0=None, n_chains=1) -> KernelState:
-        """Initial state on the clamped lattice; the color, frozen and clamp
-        planes the sweep takes, and on the cuda backend their lattice plan,
-        are made once here."""
+    def init(self, problem: LatticeIsing, generator, s0=None, n_chains=1,
+             faults=None) -> KernelState:
+        """Initial state on the clamped lattice (stuck sites arrive already
+        absorbed into the clamps by `FaultModel.bind`); the color, frozen
+        and clamp planes the sweep takes, and on the cuda backend their
+        lattice plan, are made once here."""
         if self.backend not in self.backends:
             raise ValueError(f"backend must be 'ref' | 'cuda', got {self.backend!r}")
         if self.backend == "cuda" and self.trim is not None:
@@ -404,26 +449,42 @@ class ChromaticGibbs:
         t0 = torch.zeros((s0.shape[0],), dtype=torch.float32, device=dev)
         return KernelState(s=s0, t=t0, e=None, aux=aux)
 
-    def step(self, problem: LatticeIsing, state, generator, beta) -> KernelState:
-        """One sweep: all 4 king-coloring phases for every chain."""
+    def draw(self, problem, state, generator, beta=None, faults=None) -> tuple:
+        """(u, eta, keep): the sweep's (C, n_chains, H, W) uniforms, then
+        the fault draws (`_fault_draws`; beta unused)."""
         s = state.s
         C = state.aux[0].shape[0]
         u = torch.rand((C,) + tuple(s.shape), generator=generator, device=s.device)
+        return (u, *_fault_draws(faults, generator, s.shape))
+
+    def update(self, problem: LatticeIsing, state, beta, u, eta=None, keep=None) -> KernelState:
+        """One sweep of every chain given its uniforms, field noise eta
+        (added to b) and keep mask (None: no such fault)."""
+        s = state.s
         if self.backend == "cuda":
             colors, frozen, clamp, plan = state.aux
             s = ops.lattice_gibbs_sweep(
-                s, problem.w, problem.b, u, colors, frozen, clamp, beta=beta, plan=plan
+                s, problem.w, problem.b, u, colors, frozen, clamp, beta=beta, plan=plan,
+                bias_rows=None if eta is None else problem.b + eta, keep=keep,
             )
         else:
             colors, frozen = state.aux
             b = broadcast_rows(beta, s)
-            for c in range(C):
-                h = problem.local_fields(s)
+            bias = problem.b if eta is None else problem.b + eta
+            for c in range(colors.shape[0]):
+                h = problem.neighbor_sum(s) + bias
                 p_up = glauber.prob_up(b * h, self.trim)
                 proposal = torch.where(u[c] < p_up, 1.0, -1.0).to(s.dtype)
-                s = torch.where(colors[c] & ~frozen, proposal, s)
+                upd = colors[c] & ~frozen
+                if keep is not None:
+                    upd = upd & keep
+                s = torch.where(upd, proposal, s)
             s = problem.apply_clamps(s)
         return KernelState(s=s, t=state.t + 1.0 / self.lambda0, e=None, aux=state.aux)
+
+    def step(self, problem: LatticeIsing, state, generator, beta, faults=None) -> KernelState:
+        """One sweep: all 4 king-coloring phases for every chain."""
+        return self.update(problem, state, beta, *self.draw(problem, state, generator, beta, faults))
 
 
 @register_kernel("colored_gibbs")
@@ -440,7 +501,13 @@ class ColoredGibbs:
     plan that `init` builds once (its one wait for the device is there, not
     in the step loop). The ref path recomputes the gathered fields once per
     color phase. Both draw the sweep's (C, n_chains, n) uniforms in one call
-    and sum the fields in the same slot order."""
+    and sum the fields in the same slot order.
+
+    Faults: stuck sites leave every colour class for the run (`init`
+    builds the masks, and the plan, from masks & ~stuck); field noise is
+    one (n_chains, n) draw a sweep added to b, and dropped sites keep
+    their spin for the sweep, both operands of the cuda kernel's fault
+    variant (`ops.colored_gibbs_sweep(bias_rows=, keep=)`)."""
 
     backends = ("ref", "cuda")
     problem_kinds = ("sparse",)
@@ -448,8 +515,10 @@ class ColoredGibbs:
     lambda0: float = 1.0
     backend: str = "ref"  # "ref" | "cuda"
 
-    def init(self, problem: SparseIsing, generator, s0=None, n_chains=1) -> KernelState:
-        """Initial state; requires the problem's color_masks."""
+    def init(self, problem: SparseIsing, generator, s0=None, n_chains=1,
+             faults=None) -> KernelState:
+        """Initial state (stuck sites at their values); requires the
+        problem's color_masks."""
         if self.backend not in self.backends:
             raise ValueError(f"backend must be 'ref' | 'cuda', got {self.backend!r}")
         if problem.color_masks is None:
@@ -462,6 +531,10 @@ class ColoredGibbs:
         if s0 is None:
             s0 = random_init(generator, (n_chains, problem.n), device=dev)
         masks = problem.color_masks
+        if faults is not None:
+            s0 = faults.apply_stuck(s0)
+            if faults.stuck_mask is not None:
+                masks = masks & ~faults.stuck_flat()
         aux = masks
         if self.backend == "cuda":  # the plan of the very masks step() passes the kernel
             fmasks = masks.float()
@@ -469,23 +542,38 @@ class ColoredGibbs:
         t0 = torch.zeros((s0.shape[0],), dtype=torch.float32, device=dev)
         return KernelState(s=s0, t=t0, e=None, aux=aux)
 
-    def step(self, problem: SparseIsing, state, generator, beta) -> KernelState:
-        """One sweep over the graph's color classes for every chain."""
+    def draw(self, problem, state, generator, beta=None, faults=None) -> tuple:
+        """(u, eta, keep): the sweep's (C, n_chains, n) uniforms, then the
+        fault draws (`_fault_draws`; beta unused)."""
+        s = state.s
+        masks = state.aux[0] if self.backend == "cuda" else state.aux
+        u = torch.rand((masks.shape[0],) + tuple(s.shape), generator=generator, device=s.device)
+        return (u, *_fault_draws(faults, generator, s.shape))
+
+    def update(self, problem: SparseIsing, state, beta, u, eta=None, keep=None) -> KernelState:
+        """One sweep of every chain given its uniforms, field noise eta
+        (added to b) and keep mask (None: no such fault)."""
         s = state.s
         masks, plan = state.aux if self.backend == "cuda" else (state.aux, None)
-        u = torch.rand((masks.shape[0],) + tuple(s.shape), generator=generator, device=s.device)
         if self.backend == "cuda":
             s = ops.colored_gibbs_sweep(
-                s, problem.nbr_idx, problem.nbr_w, problem.b, u, masks, beta=beta, plan=plan
+                s, problem.nbr_idx, problem.nbr_w, problem.b, u, masks, beta=beta, plan=plan,
+                bias_rows=None if eta is None else problem.b + eta, keep=keep,
             )
         else:
             b = broadcast_rows(beta, s)
+            bias = problem.b if eta is None else problem.b + eta
             for c in range(masks.shape[0]):
-                h = problem.local_fields(s)
+                h = problem.neighbor_sum(s) + bias
                 p_up = glauber.prob_up(b * h)
                 proposal = torch.where(u[c] < p_up, 1.0, -1.0).to(s.dtype)
-                s = torch.where(masks[c], proposal, s)
+                upd = masks[c] if keep is None else masks[c] & keep
+                s = torch.where(upd, proposal, s)
         return KernelState(s=s, t=state.t + 1.0 / self.lambda0, e=None, aux=state.aux)
+
+    def step(self, problem: SparseIsing, state, generator, beta, faults=None) -> KernelState:
+        """One sweep over the graph's color classes for every chain."""
+        return self.update(problem, state, beta, *self.draw(problem, state, generator, beta, faults))
 
 
 @register_kernel("tau_leap")
@@ -503,7 +591,13 @@ class TauLeap:
     version on CPU tensors), all chains as the rows of one call, each row
     with its own beta; lattice and sparse problems are ref-only, as in JAX.
     Both backends draw the same (n_chains, ...) uniforms per step from the
-    generator."""
+    generator.
+
+    Faults: field noise perturbs the pre-beta field (h + eta on the ref
+    paths; the per-row bias b + eta of the kernel's fault variant on the
+    cuda path). Stuck and dropped sites keep their spin: the ref paths
+    freeze them and drop their flips, the cuda path warps their uniform to
+    1.0 (a flip needs u < p <= 1). Lattice stuck sites arrive as clamps."""
 
     backends = ("ref", "cuda")
     problem_kinds = ("dense", "lattice", "sparse")
@@ -520,13 +614,16 @@ class TauLeap:
             return ("ref",)
         return self.backends
 
-    def init(self, problem, generator, s0=None, n_chains=1) -> KernelState:
-        """Initial state (int8-quantized weights under cuda)."""
+    def init(self, problem, generator, s0=None, n_chains=1, faults=None) -> KernelState:
+        """Initial state (stuck sites at their values; int8-quantized
+        weights under cuda)."""
         if self.backend not in self.backends:
             raise ValueError(f"backend must be 'ref' | 'cuda', got {self.backend!r}")
         dev = problem.device
         if s0 is None:
             s0 = random_init(generator, (n_chains,) + state_shape(problem), device=dev)
+        if faults is not None:
+            s0 = faults.apply_stuck(s0)
         aux = ()
         if self.backend == "cuda" and not isinstance(problem, DenseIsing):
             raise NotImplementedError(
@@ -543,27 +640,43 @@ class TauLeap:
         t0 = torch.zeros((s0.shape[0],), dtype=torch.float32, device=dev)
         return KernelState(s=s0, t=t0, e=None, aux=aux)
 
-    def step(self, problem, state, generator, beta) -> KernelState:
-        """One tau-leap of model time dt for every chain: independent
-        thinned flips at each row's beta."""
+    def draw(self, problem, state, generator, beta=None, faults=None) -> tuple:
+        """(u, eta, keep): the step's (n_chains, ...) uniforms, then the
+        fault draws (`_fault_draws`; beta unused)."""
         s = state.s
         u = torch.rand(s.shape, generator=generator, device=s.device)
+        return (u, *_fault_draws(faults, generator, s.shape))
+
+    def update(self, problem, state, beta, u, eta=None, keep=None, stuck=None) -> KernelState:
+        """One tau-leap of every chain given its uniforms, field noise eta,
+        keep mask and the (n,) stuck mask (None: no such fault)."""
+        s = state.s
         if self.backend == "cuda":
             j_i8, scale, dt = state.aux
+            block = stuck if keep is None else (~keep if stuck is None else stuck | ~keep)
+            if block is not None:
+                u = torch.where(block, 1.0, u)
             # beta scales the field: h_beta = acc*(beta*scale) + beta*b
-            s = ops.tau_leap_step(s, j_i8, problem.b, scale, u, dt, beta=beta)
-        elif isinstance(problem, LatticeIsing):
-            h = problem.local_fields(s)
-            s = _tau_leap_flip(
-                s, broadcast_rows(beta, s) * h, u, self.dt, self.trim, problem.frozen_mask
-            )
-            s = problem.apply_clamps(s)
+            s = ops.tau_leap_step(s, j_i8, problem.b, scale, u, dt, beta=beta,
+                                  bias_rows=None if eta is None else problem.b + eta)
         else:
             h = problem.local_fields(s)
-            s = _tau_leap_flip(s, broadcast_rows(beta, s) * h, u, self.dt, self.trim)
+            if eta is not None:
+                h = h + eta
+            lattice = isinstance(problem, LatticeIsing)
+            s = _tau_leap_flip(s, broadcast_rows(beta, s) * h, u, self.dt, self.trim,
+                               problem.frozen_mask if lattice else stuck, keep)
+            if lattice:
+                s = problem.apply_clamps(s)
         return KernelState(
             s=s, t=state.t + self.dt / self.lambda0, e=None, aux=state.aux
         )
+
+    def step(self, problem, state, generator, beta, faults=None) -> KernelState:
+        """One tau-leap of model time dt for every chain: independent
+        thinned flips at each row's beta."""
+        return self.update(problem, state, beta, *self.draw(problem, state, generator, beta, faults),
+                           stuck=_stuck(faults))
 
 
 def _apply_field_delta(problem, h, i, delta, nbr=None):
@@ -606,36 +719,51 @@ class RandomScanGibbs:
     A step is a `draw` (one site and one uniform per chain, from the
     generator) and a pure `update` given them, so the update can be held
     against the JAX step fed the draws JAX takes from its key. Plain torch
-    on every device: the JAX package has no Pallas kernel for it."""
+    on every device: the JAX package has no Pallas kernel for it.
+
+    Faults: field noise perturbs the drawn site's field for the decision
+    only; a stuck site or a dropped update keeps the old spin (delta 0),
+    so the incremental fields and energy stay exact."""
 
     problem_kinds = ("dense", "sparse")
 
     lambda0: float = 1.0
 
-    def init(self, problem, generator, s0=None, n_chains=1) -> KernelState:
-        """Initial state with incremental fields and energy."""
+    def init(self, problem, generator, s0=None, n_chains=1, faults=None) -> KernelState:
+        """Initial state (stuck sites at their values) with incremental
+        fields and energy."""
         dev = problem.device
         if s0 is None:
             s0 = random_init(generator, (n_chains, problem.n), device=dev)
+        if faults is not None:
+            s0 = faults.apply_stuck(s0)
         nbr = problem.nbr_idx.long() if isinstance(problem, SparseIsing) else None
         return KernelState(
             s=s0, t=torch.zeros((s0.shape[0],), dtype=torch.float32, device=dev),
             e=problem.energy(s0), aux=LocalFields(problem.local_fields(s0), nbr),
         )
 
-    def draw(self, problem, state, generator, beta=None) -> tuple[torch.Tensor, torch.Tensor]:
-        """(site, uniform) per chain: the step's random numbers (beta unused)."""
+    def draw(self, problem, state, generator, beta=None, faults=None) -> tuple:
+        """(site, uniform, eta, keep) per chain: the step's random numbers,
+        the fault draws last (`_fault_draws`; beta unused)."""
         B, dev = state.s.shape[0], state.s.device
         i = torch.randint(0, problem.n, (B,), generator=generator, device=dev)
-        return i, torch.rand((B,), generator=generator, device=dev)
+        u = torch.rand((B,), generator=generator, device=dev)
+        return (i, u, *_fault_draws(faults, generator, (B,)))
 
-    def update(self, problem, state, beta, i, u) -> KernelState:
+    def update(self, problem, state, beta, i, u, eta=None, keep=None, stuck=None) -> KernelState:
         """Resample site i[c] of chain c from its conditional at beta[c],
-        given the uniform u[c]."""
+        given the uniform u[c], the field noise eta[c], the keep flag
+        keep[c] and the (n,) stuck mask (None: no such fault)."""
         s, h = state.s, state.aux.h
         hi = _at(h, i)
-        p_up = glauber.prob_up(beta * hi)
+        p_up = glauber.prob_up(beta * (hi if eta is None else hi + eta))
         new_si = torch.where(u < p_up, 1.0, -1.0)
+        suppress = None if keep is None else ~keep
+        if stuck is not None:
+            suppress = stuck[i] if suppress is None else suppress | stuck[i]
+        if suppress is not None:
+            new_si = torch.where(suppress, _at(s, i), new_si)
         delta = new_si - _at(s, i)
         # dE for changing s_i by delta: delta * h_i (h is the raw, beta-free
         # field including b and the full J row)
@@ -645,9 +773,10 @@ class RandomScanGibbs:
         return KernelState(s=s, t=state.t + 1.0 / self.lambda0, e=e,
                            aux=LocalFields(h, state.aux.nbr))
 
-    def step(self, problem, state, generator, beta) -> KernelState:
+    def step(self, problem, state, generator, beta, faults=None) -> KernelState:
         """One random-scan update of every chain."""
-        return self.update(problem, state, beta, *self.draw(problem, state, generator, beta))
+        return self.update(problem, state, beta, *self.draw(problem, state, generator, beta, faults),
+                           stuck=_stuck(faults))
 
 
 # Total-rate floor for the CTMC: below this the chain is treated as frozen
@@ -729,7 +858,15 @@ class CTMC:
     on the scan path the site index itself. The update is pure except on a
     carried tree, which it repairs in place (the state it returns holds the
     same tensor). Plain torch on every device: the JAX package has no
-    Pallas kernel for it."""
+    Pallas kernel for it.
+
+    Faults perturb the rate table the event is drawn from: stuck rates are
+    zero wherever rates are computed (the init build, every build, the
+    carried tree's repair), so the tree stays a build of the masked rates;
+    field noise enters the rates' fields (a noisy run never carries the
+    tree: `run()` decides so on the host); a dropped event flips nothing
+    but still advances model time. The carried h and e track the true
+    fields of the state."""
 
     problem_kinds = ("dense", "sparse")
 
@@ -765,13 +902,16 @@ class CTMC:
         """lambda0 * p (x * 1.0 is x: the default rate skips the pass)."""
         return p if self.lambda0 == 1.0 else self.lambda0 * p
 
-    def rates(self, problem, s, h, beta) -> torch.Tensor:
-        """(B, n) flip rates lambda0 * sigma(2 beta_c h_ci s_ci)."""
-        return self._scaled(glauber.flip_prob(beta[:, None] * h, s))
+    def rates(self, problem, s, h, beta, stuck=None) -> torch.Tensor:
+        """(B, n) flip rates lambda0 * sigma(2 beta_c h_ci s_ci), 0 where
+        `stuck` ((n,) bool, optional)."""
+        r = self._scaled(glauber.flip_prob(beta[:, None] * h, s))
+        return r if stuck is None else torch.where(stuck, 0.0, r)
 
     def init(self, problem, generator, s0=None, n_chains=1,
-             beta: Optional[torch.Tensor] = None) -> KernelState:
-        """Initial state with fields and, on the tree path, a rate tree.
+             beta: Optional[torch.Tensor] = None, faults=None) -> KernelState:
+        """Initial state (stuck sites at their values, their rates 0) with
+        fields and, on the tree path, a rate tree.
 
         `beta` ((n_chains,), optional) promises that every step will be
         given it; where `carries_tree(problem)`, the tree is then built at
@@ -780,6 +920,8 @@ class CTMC:
         dev = problem.device
         if s0 is None:
             s0 = random_init(generator, (n_chains, problem.n), device=dev)
+        if faults is not None:
+            s0 = faults.apply_stuck(s0)
         h = problem.local_fields(s0)
         sparse = isinstance(problem, SparseIsing)
         tree = tree_beta = None
@@ -788,44 +930,56 @@ class CTMC:
                 tree_beta = beta.to(device=dev, dtype=torch.float32).expand(s0.shape[0]).clone()
             at = tree_beta if tree_beta is not None else torch.ones(
                 (s0.shape[0],), dtype=torch.float32, device=dev)
-            tree = event_tree.build(self.rates(problem, s0, h, at))
+            tree = event_tree.build(self.rates(problem, s0, h, at, _stuck(faults)))
         return KernelState(
             s=s0, t=torch.zeros((s0.shape[0],), dtype=torch.float32, device=dev),
             e=problem.energy(s0),
             aux=CTMCAux(h, tree, tree_beta, problem.nbr_idx.long() if sparse else None),
         )
 
-    def draw(self, problem, state, generator, beta) -> tuple[torch.Tensor, torch.Tensor]:
-        """(site draw, Exp(1)) per chain: a uniform on the tree path; on the
-        scan path the site of the Gumbel-max over the current log-rates."""
+    def draw(self, problem, state, generator, beta, faults=None) -> tuple:
+        """(site draw, Exp(1), eta, keep) per chain: Exp(1), then a uniform
+        on the tree path or, on the scan path, one uniform per site, then
+        the fault draws (`_fault_draws`: eta per site, keep per chain); the
+        scan path's site is the Gumbel-max over the log-rates of the noisy
+        fields, 0 at stuck sites."""
         B, dev = state.s.shape[0], state.s.device
         expo = torch.empty((B,), dtype=torch.float32, device=dev).exponential_(
             generator=generator)
         if self.resolved_site_draw(problem) == "tree":
-            return torch.rand((B,), generator=generator, device=dev), expo
+            site = torch.rand((B,), generator=generator, device=dev)
+            return (site, expo, *_fault_draws(faults, generator, state.s.shape, (B,)))
         u = torch.rand((B, problem.n), generator=generator, device=dev)
+        eta, keep = _fault_draws(faults, generator, state.s.shape, (B,))
         gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-        rates = self.rates(problem, state.s, state.aux.h, beta)
-        return torch.argmax(torch.log(rates) + gumbel, dim=1), expo
+        h = state.aux.h if eta is None else state.aux.h + eta
+        rates = self.rates(problem, state.s, h, beta, _stuck(faults))
+        return torch.argmax(torch.log(rates) + gumbel, dim=1), expo, eta, keep
 
-    def update(self, problem, state, beta, site, expo) -> KernelState:
-        """One Gillespie event per chain given its site draw and Exp(1).
-        On a carried tree `beta` must be its tree_beta (`init`)."""
+    def update(self, problem, state, beta, site, expo, eta=None, keep=None,
+               stuck=None) -> KernelState:
+        """One Gillespie event per chain given its site draw, Exp(1), field
+        noise eta, keep flag and the (n,) stuck mask (None: no such
+        fault). On a carried tree `beta` must be its tree_beta (`init`),
+        and eta None."""
         s, aux = state.s, state.aux
         h = aux.h
+        h_draw = h if eta is None else h + eta  # the fields the event is drawn from
         if self.resolved_site_draw(problem) == "scan":
             i = site
-            total = torch.sum(self.rates(problem, s, h, beta), dim=1)
+            total = torch.sum(self.rates(problem, s, h_draw, beta, stuck), dim=1)
         elif aux.tree_beta is not None:
-            return self._carried_tree_update(problem, state, beta, site, expo)
+            return self._carried_tree_update(problem, state, beta, site, expo, keep, stuck)
         else:
             # a scheduled beta rescales every leaf, and on dense couplings
             # every field changes per event: build before every draw
-            tree = event_tree.build(self.rates(problem, s, h, beta))
+            tree = event_tree.build(self.rates(problem, s, h_draw, beta, stuck))
             total = event_tree.total(tree)
             i = torch.clamp(event_tree.descend(tree, site), max=problem.n - 1)
             aux = aux._replace(tree=tree)
         alive = total > RATE_FLOOR
+        if keep is not None:
+            alive = alive & keep
         dt = expo / torch.clamp(total, min=RATE_FLOOR)
         delta = torch.where(alive, -2.0 * _at(s, i), 0.0)
         e = state.e + delta * _at(h, i)
@@ -833,7 +987,8 @@ class CTMC:
         s = s.scatter_add(1, i[:, None], delta[:, None])
         return KernelState(s=s, t=state.t + dt, e=e, aux=aux._replace(h=h))
 
-    def _carried_tree_update(self, problem: SparseIsing, state, beta, u, expo) -> KernelState:
+    def _carried_tree_update(self, problem: SparseIsing, state, beta, u, expo, keep=None,
+                             stuck=None) -> KernelState:
         """One event drawn from the carried tree, which is then repaired in
         place: O(max_deg log n), no O(n) pass.
 
@@ -844,12 +999,16 @@ class CTMC:
         i and carry its own new rate, so no degree mask is needed. The
         reference adds leaf deltas along the paths (`update_many`, with a
         degree mask) and its root drifts from the rates' sum as the total
-        falls; the draws and the model time read that root."""
+        falls; the draws and the model time read that root. Stuck leaves are
+        repaired to 0; a dropped event (keep False) repairs nothing that
+        changed."""
         s, aux = state.s, state.aux
         h, nbr, tree = aux.h, aux.nbr, aux.tree
         total = event_tree.total(tree)  # a view: read before the repair
         i = torch.clamp(event_tree.descend(tree, u), max=problem.n - 1)
         alive = total > RATE_FLOOR
+        if keep is not None:
+            alive = alive & keep
         dt = expo / torch.clamp(total, min=RATE_FLOOR)
         delta = torch.where(alive, -2.0 * _at(s, i), 0.0)
         e = state.e + delta * _at(h, i)
@@ -858,12 +1017,15 @@ class CTMC:
         affected = torch.cat([i[:, None], nbr[i]], dim=1)  # (B, 1 + max_deg)
         new_rates = self._scaled(glauber.flip_prob(
             beta[:, None] * h.gather(1, affected), s.gather(1, affected)))
+        if stuck is not None:
+            new_rates = torch.where(stuck[affected], 0.0, new_rates)
         event_tree.repair_(tree, affected, new_rates)
         return KernelState(s=s, t=state.t + dt, e=e, aux=aux._replace(h=h))
 
-    def step(self, problem, state, generator, beta) -> KernelState:
+    def step(self, problem, state, generator, beta, faults=None) -> KernelState:
         """One Gillespie event of every chain."""
-        return self.update(problem, state, beta, *self.draw(problem, state, generator, beta))
+        return self.update(problem, state, beta, *self.draw(problem, state, generator, beta, faults),
+                           stuck=_stuck(faults))
 
 
 # ---------------------------------------------------------------------------
@@ -987,17 +1149,21 @@ class _Run:
     same operations in the same order. `timeit`'s two passes share the
     loop: the second replays the graphs the first captured. `init_beta`,
     when given, is passed to the kernel's `init` (each chain's constant
-    beta). `eager=True` runs a CUDA problem's blocks eagerly too (no
-    graph): for comparing the two."""
+    beta). `faults`, a residual FaultModel or None, is passed to the
+    kernel's `init` and `step` only when it is not None. `eager=True` runs a
+    CUDA problem's blocks eagerly too (no graph): for comparing the two."""
 
     def __init__(self, problem, kernel, generator, s0, betas, e_target, *, n_steps,
-                 sample_every, track_hit, n_chains, diagnostics, init_beta=None, eager=False):
+                 sample_every, track_hit, n_chains, diagnostics, init_beta=None, faults=None,
+                 eager=False):
         self.problem, self.kernel, self.generator, self.s0 = problem, kernel, generator, s0
         self.gen_start = generator.get_state()
         self.betas, self.e_target = betas, e_target
         self.n_steps, self.sample_every, self.n_chains = n_steps, sample_every, n_chains
         self.track_hit, self.diagnostics = track_hit, diagnostics
         self.init_kw = {} if init_beta is None else {"beta": init_beta}
+        self.step_kw = {} if faults is None else {"faults": faults}
+        self.init_kw.update(self.step_kw)
         self.blocks = plan_blocks(n_steps, sample_every, GRAPH_STEPS)
         self.n_samples = n_steps // sample_every if sample_every > 0 else 0
         self.offsets = torch.arange(GRAPH_STEPS, device=problem.device)
@@ -1017,7 +1183,7 @@ class _Run:
         state, t_hit, hit, acc, pos, k = carry
         betas = self.betas.index_select(0, pos + self.offsets[:steps])
         for j in range(steps):
-            new = kernel.step(problem, state, self.generator, betas[j])
+            new = kernel.step(problem, state, self.generator, betas[j], **self.step_kw)
             e = new_hit = None
             if self.track_hit or self.diagnostics:
                 e = new.e if new.e is not None else problem.energy(new.s)
@@ -1126,11 +1292,6 @@ def _make_run(
     if isinstance(kernel, str):
         kernel = get_kernel(kernel)
     check_problem_kind(kernel, problem)
-    if faults is not None:
-        raise NotImplementedError(
-            "run(faults=...) is not ported yet; the device-fault model arrives "
-            "with the faults slice of the port (see ROADMAP.md)"
-        )
     if n_chains < 1:
         raise ValueError(f"n_chains must be >= 1, got {n_chains}")
     resolved = _resolve_backend(backend, kernel, problem)
@@ -1140,24 +1301,31 @@ def _make_run(
         kernel.resolved_site_draw(problem)  # validates site_draw
     _resolve_unroll(unroll, kernel, problem)  # validated as in JAX; the graph ignores it
 
+    if faults is not None:
+        if not isinstance(faults, FaultModel):
+            raise TypeError(f"faults must be a repro_torch FaultModel, got {type(faults).__name__}")
+        faults.validate(problem)
+        problem, faults = faults.bind(problem)
     dev = problem.device
-    # The one host synchronisation: fail loudly on couplings/biases that
-    # cannot produce finite energies before any sampling happens.
+    # The one host synchronisation: fail loudly on couplings/biases (or a
+    # fault model) that cannot produce finite energies before any sampling.
     e_probe = problem.energy(torch.ones(state_shape(problem), device=dev))
     if not bool(torch.isfinite(e_probe)):
         raise NonFiniteEnergyError(
             f"problem energy is non-finite (probe energy {float(e_probe)}); "
-            "check the couplings/biases for NaN/Inf"
+            "check the couplings/biases (and any FaultModel) for NaN/Inf"
         )
 
     betas = resolve_schedule(schedule, n_steps, n_chains, device=dev)
     betas = betas.expand(n_chains, n_steps).T.contiguous()  # row i: step i's per-chain betas
     # A kernel that can carry state across steps of one beta (the sparse
-    # tree CTMC) is told each chain's beta when it never changes: a host
-    # decision, made once here, so no step branches on the device.
+    # tree CTMC) is told each chain's beta when it never changes and no
+    # field noise redraws every rate: a host decision, made once here, so
+    # no step branches on the device.
     init_beta = None
     carries = getattr(kernel, "carries_tree", None)
-    if n_steps and carries is not None and carries(problem) and bool((betas == betas[:1]).all()):
+    if (n_steps and carries is not None and carries(problem)
+            and (faults is None or not faults.noisy) and bool((betas == betas[:1]).all())):
         init_beta = betas[0]
     track_hit = first_hit is not None
     e_target = torch.tensor(
@@ -1176,7 +1344,7 @@ def _make_run(
     return _Run(
         problem, kernel, _generator(seed, dev), s0, betas, e_target, n_steps=n_steps,
         sample_every=sample_every, track_hit=track_hit, n_chains=n_chains,
-        diagnostics=diagnostics, init_beta=init_beta, eager=eager,
+        diagnostics=diagnostics, init_beta=init_beta, faults=faults, eager=eager,
     )
 
 
@@ -1195,7 +1363,7 @@ def run(
     unroll: Union[int, str] = "auto",
     timeit: bool = False,
     diagnostics: bool = False,
-    faults: Any = None,
+    faults: Optional[FaultModel] = None,
 ) -> RunResult:
     """Run `n_steps` of `kernel` on `problem` — the single sampling driver.
 
@@ -1236,7 +1404,15 @@ def run(
         `repro_torch.core.diagnostics`). Sampled values are identical with
         or without it; kernels without an incremental energy pay one
         `problem.energy` per step while it is on.
-      faults: not ported yet; a fault model raises NotImplementedError.
+      faults: optional `repro_torch.core.faults.FaultModel` — device
+        non-idealities (stuck spins, b-bit coupling quantization, field
+        noise, update dropout; per-kernel semantics in that module).
+        Validated on the host, then bound once: quantization rewrites the
+        couplings, lattice stuck sites become clamps, and only the residual
+        dynamic faults reach the kernels (their draws in the order the
+        module docstring gives; the cuda sweeps and tau-leap launch their
+        fault variants). None, or a model with every fault off, runs the
+        exact fault-free program.
     """
     one_run = _make_run(
         problem, kernel, seed, n_steps=n_steps, s0=s0, schedule=schedule, n_chains=n_chains,

@@ -38,14 +38,22 @@ _I = ctypes.c_int
 LAUNCHERS = {
     "dense_field": ("dense_field_launch", [_P, _P, _P, _P, _P, _I, _I, _P]),
     "tau_leap": ("tau_leap_launch", [_P] * 9 + [_I] * 3 + [_P]),
+    "tau_leap_faults": ("tau_leap_faults_launch", [_P] * 9 + [_I] * 3 + [_P]),
     "lattice_gibbs": ("lattice_gibbs_launch", [_P] * 9 + [_I] * 7 + [_P]),
+    "lattice_gibbs_faults": ("lattice_gibbs_faults_launch", [_P] * 11 + [_I] * 6 + [_P]),
     "lattice_gibbs_generic": ("lattice_gibbs_generic_launch", [_P] * 9 + [_I] * 5 + [_P]),
+    "lattice_gibbs_generic_faults": ("lattice_gibbs_generic_faults_launch",
+                                     [_P] * 11 + [_I] * 4 + [_P]),
     "sparse_fields": ("sparse_fields_launch", [_P] * 5 + [_I] * 5 + [_P]),
     "colored_gibbs": ("colored_gibbs_launch", [_P] * 7 + [_I] * 6 + [_P]),
+    "colored_gibbs_faults": ("colored_gibbs_faults_launch", [_P] * 9 + [_I] * 6 + [_P]),
     "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 6 + [_P]),
 }
 # The library of a launcher that does not live in csrc/<its name>.cu
-LIBRARY = {"lattice_gibbs_generic": "lattice_gibbs"}
+LIBRARY = {"lattice_gibbs_generic": "lattice_gibbs", "tau_leap_faults": "tau_leap",
+           "lattice_gibbs_faults": "lattice_gibbs",
+           "lattice_gibbs_generic_faults": "lattice_gibbs",
+           "colored_gibbs_faults": "colored_gibbs"}
 LIBRARIES = tuple(dict.fromkeys(LIBRARY.get(n, n) for n in LAUNCHERS))
 
 _lock = threading.Lock()

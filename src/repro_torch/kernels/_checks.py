@@ -58,3 +58,24 @@ def check_spins(name: str, s: torch.Tensor) -> tuple[int, int]:
     if s.shape[0] > MAX_ROWS:
         raise ValueError(f"{name} has {s.shape[0]} rows; the kernel takes at most {MAX_ROWS}")
     return s.shape[0], s.shape[1]
+
+
+def fault_ptr(t) -> int | None:
+    """A fault operand's pointer for a launcher; None (NULL) when absent."""
+    return None if t is None else t.data_ptr()
+
+
+def check_fault_operands(s, bias_rows, keep, dev) -> tuple | None:
+    """(bias_rows, keep) of a fault-variant call on (B, ...) spins `s`, keep
+    as uint8; None when both are None. Raise unless bias_rows is f32 and
+    keep bool or uint8, each shaped as s, contiguous, on `dev`."""
+    if bias_rows is None and keep is None:
+        return None
+    if bias_rows is not None:
+        check_tensor("bias_rows", bias_rows, torch.float32, tuple(s.shape), dev)
+    if keep is not None:
+        if keep.dtype not in (torch.bool, torch.uint8):
+            raise ValueError(f"keep must be bool or uint8, got {keep.dtype}")
+        check_tensor("keep", keep, keep.dtype, tuple(s.shape), dev)
+        keep = keep.view(torch.uint8)  # bool is one byte, 0 or 1
+    return bias_rows, keep

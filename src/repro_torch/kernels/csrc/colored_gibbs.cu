@@ -33,6 +33,13 @@
 // holds it back (chip_ablate.py, PERF.md): the uniforms' scattered sectors
 // come from device memory while nothing else overlaps them, and the row's
 // load and store bracket the phases.
+//
+// The fault variant (kFaults; entry point colored_gibbs_faults_launch)
+// takes two more operands, each optional (a null pointer): bias, (B, n)
+// f32, the whole per-row b + eta, read with the uniforms in place of the
+// plan's b_i and added last as b_i is; keep, (B, n) uint8: where 0 the
+// phase writes the old spin to `nxt`, so the copy back leaves it as it was
+// (the JAX call with masks & keep).
 #include "glauber.cuh"
 #include "sparse_gather.cuh"
 
@@ -88,12 +95,13 @@ constexpr int kUnroll = 2;  // entries a thread walks at once, their loads issue
 __device__ __forceinline__ int8_t spin(float v) { return v > 0.0f ? 1 : -1; }
 
 // Two 1024-thread blocks an SM: ptxas keeps the kernel to 32 registers.
-template <bool kPacked>
+template <bool kPacked, bool kFaults>
 __global__ void __launch_bounds__(1024, 2)
 colored_gibbs_kernel(const float* __restrict__ s, const int* __restrict__ offsets,
                      const int* __restrict__ tidx, const float* __restrict__ tw,
                      const float* __restrict__ u, const float* __restrict__ beta,
-                     float* __restrict__ out, int B, int n, int D, int P, int C) {
+                     float* __restrict__ out, int B, int n, int D, int P, int C,
+                     const float* __restrict__ rbias, const uint8_t* __restrict__ keep) {
   extern __shared__ __align__(16) int8_t smem[];
   int8_t* cur = smem;      // [n]
   int8_t* nxt = smem + n;  // [n]
@@ -125,17 +133,25 @@ colored_gibbs_kernel(const float* __restrict__ s, const int* __restrict__ offset
 #pragma unroll
       for (int q = 0; q < kUnroll; ++q)  // a missing entry repeats j0: the same spin is written twice
         e[q] = Entry<kPacked>(tidx, tw, j0 + q * T < end ? j0 + q * T : j0, P);
+      bool kept[kFaults ? kUnroll : 1];  // the update is dropped: the old spin stays
 #pragma unroll
       for (int q = 0; q < kUnroll; ++q) {
         site[q] = e[q].site();
         bias[q] = e[q].bias();
         ur[q] = __ldg(uc + base + site[q]);
+        if constexpr (kFaults) {
+          if (rbias) bias[q] = __ldg(rbias + base + site[q]);
+          kept[q] = keep && __ldg(keep + base + site[q]) == 0;
+        }
       }
 #pragma unroll
       for (int q = 0; q < kUnroll; ++q) h[q] = e[q].field(cur, n, D);
 #pragma unroll
-      for (int q = 0; q < kUnroll; ++q)
-        nxt[site[q]] = ur[q] < glauber::prob_up(br, __fadd_rn(h[q], bias[q])) ? 1 : -1;
+      for (int q = 0; q < kUnroll; ++q) {
+        const int8_t v = ur[q] < glauber::prob_up(br, __fadd_rn(h[q], bias[q])) ? 1 : -1;
+        if constexpr (kFaults) nxt[site[q]] = kept[q] ? cur[site[q]] : v;
+        else nxt[site[q]] = v;
+      }
     }
     __syncthreads();
     for (int j0 = beg + t; j0 < end; j0 += kUnroll * T) {
@@ -163,27 +179,24 @@ colored_gibbs_kernel(const float* __restrict__ s, const int* __restrict__ offset
   }
 }
 
-template <bool kPacked>
+template <bool kPacked, bool kFaults>
 cudaError_t launch(const float* s, const int* offsets, const int* tidx, const float* tw,
                    const float* u, const float* beta, float* out, int B, int n, int D, int P,
-                   int C, int threads, cudaStream_t stream) {
+                   int C, int threads, cudaStream_t stream, const float* rbias,
+                   const uint8_t* keep) {
   const size_t smem = 2 * static_cast<size_t>(n);
-  const cudaError_t err = glauber::allow_smem(colored_gibbs_kernel<kPacked>, smem);
+  const cudaError_t err = glauber::allow_smem(colored_gibbs_kernel<kPacked, kFaults>, smem);
   if (err != cudaSuccess) return err;
-  colored_gibbs_kernel<kPacked><<<B, threads, smem, stream>>>(s, offsets, tidx, tw, u, beta,
-                                                              out, B, n, D, P, C);
+  colored_gibbs_kernel<kPacked, kFaults><<<B, threads, smem, stream>>>(
+      s, offsets, tidx, tw, u, beta, out, B, n, D, P, C, rbias, keep);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// One block of `threads` threads a chain. Returns cudaGetLastError() after
-// the launch (or the attribute call's error). The caller has checked that
-// 2n bytes fit in one block and that the plan has P % 4 == 0, P > D.
-extern "C" int colored_gibbs_launch(const void* s_, const void* offsets_, const void* tidx_,
-                                    const void* tw_, const void* u_, const void* beta_,
-                                    void* out_, int B, int n, int D, int P, int C, int threads,
-                                    void* stream_) {
+template <bool kFaults>
+int launch_sweep(const void* s_, const void* offsets_, const void* tidx_, const void* tw_,
+                 const void* u_, const void* beta_, void* out_, const void* rbias_,
+                 const void* keep_, int B, int n, int D, int P, int C, int threads,
+                 void* stream_) {
   const auto* s = static_cast<const float*>(s_);
   const auto* offsets = static_cast<const int*>(offsets_);
   const auto* tidx = static_cast<const int*>(tidx_);
@@ -191,9 +204,37 @@ extern "C" int colored_gibbs_launch(const void* s_, const void* offsets_, const 
   const auto* u = static_cast<const float*>(u_);
   const auto* beta = static_cast<const float*>(beta_);
   auto* out = static_cast<float*>(out_);
+  const auto* rbias = static_cast<const float*>(rbias_);
+  const auto* keep = static_cast<const uint8_t*>(keep_);
   const auto stream = static_cast<cudaStream_t>(stream_);
   const cudaError_t err =
-      P == 4 ? launch<true>(s, offsets, tidx, tw, u, beta, out, B, n, D, P, C, threads, stream)
-             : launch<false>(s, offsets, tidx, tw, u, beta, out, B, n, D, P, C, threads, stream);
+      P == 4 ? launch<true, kFaults>(s, offsets, tidx, tw, u, beta, out, B, n, D, P, C, threads,
+                                     stream, rbias, keep)
+             : launch<false, kFaults>(s, offsets, tidx, tw, u, beta, out, B, n, D, P, C, threads,
+                                      stream, rbias, keep);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// One block of `threads` threads a chain. Returns cudaGetLastError() after
+// the launch (or the attribute call's error). The caller has checked that
+// 2n bytes fit in one block and that the plan has P % 4 == 0, P > D.
+extern "C" int colored_gibbs_launch(const void* s, const void* offsets, const void* tidx,
+                                    const void* tw, const void* u, const void* beta, void* out,
+                                    int B, int n, int D, int P, int C, int threads,
+                                    void* stream) {
+  return launch_sweep<false>(s, offsets, tidx, tw, u, beta, out, nullptr, nullptr, B, n, D, P, C,
+                             threads, stream);
+}
+
+// The fault variant: as colored_gibbs_launch with a (B, n) f32 bias and a
+// (B, n) uint8 keep mask, either null when absent.
+extern "C" int colored_gibbs_faults_launch(const void* s, const void* offsets, const void* tidx,
+                                           const void* tw, const void* u, const void* beta,
+                                           void* out, const void* bias, const void* keep, int B,
+                                           int n, int D, int P, int C, int threads,
+                                           void* stream) {
+  return launch_sweep<true>(s, offsets, tidx, tw, u, beta, out, bias, keep, B, n, D, P, C,
+                            threads, stream);
 }

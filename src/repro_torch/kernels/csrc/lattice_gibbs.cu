@@ -56,6 +56,18 @@
 // s: (B, H, W) +-1, u: (C, B, H, W), out: (B, H, W) (never aliasing s), all
 // f32 or all bf16 with the generic kernel's w (8, H, W), b, frozen and
 // clamp (H, W) and colors (C, H, W) {0,1}; beta: (B,) f32.
+//
+// The fault variants (kFaults, f32 only; entry points
+// lattice_gibbs_faults_launch and lattice_gibbs_generic_faults_launch) take
+// two more operands, each optional (a null pointer):
+//   bias: (B, H, W) f32, the whole per-row bias b + eta, read in place of
+//         b[p] and added last as b is: h = acc + bias[r][p];
+//   keep: (B, H, W) uint8; where 0 the site keeps its spin in every phase
+//         (the JAX call with colors & keep).
+// The plan kernel loads a thread's bias and keep entries with its uniforms,
+// before the chain, and simply does not write a kept site; the generic
+// kernel copies the kept site's old spin to the other buffer, as it does
+// for every site outside the phase's colour.
 #include <cuda_bf16.h>
 
 #include <cstdint>
@@ -125,12 +137,13 @@ __device__ __forceinline__ float times_spin(float w, int8_t s) {
 // in shared memory, from its uniform and the row's beta. The plan's weight
 // of a neighbour beyond the edge is 0: adding w * s = +-0 there leaves the
 // sum as skipping it does (the sum is never -0).
-template <typename T>
+// kRowBias: `row_bias` (the fault variant's b + eta) in place of the plan's b.
+template <typename T, bool kRowBias = false>
 __device__ __forceinline__ int8_t update(const int8_t* ch, int code, const float* __restrict__ pw,
-                                         int j, int W, float uv, float br) {
+                                         int j, int W, float uv, float br, float row_bias = 0.0f) {
   const float4* row = reinterpret_cast<const float4*>(pw) + 3 * static_cast<size_t>(j);
   const float4 w0 = __ldg(row), w1 = __ldg(row + 1);
-  const float bias = __ldg(row + 2).x;
+  const float bias = kRowBias ? row_bias : __ldg(row + 2).x;
   const float wk[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
   const int8_t* c = ch + (code >> 8);
   const int8_t nb[8] = {c[-W - 1], c[-W], c[-W + 1], c[-1], c[1], c[W - 1], c[W], c[W + 1]};
@@ -144,13 +157,14 @@ __device__ __forceinline__ int8_t update(const int8_t* ch, int code, const float
 // Two 1024-thread blocks an SM in the bounds: ptxas keeps the kernel to 32
 // registers, so 32 blocks of 64 threads fill an SM (the 4096 CAL chains in
 // one wave).
-template <typename T>
+template <typename T, bool kFaults>
 __global__ void __launch_bounds__(1024, 2)
 lattice_gibbs_plan(const T* __restrict__ s, const int* __restrict__ offsets,
                    const int* __restrict__ entry, const float* __restrict__ pw,
                    const T* __restrict__ u, const float* __restrict__ beta,
                    const int* __restrict__ fsite, const float* __restrict__ fval,
-                   T* __restrict__ out, int B, int H, int W, int C, int F) {
+                   T* __restrict__ out, int B, int H, int W, int C, int F,
+                   const float* __restrict__ bias, const uint8_t* __restrict__ keep) {
   extern __shared__ __align__(16) int8_t smem[];  // halo, [H * W], halo
   const int HW = H * W, t = threadIdx.x, T_ = blockDim.x, r = blockIdx.x;
   int8_t* ch = smem + halo_bytes(W);
@@ -172,6 +186,21 @@ lattice_gibbs_plan(const T* __restrict__ s, const int* __restrict__ offsets,
 #pragma unroll
   for (int c = 0; c < kMaxColours; ++c)
     uv[c] = code[c] != kNoEntry ? to_f32(__ldg(ur + c * plane + (code[c] >> 8))) : 0.0f;
+  // The fault variant's entries: each site's b + eta (the plan's b without
+  // one) and whether its update survives.
+  float bv[kFaults ? kMaxColours : 1];
+  unsigned kept = 0;  // bit c: entry c keeps its spin (its keep byte is 0)
+  if constexpr (kFaults) {
+#pragma unroll
+    for (int c = 0; c < kMaxColours; ++c) {
+      const int p = code[c] >> 8;
+      const bool live = code[c] != kNoEntry;
+      bv[c] = !live ? 0.0f
+              : bias ? __ldg(bias + base + p)
+                     : __ldg(pw + 12 * static_cast<size_t>(__ldg(offsets + c) + t) + 8);
+      kept |= static_cast<unsigned>(live && keep && __ldg(keep + base + p) == 0) << c;
+    }
+  }
 
   // The chain into shared memory as int8 +-1.
   const bool vec = (HW & 3) == 0 &&
@@ -190,8 +219,14 @@ lattice_gibbs_plan(const T* __restrict__ s, const int* __restrict__ offsets,
 #pragma unroll
   for (int c = 0; c < kMaxColours; ++c) {
     if (c >= C) break;
-    if (code[c] != kNoEntry)
-      ch[code[c] >> 8] = update<T>(ch, code[c], pw, __ldg(offsets + c) + t, W, uv[c], br);
+    if constexpr (kFaults) {
+      if (code[c] != kNoEntry && !(kept >> c & 1u))
+        ch[code[c] >> 8] =
+            update<T, true>(ch, code[c], pw, __ldg(offsets + c) + t, W, uv[c], br, bv[c]);
+    } else {
+      if (code[c] != kNoEntry)
+        ch[code[c] >> 8] = update<T>(ch, code[c], pw, __ldg(offsets + c) + t, W, uv[c], br);
+    }
     __syncthreads();
   }
 
@@ -227,13 +262,14 @@ lattice_gibbs_plan(const T* __restrict__ s, const int* __restrict__ offsets,
 
 // -- the generic kernel --------------------------------------------------------
 
-template <typename T>
+template <typename T, bool kFaults>
 __global__ void __launch_bounds__(1024)
 lattice_gibbs_generic(const T* __restrict__ s, const T* __restrict__ w,
                      const T* __restrict__ b, const T* __restrict__ u,
                      const T* __restrict__ colors, const T* __restrict__ frozen,
                      const T* __restrict__ clampv, const float* __restrict__ beta,
-                     T* __restrict__ out, int B, int H, int W, int C, int cpb) {
+                     T* __restrict__ out, int B, int H, int W, int C, int cpb,
+                     const float* __restrict__ bias, const uint8_t* __restrict__ keep) {
   extern __shared__ int8_t smem[];
   const int HW = H * W;
   const int r0 = blockIdx.x * cpb;
@@ -252,7 +288,9 @@ lattice_gibbs_generic(const T* __restrict__ s, const T* __restrict__ w,
     for (int i = threadIdx.x; i < sites; i += blockDim.x) {
       const int r = i / HW, p = i - r * HW;
       int8_t v = cur[i];
-      if (to_f32(__ldg(col + p)) > 0.5f && to_f32(__ldg(frozen + p)) <= 0.5f) {
+      bool upd = to_f32(__ldg(col + p)) > 0.5f && to_f32(__ldg(frozen + p)) <= 0.5f;
+      if constexpr (kFaults) upd = upd && !(keep && __ldg(keep + base + i) == 0);
+      if (upd) {
         const int y = p / W, x = p - y * W;
         const int8_t* chain = cur + static_cast<size_t>(r) * HW;
         T acc = round_to<T>(0.0f);
@@ -265,7 +303,9 @@ lattice_gibbs_generic(const T* __restrict__ s, const T* __restrict__ w,
             acc = round_to<T>(__fadd_rn(to_f32(acc), to_f32(ws)));
           }
         }
-        const T h = round_to<T>(__fadd_rn(to_f32(acc), to_f32(__ldg(b + p))));
+        float bp = to_f32(__ldg(b + p));
+        if constexpr (kFaults) bp = bias ? __ldg(bias + base + i) : bp;
+        const T h = round_to<T>(__fadd_rn(to_f32(acc), bp));
         v = to_f32(uc[i]) < glauber::prob_up(beta[r0 + r], to_f32(h)) ? 1 : -1;
       }
       nxt[i] = v;
@@ -283,40 +323,42 @@ lattice_gibbs_generic(const T* __restrict__ s, const T* __restrict__ w,
   }
 }
 
-template <typename T>
+template <typename T, bool kFaults = false>
 cudaError_t launch_generic(const void* s, const void* w, const void* b, const void* u,
                    const void* colors, const void* frozen, const void* clampv, const void* beta,
-                   void* out, int B, int H, int W, int C, cudaStream_t stream) {
+                   void* out, int B, int H, int W, int C, cudaStream_t stream,
+                   const void* bias = nullptr, const void* keep = nullptr) {
   const int HW = H * W;
   int cpb = HW >= 1024 ? 1 : 1024 / HW;
   if (cpb > B) cpb = B;
   const size_t smem = 2 * static_cast<size_t>(cpb) * HW;
-  cudaError_t err = glauber::allow_smem(lattice_gibbs_generic<T>, smem);
+  cudaError_t err = glauber::allow_smem(lattice_gibbs_generic<T, kFaults>, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (B + cpb - 1) / cpb;
-  lattice_gibbs_generic<T><<<blocks, glauber::threads_for(static_cast<long long>(cpb) * HW), smem,
-                            stream>>>(
+  lattice_gibbs_generic<T, kFaults><<<blocks, glauber::threads_for(static_cast<long long>(cpb) * HW),
+                                      smem, stream>>>(
       static_cast<const T*>(s), static_cast<const T*>(w), static_cast<const T*>(b),
       static_cast<const T*>(u), static_cast<const T*>(colors), static_cast<const T*>(frozen),
       static_cast<const T*>(clampv), static_cast<const float*>(beta), static_cast<T*>(out), B, H,
-      W, C, cpb);
+      W, C, cpb, static_cast<const float*>(bias), static_cast<const uint8_t*>(keep));
   return cudaGetLastError();
 }
 
 
-template <typename T>
+template <typename T, bool kFaults = false>
 cudaError_t launch_plan(const void* s, const void* offsets, const void* entry, const void* pw,
                         const void* u, const void* beta, const void* fsite, const void* fval,
                         void* out, int B, int H, int W, int C, int F, int threads,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, const void* bias = nullptr,
+                        const void* keep = nullptr) {
   const size_t smem = static_cast<size_t>(H) * W + 2 * halo_bytes(W);
-  const cudaError_t err = glauber::allow_smem(lattice_gibbs_plan<T>, smem);
+  const cudaError_t err = glauber::allow_smem(lattice_gibbs_plan<T, kFaults>, smem);
   if (err != cudaSuccess) return err;
-  lattice_gibbs_plan<T><<<B, threads, smem, stream>>>(
+  lattice_gibbs_plan<T, kFaults><<<B, threads, smem, stream>>>(
       static_cast<const T*>(s), static_cast<const int*>(offsets), static_cast<const int*>(entry),
       static_cast<const float*>(pw), static_cast<const T*>(u), static_cast<const float*>(beta),
       static_cast<const int*>(fsite), static_cast<const float*>(fval), static_cast<T*>(out), B, H,
-      W, C, F);
+      W, C, F, static_cast<const float*>(bias), static_cast<const uint8_t*>(keep));
   return cudaGetLastError();
 }
 
@@ -354,4 +396,33 @@ extern "C" int lattice_gibbs_launch(const void* s, const void* offsets, const vo
            : launch_plan<float>(s, offsets, entry, pw, u, beta, fsite, fval, out, B, H, W, C, F,
                                 threads, st);
   return static_cast<int>(err);
+}
+
+// The fault variant of the generic kernel, f32 only: as
+// lattice_gibbs_generic_launch with a (B, H, W) f32 bias and a (B, H, W)
+// uint8 keep mask, either null when absent.
+extern "C" int lattice_gibbs_generic_faults_launch(const void* s, const void* w, const void* b,
+                                                   const void* u, const void* colors,
+                                                   const void* frozen, const void* clampv,
+                                                   const void* beta, void* out, const void* bias,
+                                                   const void* keep, int B, int H, int W, int C,
+                                                   void* stream) {
+  return static_cast<int>(launch_generic<float, true>(s, w, b, u, colors, frozen, clampv, beta,
+                                                      out, B, H, W, C,
+                                                      static_cast<cudaStream_t>(stream), bias,
+                                                      keep));
+}
+
+// The fault variant of the plan kernel, f32 only: as lattice_gibbs_launch
+// with a (B, H, W) f32 bias and a (B, H, W) uint8 keep mask, either null
+// when absent.
+extern "C" int lattice_gibbs_faults_launch(const void* s, const void* offsets, const void* entry,
+                                           const void* pw, const void* u, const void* beta,
+                                           const void* fsite, const void* fval, void* out,
+                                           const void* bias, const void* keep, int B, int H,
+                                           int W, int C, int F, int threads, void* stream) {
+  return static_cast<int>(launch_plan<float, true>(s, offsets, entry, pw, u, beta, fsite, fval,
+                                                   out, B, H, W, C, F, threads,
+                                                   static_cast<cudaStream_t>(stream), bias,
+                                                   keep));
 }

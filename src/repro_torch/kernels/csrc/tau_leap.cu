@@ -30,6 +30,11 @@
 //     issued before the mainloop, which hides their latency. It is a
 //     programmatic dependent launch, so its blocks start while the packing
 //     grid drains and wait for it only before the mainloop.
+//
+// The fault variant (kRowBias, entry point tau_leap_faults_launch): b is
+// (B, N), the whole per-row bias b + eta, read per output with the loads of
+// s and u, and the field is f32(f32(acc) * f32(beta_r * scale)) +
+// f32(beta_r * b[r][j]); everything else is the base kernel.
 #include "int8_field.cuh"
 
 namespace {
@@ -68,6 +73,7 @@ pack_spins_kernel(const float* __restrict__ s, int8_t* __restrict__ s8, int B, i
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");  // s8 written
 }
 
+template <bool kRowBias>
 __global__ void __cluster_dims__(1, 1, int8_field::SPLIT_K)
 __launch_bounds__(int8_field::THREADS)
 tau_leap_kernel(const float* __restrict__ s, const int8_t* __restrict__ s8, int ld,
@@ -81,6 +87,7 @@ tau_leap_kernel(const float* __restrict__ s, const int8_t* __restrict__ s8, int 
   // issued before the mainloop, so their latency hides behind it.
   const int c = col0 + int8_field::out_col();
   float sv[int8_field::OUT_ITEMS], uv[int8_field::OUT_ITEMS], br[int8_field::OUT_ITEMS];
+  float bv[kRowBias ? int8_field::OUT_ITEMS : 1];  // the per-row bias of each output
 #pragma unroll
   for (int i = 0; i < int8_field::OUT_ITEMS; ++i) {
     const int r = row0 + int8_field::out_row(i);
@@ -89,8 +96,9 @@ tau_leap_kernel(const float* __restrict__ s, const int8_t* __restrict__ s8, int 
     sv[i] = live ? s[at] : 0.0f;
     uv[i] = live ? u[at] : 0.0f;
     br[i] = live ? beta[r] : 0.0f;
+    if constexpr (kRowBias) bv[i] = live ? b[at] : 0.0f;
   }
-  const float bc = c < N ? b[c] : 0.0f;
+  const float bc = !kRowBias && c < N ? b[c] : 0.0f;
   asm volatile("griddepcontrol.wait;\n" ::: "memory");  // pack_spins is done
   int8_field::mainloop(smem, s8, ld, J, B, N, N, row0, col0, true, vec_j);
   int acc[int8_field::OUT_ITEMS];
@@ -101,8 +109,9 @@ tau_leap_kernel(const float* __restrict__ s, const int8_t* __restrict__ s8, int 
   for (int i = 0; i < int8_field::OUT_ITEMS; ++i) {
     const int r = row0 + int8_field::out_row(i);
     if (r >= B) continue;
+    const float bias = kRowBias ? bv[kRowBias ? i : 0] : bc;
     const float h = __fadd_rn(__fmul_rn(__int2float_rn(acc[i]), __fmul_rn(br[i], sc)),
-                              __fmul_rn(br[i], bc));
+                              __fmul_rn(br[i], bias));
     const float x = __fmul_rn(__fmul_rn(2.0f, h), sv[i]);
     const float rate = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
     const float p = __fsub_rn(1.0f, expf(__fmul_rn(neg_dt, rate)));
@@ -110,15 +119,11 @@ tau_leap_kernel(const float* __restrict__ s, const int8_t* __restrict__ s8, int 
   }
 }
 
-}  // namespace
-
-// s8: (B, ld) int8 scratch, ld >= N a multiple of 16, on a 16-byte aligned
-// base (the wrapper allocates it). Returns cudaGetLastError() after the
-// second launch, or the first error (cudaErrorInvalidValue for a bad ld).
-extern "C" int tau_leap_launch(const void* s, void* s8, const void* J, const void* b,
-                               const void* scale, const void* beta, const void* u,
-                               const void* dt, void* out, int B, int N, int ld,
-                               void* stream) {
+// Both launches of one step; kRowBias picks the product-and-flip kernel.
+template <bool kRowBias>
+int launch_step(const void* s, void* s8, const void* J, const void* b, const void* scale,
+                const void* beta, const void* u, const void* dt, void* out, int B, int N, int ld,
+                void* stream) {
   if (ld < N || ld % 16 != 0 || !int8_field::aligned16(s8))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -130,8 +135,9 @@ extern "C" int tau_leap_launch(const void* s, void* s8, const void* J, const voi
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec_j = N % 16 == 0 && int8_field::aligned16(J);
-  const cudaError_t smem_err = cudaFuncSetAttribute(
-      tau_leap_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int8_field::SMEM_BYTES);
+  const cudaError_t smem_err =
+      cudaFuncSetAttribute(tau_leap_kernel<kRowBias>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           int8_field::SMEM_BYTES);
   if (smem_err != cudaSuccess) return static_cast<int>(smem_err);
   // A programmatic dependent launch: its blocks may start once every
   // packing block has written its part of s8, before that grid retires,
@@ -148,11 +154,31 @@ extern "C" int tau_leap_launch(const void* s, void* s8, const void* J, const voi
   config.attrs = attr;
   config.numAttrs = 1;
   const cudaError_t launch_err = cudaLaunchKernelEx(
-      &config, tau_leap_kernel, static_cast<const float*>(s), static_cast<const int8_t*>(s8),
-      ld, static_cast<const int8_t*>(J), static_cast<const float*>(b),
-      static_cast<const float*>(scale), static_cast<const float*>(beta),
-      static_cast<const float*>(u), static_cast<const float*>(dt), static_cast<float*>(out), B,
-      N, vec_j);
+      &config, tau_leap_kernel<kRowBias>, static_cast<const float*>(s),
+      static_cast<const int8_t*>(s8), ld, static_cast<const int8_t*>(J),
+      static_cast<const float*>(b), static_cast<const float*>(scale),
+      static_cast<const float*>(beta), static_cast<const float*>(u),
+      static_cast<const float*>(dt), static_cast<float*>(out), B, N, vec_j);
   if (launch_err != cudaSuccess) return static_cast<int>(launch_err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// s8: (B, ld) int8 scratch, ld >= N a multiple of 16, on a 16-byte aligned
+// base (the wrapper allocates it). b: (N,). Returns cudaGetLastError() after
+// the second launch, or the first error (cudaErrorInvalidValue for a bad ld).
+extern "C" int tau_leap_launch(const void* s, void* s8, const void* J, const void* b,
+                               const void* scale, const void* beta, const void* u,
+                               const void* dt, void* out, int B, int N, int ld,
+                               void* stream) {
+  return launch_step<false>(s, s8, J, b, scale, beta, u, dt, out, B, N, ld, stream);
+}
+
+// The fault variant: as tau_leap_launch with b (B, N), one bias row a chain.
+extern "C" int tau_leap_faults_launch(const void* s, void* s8, const void* J, const void* b,
+                                      const void* scale, const void* beta, const void* u,
+                                      const void* dt, void* out, int B, int N, int ld,
+                                      void* stream) {
+  return launch_step<true>(s, s8, J, b, scale, beta, u, dt, out, B, N, ld, stream);
 }

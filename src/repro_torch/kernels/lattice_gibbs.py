@@ -49,6 +49,19 @@ What the designs do about it (`chip_ablate.py lattice`, `PERF.md`):
 The plan is built once per problem (`lattice_plan`, one wait for the
 device) and records the tensors it was built from; the kernels take it
 only with those (`check_plan`).
+
+The fault variants (f32), chosen by their operands and counted apart in
+`launches_faults` (`lattice_gibbs_sweep_faults`,
+`lattice_gibbs_generic_faults`): a
+(B, H, W) per-row bias, the whole b + eta of field noise, read in place of
+b and added last as b is, and a (B, H, W) keep mask (update dropout): a
+site whose keep byte is 0 keeps its spin in every phase. Row r is then the
+JAX call with b + eta_r and `colors & keep_r`. The plan stays the one of
+the static b (`check_plan` refuses any other); the plan kernel loads a
+thread's bias and keep entries with its uniforms, before the chain, and
+does not write a kept site; the generic kernel copies a kept site's old
+spin to the other buffer. At (4096, 16, 16) they read 4.2 MB of bias and
+1 MB of keep more: about 17.8 MB, bound 5.3 µs.
 """
 from __future__ import annotations
 
@@ -58,11 +71,14 @@ import torch
 
 from repro_torch.core.ising import KING_OFFSETS, shift2d
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import MAX_SMEM_BYTES, check_cuda, check_tensor
+from repro_torch.kernels._checks import (MAX_SMEM_BYTES, check_cuda, check_fault_operands,
+                                         check_tensor, fault_ptr as _ptr)
 
 # chip_smoke.py resets and reads these: the plan kernel, and the two-buffer
 # kernel for masks that are not independent sets
 launches = {"lattice_gibbs_sweep": 0, "lattice_gibbs_generic": 0}
+# the launches of their fault variants (per-row bias, keep mask)
+launches_faults = {"lattice_gibbs_sweep_faults": 0, "lattice_gibbs_generic_faults": 0}
 
 DTYPES = (torch.float32, torch.bfloat16)  # as the TPU kernel, generic in its dtype
 
@@ -213,25 +229,38 @@ def halo_bytes(W: int) -> int:
     return (W + 1 + 15) // 16 * 16
 
 
-def _launch_plan(s, plan: LatticePlan, uniforms, beta, out, device) -> None:
+def _launch_plan(s, plan: LatticePlan, uniforms, beta, out, device, faults=None) -> None:
+    """The plan kernel; `faults` = (bias_rows, keep), either None, takes
+    the fault variant."""
     B, H, W = s.shape
-    code = _build.launcher("lattice_gibbs")(
-        s.data_ptr(), plan.offsets.data_ptr(), plan.entry.data_ptr(), plan.w.data_ptr(),
-        uniforms.data_ptr(), beta.data_ptr(), plan.frozen.data_ptr(), plan.clamp.data_ptr(),
-        out.data_ptr(), B, H, W, len(plan.counts), plan.frozen.shape[0], plan.threads,
-        int(s.dtype == torch.bfloat16), torch.cuda.current_stream(device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(device).cuda_stream
+    args = (s.data_ptr(), plan.offsets.data_ptr(), plan.entry.data_ptr(), plan.w.data_ptr(),
+            uniforms.data_ptr(), beta.data_ptr(), plan.frozen.data_ptr(), plan.clamp.data_ptr(),
+            out.data_ptr())
+    dims = (B, H, W, len(plan.counts), plan.frozen.shape[0], plan.threads)
+    if faults is None:
+        code = _build.launcher("lattice_gibbs")(
+            *args, *dims, int(s.dtype == torch.bfloat16), stream)
+    else:
+        code = _build.launcher("lattice_gibbs_faults")(
+            *args, *map(_ptr, faults), *dims, stream)
     _build.check("lattice_gibbs_sweep", code)
 
 
-def _launch_generic(s, w, b, uniforms, colors, frozen, clamp_value, beta, out, device) -> None:
+def _launch_generic(s, w, b, uniforms, colors, frozen, clamp_value, beta, out, device,
+                    faults=None) -> None:
+    """The two-buffer kernel; `faults` as in `_launch_plan`."""
     B, H, W = s.shape
-    code = _build.launcher("lattice_gibbs_generic")(
-        s.data_ptr(), w.data_ptr(), b.data_ptr(), uniforms.data_ptr(), colors.data_ptr(),
-        frozen.data_ptr(), clamp_value.data_ptr(), beta.data_ptr(), out.data_ptr(),
-        B, H, W, colors.shape[0], int(s.dtype == torch.bfloat16),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(device).cuda_stream
+    args = (s.data_ptr(), w.data_ptr(), b.data_ptr(), uniforms.data_ptr(), colors.data_ptr(),
+            frozen.data_ptr(), clamp_value.data_ptr(), beta.data_ptr(), out.data_ptr())
+    dims = (B, H, W, colors.shape[0])
+    if faults is None:
+        code = _build.launcher("lattice_gibbs_generic")(
+            *args, *dims, int(s.dtype == torch.bfloat16), stream)
+    else:
+        code = _build.launcher("lattice_gibbs_generic_faults")(
+            *args, *map(_ptr, faults), *dims, stream)
     _build.check("lattice_gibbs_generic", code)
 
 
@@ -245,6 +274,8 @@ def lattice_gibbs_sweep(
     clamp_value: torch.Tensor,
     beta: torch.Tensor,
     plan: LatticePlan | None = None,
+    bias_rows: torch.Tensor | None = None,
+    keep: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch a CUDA kernel: (B,H,W) ±1 spins, (8,H,W) weight planes,
     (H,W) bias, (C,B,H,W) uniforms, (C,H,W) {0,1} colour masks, (H,W) {0,1}
@@ -255,7 +286,9 @@ def lattice_gibbs_sweep(
     `lattice_plan` of these very w, b and masks (`check_plan`); without one
     the call builds it (and waits for the device once). Independent lists
     that the plan kernel can walk (`LatticePlan.threads`) take it, any
-    others the generic one."""
+    others the generic one. `bias_rows` ((B,H,W) f32) and `keep` ((B,H,W)
+    bool or uint8), either optional, take the route's fault variant (f32
+    only; module docstring)."""
     operands = {"s": s, "w": w, "b": b, "uniforms": uniforms, "colors": colors,
                 "frozen": frozen, "clamp_value": clamp_value}
     dtype = s.dtype
@@ -274,6 +307,9 @@ def lattice_gibbs_sweep(
     for name, t in operands.items():
         check_tensor(name, t, dtype, shapes[name], dev)
     check_tensor("beta", beta, torch.float32, (B,), dev)
+    faults = check_fault_operands(s, bias_rows, keep, dev)
+    if faults is not None and dtype != torch.float32:
+        raise ValueError(f"the fault variants take float32 operands, got {dtype}")
     if plan is None:
         plan = lattice_plan(w, b, colors, frozen, clamp_value)
     check_plan(plan, w, b, colors, frozen, clamp_value)
@@ -288,10 +324,15 @@ def lattice_gibbs_sweep(
     out = torch.empty((B, H, W), dtype=dtype, device=dev)
     if B == 0 or H * W == 0:
         return out
+    variant = () if faults is None else (faults,)  # the base kernels' launch calls unchanged
     if in_place:
-        _launch_plan(s, plan, uniforms, beta, out, dev)
-        launches["lattice_gibbs_sweep"] += 1
+        _launch_plan(s, plan, uniforms, beta, out, dev, *variant)
+        name = "lattice_gibbs_sweep"
     else:
-        _launch_generic(s, w, b, uniforms, colors, frozen, clamp_value, beta, out, dev)
-        launches["lattice_gibbs_generic"] += 1
+        _launch_generic(s, w, b, uniforms, colors, frozen, clamp_value, beta, out, dev, *variant)
+        name = "lattice_gibbs_generic"
+    if variant:
+        launches_faults[name + "_faults"] += 1
+    else:
+        launches[name] += 1
     return out

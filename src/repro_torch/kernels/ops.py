@@ -29,10 +29,10 @@ MODES = ("auto", "kernel", "reference")
 # Every wrapper's launch counter: (module, attribute) for an int counter,
 # (module, attribute, key) for an entry of a dict of counters.
 _COUNTERS = (
-    (_tl, "launches"), (_df, "launches"), (_fa, "launches"),
+    (_tl, "launches"), (_tl, "launches_faults"), (_df, "launches"), (_fa, "launches"),
     *((_fa, "launches_by_dtype", k) for k in _fa.launches_by_dtype),
-    *((_lg, "launches", k) for k in _lg.launches),
-    *((_sg, "launches", k) for k in _sg.launches),
+    *((m, attr, k) for m in (_lg, _sg) for attr in ("launches", "launches_faults")
+      for k in getattr(m, attr)),
 )
 
 
@@ -72,7 +72,8 @@ def _row_beta(beta, s: torch.Tensor) -> torch.Tensor:
 
 
 def lattice_gibbs_sweep(
-    s, w, b, uniforms, colors, frozen, clamp_value, beta=None, mode: str = "auto", plan=None
+    s, w, b, uniforms, colors, frozen, clamp_value, beta=None, mode: str = "auto", plan=None,
+    bias_rows=None, keep=None,
 ) -> torch.Tensor:
     """One fused chromatic Gibbs sweep over the (B,H,W) chains of `s`.
 
@@ -80,12 +81,19 @@ def lattice_gibbs_sweep(
     () tensor or a (B,) per-row inverse temperature: row r rounds as the JAX
     call with scalar beta[r]. `plan` is `lattice_gibbs.lattice_plan` of
     these w, b and masks, built once per problem; without one the kernel's
-    wrapper builds it per call. The plain version reads the masks."""
+    wrapper builds it per call. The plain version reads the masks.
+
+    The fault variant, chosen by its operands: `bias_rows` ((B,H,W) f32,
+    the whole per-row bias b + eta) is read in place of b, and `keep`
+    ((B,H,W) bool or uint8) keeps the old spin where 0. Row r is then the
+    JAX call with b + eta_r and `colors & keep_r`; b stays the plan's."""
     beta = _row_beta(beta, s)
     if _use_kernel(s, mode):
-        return _lg.lattice_gibbs_sweep(s, w, b, uniforms, colors, frozen, clamp_value, beta, plan)
+        return _lg.lattice_gibbs_sweep(s, w, b, uniforms, colors, frozen, clamp_value, beta, plan,
+                                       bias_rows=bias_rows, keep=keep)
     return _ref.lattice_gibbs_sweep_ref(
-        s, w, b, uniforms, colors > 0.5, frozen > 0.5, clamp_value, beta
+        s, w, b if bias_rows is None else bias_rows, uniforms, colors > 0.5, frozen > 0.5,
+        clamp_value, beta, keep,
     )
 
 
@@ -97,17 +105,25 @@ def sparse_fields(s, nbr_idx, nbr_w, b, mode: str = "auto") -> torch.Tensor:
 
 
 def colored_gibbs_sweep(
-    s, nbr_idx, nbr_w, b, uniforms, masks, beta=None, mode: str = "auto", plan=None
+    s, nbr_idx, nbr_w, b, uniforms, masks, beta=None, mode: str = "auto", plan=None,
+    bias_rows=None, keep=None,
 ) -> torch.Tensor:
     """One fused chromatic Gibbs sweep over the (B,n) chains of a sparse
     graph: the JAX signature (masks as f32 {0,1}), with `beta` as in
     `lattice_gibbs_sweep`. `plan` is `sparse_gather.colour_plan` of these
     tables and masks, built once per problem; without one the kernel's
-    wrapper builds it per call. The plain version reads the masks."""
+    wrapper builds it per call. The plain version reads the masks.
+
+    The fault variant, chosen by its operands: `bias_rows` ((B,n) f32, the
+    whole per-row bias b + eta) is read in place of b, and `keep` ((B,n)
+    bool or uint8) keeps the old spin where 0: row r is the JAX call with
+    b + eta_r and masks & keep_r; b stays the plan's."""
     beta = _row_beta(beta, s)
     if _use_kernel(s, mode):
-        return _sg.colored_gibbs_sweep(s, nbr_idx, nbr_w, b, uniforms, masks, beta, plan)
-    return _ref.colored_gibbs_sweep_ref(s, nbr_idx, nbr_w, b, uniforms, masks > 0.5, beta)
+        return _sg.colored_gibbs_sweep(s, nbr_idx, nbr_w, b, uniforms, masks, beta, plan,
+                                       bias_rows=bias_rows, keep=keep)
+    return _ref.colored_gibbs_sweep_ref(s, nbr_idx, nbr_w, b if bias_rows is None else bias_rows,
+                                        uniforms, masks > 0.5, beta, keep)
 
 
 def dense_field(s_i8, j_i8, b, scale, mode: str = "auto") -> torch.Tensor:
@@ -119,15 +135,21 @@ def dense_field(s_i8, j_i8, b, scale, mode: str = "auto") -> torch.Tensor:
 
 def tau_leap_step(
     s, j_i8, b, scale, uniforms, dt, beta: Optional[torch.Tensor] = None,
-    mode: str = "auto",
+    mode: str = "auto", bias_rows=None,
 ) -> torch.Tensor:
     """One fused dense tau-leap step over the B rows (chains) of `s`.
 
     The JAX signature, plus `beta`: an optional (B,) per-row inverse
     temperature, folded in as f32(beta*scale) and f32(beta*b) — row r then
     rounds exactly as the JAX call with scale=beta[r]*scale and
-    b=beta[r]*b. `dt` may be a float or a () tensor."""
+    b=beta[r]*b. `dt` may be a float or a () tensor.
+
+    The fault variant, chosen by its operand: `bias_rows` ((B,N) f32, the
+    whole per-row bias b + eta) is read in place of b, as f32(beta_r *
+    bias_rows[r]): row r is the JAX call with b = beta_r * (b + eta_r)."""
     dt = torch.as_tensor(dt, dtype=torch.float32, device=s.device)
+    if bias_rows is not None:
+        b = bias_rows
     if _use_kernel(s, mode):
         if beta is None:
             beta = torch.ones((s.shape[0],), dtype=torch.float32, device=s.device)

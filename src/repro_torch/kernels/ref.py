@@ -42,6 +42,7 @@ def lattice_gibbs_sweep_ref(
     frozen: torch.Tensor,
     clamp_value: torch.Tensor,
     beta: Optional[torch.Tensor] = None,
+    keep: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One full chromatic Gibbs sweep on the king's lattice.
 
@@ -49,13 +50,20 @@ def lattice_gibbs_sweep_ref(
     frozen: (H,W) bool; clamp_value: (H,W) ±1 (applied where frozen);
     beta: (B,) per-row inverse temperature (None -> 1.0). Row r rounds as
     the JAX B = 1 call with scalar beta[r]: sigma(-2*(beta*h)). Every
-    phase's fields come from the state before that phase."""
+    phase's fields come from the state before that phase.
+
+    The fault variant: b may be a (B,H,W) per-row bias (b + eta), added
+    last as b is; `keep` ((B,H,W) bool or {0,1}, optional) keeps the old
+    spin where 0 — row r is then the JAX call with b + eta_r and
+    `colors & keep_r`."""
     beta = broadcast_rows(beta, s)
     for c in range(color_masks.shape[0]):
         h = lattice_fields_ref(s, w, b)
         p_up = torch.sigmoid(-2.0 * (beta * h))
         proposal = torch.where(uniforms[c] < p_up, 1.0, -1.0).to(s.dtype)
         upd = color_masks[c] & ~frozen
+        if keep is not None:
+            upd = upd & keep.bool()
         s = torch.where(upd, proposal, s)
     return torch.where(frozen, clamp_value.to(s.dtype), s)
 
@@ -80,19 +88,25 @@ def colored_gibbs_sweep_ref(
     uniforms: torch.Tensor,
     color_masks: torch.Tensor,
     beta: Optional[torch.Tensor] = None,
+    keep: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One full chromatic Gibbs sweep on a sparse graph.
 
     s: (B,n) ±1; uniforms: (C,B,n); color_masks: (C,n) bool; beta: (B,)
     per-row inverse temperature (None -> 1.0), sigma(-2*(beta*h)) as in
     the JAX B = 1 call. Every phase's fields come from the state before
-    that phase."""
+    that phase.
+
+    The fault variant: b may be a (B,n) per-row bias (b + eta), added last
+    as b is; `keep` ((B,n) bool or {0,1}, optional) keeps the old spin
+    where 0 — row r is then the JAX call with b + eta_r and masks & keep_r."""
     beta = broadcast_rows(beta, s)
     for c in range(color_masks.shape[0]):
         h = sparse_fields_ref(s, nbr_idx, nbr_w, b)
         p_up = torch.sigmoid(-2.0 * (beta * h))
         proposal = torch.where(uniforms[c] < p_up, 1.0, -1.0).to(s.dtype)
-        s = torch.where(color_masks[c], proposal, s)
+        upd = color_masks[c] if keep is None else color_masks[c] & keep.bool()
+        s = torch.where(upd, proposal, s)
     return s
 
 

@@ -49,6 +49,14 @@ What the designs do about it:
   the second buffer and are copied back after a barrier, so every phase
   sees the state before it for any masks. The plan records the tables and
   masks it was built from, and the kernel takes it only with those.
+
+The sweep's fault variant, chosen by its operands and counted apart in
+`launches_faults`: a (B, n) per-row bias, the whole b + eta of
+field noise, read with the uniforms in place of the plan's b_i, and a
+(B, n) keep mask (update dropout): where 0 a phase writes the old spin, so
+the site keeps it. Row r is the JAX call with b + eta_r and masks & keep_r;
+the plan stays the one of the static b. At (256, 16384) it reads 16.8 MB
+of bias and 4.2 MB of keep more: about 72 MB, bound 21.5 µs.
 """
 from __future__ import annotations
 
@@ -58,11 +66,13 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import MAX_SMEM_BYTES, check_cuda, check_tensor
+from repro_torch.kernels._checks import (MAX_SMEM_BYTES, check_cuda, check_fault_operands,
+                                         check_tensor, fault_ptr as _ptr)
 
 # chip_smoke.py resets and reads these; "sparse_fields" counts the staged
 # kernel, "sparse_fields_global" the one for rows too long to stage
 launches = {"sparse_fields": 0, "sparse_fields_global": 0, "colored_gibbs_sweep": 0}
+launches_faults = {"colored_gibbs_sweep_faults": 0}  # the sweep's fault variant
 
 # Rows a fields block stages, at most, and the threads of a block of
 # either kernel (chip_ablate.py times 1, 2 and 3 rows and 256, 512 and
@@ -194,13 +204,19 @@ def _launch_fields(s, nbr_idx, nbr_w, b, out, rows: int, threads: int, device) -
     _build.check("sparse_fields", code)
 
 
-def _launch_sweep(s, plan: ColourPlan, uniforms, beta, out, threads: int, device) -> None:
+def _launch_sweep(s, plan: ColourPlan, uniforms, beta, out, threads: int, device,
+                  faults=None) -> None:
+    """The sweep kernel; `faults` = (bias_rows, keep), either None, takes
+    the fault variant."""
     B, n = s.shape
-    code = _build.launcher("colored_gibbs")(
-        s.data_ptr(), plan.offsets.data_ptr(), plan.idx.data_ptr(), plan.w.data_ptr(),
-        uniforms.data_ptr(), beta.data_ptr(), out.data_ptr(), B, n, plan.D, plan.idx.shape[1],
-        len(plan.counts), threads, torch.cuda.current_stream(device).cuda_stream,
-    )
+    args = (s.data_ptr(), plan.offsets.data_ptr(), plan.idx.data_ptr(), plan.w.data_ptr(),
+            uniforms.data_ptr(), beta.data_ptr(), out.data_ptr())
+    dims = (B, n, plan.D, plan.idx.shape[1], len(plan.counts), threads,
+            torch.cuda.current_stream(device).cuda_stream)
+    if faults is None:
+        code = _build.launcher("colored_gibbs")(*args, *dims)
+    else:
+        code = _build.launcher("colored_gibbs_faults")(*args, *map(_ptr, faults), *dims)
     _build.check("colored_gibbs_sweep", code)
 
 
@@ -230,17 +246,22 @@ def colored_gibbs_sweep(
     masks: torch.Tensor,
     beta: torch.Tensor,
     plan: ColourPlan | None = None,
+    bias_rows: torch.Tensor | None = None,
+    keep: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel: the operands of `sparse_fields` plus (C,B,n)
     f32 uniforms, (C,n) f32 {0,1} colour masks and (B,) f32 per-row beta
     -> new (B,n) f32 spins in a fresh tensor. `plan` is `colour_plan` of
     these very tables and masks (`check_plan`); without one the call
-    builds it (and waits for the device once)."""
+    builds it (and waits for the device once). `bias_rows` ((B,n) f32)
+    and `keep` ((B,n) bool or uint8), either optional, take the fault
+    variant (module docstring)."""
     dev, B, n, D = _check_tables(s, nbr_idx, nbr_w, b)
     C = masks.shape[0] if masks.ndim == 2 else -1
     check_tensor("masks", masks, torch.float32, (C, n), dev)
     check_tensor("uniforms", uniforms, torch.float32, (C, B, n), dev)
     check_tensor("beta", beta, torch.float32, (B,), dev)
+    faults = check_fault_operands(s, bias_rows, keep, dev)
     if 2 * n > MAX_SMEM_BYTES:
         raise ValueError(
             f"n = {n} sites need {2 * n} bytes of shared memory per block (two "
@@ -252,6 +273,10 @@ def colored_gibbs_sweep(
     out = torch.empty((B, n), dtype=torch.float32, device=dev)
     if B == 0 or n == 0:
         return out
-    _launch_sweep(s, plan, uniforms, beta, out, _block_threads(n), dev)
-    launches["colored_gibbs_sweep"] += 1
+    variant = () if faults is None else (faults,)  # the base kernel's launch call unchanged
+    _launch_sweep(s, plan, uniforms, beta, out, _block_threads(n), dev, *variant)
+    if variant:
+        launches_faults["colored_gibbs_sweep_faults"] += 1
+    else:
+        launches["colored_gibbs_sweep"] += 1
     return out

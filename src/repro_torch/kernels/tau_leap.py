@@ -30,6 +30,16 @@ compare, flip) runs on the summed int32 tile with coalesced reads of s and
 u, issued before the mainloop, and coalesced writes of the new s. One C
 launcher issues both launches on the current stream; `launches` counts
 one per call.
+
+The fault variant (field noise): given a (B,N) bias, the whole per-row
+b + eta, the epilogue reads bias[r][c] in place of b[c], each with the
+coalesced loads of s and u before the mainloop, and forms f32(beta_r *
+bias[r][c]) as the base kernel forms f32(beta_r * b_c): row r rounds as
+the JAX B = 1 call with b = beta_r * (b + eta_r). It is the same kernel
+with a template flag, its own C entry point, counted in `launches_faults`.
+It moves 2.1 MB more at (256, 2048): about 12.6 MB, bound 3.8 µs. Stuck
+and dropped sites need no variant: the caller warps their uniforms to 1.0
+(a flip needs u < p <= 1).
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import check_cuda, check_spins, check_tensor
 
 launches = 0  # kernel launches in this process; chip_smoke.py resets and reads it
+launches_faults = 0  # launches of the per-row bias variant
 
 SPIN_ROW_ALIGN = 16  # bytes: the packed int8 spins' row stride is a multiple of this
 
@@ -50,9 +61,10 @@ def padded_cols(n: int) -> int:
 
 def _launch(s, s8, j_i8, b, scale, beta, uniforms, dt, out, device) -> None:
     """Both launches of one step (pack the spins into s8, then the fused
-    product and flip) on the device's current stream; raise on a CUDA error."""
+    product and flip) on the device's current stream; raise on a CUDA error.
+    A (B,N) b takes the per-row bias variant."""
     B, N = s.shape
-    code = _build.launcher("tau_leap")(
+    code = _build.launcher("tau_leap" if b.ndim == 1 else "tau_leap_faults")(
         s.data_ptr(), s8.data_ptr(), j_i8.data_ptr(), b.data_ptr(), scale.data_ptr(),
         beta.data_ptr(), uniforms.data_ptr(), dt.data_ptr(), out.data_ptr(), B, N,
         s8.shape[1], torch.cuda.current_stream(device).cuda_stream,
@@ -72,13 +84,14 @@ def tau_leap_step(
     """Launch the CUDA kernel: (B,N) f32 ±1 spins, (N,N) int8 codes, (N,)
     f32 bias, () f32 scale, (B,N) f32 uniforms, () f32 dt and (B,) f32
     per-row beta, all contiguous on one sm_90 device -> new (B,N) f32 spins
-    in a fresh tensor (never aliasing `s`)."""
-    global launches
+    in a fresh tensor (never aliasing `s`). A (B,N) bias, one row per chain,
+    takes the fault variant (`launches_faults`)."""
+    global launches, launches_faults
     dev = check_cuda(s)
     B, N = check_spins("s", s)
     check_tensor("s", s, torch.float32, (B, N), dev)
     check_tensor("j_i8", j_i8, torch.int8, (N, N), dev)
-    check_tensor("b", b, torch.float32, (N,), dev)
+    check_tensor("b", b, torch.float32, (B, N) if b.ndim == 2 else (N,), dev)
     check_tensor("scale", scale, torch.float32, (), dev)
     check_tensor("uniforms", uniforms, torch.float32, (B, N), dev)
     check_tensor("dt", dt, torch.float32, (), dev)
@@ -89,5 +102,8 @@ def tau_leap_step(
     # the kernel writes every byte, padding included (torch.empty is 16-byte aligned)
     s8 = torch.empty((B, padded_cols(N)), dtype=torch.int8, device=dev)
     _launch(s, s8, j_i8, b, scale, beta, uniforms, dt, out, dev)
-    launches += 1
+    if b.ndim == 2:
+        launches_faults += 1
+    else:
+        launches += 1
     return out

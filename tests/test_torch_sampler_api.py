@@ -15,6 +15,7 @@ import torch
 from repro.core import problems as jproblems
 from repro.core import sampler_api as jsa
 from repro_torch.core import ising, problems, sampler_api
+from repro_torch.core.faults import FaultModel
 from repro_torch.core.sampler_api import (
     TauLeap,
     constant,
@@ -280,8 +281,10 @@ def test_registry_and_error_paths():
     for name in ("random_scan_gibbs", "ctmc"):
         res = run(prob, name, 0, n_steps=10)
         assert res.s.shape == (8,) and float(res.t) > 0
-        with pytest.raises(NotImplementedError, match="faults"):
-            run(prob, name, 0, n_steps=4, faults=object())
+        # a fault model with every fault off runs the fault-free program
+        noop = run(prob, name, 0, n_steps=4, faults=FaultModel())
+        for a, b in zip(noop[:5], run(prob, name, 0, n_steps=4)[:5]):
+            assert torch.equal(a, b)
     # the Gibbs sweeps are ported, for their own problem kinds
     for name, kind in (("chromatic_gibbs", "lattice"), ("colored_gibbs", "sparse")):
         with pytest.raises(ValueError, match=f"supported problem kinds: \\('{kind}',\\)"):
@@ -305,12 +308,13 @@ def test_registry_and_error_paths():
                         jproblems.random_3regular_maxcut(8, seed=0)):
         with pytest.raises(TypeError, match="unknown problem type"):
             run(jax_problem, TauLeap(), 0, n_steps=4)
-    with pytest.raises(NotImplementedError, match="faults"):
+    with pytest.raises(TypeError, match="FaultModel"):
         run(prob, TauLeap(), 0, n_steps=4, faults=object())
     diag = run(prob, TauLeap(), 0, n_steps=4, diagnostics=True).diagnostics
     assert isinstance(diag, sampler_api.RunDiagnostics) and int(diag.n_steps) == 4
-    with pytest.raises(NotImplementedError, match="faults"):
-        run(prob, TauLeap(), 0, n_steps=4, diagnostics=True, faults=object())
+    faulted = run(prob, TauLeap(), 0, n_steps=4, diagnostics=True,
+                  faults=FaultModel(dropout=1.0)).diagnostics
+    assert int(faulted.flips.sum()) == 0  # every update dropped: nothing flips
     with pytest.raises(TypeError, match="seed"):
         run(prob, TauLeap(), jax.random.key(0), n_steps=4)
     with pytest.raises(ValueError, match="n_chains"):

@@ -5,8 +5,8 @@ element for element to the JAX zoo's, the same instance id, reference
 energy and kind, and the same meta (the planted factorization's energy,
 a float32 sum, within 4 ulp); the numpy reference machinery
 (`exact_ground_energy`, `greedy_descent_dense`, `estimate_reference`) gives
-the JAX numbers. `boltzmann_ml` is registered and raises until the
-applications slice."""
+the JAX numbers. `boltzmann_ml` is built (its construction from the JAX
+zoo's batch is held against JAX in tests/test_torch_apps.py)."""
 import numpy as np
 import pytest
 import torch
@@ -70,8 +70,9 @@ def test_registry_and_boltzmann_ml():
         problems.get_problem("tsp", 8)
     with pytest.raises(KeyError, match="unknown zoo problem"):
         problems.problem_kind("tsp")
-    with pytest.raises(NotImplementedError, match="applications slice"):
-        problems.get_problem("boltzmann_ml", 8, 0, device=CPU)
+    ml = problems.get_problem("boltzmann_ml", 8, 0, device=CPU)
+    assert (ml.name, ml.kind, ml.instance, ml.n) == ("boltzmann_ml", "lattice",
+                                                     "boltzmann_ml-L8-s0", 64)
     with pytest.raises(ValueError, match="kind"):
         problems.register_problem("x", kind="hypergraph")
     with pytest.raises(ValueError, match="16x16"):
