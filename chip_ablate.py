@@ -7,6 +7,14 @@
     python3 chip_ablate.py lattice    # only the lattice sweep
     python3 chip_ablate.py ctmc_tree  # only the sparse CTMC's tree: two repairs, a rebuild
     python3 chip_ablate.py faults     # only the fault variants against their base kernels
+    python3 chip_ablate.py serve      # only the serving calls: where their time goes
+
+serve: where a serving call's time goes at full width, for phi4-mini-3p8b
+and olmoe-1b-7b: the host wall of a prefill (one 12-token prompt) and of a
+decode step (4 slots, position 64, a 128-row cache), median of 20 after 3;
+its device time, the kernels' busy time that torch.profiler records over 5
+calls; the idle share 1 - device / wall; the launches and aten ops a call;
+the top kernels by device time and the top ops by host time.
 
 int8: builds variants of dense_field (src/repro_torch/kernels/csrc/dense_field.cu
 over int8_field.cuh), each with one thing compiled out or changed, and
@@ -714,6 +722,10 @@ def ablate_lattice(torch, np, chip_smoke, dev) -> None:
 
 # (n, events): the ctmc_sparse shape at two lengths, then wider graphs, where
 # a rebuild's O(n) pass grows and the repair's O(log n) paths barely do
+# the serving calls: full width, random weights from seed 0; a prefill of one
+# 12-token prompt, a decode step of 4 slots at position 64 of a 128-row cache
+SERVE_ARCHS = ("phi4-mini-3p8b", "olmoe-1b-7b")
+SERVE_PROMPT, SERVE_SLOTS, SERVE_POS, SERVE_MAX_LEN, SERVE_CALLS = 12, 4, 64, 128, 5
 CTMC_TREE_CASES = ((16384, 5000), (16384, 20000), (65536, 2000), (262144, 2000))
 CTMC_TREE_SIZES = sorted({n for n, _ in CTMC_TREE_CASES})
 
@@ -849,6 +861,65 @@ def ablate_faults(torch, np, chip_smoke, dev) -> None:
     print(json.dumps(out), flush=True)
 
 
+def ablate_serve(torch, np, chip_smoke, dev) -> None:
+    """Where a serving call's time goes at full width (module docstring)."""
+    import statistics
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch)
+        params = model.init_params(cfg, 0, dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        prompt = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT), generator=gen, device=dev)
+        tokens = torch.randint(0, cfg.vocab_size, (SERVE_SLOTS,), generator=gen, device=dev)
+        caches = model.init_caches(cfg, SERVE_SLOTS, SERVE_MAX_LEN, dev)
+        calls = {"prefill": lambda: params.prefill(
+                     prompt, model.init_caches(cfg, 1, SERVE_MAX_LEN, dev)),
+                 "decode": lambda: params.decode_step(tokens, SERVE_POS, caches)}
+        for name, fn in calls.items():
+            walls = []
+            for _ in range(23):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            # device time from the profiler's kernels: a call's ~2000-2800
+            # launches overflow the launch queue, so a sleep kernel cannot
+            # hold the device while the host queues them
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(SERVE_CALLS):
+                    fn()
+                torch.cuda.synchronize()
+            avgs = prof.key_averages()
+            kernels = [a for a in avgs if a.device_type == DeviceType.CUDA]
+            host_ops = [a for a in avgs if a.device_type == DeviceType.CPU and a.key.startswith("aten::")]
+            wall = statistics.median(walls[3:])
+            device_ms = sum(a.self_device_time_total for a in kernels) / SERVE_CALLS / 1e3
+            chip_smoke.emit({
+                "part": "serve", "arch": arch, "call": name,
+                "shape": {"prefill": [1, SERVE_PROMPT], "decode": [SERVE_SLOTS, SERVE_POS]}[name],
+                "wall_ms": wall, "wall_ms_all": walls, "device_ms": device_ms,
+                "idle_share": 1.0 - device_ms / wall,
+                "launches": sum(a.count for a in kernels) / SERVE_CALLS,
+                "aten_ops": sum(a.count for a in host_ops) / SERVE_CALLS,
+                "top_kernels_us": [[a.key[:90], a.self_device_time_total / SERVE_CALLS,
+                                    a.count / SERVE_CALLS]
+                                   for a in sorted(kernels, key=lambda a: a.self_device_time_total,
+                                                   reverse=True)[:12]],
+                "top_host_ops_us": [[a.key, a.self_cpu_time_total / SERVE_CALLS,
+                                     a.count / SERVE_CALLS]
+                                    for a in sorted(host_ops, key=lambda a: a.self_cpu_time_total,
+                                                    reverse=True)[:12]]})
+        del params, caches, calls
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -856,7 +927,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_ablate.py: no CUDA device", file=sys.stderr)
         return 2
-    known = ["int8", "sparse", "lattice", "ctmc_tree", "faults"]
+    known = ["int8", "sparse", "lattice", "ctmc_tree", "faults", "serve"]
     parts = sys.argv[1:] or known
     if not set(parts) <= set(known):
         print(f"chip_ablate.py: unknown parts {parts}; use {', '.join(known[:-1])} and/or "
@@ -876,6 +947,8 @@ def main() -> int:
         ablate_ctmc_tree(torch, np, chip_smoke, dev)
     if "faults" in parts:
         ablate_faults(torch, np, chip_smoke, dev)
+    if "serve" in parts:
+        ablate_serve(torch, np, chip_smoke, dev)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     return 0

@@ -190,6 +190,36 @@ exits nonzero without printing the final result line:
                 bias on every row and dropout 0.1, beside its plain version
                 and its bound.
 
+  8. serve    — the serving stack at full width, random weights from seed 0:
+                phi4-mini-3p8b (8 requests), gemma-2b and olmoe-1b-7b (4
+                each) through repro_torch.launch.serve.main with --no-reduced
+                and launch/serve.py's other defaults (4 slots, 12 new tokens,
+                max_len 128, temperature 0.7): exactly n_layers bf16 flash
+                launches per request (the prefill attention; decode launches
+                none), every completion 12 tokens, every logit finite; then a
+                greedy run with the kernel held against one with the plain
+                attention on the same weights and prompts: each request's
+                last-position prefill logits within SERVE_LOGITS_RTOL
+                (relative L2), the tokens equal wherever the plain top-1
+                minus top-2 margin exceeds SERVE_MARGIN times the logits
+                row's RMS (both fixed by the calibrations below; the other
+                positions counted), some token held on the dense configs;
+                the kernel at each model's serving prefill shape
+                (heads, 128, 128, d) against its plain version as check_flash
+                holds bf16; weight bytes, peak memory, prefill ms per request,
+                decode ms per step, tokens/s, the decode step's bound (the
+                bytes it reads over HBM); the flash kernel at (24, 128, 128)
+                beside its plain version and SDPA.
+
+    python3 chip_smoke.py --card-serve-gates  # (~40 s on the card) and
+    python3 chip_smoke.py --cpu-serve-gates   # (no card; several minutes)
+                the serve gates' calibration: each serve config in bf16, at
+                full width on the card, at full depth and narrowed on the CPU,
+                its greedy run with the plain attention held against the same
+                with every attention output moved by up to one bf16 ulp, with
+                a thousandth of them moved by one ulp, and with the heads'
+                outputs rolled by one (a wrong head map).
+
 The last two lines are the kernels summary (the six kernels and the four
 fault variants, with the script's elapsed seconds, the build included) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -534,6 +564,41 @@ FAULT_STEPS, FAULT_SAMPLE_EVERY = 200, 50
 TEMPERING = dict(betas=(0.3, 0.6, 1.0, 1.8), n_rounds=8, steps_per_round=8)
 CD_STEPS = 3
 DECISION_TARGETS = ((-300.0, 1000.0), (300.0, 1000.0))  # tests/test_ml_and_decision.py's
+
+# -- the serving stack (slice 9) --------------------------------------------------
+
+# (arch, requests): served at full width through launch.serve.main with the JAX
+# entry point's other defaults, then greedily with the kernel and with the plain
+# attention on the same weights and prompts
+SERVE_MODELS = (("phi4-mini-3p8b", 8), ("gemma-2b", 4), ("olmoe-1b-7b", 4))
+SERVE_SLOTS, SERVE_MAX_NEW, SERVE_MAX_LEN = 4, 12, 128
+SERVE_ARGS = ("--no-reduced", "--slots", str(SERVE_SLOTS), "--max-new", str(SERVE_MAX_NEW),
+              "--max-len", str(SERVE_MAX_LEN), "--temperature", "0.7")
+# Relative L2 error of each request's last-position prefill logits, kernel
+# against plain attention, by family: twice the largest `--cpu-serve-gates`
+# saw with every attention output moved by up to one bf16 ulp (the kernel's
+# own contract), and far below what a wrong head map gives there. At full width
+# `--card-serve-gates` sees 0.025 / 0.022 / 0.084 (phi4-mini / gemma-2b /
+# olmoe-1b-7b) within one ulp and 0.81-1.46 for a wrong head map.
+SERVE_LOGITS_RTOL = {"dense": 6e-2, "moe": 2.5e-1}
+# A greedy token is held to the plain run's where the plain top-1 minus top-2
+# margin exceeds SERVE_MARGIN times that logits row's RMS, by family: twice the
+# largest max |deviation| / RMS that `--card-serve-gates` (full width) or
+# `--cpu-serve-gates` (narrowed) saw with the attention outputs moved within one
+# bf16 ulp, every one or a thousandth of them (0.162 on phi4-mini on the card,
+# 0.880 on the narrowed olmoe-1b-7b; a flip needs two deviations to sum past the
+# margin). Fixed here, not taken from the run under test. The dense configs must
+# hold some token; on olmoe a flipped expert moves the logits so far that hardly
+# any position clears its margin, so there the gate asserts only that no token
+# flips above it.
+SERVE_MARGIN = {"dense": 0.33, "moe": 1.8}
+# the calibration's configs: full depth and head dims, the grouping kept,
+# narrowed to run on the CPU
+SERVE_NARROW = {
+    "phi4-mini-3p8b": dict(d_model=384, n_heads=3, n_kv_heads=1, d_ff=1024, vocab_size=8192),
+    "gemma-2b": dict(d_model=512, n_heads=2, n_kv_heads=1, d_ff=2048, vocab_size=8192),
+    "olmoe-1b-7b": dict(d_model=256, n_heads=2, n_kv_heads=2, d_ff=128, vocab_size=8192),
+}
 
 
 def _fault_inputs(torch, np, rng, shape, dev):
@@ -915,6 +980,225 @@ def apps_phase(torch, dev, sk, reset, read, smi) -> None:
           "nvidia_smi": smi})
 
 
+def serve_prompts(np, vocab_size: int, n: int) -> list:
+    """The prompts launch.serve.main submits: 4 to 15 tokens from seed 0."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab_size, size=int(rng.integers(4, 16))).astype(np.int32)
+            for _ in range(n)]
+
+
+def greedy_runs(np, cfg, params, n_requests, modes, reset, read) -> dict:
+    """Greedy runs of launch.serve.main's prompts, one per prefill attention
+    mode, keeping every sampled logits row: {mode: (tokens by uid, logits
+    rows by uid, launches)}."""
+    import torch
+    from repro_torch.serve.engine import Engine, Request
+
+    runs = {}
+    for mode in modes:
+        eng = Engine(cfg, params, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, seed=0,
+                     device=params.device, mode=mode, keep_logits=True)
+        for uid, prompt in enumerate(serve_prompts(np, cfg.vocab_size, n_requests)):
+            eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=SERVE_MAX_NEW))
+        reset()
+        done = eng.run()
+        if params.device.type == "cuda":
+            torch.cuda.synchronize()
+        runs[mode] = ({c.uid: c.tokens for c in done}, eng.sampled_logits, read())
+    return runs
+
+
+def serve_gate(kernel, plain, margin: float) -> dict:
+    """Hold a greedy run against the plain one: each request's last-position
+    prefill logits by relative L2 error; at each position whose context is
+    the same in both runs (up to each request's first differing token), the
+    token is held where the plain run's top-1 minus top-2 margin exceeds
+    `margin` times the plain row's RMS (a fixed SERVE_MARGIN, not taken from
+    the run under test), and counted a near tie elsewhere. Returns the
+    counts; the caller gates on `tokens_flipped` and `tokens_held`."""
+    (tok_k, rows_k, _), (tok_p, rows_p, _) = kernel, plain
+    rel = {uid: float((rows_k[uid][0] - rows_p[uid][0]).norm() / rows_p[uid][0].norm())
+           for uid in rows_p}
+    same = {uid: next((j + 1 for j, (a, b) in enumerate(zip(tok_k[uid], tok_p[uid])) if a != b),
+                      len(tok_p[uid])) for uid in tok_p}
+    held, near_ties, flipped, deviation, rel_deviation = 0, 0, [], 0.0, 0.0
+    for uid in rows_p:
+        for j in range(same[uid]):
+            row_k, row_p = rows_k[uid][j], rows_p[uid][j]
+            rms = float(row_p.square().mean().sqrt())
+            dev = float((row_k - row_p).abs().max())
+            deviation, rel_deviation = max(deviation, dev), max(rel_deviation, dev / rms)
+            top2 = row_p.topk(2).values
+            if float(top2[0] - top2[1]) <= margin * rms:
+                near_ties += 1
+            elif tok_k[uid][j] != tok_p[uid][j]:
+                flipped.append([uid, j, tok_k[uid][j], tok_p[uid][j],
+                                float(top2[0] - top2[1]) / rms])
+            else:
+                held += 1
+    return {"prefill_logits_rel_l2": rel, "max_rel_l2": max(rel.values()),
+            "max_logit_deviation": deviation, "max_rel_deviation": rel_deviation,
+            "margin": margin, "tokens_held": held, "tokens_flipped": flipped,
+            "near_tie_positions": near_ties,
+            "positions_after_a_difference": sum(len(t) - same[u] for u, t in tok_p.items()),
+            "requests_identical": sum(tok_k[u] == tok_p[u] for u in tok_p)}
+
+
+def serve_phase(torch, np, dev, reset, read, smi, err) -> dict:
+    """The serving stack at full width (module docstring, phase `serve`).
+    Returns the flash kernel's launches on the served runs and its times at
+    phi4-mini's serving prefill shape; folds its checks into `err`."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    zero = dict.fromkeys(read(), 0)
+    by_arch, launches_total = {}, 0
+    for arch, n_requests in SERVE_MODELS:
+        cfg = get_config(arch)
+        hd, kv_bytes = cfg.resolved_head_dim, 2  # bf16 KV cache
+        want = dict(zero, flash_attention=cfg.n_layers * n_requests,
+                    flash_attention_bf16=cfg.n_layers * n_requests)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        out = serve.main(["--arch", arch, "--requests", str(n_requests), *SERVE_ARGS])
+        torch.cuda.synchronize()
+        launches = read()
+        peak = torch.cuda.max_memory_allocated()
+        lengths = sorted(len(c["tokens"]) for c in out["completions"])
+        if launches != want or lengths != [SERVE_MAX_NEW] * n_requests or out["nonfinite_logits"]:
+            raise AssertionError(f"serve {arch}: launches {launches} (expected {want}), "
+                                 f"completion lengths {lengths}, non-finite logits "
+                                 f"{out['nonfinite_logits']}")
+        launches_total += launches["flash_attention"]
+
+        # the decode step reads every weight but the embedding table (only
+        # its B rows, unless it is the tied head) and the whole KV cache
+        cache_bytes = 2 * cfg.n_layers * SERVE_SLOTS * SERVE_MAX_LEN * cfg.n_kv_heads * hd * kv_bytes
+        embed_bytes = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model * 2
+        decode_bytes = out["weight_bytes"] - embed_bytes + cache_bytes
+
+        # greedy, with the kernel and with the plain attention, same weights and prompts
+        params = model.init_params(cfg, 0, dev)
+        runs = greedy_runs(np, cfg, params, n_requests, ("kernel", "reference"), reset, read)
+        del params
+        if runs["kernel"][2] != want or runs["reference"][2] != zero:
+            raise AssertionError(f"serve {arch} greedy: launches {runs['kernel'][2]} with the "
+                                 f"kernel, {runs['reference'][2]} plain")
+        tol, margin = SERVE_LOGITS_RTOL[cfg.family], SERVE_MARGIN[cfg.family]
+        gate = serve_gate(runs["kernel"], runs["reference"], margin)
+        del runs
+        torch.cuda.empty_cache()
+        if not gate["max_rel_l2"] <= tol:
+            raise AssertionError(f"serve {arch}: prefill logits rel L2 {gate['max_rel_l2']} > {tol}")
+        if gate["tokens_flipped"] or (cfg.family == "dense" and not gate["tokens_held"]):
+            raise AssertionError(f"serve {arch}: greedy tokens [uid, j, kernel, plain, margin/RMS] "
+                                 f"differing where the plain margin exceeds {margin} RMS: "
+                                 f"{gate['tokens_flipped']}; {gate['tokens_held']} held")
+
+        # the kernel at this model's serving prefill shape: one prompt, padded to 128 rows
+        q, k, v = (0.5 * torch.randn((cfg.n_heads, 128, hd), device=dev, dtype=torch.bfloat16)
+                   for _ in range(3))
+        e, ulps = check_attention(torch, ops, f"serve {arch}", flash_attention.flash_attention(
+            q, k, v, True), q, k, v, True)
+        err["flash_attention"] = max(err["flash_attention"], e)
+        by_arch[arch] = {
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+            "head_dim": hd, "vocab": cfg.vocab_size, "requests": n_requests,
+            "weight_bytes": out["weight_bytes"], "max_memory_allocated": peak,
+            "launches": {k_: c for k_, c in launches.items() if c},
+            "prefill_ms_median": statistics.median(out["prefill_ms"]),
+            "prefill_ms": out["prefill_ms"], "decode_ms_median": out["decode_ms_median"],
+            "decode_steps": len(out["decode_ms"]), "tokens": out["tokens"],
+            "wall_s": out["wall_s"], "tokens_per_s": out["tokens_per_s"],
+            "weight_read_bound_ms": out["weight_bytes"] / HBM_BYTES_PER_S * 1e3,
+            "decode_bound_ms": decode_bytes / HBM_BYTES_PER_S * 1e3, "decode_bytes": decode_bytes,
+            "vs_plain": dict(gate, tol=tol), "flash_check": {
+                "shape": [cfg.n_heads, 128, 128, hd], "max_abs_err": e, "max_bf16_ulps": ulps}}
+        emit({"phase": "serve", "arch": arch, **by_arch[arch], "nvidia_smi": smi})
+
+    # flash_attention at phi4-mini's serving prefill shape (24, 128, 128),
+    # bf16 causal, beside its plain version and SDPA; bound as in `timing`
+    hq, S, d = 24, 128, 128
+    q, k, v = (0.5 * torch.randn((hq, S, d), device=dev, dtype=torch.bfloat16) for _ in range(3))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timing = {"ms": time_ms(torch, lambda: flash_attention.flash_attention(q, k, v, True)),
+              "plain_ms": time_ms(torch, lambda: ops.flash_attention(q, k, v, True,
+                                                                     mode="reference")),
+              "library_ms": time_ms(torch, lambda: sdpa(q[None], k[None], v[None],
+                                                        is_causal=True))}
+    timing["bound_ms"], timing["bound_by"] = bound(4 * hq * S * d * 2, 4.0 * d * hq * S * (S + 1) / 2,
+                                                   BF16_OPS_PER_S)
+    emit({"phase": "serve_flash_timing", "shape": [hq, S, d], "dtype": "bfloat16", "causal": True,
+          **timing, "nvidia_smi": smi})
+    return {"launches": launches_total, "shape": [hq, S, d], **timing}
+
+
+def serve_gates(device: str) -> int:
+    """The serve gates' calibration: each SERVE_MODELS config in bf16, its
+    greedy run with the plain attention held against three emulations of
+    it: every output moved by up to one bf16 ulp of the f32 result (what
+    the kernel's contract allows), a thousandth of the outputs moved by one
+    ulp, and the heads' outputs rolled by one (a wrong head map). On the
+    card at full width; on the CPU at full depth, narrowed (SERVE_NARROW)."""
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models import model
+
+    dev = torch.device(device)
+    plain = ref.flash_attention_ref
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def ulp_of(o):
+        return 2.0 ** (torch.floor(torch.log2(o.abs().clamp_min(1e-30))) - 7)
+
+    def within_an_ulp(q, k, v, causal=True):
+        o = plain(q.float(), k.float(), v.float(), causal)
+        u = torch.rand(o.shape, generator=gen, device=dev)
+        return (o + (2 * u - 1) * ulp_of(o)).to(q.dtype)
+
+    def a_thousandth(q, k, v, causal=True):
+        o = plain(q.float(), k.float(), v.float(), causal)
+        moved = torch.rand(o.shape, generator=gen, device=dev) < 1e-3
+        return torch.where(moved, o + ulp_of(o), o).to(q.dtype)
+
+    def heads_rolled(q, k, v, causal=True):
+        return plain(q, k, v, causal).roll(1, dims=0)
+
+    reset, read = counters()
+    for arch, n_requests in SERVE_MODELS:
+        cfg = get_config(arch)
+        if dev.type == "cpu":
+            narrow = dict(SERVE_NARROW[arch])
+            if cfg.moe:
+                narrow["moe"] = dataclasses.replace(cfg.moe, d_expert=narrow["d_ff"])
+            cfg = dataclasses.replace(cfg, **narrow)
+        params = model.init_params(cfg, 0, device=dev)
+        base = greedy_runs(np, cfg, params, n_requests, ["reference"], reset, read)
+        out = {}
+        for name, fn in (("within_one_ulp", within_an_ulp), ("a_thousandth", a_thousandth),
+                         ("heads_rolled", heads_rolled)):
+            with mock.patch.object(ref, "flash_attention_ref", fn):
+                emulated = greedy_runs(np, cfg, params, n_requests, ["reference"], reset, read)
+            gate = serve_gate(emulated["reference"], base["reference"], SERVE_MARGIN[cfg.family])
+            out[name] = dict(gate, tokens_flipped=len(gate["tokens_flipped"]))
+        del params, base, emulated
+        emit({"phase": "serve_gates", "device": str(dev), "arch": arch, "family": cfg.family,
+              "narrowed": SERVE_NARROW[arch] if dev.type == "cpu" else None,
+              "n_layers": cfg.n_layers, "requests": n_requests,
+              "tol": SERVE_LOGITS_RTOL[cfg.family], **out})
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return 0
+
+
 def cut_fraction(prob, s):
     """Fraction of a unit-weight MaxCut instance's edges cut by each state."""
     n_edges = float(prob.deg.sum()) / 2
@@ -1032,6 +1316,13 @@ def main() -> int:
 
     if sys.argv[1:] == ["--cpu-gates"]:
         return cpu_gates()
+    if sys.argv[1:] == ["--cpu-serve-gates"]:
+        return serve_gates("cpu")
+    if sys.argv[1:] == ["--card-serve-gates"]:
+        if not torch.cuda.is_available():
+            print("chip_smoke.py --card-serve-gates: no CUDA device", file=sys.stderr)
+            return 2
+        return serve_gates("cuda")
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's kernels need an H100",
               file=sys.stderr)
@@ -1958,6 +2249,7 @@ def main() -> int:
                "sk_ctmc": -0.70 * n, "maxcut3r_ctmc": e_cut, "sk_random_scan": -0.70 * n}
     fault_launches = fault_paths(torch, dev, prob, cal, mc, targets, reset, read, smi)
     apps_phase(torch, dev, prob, reset, read, smi)
+    served = serve_phase(torch, np, dev, reset, read, smi, err)
 
     # -- summary -------------------------------------------------------------
     def entry(name, source, replaces, launches, library):
@@ -2008,10 +2300,13 @@ def main() -> int:
              sector_floor_ms=sector_floor_ms),
         dict(entry("flash_attention", csrc + "flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:85",
-                   sum(a["launches"]["flash_attention"] for a in attention.values()), "sdpa"),
+                   sum(a["launches"]["flash_attention"] for a in attention.values())
+                   + served["launches"], "sdpa"),
              **{f"{name}_{key}": attention_timing[name][key]
                 for name, *_ in ATTENTION_MAIN[1:]
-                for key in ("ms", "plain_ms", "bound_ms", "library_ms")}),
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+             **{f"serve_{key}": served[key] for key in ("launches", "shape", "ms", "plain_ms",
+                                                        "bound_ms", "library_ms")}),
         # the fault variants: launches on the faults phase's graphed runs
         entry("tau_leap_step_faults", csrc + "tau_leap.cu", "src/repro/kernels/tau_leap.py:82",
               fault_launches["sk_tau_leap"]["tau_leap_step_faults"], "int_mm"),

@@ -52,15 +52,15 @@ N_KING_COLORS = 4
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: `None` means the CUDA device.
 
-    With no CUDA device present, `None` raises instead of landing on the
-    CPU; CPU callers (the tests) pass `device="cpu"` explicitly."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
+    With no CUDA device present, `None` (or a CUDA device named outright)
+    raises instead of landing on the CPU; CPU callers (the tests) pass
+    `device="cpu"` explicitly."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev
 
 
 @dataclasses.dataclass(frozen=True)

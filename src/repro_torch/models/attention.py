@@ -1,0 +1,177 @@
+"""Attention: MHA / GQA / MQA, causal prefill on the flash kernel, KV-cache decode.
+
+The port of `repro/models/attention.py` for the serving path:
+  * `attn_prefill` — causal attention over the prompt through
+    `ops.flash_attention` (on a CUDA tensor the hand-written bf16 wgmma + TMA
+    kernel, on a CPU tensor its plain version) at every length, where the
+    JAX package runs dense attention up to 4096 tokens and blockwise above;
+    it also writes the prompt's K/V into the cache.
+  * `attn_decode` — one query token against the whole cache under a
+    validity mask, in plain torch ops as in the JAX package: the flash
+    kernel takes query lengths that are multiples of 128 only, with the
+    causal mask aligned at the top left.
+
+RoPE is applied to every query and key. Sliding-window attention
+(`attn_local`) is not ported: `transformer` rejects that block kind when it
+builds the block.
+
+Layout: activations (B, S, D); heads split as (B, S, H, hd); KV cache
+(B, T, K, hd) in `kv_cache_dtype`, written in place. Query head h reads KV
+head h // G (G = H / K), the JAX package's grouping.
+
+Softmax scale: the kernel and its plain version scale the scores by
+1/sqrt(hd) in float32; the JAX package divides scores in the activation
+dtype by sqrt(hd) rounded to that dtype (11.3125 for 11.3137 in bf16 at
+hd = 128). In float32 the two agree; in bf16 the difference is deliberate.
+Decode keeps the JAX package's rounding.
+"""
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import SEQ_MULTIPLE
+from repro_torch.models import layers
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, T, K, hd); a decoder stacks its layers in front: (L, B, T, K, hd)
+    v: torch.Tensor
+    # the running position lives in the serving state, not here
+
+
+class Attention(nn.Module):
+    """wq, wk, wv (with the bq, bk, bv biases under `qkv_bias`) and wo."""
+
+    def __init__(self, gen, cfg, dtype):
+        super().__init__()
+        hd = cfg.resolved_head_dim
+        bias = cfg.qkv_bias
+        self.wq = layers.dense_init(gen, cfg.d_model, cfg.n_heads * hd, dtype, bias=bias)
+        self.wk = layers.dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype, bias=bias)
+        self.wv = layers.dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype, bias=bias)
+        self.wo = layers.dense_init(gen, cfg.n_heads * hd, cfg.d_model, dtype)
+
+
+def attn_init(gen, cfg, dtype) -> Attention:
+    return Attention(gen, cfg, dtype)
+
+
+def _project_qkv(attn: Attention, x, cfg, positions):
+    """x (B, S, D) -> q (B, S, H, hd), k and v (B, S, K, hd), RoPE applied.
+    The JAX package's sharding constraints are no-ops without a mesh."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = attn.wq(x).reshape(B, S, cfg.n_heads, hd)
+    k = attn.wk(x).reshape(B, S, cfg.n_kv_heads, hd)
+    v = attn.wv(x).reshape(B, S, cfg.n_kv_heads, hd)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+@functools.lru_cache(maxsize=None)
+def _score_divisor(hd: int, dtype: torch.dtype) -> float:
+    """sqrt(hd) in float32 rounded to `dtype`, computed on the host: a
+    device scalar made from a host value would wait for the device."""
+    return float(torch.tensor(hd, dtype=torch.float32).sqrt().to(dtype))
+
+
+def _grouped_scores(q, k, cfg):
+    """(B,Sq,H,hd) x (B,Sk,K,hd) -> (B,K,G,Sq,Sk), GQA without a repeat; the
+    scores divided by sqrt(hd) rounded to q's dtype, as in the JAX package."""
+    B, Sq, H, hd = q.shape
+    K = cfg.n_kv_heads
+    qg = q.reshape(B, Sq, K, H // K, hd)
+    return torch.einsum("bqkgd,bskd->bkgqs", qg, k) / _score_divisor(hd, q.dtype)
+
+
+def _apply_mask_softmax(scores, mask):
+    """Masked scores are -1e30 in a float32 softmax."""
+    scores = torch.where(mask, scores.to(torch.float32), -1e30)
+    return torch.softmax(scores, dim=-1)
+
+
+def _combine(probs, v, out_dtype):
+    B, K, G, Sq, Sk = probs.shape
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(out_dtype), v)
+    return out.reshape(B, Sq, K * G, -1)
+
+
+def causal_mask(Sq: int, Sk: int, window: int = 0, offset: int = 0, device=None) -> torch.Tensor:
+    """(Sq, Sk) bool; query i attends key j iff j <= i+offset (and within
+    window if window>0). offset shifts query positions (decode/prefill)."""
+    qpos = torch.arange(Sq, device=device)[:, None] + offset
+    kpos = torch.arange(Sk, device=device)[None, :]
+    m = kpos <= qpos
+    if window > 0:
+        m &= kpos > (qpos - window)
+    return m
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype, device) -> KVCache:
+    hd = cfg.resolved_head_dim
+    shape = (batch, max_len, cfg.n_kv_heads, hd)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _flash_heads(t: torch.Tensor, S_pad: int) -> torch.Tensor:
+    """(B, S, H, hd) -> (B*H, S_pad, hd), contiguous, zero rows after S."""
+    B, S, H, hd = t.shape
+    out = t.new_zeros((B, H, S_pad, hd))
+    out[:, :, :S] = t.transpose(1, 2)
+    return out.reshape(B * H, S_pad, hd)
+
+
+def flash_prefill(q, k, v, mode: str = "auto") -> torch.Tensor:
+    """Causal attention of q (B,S,H,hd) over k, v (B,S,K,hd) through
+    `ops.flash_attention` -> (B, S, H, hd).
+
+    The kernel takes aligned heads and lengths that are multiples of 128:
+    each KV head is repeated for its G query heads (h reads h // G), and the
+    sequence is padded at its end with zeros, which the causal mask keeps
+    invisible to every real query; the padded rows are dropped."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    if G > 1:
+        k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+    S_pad = -(-S // SEQ_MULTIPLE) * SEQ_MULTIPLE
+    o = ops.flash_attention(_flash_heads(q, S_pad), _flash_heads(k, S_pad),
+                            _flash_heads(v, S_pad), causal=True, mode=mode)
+    return o.reshape(B, H, S_pad, hd)[:, :, :S].transpose(1, 2)
+
+
+def attn_prefill(attn: Attention, x, cfg, positions, cache: KVCache, *, mode: str = "auto"):
+    """Causal attention over the prompt; writes K/V into cache[:, 0:S] in
+    place. Returns (delta (B, S, D), cache)."""
+    q, k, v = _project_qkv(attn, x, cfg, positions)
+    B, S, _ = x.shape
+    out = flash_prefill(q, k, v, mode)
+    cache.k[:, :S] = k.to(cache.k.dtype)
+    cache.v[:, :S] = v.to(cache.v.dtype)
+    return attn.wo(out.reshape(B, S, -1)), cache
+
+
+def attn_decode(attn: Attention, x, cfg, pos: int, cache: KVCache):
+    """One-token decode. x: (B, 1, D); pos: the current position (an int).
+
+    Writes the new K/V at pos in place (at T-1 once pos >= T, where the JAX
+    package's dynamic_update_slice clamps the start) and attends over the
+    whole cache with every slot at or before pos counted valid — the
+    standard fixed-shape serving layout. Returns (delta (B, 1, D), cache)."""
+    B = x.shape[0]
+    T = cache.k.shape[1]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(attn, x, cfg, positions)
+    write_pos = min(pos, T - 1)
+    cache.k[:, write_pos] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, write_pos] = v_new[:, 0].to(cache.v.dtype)
+    valid = torch.arange(T, device=x.device) <= pos
+    scores = _grouped_scores(q, cache.k.to(x.dtype), cfg)  # (B,K,G,1,T)
+    probs = _apply_mask_softmax(scores, valid)
+    out = _combine(probs, cache.v.to(x.dtype), x.dtype)
+    return attn.wo(out.reshape(B, 1, -1)), cache

@@ -1,0 +1,138 @@
+"""Mixture-of-Experts FFN: capacity-factor one-hot dispatch, shared experts,
+and the PASS-inspired Boltzmann sampled router.
+
+The port of `repro/models/moe.py`. Tokens are reshaped into groups of
+`group_size`; each group dispatches into per-expert capacity slots
+C = ceil(group_size * top_k / n_experts * capacity_factor), rounded up to a
+multiple of 4 and at least 4. A token's slot in an expert is the running
+count of the group's earlier (token, choice) pairs routed there, counted
+token-major and then choice-major; tokens past an expert's capacity are
+dropped (they contribute zero; the residual stream carries them).
+Dispatch and combine are one-hot einsums, as in the JAX package.
+
+Router modes:
+  * 'topk'      — deterministic softmax top-k (what serving uses)
+  * 'boltzmann' — experts sampled without replacement from the router's
+    Boltzmann distribution by Gumbel perturbation. The Gumbel draws are an
+    operand (`gumbel`, the shape of the router logits), so a test can feed
+    the JAX package's own.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models import layers
+
+
+class MoE(nn.Module):
+    """router (nn.Linear, d_model -> n_experts); w_gate (gated activations
+    only) and w_up (E, d_model, d_expert) and w_down (E, d_expert, d_model),
+    in the JAX package's layout; with shared experts, `shared` (an MLP of
+    width n_shared * d_expert) and `shared_gate` (d_model -> 1)."""
+
+    def __init__(self, gen, cfg, dtype):
+        super().__init__()
+        m = cfg.moe
+        self.router = layers.dense_init(gen, cfg.d_model, m.n_experts, dtype, scale=0.02)
+        shp_in = (m.n_experts, cfg.d_model, m.d_expert)
+        shp_out = (m.n_experts, m.d_expert, cfg.d_model)
+
+        def expert_w(shape):
+            return nn.Parameter(layers.normal(gen, shape, 1.0 / math.sqrt(shape[1]), dtype))
+
+        if cfg.act in ("swiglu", "geglu"):
+            self.w_gate = expert_w(shp_in)
+        self.w_up = expert_w(shp_in)
+        self.w_down = expert_w(shp_out)
+        if m.n_shared > 0:
+            self.shared = layers.mlp_init(gen, cfg.d_model, m.n_shared * m.d_expert, cfg.act,
+                                          dtype)
+            self.shared_gate = layers.dense_init(gen, cfg.d_model, 1, dtype, scale=0.02)
+
+
+def moe_init(gen, cfg, dtype) -> MoE:
+    return MoE(gen, cfg, dtype)
+
+
+def _capacity(group_size: int, m) -> int:
+    c = math.ceil(group_size * m.top_k / m.n_experts * m.capacity_factor)
+    return max(4, int(math.ceil(c / 4) * 4))
+
+
+def _select_experts(logits, m, gumbel=None):
+    """Return (indices (..., k), weights (..., k), probs (..., E))."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    scores = logits.to(torch.float32)
+    if m.router_mode == "boltzmann":
+        if gumbel is None:
+            raise ValueError("the boltzmann router needs its Gumbel draws (`gumbel`)")
+        scores = scores / m.router_temp + gumbel.to(torch.float32)
+    # a stable sort puts the lower index first among tied scores, as
+    # lax.top_k does (torch.topk leaves their order open); the padded
+    # tokens' all-zero logits tie everywhere
+    idx = torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., : m.top_k]
+    w = torch.gather(probs, -1, idx)
+    w = w / w.sum(dim=-1, keepdim=True)
+    return idx, w, probs
+
+
+def moe_apply(moe: MoE, x, cfg, gumbel=None, *, with_aux: bool = False):
+    """x: (B, S, D) -> out (B, S, D), or (out, aux_loss scalar) with
+    `with_aux` (training; serving drops the loss and does not compute it).
+    `gumbel` (G, gs, E): the Boltzmann router's draws, G groups of gs tokens
+    after padding."""
+    m = cfg.moe
+    B, S, D = x.shape
+    tokens = x.reshape(B * S, D)
+    T = B * S
+    gs = min(m.group_size, T)
+    pad = (-T) % gs  # pad T to a multiple of the group size
+    if pad:
+        tokens = F.pad(tokens, (0, 0, 0, pad))
+    G = tokens.shape[0] // gs
+    xg = tokens.reshape(G, gs, D)
+
+    logits = moe.router(xg)  # (G, gs, E)
+    idx, w, probs = _select_experts(logits, m, gumbel)  # (G,gs,k), (G,gs,k)
+
+    C = _capacity(gs, m)
+    # (G,gs,k,E); a comparison, since F.one_hot checks its indices on the host
+    onehot = (idx[..., None] == torch.arange(m.n_experts, device=x.device)).to(torch.float32)
+    # capacity slot per (token, choice): running count of earlier tokens
+    # routed to the same expert within the group
+    pos_in_expert = torch.cumsum(onehot.reshape(G, gs * m.top_k, m.n_experts), dim=1)
+    pos_in_expert = pos_in_expert.reshape(G, gs, m.top_k, m.n_experts) * onehot - 1.0
+    kept = (pos_in_expert < C) & (pos_in_expert >= 0)
+    # one_hot of the slot, all zeros for -1 (not routed) and for slots >= C
+    slot_oh = (pos_in_expert[..., None] == torch.arange(C, device=x.device)).to(torch.float32)
+    slot_oh = slot_oh * kept.to(torch.float32)[..., None]
+    dispatch = torch.einsum("gske,gskec->gsec", onehot, slot_oh)
+    # dispatch: (G, gs, E, C) — 1 where token s goes to expert e slot c
+    combine = dispatch * (w[..., None] * onehot).sum(dim=2)[..., None]
+
+    expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
+    up = torch.einsum("gecd,edf->gecf", expert_in, moe.w_up)
+    if hasattr(moe, "w_gate"):
+        gate = torch.einsum("gecd,edf->gecf", expert_in, moe.w_gate)
+        h = (F.silu(gate) if cfg.act == "swiglu" else F.gelu(gate, approximate="tanh")) * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    expert_out = torch.einsum("gecf,efd->gecd", h, moe.w_down)
+    out = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), expert_out)
+
+    out = out.reshape(-1, D)[:T].reshape(B, S, D)
+
+    if m.n_shared > 0:
+        shared = layers.mlp_apply(moe.shared, x, cfg.act)
+        out = out + torch.sigmoid(moe.shared_gate(x)) * shared
+
+    if not with_aux:
+        return out
+    # load-balance aux loss (Switch-style): E * sum_e f_e * P_e
+    f = onehot.sum(dim=2).mean(dim=(0, 1))  # fraction routed
+    p = probs.mean(dim=(0, 1))  # mean router prob
+    return out, m.n_experts * (f * p).sum() * m.aux_loss_weight

@@ -1,0 +1,346 @@
+"""The port's serving models against the JAX package, at the reduced configs.
+
+The JAX `init_params` tree is carried across by `params_from_jax`, and the
+same numpy-seeded tokens and activations go through both packages. The
+prefill attention is the flash kernel's plain version here (the tensors lie
+on the CPU); the JAX package runs dense attention. Tolerances:
+  * float32: 2e-5 absolute and relative, the f32 flash-attention bound of
+    tests/test_kernels.py; sums run in another order in each package.
+  * bfloat16 (one case): the JAX package run eagerly (jax.disable_jit, so
+    no excess precision inside its scan). The prefill attention's scores
+    are f32 in the kernel's plain version and bf16-rounded in JAX's, and the
+    difference flows on through the layers. Logits of size ~0.5 are held to
+    0.03 absolute (one bf16 ulp at 0.5 is 2^-8, so about eight ulps; 1.4 ulps
+    seen); each layer's caches to four bf16 ulps of the layer's largest
+    value (1.5 seen, in the second layer; the first differs by one ulp).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.models import attention as jattention
+from repro.models import layers as jlayers
+from repro.models import model as jmodel
+from repro.models import moe as jmoe
+from repro_torch.configs import get_config
+from repro_torch.models import attention, convert, layers, model, moe, transformer
+
+torch.set_num_threads(1)
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+DENSE = ["gemma-2b", "phi3-medium-14b", "phi4-mini-3p8b", "qwen1p5-32b"]
+MOE = ["olmoe-1b-7b", "qwen2-moe-a2p7b"]
+UNPORTED = ["internvl2-2b", "recurrentgemma-9b", "whisper-medium", "xlstm-125m"]
+
+
+def _np(x):
+    return (x.detach().float().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x, np.float32))
+
+
+def _configs(arch, **changes):
+    jcfg = dataclasses.replace(jget_config(arch, reduced=True), **changes)
+    cfg = dataclasses.replace(get_config(arch, reduced=True), **changes)
+    return jcfg, cfg
+
+
+def _models(jcfg, cfg, seed=0, biases=False):
+    """JAX params (with random qkv biases if `biases`) and the port's model
+    holding the same weights."""
+    params, _ = jmodel.init_params(jcfg, jax.random.key(seed))
+    tree = jax.tree.map(np.asarray, params)
+    if biases:
+        rng = np.random.default_rng(seed)
+        attn = tree["layers"]["scan"][0]["attn"]
+        for name in ("bq", "bk", "bv"):
+            attn[name] = rng.normal(0.0, 0.5, attn[name].shape).astype(attn[name].dtype)
+        params = jax.tree.map(jnp.asarray, tree)
+    m = model.init_params(cfg, seed, device="cpu")
+    m.load_state_dict(convert.params_from_jax(cfg, tree), strict=True)
+    return params, m
+
+
+def _tokens(cfg, shape, seed):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def _caches_close(jcaches, tcaches, cfg, **tol):
+    got = convert.caches_from_jax(cfg, jax.tree.map(np.asarray, jcaches))
+    np.testing.assert_allclose(_np(tcaches.k), _np(got.k), **tol)
+    np.testing.assert_allclose(_np(tcaches.v), _np(got.v), **tol)
+
+
+def _prefill_and_decode(jcfg, cfg, params, m, n_decode=4, B=2, S=7, T=16, jit=True):
+    """Prefill then n_decode steps in both packages, fed the same tokens (the
+    JAX argmax); yields (what, JAX logits, port logits, JAX caches, port caches)."""
+    toks = _tokens(cfg, (B, S), seed=S)
+    jprefill = lambda p, b, c: jmodel.prefill(jcfg, p, b, c)  # noqa: E731
+    jdecode = lambda p, t, pos, c: jmodel.decode_step(jcfg, p, t, pos, c)  # noqa: E731
+    if jit:
+        jprefill, jdecode = jax.jit(jprefill), jax.jit(jdecode)
+    jl, jc = jprefill(params, {"tokens": jnp.asarray(toks)}, jmodel.init_caches(jcfg, B, T))
+    tl, tc = m.prefill(torch.as_tensor(toks, dtype=torch.int64),
+                       model.init_caches(cfg, B, T, device="cpu"))
+    yield "prefill", jl, tl, jc, tc
+    for pos in range(S, S + n_decode):
+        nxt = np.argmax(np.asarray(jl, np.float32), -1).astype(np.int32)
+        jl, jc = jdecode(params, jnp.asarray(nxt), jnp.asarray(pos, jnp.int32), jc)
+        tl, tc = m.decode_step(torch.as_tensor(nxt, dtype=torch.int64), pos, tc)
+        yield f"decode at {pos}", jl, tl, jc, tc
+
+
+# ---------------------------------------------------------------------------
+# the whole model
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE)
+def test_prefill_and_decode_match_jax(arch):
+    jcfg, cfg = _configs(arch)
+    params, m = _models(jcfg, cfg)
+    steps = 0
+    for what, jl, tl, jc, tc in _prefill_and_decode(jcfg, cfg, params, m):
+        assert tl.shape == (2, cfg.vocab_size) and tl.dtype == torch.float32, what
+        np.testing.assert_allclose(_np(tl), _np(jl), err_msg=what, **TOL)
+        _caches_close(jc, tc, cfg, **TOL)
+        steps += 1
+    assert steps == 5
+
+
+def test_bf16_prefill_and_decode_match_eager_jax():
+    jcfg, cfg = _configs("phi4-mini-3p8b", dtype="bfloat16", kv_cache_dtype="bfloat16")
+    params, m = _models(jcfg, cfg)
+    assert m.embed.dtype == torch.bfloat16
+    with jax.disable_jit():
+        for what, jl, tl, jc, tc in _prefill_and_decode(jcfg, cfg, params, m, jit=False):
+            assert tl.dtype == torch.bfloat16
+            np.testing.assert_allclose(_np(tl), _np(jl), atol=0.03, rtol=0, err_msg=what)
+            got = convert.caches_from_jax(cfg, jax.tree.map(np.asarray, jc))
+            for t, j in ((tc.k, got.k), (tc.v, got.v)):
+                for layer_t, layer_j in zip(_np(t), _np(j)):
+                    ulp = 2.0 ** (np.floor(np.log2(np.abs(layer_j).max())) - 7)
+                    np.testing.assert_allclose(layer_t, layer_j, atol=4 * ulp, rtol=0,
+                                               err_msg=what)
+
+
+# ---------------------------------------------------------------------------
+# the layer functions one by one
+# ---------------------------------------------------------------------------
+
+
+def _x(shape, seed=0, scale=1.0):
+    return (np.random.default_rng(seed).normal(0.0, scale, shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+def test_norm_matches_jax(kind):
+    x, scale = _x((2, 5, 48), 1, 3.0), _x((48,), 2) + 1.0
+    want = jlayers.apply_norm(kind, {"scale": jnp.asarray(scale)}, jnp.asarray(x))
+    norm = layers.Norm(48, torch.float32, "cpu")
+    norm.scale.data = torch.as_tensor(scale)
+    got = layers.apply_norm(kind, norm, torch.as_tensor(x))
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+def test_rope_and_sinusoidal_positions_match_jax():
+    x = _x((2, 9, 3, 16), 3)
+    pos = np.random.default_rng(4).integers(0, 500, (2, 9)).astype(np.int32)
+    want = jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 10_000.0)
+    got = layers.apply_rope(torch.as_tensor(x), torch.as_tensor(pos), 10_000.0)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(_np(layers.rope_freqs(16, 10_000.0)),
+                               _np(jlayers.rope_freqs(16, 10_000.0)), **TOL)
+    np.testing.assert_allclose(_np(layers.sinusoidal_positions(37, 24, torch.float32)),
+                               _np(jlayers.sinusoidal_positions(37, 24, jnp.float32)), **TOL)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu"])
+def test_mlp_matches_jax(act):
+    jp, _ = jlayers.mlp_init(jax.random.key(5), 32, 64, act, jnp.float32)
+    mlp = layers.mlp_init(torch.Generator().manual_seed(0), 32, 64, act, torch.float32)
+    for name, w in jp.items():
+        getattr(mlp, name).weight.data = torch.as_tensor(np.asarray(w).T.copy())
+    x = _x((2, 5, 32), 6)
+    want = jlayers.mlp_apply(jp, jnp.asarray(x), act)
+    got = layers.mlp_apply(mlp, torch.as_tensor(x), act)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("softcap", [0.0, 3.0])
+@pytest.mark.parametrize("scale_by_dim", [False, True])
+def test_embed_and_unembed_match_jax(scale_by_dim, softcap):
+    w = _x((50, 24), 7)
+    toks = np.random.default_rng(8).integers(0, 50, (2, 6)).astype(np.int32)
+    want = jlayers.embed_lookup(jnp.asarray(w), jnp.asarray(toks), scale_by_dim)
+    got = layers.embed_lookup(torch.as_tensor(w), torch.as_tensor(toks, dtype=torch.int64),
+                              scale_by_dim)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    np.testing.assert_allclose(
+        _np(layers.unembed(got, torch.as_tensor(w), softcap)),
+        _np(jlayers.unembed(want, jnp.asarray(w).T, softcap)), **TOL)
+
+
+def test_bf16_embed_scale_is_rounded_in_bf16():
+    w = torch.ones((3, 2048), dtype=torch.bfloat16)
+    got = layers.embed_lookup(w, torch.tensor([[1]]), True)
+    want = jlayers.embed_lookup(jnp.ones((3, 2048), jnp.bfloat16), jnp.asarray([[1]]), True)
+    assert float(got[0, 0, 0]) == float(np.asarray(want, np.float32)[0, 0, 0]) == 45.25
+
+
+# ---------------------------------------------------------------------------
+# attention: prefill at lengths around the kernel's 128-row tiles, decode
+# ---------------------------------------------------------------------------
+
+# GQA (4 query heads over 2 KV heads), MQA (4 over 1), MHA with qkv biases
+ATTN_ARCHS = ["phi4-mini-3p8b", "gemma-2b", "qwen1p5-32b"]
+
+
+def _attn_pair(arch):
+    jcfg, cfg = _configs(arch)
+    params, m = _models(jcfg, cfg, biases=cfg.qkv_bias)
+    jp = jax.tree.map(lambda a: a[0], params["layers"]["scan"][0]["attn"])
+    return jcfg, cfg, jp, m.layers[0].attn
+
+
+@pytest.mark.parametrize("S", [5, 127, 128, 129, 300])
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_attn_prefill_matches_jax(arch, S):
+    jcfg, cfg, jp, attn = _attn_pair(arch)
+    B, T = 2, 320
+    x = _x((B, S, cfg.d_model), S)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    jcache = jattention.init_cache(jcfg, B, T, jnp.float32)
+    want, jcache = jattention.attn_prefill(jp, jnp.asarray(x), jcfg, jnp.asarray(pos), jcache)
+    cache = attention.init_cache(cfg, B, T, torch.float32, "cpu")
+    got, cache = attention.attn_prefill(attn, torch.as_tensor(x), cfg, torch.as_tensor(pos), cache)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    np.testing.assert_allclose(_np(cache.k), _np(jcache.k), **TOL)
+    np.testing.assert_allclose(_np(cache.v), _np(jcache.v), **TOL)
+    assert not cache.k[:, S:].any(), "only the S real keys are written"
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_attn_decode_matches_jax(arch):
+    """Decode after a prefill, at the next position, past a gap of zero
+    rows (the shared position clock), and at pos >= T (the write clamps)."""
+    jcfg, cfg, jp, attn = _attn_pair(arch)
+    B, S, T = 2, 6, 12
+    x = _x((B, S, cfg.d_model), 9)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    _, jcache = jattention.attn_prefill(jp, jnp.asarray(x), jcfg, jnp.asarray(pos),
+                                        jattention.init_cache(jcfg, B, T, jnp.float32))
+    _, cache = attention.attn_prefill(attn, torch.as_tensor(x), cfg, torch.as_tensor(pos),
+                                      attention.init_cache(cfg, B, T, torch.float32, "cpu"))
+    for p in (S, 9, T + 2):
+        x1 = _x((B, 1, cfg.d_model), p)
+        want, jcache = jattention.attn_decode(jp, jnp.asarray(x1), jcfg, jnp.asarray(p, jnp.int32),
+                                              jcache)
+        got, cache = attention.attn_decode(attn, torch.as_tensor(x1), cfg, p, cache)
+        np.testing.assert_allclose(_np(got), _np(want), err_msg=f"pos {p}", **TOL)
+        np.testing.assert_allclose(_np(cache.k), _np(jcache.k), **TOL)
+        np.testing.assert_allclose(_np(cache.v), _np(jcache.v), **TOL)
+
+
+def test_causal_mask_matches_jax():
+    for args in ((5, 7, 0, 0), (4, 9, 3, 2), (1, 6, 0, 5)):
+        np.testing.assert_array_equal(attention.causal_mask(*args).numpy(),
+                                      np.asarray(jattention.causal_mask(*args)))
+
+
+# ---------------------------------------------------------------------------
+# MoE: dropped tokens, the Boltzmann router fed JAX's Gumbel draws
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("router", ["topk", "boltzmann"])
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_apply_drops_tokens_and_matches_jax(arch, router):
+    base = jget_config(arch, reduced=True).moe
+    moe_cfg = dataclasses.replace(base, capacity_factor=0.5, router_mode=router, router_temp=0.7)
+    jcfg, cfg = _configs(arch, moe=moe_cfg)
+    params, m = _models(jcfg, cfg)
+    jp = jax.tree.map(lambda a: a[0], params["layers"]["scan"][0]["moe"])
+    block = m.layers[0].moe
+    B, S = 2, 40  # 80 tokens: groups of 64, the second padded
+    x = _x((B, S, cfg.d_model), 11)
+    key = jax.random.key(12) if router == "boltzmann" else None
+    want, want_aux = jmoe.moe_apply(jp, jnp.asarray(x), jcfg, key)
+    G, gs = 2, min(moe_cfg.group_size, B * S)
+    gumbel = None
+    if key is not None:
+        # passlint: ignore[PASS001] the test replays the router's own draws from its key
+        gumbel = torch.tensor(np.asarray(jax.random.gumbel(key, (G, gs, moe_cfg.n_experts))))
+    got, aux = moe.moe_apply(block, torch.as_tensor(x), cfg, gumbel, with_aux=True)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    np.testing.assert_allclose(float(aux.detach()), float(want_aux), **TOL)
+    # capacity binds: with room for every token the output differs
+    roomy = dataclasses.replace(cfg, moe=dataclasses.replace(moe_cfg, capacity_factor=8.0))
+    undropped = moe.moe_apply(block, torch.as_tensor(x), roomy, gumbel)
+    assert moe._capacity(gs, moe_cfg) < gs * moe_cfg.top_k / moe_cfg.n_experts
+    assert not torch.allclose(got, undropped, **TOL)
+
+
+def test_boltzmann_router_needs_its_draws():
+    base = get_config("olmoe-1b-7b", reduced=True)
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, router_mode="boltzmann"))
+    m = model.init_params(cfg, 0, device="cpu")
+    with pytest.raises(ValueError, match="Gumbel"):
+        moe.moe_apply(m.layers[0].moe, torch.zeros((1, 3, cfg.d_model)), cfg)
+
+
+def test_capacity_matches_jax():
+    for n_experts, top_k, cf in ((8, 2, 4.0), (64, 8, 1.25), (60, 4, 1.25), (8, 2, 0.5)):
+        m = jget_config("olmoe-1b-7b").moe
+        m = dataclasses.replace(m, n_experts=n_experts, top_k=top_k, capacity_factor=cf)
+        for gs in (1, 4, 15, 64, 256):
+            assert moe._capacity(gs, m) == jmoe._capacity(gs, m)
+
+
+# ---------------------------------------------------------------------------
+# what is not ported yet raises
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", UNPORTED)
+def test_unported_families_raise(arch):
+    cfg = get_config(arch, reduced=True)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        model.init_params(cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        model.init_caches(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["attn_local", "rglru", "mlstm", "slstm"])
+def test_unported_block_kinds_raise(kind):
+    cfg = get_config("phi4-mini-3p8b", reduced=True)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        transformer.block_init(torch.Generator().manual_seed(0), kind, cfg, torch.float32)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        transformer.init_decoder_layers(torch.Generator().manual_seed(0),
+                                        dataclasses.replace(cfg, block_pattern=(kind,)),
+                                        torch.float32)
+
+
+def test_windowed_attention_raises():
+    # a dense config with sliding-window layers: the model build names the kind
+    _, cfg = _configs("phi4-mini-3p8b")
+    windowed = dataclasses.replace(cfg, block_pattern=("attn_global", "attn_local"), window=4)
+    with pytest.raises(NotImplementedError, match="'attn_local' is not ported yet"):
+        model.init_params(windowed, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="'attn_local' is not ported yet"):
+        model.init_caches(windowed, 1, 8, device="cpu")
+
+
+def test_caches_from_jax_reads_tuples_and_named_caches():
+    jcfg, cfg = _configs("phi4-mini-3p8b")
+    jc = jax.tree.map(np.asarray, jmodel.init_caches(jcfg, 2, 8))
+    named = jc["dec"]["scan"][0]
+    for tree in (jc, named, (named.k, named.v)):
+        got = convert.caches_from_jax(cfg, tree)
+        assert got.k.shape == (cfg.n_layers, 2, 8, cfg.n_kv_heads, cfg.resolved_head_dim)
+        assert got.v.dtype == torch.float32
