@@ -9,9 +9,11 @@
     python3 chip_ablate.py faults     # only the fault variants against their base kernels
     python3 chip_ablate.py serve      # only the serving calls: where their time goes
 
-serve: where a serving call's time goes at full width, for phi4-mini-3p8b
-and olmoe-1b-7b: the host wall of a prefill (one 12-token prompt) and of a
-decode step (4 slots, position 64, a 128-row cache), median of 20 after 3;
+serve: where a serving call's time goes at full width, for phi4-mini-3p8b,
+olmoe-1b-7b, internvl2-2b, recurrentgemma-9b and xlstm-125m: the host wall
+of a prefill (one 12-token prompt; internvl2-2b's after its 256 image
+patches) and of a decode step (4 slots, text position 64, a 128-row cache;
+internvl2-2b's 384 rows, as chip_smoke.py serves it), median of 20 after 3;
 its device time, the kernels' busy time that torch.profiler records over 5
 calls; the idle share 1 - device / wall; the launches and aten ops a call;
 the top kernels by device time and the top ops by host time.
@@ -723,9 +725,12 @@ def ablate_lattice(torch, np, chip_smoke, dev) -> None:
 # (n, events): the ctmc_sparse shape at two lengths, then wider graphs, where
 # a rebuild's O(n) pass grows and the repair's O(log n) paths barely do
 # the serving calls: full width, random weights from seed 0; a prefill of one
-# 12-token prompt, a decode step of 4 slots at position 64 of a 128-row cache
-SERVE_ARCHS = ("phi4-mini-3p8b", "olmoe-1b-7b")
-SERVE_PROMPT, SERVE_SLOTS, SERVE_POS, SERVE_MAX_LEN, SERVE_CALLS = 12, 4, 64, 128, 5
+# 12-token prompt, a decode step of 4 slots at position 64 of a 128-row cache;
+# a vlm as chip_smoke.py serves it: its image patches before the prompt, a
+# cache of chip_smoke.serve_max_len rows (384)
+SERVE_ARCHS = ("phi4-mini-3p8b", "olmoe-1b-7b", "internvl2-2b", "recurrentgemma-9b",
+               "xlstm-125m")
+SERVE_PROMPT, SERVE_SLOTS, SERVE_POS, SERVE_CALLS = 12, 4, 64, 5
 CTMC_TREE_CASES = ((16384, 5000), (16384, 20000), (65536, 2000), (262144, 2000))
 CTMC_TREE_SIZES = sorted({n for n, _ in CTMC_TREE_CASES})
 
@@ -877,9 +882,14 @@ def ablate_serve(torch, np, chip_smoke, dev) -> None:
         gen = torch.Generator(device=dev).manual_seed(1)
         prompt = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT), generator=gen, device=dev)
         tokens = torch.randint(0, cfg.vocab_size, (SERVE_SLOTS,), generator=gen, device=dev)
-        caches = model.init_caches(cfg, SERVE_SLOTS, SERVE_MAX_LEN, dev)
+        max_len = chip_smoke.serve_max_len(cfg)
+        patches = None
+        if cfg.family == "vlm":
+            patches = 0.02 * torch.randn((1, cfg.n_patches, cfg.d_model), generator=gen,
+                                         device=dev)
+        caches = model.init_caches(cfg, SERVE_SLOTS, max_len, dev)
         calls = {"prefill": lambda: params.prefill(
-                     prompt, model.init_caches(cfg, 1, SERVE_MAX_LEN, dev)),
+                     prompt, model.init_caches(cfg, 1, max_len, dev), patch_embeds=patches),
                  "decode": lambda: params.decode_step(tokens, SERVE_POS, caches)}
         for name, fn in calls.items():
             walls = []
@@ -904,6 +914,7 @@ def ablate_serve(torch, np, chip_smoke, dev) -> None:
             chip_smoke.emit({
                 "part": "serve", "arch": arch, "call": name,
                 "shape": {"prefill": [1, SERVE_PROMPT], "decode": [SERVE_SLOTS, SERVE_POS]}[name],
+                "patches": 0 if patches is None else cfg.n_patches, "max_len": max_len,
                 "wall_ms": wall, "wall_ms_all": walls, "device_ms": device_ms,
                 "idle_share": 1.0 - device_ms / wall,
                 "launches": sum(a.count for a in kernels) / SERVE_CALLS,
@@ -916,7 +927,7 @@ def ablate_serve(torch, np, chip_smoke, dev) -> None:
                                      a.count / SERVE_CALLS]
                                     for a in sorted(host_ops, key=lambda a: a.self_cpu_time_total,
                                                     reverse=True)[:12]]})
-        del params, caches, calls
+        del params, caches, calls, patches
         torch.cuda.empty_cache()
 
 

@@ -78,6 +78,12 @@ exits nonzero without printing the final result line:
                 atol = rtol = 2e-5 (f32) and 2e-2 (bf16), the JAX test's
                 bounds, and in bf16 also within one bf16 ulp (2^-7 |o| +
                 1e-6) of the plain version's f32 result.
+     check_flash_window — the sliding-window band (slice 10) on both
+                kernels, f32 and bf16, at (BH, S, d, window) = (16, 4096,
+                256, 2048) (recurrentgemma-9b's attn_local prefill) and (4,
+                512, 64, 200) (a window across tiles, no multiple of 128):
+                the same bounds against the banded plain version; a window
+                of S and of S + 77 equal to the causal launch bit for bit.
   3. timing   — CUDA-event median of each kernel at its main path's shape,
                 beside its plain version, the library call that computes the
                 same function where there is one (torch._int_mm for the int8
@@ -92,7 +98,9 @@ exits nonzero without printing the final result line:
                 nothing; check_plan alone); flash_attention at both
                 main_attention shapes; the coloured sweep also beside its
                 sector floor (in the (C, B, n) layout);
-                sparse_fields_global at (64, 65536).
+                sparse_fields_global at (64, 65536); the band at (16, 4096,
+                256), window 2048, bf16, beside SDPA with the band as a
+                boolean attn_mask (timing_attention_window).
   4. main     — sampler_api.run(TauLeap(dt=0.1), backend="cuda") on SK
                 n=2048 seed 0, 256 chains x 2000 steps, geometric(0.3, 3.0)
                 annealing, with and without first_hit, and the same run on
@@ -191,37 +199,47 @@ exits nonzero without printing the final result line:
                 and its bound.
 
   8. serve    — the serving stack at full width, random weights from seed 0:
-                phi4-mini-3p8b (8 requests), gemma-2b and olmoe-1b-7b (4
-                each) through repro_torch.launch.serve.main with --no-reduced
-                and launch/serve.py's other defaults (4 slots, 12 new tokens,
-                max_len 128, temperature 0.7): exactly n_layers bf16 flash
-                launches per request (the prefill attention; decode launches
-                none), every completion 12 tokens, every logit finite; then a
-                greedy run with the kernel held against one with the plain
-                attention on the same weights and prompts: each request's
-                last-position prefill logits within SERVE_LOGITS_RTOL
-                (relative L2), the tokens equal wherever the plain top-1
-                minus top-2 margin exceeds SERVE_MARGIN times the logits
-                row's RMS (both fixed by the calibrations below; the other
-                positions counted), some token held on the dense configs;
-                the kernel at each model's serving prefill shape
-                (heads, 128, 128, d) against its plain version as check_flash
-                holds bf16; weight bytes, peak memory, prefill ms per request,
+                phi4-mini-3p8b (8 requests), gemma-2b, olmoe-1b-7b (4 each),
+                recurrentgemma-9b (4; since slice 10) and xlstm-125m (8)
+                through repro_torch.launch.serve.main with --no-reduced and
+                launch/serve.py's other defaults (4 slots, 12 new tokens,
+                max_len 128, temperature 0.7), and internvl2-2b (4) through
+                launch.serve.serve with N(0, 0.02) image patches (256, 2048)
+                a request and max_len 384: exactly one bf16 flash launch per
+                attention layer and request (the prefill attention; decode
+                launches none; xlstm none at all), every completion 12
+                tokens, every logit finite; then, on each config with an
+                attention layer, a greedy run with the kernel held against
+                one with the plain attention on the same weights and
+                prompts: each request's last-position prefill
+                logits within SERVE_LOGITS_RTOL (relative L2), the tokens
+                equal wherever the plain top-1 minus top-2 margin exceeds
+                SERVE_MARGIN times the logits row's RMS (both fixed by the
+                calibrations below; the other positions counted), some token
+                held on every family but moe; recurrentgemma-9b's long
+                request (a 2100-token prompt at max_len 2176: the ring
+                branch, 12 banded launches at window 2048) held the same
+                way; the kernel at each model's serving prefill shape
+                (heads, 128 or 384, d), and at the long request's banded
+                one (16, 2176, 256, window 2048), against its plain version
+                as check_flash holds bf16; weight bytes, peak memory, prefill ms per request,
                 decode ms per step, tokens/s, the decode step's bound (the
-                bytes it reads over HBM); the flash kernel at (24, 128, 128)
-                beside its plain version and SDPA.
+                bytes it reads and writes over HBM); the flash kernel at
+                (24, 128, 128) beside its plain version and SDPA.
 
     python3 chip_smoke.py --card-serve-gates  # (~40 s on the card) and
     python3 chip_smoke.py --cpu-serve-gates   # (no card; several minutes)
-                the serve gates' calibration: each serve config in bf16, at
-                full width on the card, at full depth and narrowed on the CPU,
-                its greedy run with the plain attention held against the same
-                with every attention output moved by up to one bf16 ulp, with
-                a thousandth of them moved by one ulp, and with the heads'
-                outputs rolled by one (a wrong head map).
+                the serve gates' calibration: each serve config with an
+                attention layer, in bf16, at full width on the card, at full
+                depth and narrowed on the CPU, its greedy run with the plain
+                attention (and recurrentgemma-9b's long request) held
+                against the same with every attention output moved by up to
+                one bf16 ulp, with a thousandth of them moved by one ulp, and
+                with the heads' outputs rolled by one (a wrong head map).
 
-The last two lines are the kernels summary (the six kernels and the four
-fault variants, with the script's elapsed seconds, the build included) and
+The last two lines are the kernels summary (the six kernels, the band of
+flash_attention as a row of its own, and the four fault variants, with the
+script's elapsed seconds, the build included) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -329,6 +347,11 @@ BF16_ULP = 2.0**-7  # one bf16 ulp, relative to |o|, with 1e-6 absolute near 0
 # heads, KV heads, head dim), from src/repro/configs/{phi4_mini_3p8b,gemma_2b}.py
 ATTENTION_MAIN = [("phi4-mini-3.8B", 24, 8, 128), ("gemma-2b", 8, 1, 256)]
 ATTENTION_S = 4096
+# The sliding-window band (slice 10), (BH, S, d, window), causal, in f32 and
+# bf16: recurrentgemma-9b's attn_local prefill (16 query heads over 1 KV head,
+# d = 256, window 2048) at S = 4096, timed there; and a window that is no
+# multiple of 128 across the tiles of a small shape.
+FLASH_WINDOW_CASES = [(16, 4096, 256, 2048), (4, 512, 64, 200)]
 
 # -- the redesigned kernels (slice 4) ---------------------------------------------
 
@@ -354,7 +377,7 @@ def counters():
 
     def reset():
         tau_leap.launches = tau_leap.launches_faults = dense_field.launches = 0
-        flash_attention.launches = 0
+        flash_attention.launches = flash_attention.launches_window = 0
         for counts in (lattice_gibbs.launches, sparse_gather.launches,
                        lattice_gibbs.launches_faults, sparse_gather.launches_faults,
                        flash_attention.launches_by_dtype):
@@ -367,25 +390,28 @@ def counters():
                 **lattice_gibbs.launches, **sparse_gather.launches,
                 **lattice_gibbs.launches_faults, **sparse_gather.launches_faults,
                 "flash_attention": flash_attention.launches,
+                "flash_attention_window": flash_attention.launches_window,
                 "flash_attention_bf16": flash_attention.launches_by_dtype["bfloat16"],
                 "flash_attention_f32": flash_attention.launches_by_dtype["float32"]}
 
     return reset, read
 
 
-def check_attention(torch, ops, what, out, q, k, v, causal):
-    """Hold a flash_attention output against its plain version: within
-    FLASH_TOL in q's dtype, and in bf16 also within one bf16 ulp of the
-    plain version's f32 result, since both round f32 values of the same
-    sums (outputs of ~0.01 at S = 4096 would pass 2e-2 with a key tile
-    dropped). Returns (max |err|, max |err| / one ulp; 0 in f32)."""
-    plain = ops.flash_attention(q, k, v, causal, mode="reference")
+def check_attention(torch, ops, what, out, q, k, v, causal, window=0):
+    """Hold a flash_attention output (banded with `window` > 0) against its
+    plain version: within FLASH_TOL in q's dtype, and in bf16 also within
+    one bf16 ulp of the plain version's f32 result, since both round f32
+    values of the same sums (outputs of ~0.01 at S = 4096 would pass 2e-2
+    with a key tile dropped). Returns (max |err|, max |err| / one ulp; 0 in
+    f32)."""
+    plain = ops.flash_attention(q, k, v, causal, mode="reference", window=window)
     tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
     e = (out.float() - plain.float()).abs()
     n_bad = int((e > tol + tol * plain.float().abs()).sum())
     ulps = 0.0
     if q.dtype == torch.bfloat16:
-        exact = ops.flash_attention(q.float(), k.float(), v.float(), causal, mode="reference")
+        exact = ops.flash_attention(q.float(), k.float(), v.float(), causal, mode="reference",
+                                    window=window)
         ulps = float(((out.float() - exact).abs() / (BF16_ULP * exact.abs() + 1e-6)).max())
     finite = bool(torch.isfinite(out).all())
     if out.dtype != q.dtype or out.shape != q.shape or not finite or n_bad or ulps > 1.0:
@@ -568,36 +594,54 @@ DECISION_TARGETS = ((-300.0, 1000.0), (300.0, 1000.0))  # tests/test_ml_and_deci
 # -- the serving stack (slice 9) --------------------------------------------------
 
 # (arch, requests): served at full width through launch.serve.main with the JAX
-# entry point's other defaults, then greedily with the kernel and with the plain
-# attention on the same weights and prompts
-SERVE_MODELS = (("phi4-mini-3p8b", 8), ("gemma-2b", 4), ("olmoe-1b-7b", 4))
+# entry point's other defaults (a vlm through launch.serve.serve, with image
+# patches), then greedily with the kernel and with the plain attention on the
+# same weights and prompts
+SERVE_MODELS = (("phi4-mini-3p8b", 8), ("gemma-2b", 4), ("olmoe-1b-7b", 4),
+                ("internvl2-2b", 4), ("recurrentgemma-9b", 4), ("xlstm-125m", 8))
 SERVE_SLOTS, SERVE_MAX_NEW, SERVE_MAX_LEN = 4, 12, 128
 SERVE_ARGS = ("--no-reduced", "--slots", str(SERVE_SLOTS), "--max-new", str(SERVE_MAX_NEW),
               "--max-len", str(SERVE_MAX_LEN), "--temperature", "0.7")
+# a vlm's max_len: its 256 patches, a prompt of up to 15 tokens and 12 new
+# ones (the JAX driver's 128 cannot hold the patches)
+SERVE_VLM_MAX_LEN = 384
+# the long request: a prompt past recurrentgemma's window of 2048, so its
+# attn_local layers take the ring branch and the band (prompt, max_len)
+SERVE_LONG = {"recurrentgemma-9b": (2100, 2176)}
 # Relative L2 error of each request's last-position prefill logits, kernel
 # against plain attention, by family: twice the largest `--cpu-serve-gates`
 # saw with every attention output moved by up to one bf16 ulp (the kernel's
 # own contract), and far below what a wrong head map gives there. At full width
 # `--card-serve-gates` sees 0.025 / 0.022 / 0.084 (phi4-mini / gemma-2b /
-# olmoe-1b-7b) within one ulp and 0.81-1.46 for a wrong head map.
-SERVE_LOGITS_RTOL = {"dense": 6e-2, "moe": 2.5e-1}
+# olmoe-1b-7b) within one ulp and 0.81-1.46 for a wrong head map. The vlm and
+# hybrid gates likewise: within one ulp internvl2-2b 0.0211 (card) / 0.0215
+# (CPU), recurrentgemma-9b 0.0293 / 0.0385 and its long request 0.0263 /
+# 0.0366; a wrong head map 0.94-1.40 and 0.81-1.12, on the long request
+# 0.12 / 0.20, still 1.5x the hybrid gate, which is why the long request's
+# banded kernel is also held at its served shape. The ssm family (xlstm) has
+# no attention layer, so no greedy pair and no gate.
+SERVE_LOGITS_RTOL = {"dense": 6e-2, "moe": 2.5e-1, "vlm": 5e-2, "hybrid": 8e-2}
 # A greedy token is held to the plain run's where the plain top-1 minus top-2
 # margin exceeds SERVE_MARGIN times that logits row's RMS, by family: twice the
 # largest max |deviation| / RMS that `--card-serve-gates` (full width) or
 # `--cpu-serve-gates` (narrowed) saw with the attention outputs moved within one
 # bf16 ulp, every one or a thousandth of them (0.162 on phi4-mini on the card,
 # 0.880 on the narrowed olmoe-1b-7b; a flip needs two deviations to sum past the
-# margin). Fixed here, not taken from the run under test. The dense configs must
-# hold some token; on olmoe a flipped expert moves the logits so far that hardly
+# margin). Fixed here, not taken from the run under test. Every family but moe
+# must hold some token; on olmoe a flipped expert moves the logits so far that hardly
 # any position clears its margin, so there the gate asserts only that no token
-# flips above it.
-SERVE_MARGIN = {"dense": 0.33, "moe": 1.8}
+# flips above it. vlm: 0.113 (card) / 0.090 (CPU); hybrid: 0.147 / 0.156, the
+# long request 0.134 / 0.146.
+SERVE_MARGIN = {"dense": 0.33, "moe": 1.8, "vlm": 0.23, "hybrid": 0.32}
 # the calibration's configs: full depth and head dims, the grouping kept,
 # narrowed to run on the CPU
 SERVE_NARROW = {
     "phi4-mini-3p8b": dict(d_model=384, n_heads=3, n_kv_heads=1, d_ff=1024, vocab_size=8192),
     "gemma-2b": dict(d_model=512, n_heads=2, n_kv_heads=1, d_ff=2048, vocab_size=8192),
     "olmoe-1b-7b": dict(d_model=256, n_heads=2, n_kv_heads=2, d_ff=128, vocab_size=8192),
+    "internvl2-2b": dict(d_model=256, n_heads=2, n_kv_heads=1, d_ff=1024, vocab_size=8192),
+    "recurrentgemma-9b": dict(d_model=512, n_heads=2, n_kv_heads=1, d_ff=1024,
+                              vocab_size=8192, lru_width=512),
 }
 
 
@@ -980,31 +1024,52 @@ def apps_phase(torch, dev, sk, reset, read, smi) -> None:
           "nvidia_smi": smi})
 
 
-def serve_prompts(np, vocab_size: int, n: int) -> list:
-    """The prompts launch.serve.main submits: 4 to 15 tokens from seed 0."""
-    rng = np.random.default_rng(0)
-    return [rng.integers(0, vocab_size, size=int(rng.integers(4, 16))).astype(np.int32)
-            for _ in range(n)]
+def serve_requests(np, cfg, n: int) -> list:
+    """(prompt, extras) of the n requests launch.serve.main submits: 4 to 15
+    tokens from seed 0; a vlm's with N(0, 0.02) image patches (n_patches,
+    d_model) from seed 1."""
+    rng, prng = np.random.default_rng(0), np.random.default_rng(1)
+    reqs = []
+    for _ in range(n):
+        prompt = rng.integers(0, cfg.vocab_size, size=int(rng.integers(4, 16))).astype(np.int32)
+        extras = None
+        if cfg.family == "vlm":
+            extras = {"patch_embeds": prng.normal(0.0, 0.02, (cfg.n_patches, cfg.d_model)).astype(
+                np.float32)}
+        reqs.append((prompt, extras))
+    return reqs
 
 
-def greedy_runs(np, cfg, params, n_requests, modes, reset, read) -> dict:
-    """Greedy runs of launch.serve.main's prompts, one per prefill attention
-    mode, keeping every sampled logits row: {mode: (tokens by uid, logits
-    rows by uid, launches)}."""
+def long_request(np, cfg, length: int) -> list:
+    """One prompt of `length` random tokens from seed 2, no extras."""
+    return [(np.random.default_rng(2).integers(0, cfg.vocab_size, size=length).astype(np.int32),
+             None)]
+
+
+def serve_max_len(cfg) -> int:
+    return SERVE_VLM_MAX_LEN if cfg.family == "vlm" else SERVE_MAX_LEN
+
+
+def greedy_runs(cfg, params, requests, max_len, modes, reset, read) -> dict:
+    """Greedy runs of `requests` ((prompt, extras) pairs), one per prefill
+    attention mode, keeping every sampled logits row: {mode: (tokens by uid,
+    logits rows by uid, launches, prefill seconds, decode seconds)}."""
     import torch
     from repro_torch.serve.engine import Engine, Request
 
     runs = {}
     for mode in modes:
-        eng = Engine(cfg, params, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, seed=0,
+        eng = Engine(cfg, params, n_slots=SERVE_SLOTS, max_len=max_len, seed=0,
                      device=params.device, mode=mode, keep_logits=True)
-        for uid, prompt in enumerate(serve_prompts(np, cfg.vocab_size, n_requests)):
-            eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=SERVE_MAX_NEW))
+        for uid, (prompt, extras) in enumerate(requests):
+            eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=SERVE_MAX_NEW,
+                               extras=extras))
         reset()
         done = eng.run()
         if params.device.type == "cuda":
             torch.cuda.synchronize()
-        runs[mode] = ({c.uid: c.tokens for c in done}, eng.sampled_logits, read())
+        runs[mode] = ({c.uid: c.tokens for c in done}, eng.sampled_logits, read(),
+                      eng.prefill_s, eng.decode_s)
     return runs
 
 
@@ -1016,7 +1081,7 @@ def serve_gate(kernel, plain, margin: float) -> dict:
     `margin` times the plain row's RMS (a fixed SERVE_MARGIN, not taken from
     the run under test), and counted a near tie elsewhere. Returns the
     counts; the caller gates on `tokens_flipped` and `tokens_held`."""
-    (tok_k, rows_k, _), (tok_p, rows_p, _) = kernel, plain
+    (tok_k, rows_k, *_), (tok_p, rows_p, *_) = kernel, plain
     rel = {uid: float((rows_k[uid][0] - rows_p[uid][0]).norm() / rows_p[uid][0].norm())
            for uid in rows_p}
     same = {uid: next((j + 1 for j, (a, b) in enumerate(zip(tok_k[uid], tok_p[uid])) if a != b),
@@ -1044,26 +1109,58 @@ def serve_gate(kernel, plain, margin: float) -> dict:
             "requests_identical": sum(tok_k[u] == tok_p[u] for u in tok_p)}
 
 
+def _hold_greedy(arch, cfg, runs, want, zero, what="greedy") -> dict:
+    """The serve gates of a kernel and a plain greedy run (serve_gate):
+    launches as wanted (none on the plain run), the prefill logits within
+    SERVE_LOGITS_RTOL, no token flipped above SERVE_MARGIN, some token held
+    unless the family is moe. Returns the gate's counts with the tolerance."""
+    if runs["kernel"][2] != want or runs["reference"][2] != zero:
+        raise AssertionError(f"serve {arch} {what}: launches {runs['kernel'][2]} with the "
+                             f"kernel (expected {want}), {runs['reference'][2]} plain")
+    tol, margin = SERVE_LOGITS_RTOL[cfg.family], SERVE_MARGIN[cfg.family]
+    gate = serve_gate(runs["kernel"], runs["reference"], margin)
+    if not gate["max_rel_l2"] <= tol:
+        raise AssertionError(f"serve {arch} {what}: prefill logits rel L2 {gate['max_rel_l2']} "
+                             f"> {tol}")
+    if gate["tokens_flipped"] or (cfg.family != "moe" and not gate["tokens_held"]):
+        raise AssertionError(f"serve {arch} {what}: greedy tokens [uid, j, kernel, plain, "
+                             f"margin/RMS] differing where the plain margin exceeds {margin} "
+                             f"RMS: {gate['tokens_flipped']}; {gate['tokens_held']} held")
+    return dict(gate, tol=tol)
+
+
 def serve_phase(torch, np, dev, reset, read, smi, err) -> dict:
     """The serving stack at full width (module docstring, phase `serve`).
-    Returns the flash kernel's launches on the served runs and its times at
-    phi4-mini's serving prefill shape; folds its checks into `err`."""
+    Returns the flash kernel's launches on the served runs (all, and banded),
+    its times at phi4-mini's serving prefill shape; folds its checks into
+    `err`."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention, ops
     from repro_torch.launch import serve
-    from repro_torch.models import model
+    from repro_torch.models import model, transformer
+    from repro_torch.serve.engine import Request
 
     zero = dict.fromkeys(read(), 0)
-    by_arch, launches_total = {}, 0
+    by_arch, launches_total, launches_window = {}, 0, 0
     for arch, n_requests in SERVE_MODELS:
         cfg = get_config(arch)
-        hd, kv_bytes = cfg.resolved_head_dim, 2  # bf16 KV cache
-        want = dict(zero, flash_attention=cfg.n_layers * n_requests,
-                    flash_attention_bf16=cfg.n_layers * n_requests)
+        hd, max_len = cfg.resolved_head_dim, serve_max_len(cfg)
+        n_attn = sum(kind in transformer.ATTENTION_KINDS for kind in transformer.layer_kinds(cfg))
+        want = dict(zero, flash_attention=n_attn * n_requests,
+                    flash_attention_bf16=n_attn * n_requests)
+        requests = serve_requests(np, cfg, n_requests)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset()
-        out = serve.main(["--arch", arch, "--requests", str(n_requests), *SERVE_ARGS])
+        if cfg.family == "vlm":  # launch.serve.main submits no patches, as JAX's does
+            params = model.init_params(cfg, 0, dev)
+            out = serve.serve(cfg, params, [
+                Request(uid=uid, prompt=prompt, max_new_tokens=SERVE_MAX_NEW, temperature=0.7,
+                        extras=extras) for uid, (prompt, extras) in enumerate(requests)],
+                slots=SERVE_SLOTS, max_len=max_len)
+        else:
+            out = serve.main(["--arch", arch, "--requests", str(n_requests), *SERVE_ARGS])
+            params = model.init_params(cfg, 0, dev)
         torch.cuda.synchronize()
         launches = read()
         peak = torch.cuda.max_memory_allocated()
@@ -1075,38 +1172,66 @@ def serve_phase(torch, np, dev, reset, read, smi, err) -> dict:
         launches_total += launches["flash_attention"]
 
         # the decode step reads every weight but the embedding table (only
-        # its B rows, unless it is the tied head) and the whole KV cache
-        cache_bytes = 2 * cfg.n_layers * SERVE_SLOTS * SERVE_MAX_LEN * cfg.n_kv_heads * hd * kv_bytes
+        # its B rows, unless it is the tied head) and every layer's state,
+        # and writes back the recurrent states whole (a KV cache: one row)
+        caches = model.init_caches(cfg, SERVE_SLOTS, max_len, dev)
+        state_bytes = [sum(t.numel() * t.element_size() for t in st) for st in caches]
+        recurrent_bytes = sum(b for st, b in zip(caches, state_bytes) if not hasattr(st, "k"))
+        del caches
         embed_bytes = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model * 2
-        decode_bytes = out["weight_bytes"] - embed_bytes + cache_bytes
+        decode_bytes = out["weight_bytes"] - embed_bytes + sum(state_bytes) + recurrent_bytes
 
-        # greedy, with the kernel and with the plain attention, same weights and prompts
-        params = model.init_params(cfg, 0, dev)
-        runs = greedy_runs(np, cfg, params, n_requests, ("kernel", "reference"), reset, read)
+        # greedy, with the kernel and with the plain attention, same weights
+        # and prompts (without an attention layer both runs are the same)
+        gate = long = None
+        if n_attn:
+            runs = greedy_runs(cfg, params, requests, max_len, ("kernel", "reference"), reset,
+                               read)
+            gate = _hold_greedy(arch, cfg, runs, want, zero)
+            del runs
+        if arch in SERVE_LONG:  # a prompt past the window: the ring branch, the band
+            length, long_len = SERVE_LONG[arch]
+            want_long = dict(zero, flash_attention=n_attn, flash_attention_bf16=n_attn,
+                             flash_attention_window=n_attn)
+            torch.cuda.reset_peak_memory_stats()
+            runs = greedy_runs(cfg, params, long_request(np, cfg, length), long_len,
+                               ("kernel", "reference"), reset, read)
+            long = {"prompt": length, "max_len": long_len,
+                    **_hold_greedy(arch, cfg, runs, want_long, zero, "long request"),
+                    "launches": {k_: c for k_, c in runs["kernel"][2].items() if c},
+                    "prefill_ms": 1e3 * runs["kernel"][3][0],
+                    "decode_ms_median": 1e3 * statistics.median(runs["kernel"][4]),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            launches_total += runs["kernel"][2]["flash_attention"]
+            launches_window += runs["kernel"][2]["flash_attention_window"]
+            del runs
         del params
-        if runs["kernel"][2] != want or runs["reference"][2] != zero:
-            raise AssertionError(f"serve {arch} greedy: launches {runs['kernel'][2]} with the "
-                                 f"kernel, {runs['reference'][2]} plain")
-        tol, margin = SERVE_LOGITS_RTOL[cfg.family], SERVE_MARGIN[cfg.family]
-        gate = serve_gate(runs["kernel"], runs["reference"], margin)
-        del runs
         torch.cuda.empty_cache()
-        if not gate["max_rel_l2"] <= tol:
-            raise AssertionError(f"serve {arch}: prefill logits rel L2 {gate['max_rel_l2']} > {tol}")
-        if gate["tokens_flipped"] or (cfg.family == "dense" and not gate["tokens_held"]):
-            raise AssertionError(f"serve {arch}: greedy tokens [uid, j, kernel, plain, margin/RMS] "
-                                 f"differing where the plain margin exceeds {margin} RMS: "
-                                 f"{gate['tokens_flipped']}; {gate['tokens_held']} held")
 
-        # the kernel at this model's serving prefill shape: one prompt, padded to 128 rows
-        q, k, v = (0.5 * torch.randn((cfg.n_heads, 128, hd), device=dev, dtype=torch.bfloat16)
-                   for _ in range(3))
-        e, ulps = check_attention(torch, ops, f"serve {arch}", flash_attention.flash_attention(
-            q, k, v, True), q, k, v, True)
-        err["flash_attention"] = max(err["flash_attention"], e)
+        flash_check = None
+        if n_attn:  # the kernel at this model's serving prefill shape: one prompt, padded
+            S = -(-(cfg.n_patches + 15) // 128) * 128
+            q, k, v = (0.5 * torch.randn((cfg.n_heads, S, hd), device=dev, dtype=torch.bfloat16)
+                       for _ in range(3))
+            e, ulps = check_attention(torch, ops, f"serve {arch}", flash_attention.flash_attention(
+                q, k, v, True), q, k, v, True)
+            err["flash_attention"] = max(err["flash_attention"], e)
+            flash_check = {"shape": [cfg.n_heads, S, S, hd], "max_abs_err": e,
+                           "max_bf16_ulps": ulps}
+        if arch in SERVE_LONG:  # and at the long request's banded shape
+            S = -(-SERVE_LONG[arch][0] // 128) * 128
+            q, k, v = (0.5 * torch.randn((cfg.n_heads, S, hd), device=dev, dtype=torch.bfloat16)
+                       for _ in range(3))
+            out_k = flash_attention.flash_attention(q, k, v, True, cfg.window)
+            e, ulps = check_attention(torch, ops, f"serve {arch} long", out_k, q, k, v, True,
+                                      cfg.window)
+            err["flash_attention_window"] = max(err["flash_attention_window"], e)
+            flash_check["long"] = {"shape": [cfg.n_heads, S, S, hd], "window": cfg.window,
+                                   "max_abs_err": e, "max_bf16_ulps": ulps}
         by_arch[arch] = {
-            "n_layers": cfg.n_layers, "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
-            "head_dim": hd, "vocab": cfg.vocab_size, "requests": n_requests,
+            "family": cfg.family, "n_layers": cfg.n_layers, "attention_layers": n_attn,
+            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": hd,
+            "vocab": cfg.vocab_size, "requests": n_requests, "max_len": max_len,
             "weight_bytes": out["weight_bytes"], "max_memory_allocated": peak,
             "launches": {k_: c for k_, c in launches.items() if c},
             "prefill_ms_median": statistics.median(out["prefill_ms"]),
@@ -1115,8 +1240,7 @@ def serve_phase(torch, np, dev, reset, read, smi, err) -> dict:
             "wall_s": out["wall_s"], "tokens_per_s": out["tokens_per_s"],
             "weight_read_bound_ms": out["weight_bytes"] / HBM_BYTES_PER_S * 1e3,
             "decode_bound_ms": decode_bytes / HBM_BYTES_PER_S * 1e3, "decode_bytes": decode_bytes,
-            "vs_plain": dict(gate, tol=tol), "flash_check": {
-                "shape": [cfg.n_heads, 128, 128, hd], "max_abs_err": e, "max_bf16_ulps": ulps}}
+            "vs_plain": gate, "long_request": long, "flash_check": flash_check}
         emit({"phase": "serve", "arch": arch, **by_arch[arch], "nvidia_smi": smi})
 
     # flash_attention at phi4-mini's serving prefill shape (24, 128, 128),
@@ -1133,16 +1257,18 @@ def serve_phase(torch, np, dev, reset, read, smi, err) -> dict:
                                                    BF16_OPS_PER_S)
     emit({"phase": "serve_flash_timing", "shape": [hq, S, d], "dtype": "bfloat16", "causal": True,
           **timing, "nvidia_smi": smi})
-    return {"launches": launches_total, "shape": [hq, S, d], **timing}
+    return {"launches": launches_total, "launches_window": launches_window, "shape": [hq, S, d],
+            **timing}
 
 
 def serve_gates(device: str) -> int:
-    """The serve gates' calibration: each SERVE_MODELS config in bf16, its
-    greedy run with the plain attention held against three emulations of
-    it: every output moved by up to one bf16 ulp of the f32 result (what
-    the kernel's contract allows), a thousandth of the outputs moved by one
-    ulp, and the heads' outputs rolled by one (a wrong head map). On the
-    card at full width; on the CPU at full depth, narrowed (SERVE_NARROW)."""
+    """The serve gates' calibration: each SERVE_MODELS config with an
+    attention layer, in bf16, its greedy run with the plain attention (and
+    recurrentgemma's long request) held against three emulations of it:
+    every output moved by up to one bf16 ulp of the f32 result (what the
+    kernel's contract allows), a thousandth of the outputs moved by one ulp,
+    and the heads' outputs rolled by one (a wrong head map). On the card at
+    full width; on the CPU at full depth, narrowed (SERVE_NARROW)."""
     import dataclasses
     from unittest import mock
 
@@ -1150,7 +1276,7 @@ def serve_gates(device: str) -> int:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
-    from repro_torch.models import model
+    from repro_torch.models import model, transformer
 
     dev = torch.device(device)
     plain = ref.flash_attention_ref
@@ -1159,37 +1285,47 @@ def serve_gates(device: str) -> int:
     def ulp_of(o):
         return 2.0 ** (torch.floor(torch.log2(o.abs().clamp_min(1e-30))) - 7)
 
-    def within_an_ulp(q, k, v, causal=True):
-        o = plain(q.float(), k.float(), v.float(), causal)
+    def within_an_ulp(q, k, v, causal=True, window=0):
+        o = plain(q.float(), k.float(), v.float(), causal, window)
         u = torch.rand(o.shape, generator=gen, device=dev)
         return (o + (2 * u - 1) * ulp_of(o)).to(q.dtype)
 
-    def a_thousandth(q, k, v, causal=True):
-        o = plain(q.float(), k.float(), v.float(), causal)
+    def a_thousandth(q, k, v, causal=True, window=0):
+        o = plain(q.float(), k.float(), v.float(), causal, window)
         moved = torch.rand(o.shape, generator=gen, device=dev) < 1e-3
         return torch.where(moved, o + ulp_of(o), o).to(q.dtype)
 
-    def heads_rolled(q, k, v, causal=True):
-        return plain(q, k, v, causal).roll(1, dims=0)
+    def heads_rolled(q, k, v, causal=True, window=0):
+        return plain(q, k, v, causal, window).roll(1, dims=0)
 
     reset, read = counters()
     for arch, n_requests in SERVE_MODELS:
         cfg = get_config(arch)
+        if not any(kind in transformer.ATTENTION_KINDS for kind in transformer.layer_kinds(cfg)):
+            continue  # no attention: nothing to emulate
         if dev.type == "cpu":
             narrow = dict(SERVE_NARROW[arch])
             if cfg.moe:
                 narrow["moe"] = dataclasses.replace(cfg.moe, d_expert=narrow["d_ff"])
             cfg = dataclasses.replace(cfg, **narrow)
         params = model.init_params(cfg, 0, device=dev)
-        base = greedy_runs(np, cfg, params, n_requests, ["reference"], reset, read)
+        cases = [("", serve_requests(np, cfg, n_requests), serve_max_len(cfg))]
+        if arch in SERVE_LONG:
+            length, long_len = SERVE_LONG[arch]
+            cases.append(("long_", long_request(np, cfg, length), long_len))
         out = {}
-        for name, fn in (("within_one_ulp", within_an_ulp), ("a_thousandth", a_thousandth),
-                         ("heads_rolled", heads_rolled)):
-            with mock.patch.object(ref, "flash_attention_ref", fn):
-                emulated = greedy_runs(np, cfg, params, n_requests, ["reference"], reset, read)
-            gate = serve_gate(emulated["reference"], base["reference"], SERVE_MARGIN[cfg.family])
-            out[name] = dict(gate, tokens_flipped=len(gate["tokens_flipped"]))
-        del params, base, emulated
+        for prefix, requests, max_len in cases:
+            base = greedy_runs(cfg, params, requests, max_len, ["reference"], reset, read)
+            for name, fn in (("within_one_ulp", within_an_ulp), ("a_thousandth", a_thousandth),
+                             ("heads_rolled", heads_rolled)):
+                with mock.patch.object(ref, "flash_attention_ref", fn):
+                    emulated = greedy_runs(cfg, params, requests, max_len, ["reference"], reset,
+                                           read)
+                gate = serve_gate(emulated["reference"], base["reference"],
+                                  SERVE_MARGIN[cfg.family])
+                out[prefix + name] = dict(gate, tokens_flipped=len(gate["tokens_flipped"]))
+            del base, emulated
+        del params
         emit({"phase": "serve_gates", "device": str(dev), "arch": arch, "family": cfg.family,
               "narrowed": SERVE_NARROW[arch] if dev.type == "cpu" else None,
               "n_layers": cfg.n_layers, "requests": n_requests,
@@ -1659,6 +1795,30 @@ def main() -> int:
         del q, k, v, out_k
     torch.cuda.synchronize()
 
+    # the band on both kernels; a window as wide as the keys is the causal
+    # launch bit for bit
+    err["flash_attention_window"], mism["flash_attention_window"] = 0.0, 0
+    for BH, S, d, window in FLASH_WINDOW_CASES:
+        for dtype in ("float32", "bfloat16"):
+            dt_ = getattr(torch, dtype)
+            q, k, v = (normal((BH, S, d), dt_) for _ in range(3))
+            out_k = flash_attention.flash_attention(q, k, v, True, window)
+            e, ulps = check_attention(torch, ops, (BH, S, d, window, dtype), out_k, q, k, v, True,
+                                      window)
+            err["flash_attention_window"] = max(err["flash_attention_window"], e)
+            causal = flash_attention.flash_attention(q, k, v, True)
+            wide = {w: bool(torch.equal(flash_attention.flash_attention(q, k, v, True, w), causal))
+                    for w in (S, S + 77)}
+            if not all(wide.values()):
+                raise AssertionError(f"flash_attention ({BH}, {S}, {d}, {dtype}): a window as "
+                                     f"wide as the keys differs from the causal launch: {wide}")
+            emit({"phase": "check_flash_window", "BH": BH, "S": S, "d": d, "window": window,
+                  "dtype": dtype, "max_abs_err": e, "tol": FLASH_TOL[dtype],
+                  "max_bf16_ulps": ulps if dtype == "bfloat16" else None,
+                  "wide_window_equals_causal": wide})
+            del q, k, v, out_k, causal
+    torch.cuda.synchronize()
+
     # the fault variants of the three run() kernels against their plain versions
     fault_err, fault_mism = check_faults_kernels(torch, np, dev, read)
     err.update(fault_err)
@@ -1859,6 +2019,31 @@ def main() -> int:
     emit({"phase": "timing_attention", "S": ATTENTION_S, "dtype": "bfloat16", "causal": True,
           "shapes": {name: [hq, ATTENTION_S, d] for name, hq, _, d in ATTENTION_MAIN},
           "by_config": attention_timing, "nvidia_smi": smi})
+
+    # the band at recurrentgemma's shape, bf16, beside its plain version and
+    # SDPA with the band as a boolean mask (timed only). Bound: q, k, v and
+    # out once each; 4 d FLOPs for each of the band's pairs.
+    BH, S, d, window = FLASH_WINDOW_CASES[0]
+    q, k, v = (0.5 * torch.randn((BH, S, d), device=dev, dtype=torch.bfloat16) for _ in range(3))
+    pos = torch.arange(S, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    ms["flash_attention_window"] = time_ms(
+        torch, lambda: flash_attention.flash_attention(q, k, v, True, window), n=20, warmup=3)
+    ms["flash_attention_window_plain"] = time_ms(
+        torch, lambda: ops.flash_attention(q, k, v, True, mode="reference", window=window),
+        n=10, warmup=2)
+    ms["sdpa_window"] = time_ms(torch, lambda: sdpa(q[None], k[None], v[None], attn_mask=band))
+    pairs = window * (window + 1) / 2 + (S - window) * window
+    bounds["flash_attention_window"] = bound(4 * BH * S * d * 2, 4.0 * d * BH * pairs,
+                                             BF16_OPS_PER_S)
+    emit({"phase": "timing_attention_window", "shape": [BH, S, d], "window": window,
+          "dtype": "bfloat16", "pairs_per_head": pairs,
+          **{key: ms[name] for key, name in (("ms", "flash_attention_window"),
+                                             ("plain_ms", "flash_attention_window_plain"),
+                                             ("library_ms", "sdpa_window"))},
+          "bound_ms": bounds["flash_attention_window"][0],
+          "bound_by": bounds["flash_attention_window"][1], "nvidia_smi": smi})
+    del q, k, v, band
 
     # -- 4. the main path ---------------------------------------------------
     n, n_steps, n_chains = 2048, 2000, 256
@@ -2307,6 +2492,12 @@ def main() -> int:
                 for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
              **{f"serve_{key}": served[key] for key in ("launches", "shape", "ms", "plain_ms",
                                                         "bound_ms", "library_ms")}),
+        # the band: launches on the long request's prefill (recurrentgemma-9b's
+        # attn_local layers); times at (16, 4096, 256), window 2048
+        dict(entry("flash_attention_window", csrc + "flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:85", served["launches_window"],
+                   "sdpa_window"),
+             shape=list(FLASH_WINDOW_CASES[0][:3]), window=FLASH_WINDOW_CASES[0][3]),
         # the fault variants: launches on the faults phase's graphed runs
         entry("tau_leap_step_faults", csrc + "tau_leap.cu", "src/repro/kernels/tau_leap.py:82",
               fault_launches["sk_tau_leap"]["tau_leap_step_faults"], "int_mm"),

@@ -1,9 +1,11 @@
 // flash_attention: online-softmax attention over aligned (BH, S, d) heads,
-// scale 1/sqrt(d), optional causal mask. Replaces the TPU kernel
+// scale 1/sqrt(d), optional causal mask, optionally banded to a sliding
+// window. Replaces the TPU kernel
 // repro/kernels/flash_attention.py::flash_attention (_flash_kernel).
 //
 // For each head and query row i, over the keys j in tiles, in f32:
-//   s_j   = (q_i . k_j) * scale, or -1e30 where causal and j > i
+//   s_j   = (q_i . k_j) * scale, or -1e30 where causal and j > i, or where
+//           window > 0 and j <= i - window (the band i - window < j <= i)
 //   m'    = max(m, max_j s_j);  p_j = exp(s_j - m');  alpha = exp(m - m')
 //   l     = alpha * l + sum_j p_j;  acc = alpha * acc + sum_j p_j v_j
 //   out_i = acc / max(l, 1e-30), cast to q's dtype
@@ -11,7 +13,13 @@
 // at the top left: query i sees keys 0..i, also when Sq != Sk. A key tile
 // that lies wholly above the diagonal is skipped, which is exact: every
 // score in it is -1e30, so it would add p = 0 and give alpha = 1 (the
-// first tile always holds key 0, so m is a real score by then).
+// first tile always holds key 0, so m is a real score by then). With a
+// window a block starts at the first key tile that meets its rows' band,
+// and the tiles before it are skipped as exactly. A row may then see no key
+// of its first tile (its band starts in a later one): while a row's max is
+// still -1e30 its p are taken as 0, not exp(0), so nothing is added that
+// alpha would have to clear, and its diagonal always lies in the band, so
+// no row ends without a key. The caller asks Sq <= Sk with a window.
 //
 // q: (BH, Sq, d), k and v: (BH, Sk, d), out: (BH, Sq, d), all f32 or all
 // bf16, contiguous, 16-byte aligned; Sq and Sk multiples of 128 (as the
@@ -63,7 +71,9 @@
 //   odd) keep the 16-byte loads free of bank conflicts. At d = 256 the q, k
 //   and v tiles and the p tile take 212 KB of the 227 KB a block may have.
 //
-// Both run the longest causal rows first.
+// Both run the longest causal rows first. Under a band every block past the
+// first window / 64 (f32) or window / 128 (bf16) query rows walks the same
+// number of key tiles, so the order then matters only for those first ones.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,7 +110,7 @@ template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk,
-                           int d, int causal) {
+                           int d, int causal, int window) {
   extern __shared__ float4 smem4[];
   const int stride = d + 4;
   float* qs = reinterpret_cast<float*>(smem4);
@@ -128,9 +138,12 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.0f;
   }
 
-  int n_tiles = Sk / kRows;
-  if (causal) n_tiles = min(n_tiles, q0 / kRows + 1);
-  for (int t = 0; t < n_tiles; ++t) {
+  int t_begin = 0, n_tiles = Sk / kRows;
+  if (causal) {
+    n_tiles = min(n_tiles, q0 / kRows + 1);
+    if (window > 0) t_begin = max(0, q0 - window + 1) / kRows;  // the band's first tile
+  }
+  for (int t = t_begin; t < n_tiles; ++t) {
     const int k0 = t * kRows;
     __syncthreads();  // the previous tile's k, v and p are consumed
     const size_t off = (static_cast<size_t>(bh) * Sk + k0) * d;
@@ -169,17 +182,19 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float x = s[i][j] * scale;
-        if (causal && k0 + tx + 16 * j > row) x = kNegInf;
+        const int key = k0 + tx + 16 * j;
+        if (causal && (key > row || (window > 0 && key <= row - window))) x = kNegInf;
         s[i][j] = x;
         mc = fmaxf(mc, x);
       }
 #pragma unroll
       for (int o = 8; o > 0; o >>= 1) mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, o));
       const float mn = fmaxf(m[i], mc);
+      const float shift = mn == kNegInf ? 0.0f : mn;  // no key of the band yet: p = 0
       float sum = 0.0f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - mn);
+        s[i][j] = expf(s[i][j] - shift);
         sum += s[i][j];
       }
 #pragma unroll
@@ -235,7 +250,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 
 cudaError_t launch_f32(const float* q, const float* k, const float* v, float* out, int BH,
-                       int Sq, int Sk, int d, int causal, cudaStream_t stream) {
+                       int Sq, int Sk, int d, int causal, int window, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (3 * kRows * static_cast<size_t>(d + 4) + kRows * kPStride);
   auto kernel = d <= 64 ? flash_f32_kernel<64> : d <= 128 ? flash_f32_kernel<128>
                                                           : flash_f32_kernel<256>;
@@ -244,7 +259,8 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, float* ou
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<dim3(Sq / kRows, BH), kThreads, smem, stream>>>(q, k, v, out, Sq, Sk, d, causal);
+  kernel<<<dim3(Sq / kRows, BH), kThreads, smem, stream>>>(q, k, v, out, Sq, Sk, d, causal,
+                                                           window);
   return cudaGetLastError();
 }
 
@@ -281,7 +297,7 @@ template <int DP>
 __global__ void __launch_bounds__(kBf16Threads, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-                  int Sq, int Sk, int d, int causal, float scale_log2) {
+                  int Sq, int Sk, int d, int causal, int window, float scale_log2) {
   using T = Bf16Tile<DP>;
   constexpr int BN = T::BN;
   extern __shared__ uint8_t smem_raw[];
@@ -295,8 +311,13 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 
   const int bh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // the longest causal rows first
-  int n_tiles = Sk / BN;
-  if (causal) n_tiles = min(n_tiles, (q0 + kBlockQ - 1) / BN + 1);
+  int t_begin = 0, n_tiles = Sk / BN;
+  if (causal) {
+    n_tiles = min(n_tiles, (q0 + kBlockQ - 1) / BN + 1);
+    if (window > 0) t_begin = max(0, q0 - window + 1) / BN;  // the band's first tile
+  }
+  // the ring's stage and phase count the tiles walked (i), from t_begin
+  const int n_walk = n_tiles - t_begin;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -317,11 +338,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 #pragma unroll
       for (int p = 0; p < T::kPanels; ++p)
         hopper::tma_load_2d(q_smem + p * kBlockQ * 128, &tq, p * kPanel, bh * Sq + q0, q_bar);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages;
-        if (t >= kStages) hopper::mbar_wait(empty_bar + 8 * s, ((t / kStages) - 1) & 1);
+      for (int i = 0; i < n_walk; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) hopper::mbar_wait(empty_bar + 8 * s, ((i / kStages) - 1) & 1);
         hopper::mbar_arrive_expect_tx(full_bar + 8 * s, 2 * T::kKVBytes);
-        const int row = bh * Sk + t * BN;
+        const int row = bh * Sk + (t_begin + i) * BN;
 #pragma unroll
         for (int p = 0; p < T::kPanels; ++p) {
           const uint32_t off = s * T::kKVBytes + p * BN * 128;
@@ -344,9 +365,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     const uint32_t q_wg = q_smem + 64 * c * 128;
 
     hopper::mbar_wait(q_bar, 0);
-    for (int t = 0; t < n_tiles; ++t) {
-      const int s = t % kStages;
-      hopper::mbar_wait(full_bar + 8 * s, (t / kStages) & 1);
+    for (int it = 0; it < n_walk; ++it) {
+      const int s = it % kStages;
+      hopper::mbar_wait(full_bar + 8 * s, (it / kStages) & 1);
       const uint32_t k_tile = k_smem + s * T::kKVBytes, v_tile = v_smem + s * T::kKVBytes;
 
       // S = q k^T over DP / 16 steps of k16.
@@ -364,11 +385,15 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       hopper::fence_regs(sc);
 
       // Online softmax on the raw scores, exp2 with the scale folded in.
-      const int k0 = t * BN;
-      if (causal && k0 + BN - 1 > wg_row0) {
+      const int k0 = (t_begin + it) * BN;
+      // the diagonal crosses the tile, or the band's lower edge does
+      const bool lower = window > 0 && k0 <= wg_row0 + 63 - window;
+      if ((causal && k0 + BN - 1 > wg_row0) || lower) {
 #pragma unroll
-        for (int i = 0; i < BN / 2; ++i)
-          if (k0 + acc_col(i, lane) > row0 + 8 * ((i / 2) % 2)) sc[i] = kNegInf;
+        for (int i = 0; i < BN / 2; ++i) {
+          const int key = k0 + acc_col(i, lane), row = row0 + 8 * ((i / 2) % 2);
+          if (key > row || (window > 0 && key <= row - window)) sc[i] = kNegInf;
+        }
       }
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -380,7 +405,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
         const float mn = fmaxf(m[h], mx[h]);
         alpha[h] = exp2f((m[h] - mn) * scale_log2);
-        neg_m[h] = -mn * scale_log2;
+        // no key of the band yet: p = exp2(-1e30 * scale_log2) = 0
+        neg_m[h] = mn == kNegInf ? 0.0f : -mn * scale_log2;
         m[h] = mn;
       }
       float sum[2] = {0.0f, 0.0f};
@@ -493,7 +519,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int d, long long rows, int box_
 
 template <int DP>
 cudaError_t launch_bf16_dp(const void* q, const void* k, const void* v, void* out, int BH,
-                           int Sq, int Sk, int d, int causal, cudaStream_t stream) {
+                           int Sq, int Sk, int d, int causal, int window, cudaStream_t stream) {
   using T = Bf16Tile<DP>;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, d, static_cast<long long>(BH) * Sq, kBlockQ) ||
@@ -507,16 +533,16 @@ cudaError_t launch_bf16_dp(const void* q, const void* k, const void* v, void* ou
   const float scale_log2 =
       static_cast<float>(1.4426950408889634 / std::sqrt(static_cast<double>(d)));
   kernel<<<dim3(Sq / kBlockQ, BH), kBf16Threads, T::kSmemBytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, d, causal, scale_log2);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, d, causal, window, scale_log2);
   return cudaGetLastError();
 }
 
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, int BH, int Sq,
-                        int Sk, int d, int causal, cudaStream_t stream) {
-  if (d <= 64) return launch_bf16_dp<64>(q, k, v, out, BH, Sq, Sk, d, causal, stream);
-  if (d <= 128) return launch_bf16_dp<128>(q, k, v, out, BH, Sq, Sk, d, causal, stream);
-  if (d <= 192) return launch_bf16_dp<192>(q, k, v, out, BH, Sq, Sk, d, causal, stream);
-  return launch_bf16_dp<256>(q, k, v, out, BH, Sq, Sk, d, causal, stream);
+                        int Sk, int d, int causal, int window, cudaStream_t stream) {
+  if (d <= 64) return launch_bf16_dp<64>(q, k, v, out, BH, Sq, Sk, d, causal, window, stream);
+  if (d <= 128) return launch_bf16_dp<128>(q, k, v, out, BH, Sq, Sk, d, causal, window, stream);
+  if (d <= 192) return launch_bf16_dp<192>(q, k, v, out, BH, Sq, Sk, d, causal, window, stream);
+  return launch_bf16_dp<256>(q, k, v, out, BH, Sq, Sk, d, causal, window, stream);
 }
 
 }  // namespace
@@ -524,16 +550,17 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
 // Returns cudaGetLastError() after the launch (or the error of the set-up:
 // cudaErrorInvalidValue when a tensor map cannot be encoded). bf16 != 0:
 // all four tensors are bf16 and go to flash_bf16_kernel, else f32 to
-// flash_f32_kernel. The caller has checked the shapes, alignment and
+// flash_f32_kernel. window > 0 bands the causal mask (causal != 0 and
+// Sq <= Sk). The caller has checked the shapes, alignment, the window and
 // 1 <= BH <= 65535.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int BH, int Sq, int Sk, int d, int causal, int bf16,
-                                      void* stream) {
+                                      int BH, int Sq, int Sk, int d, int causal, int window,
+                                      int bf16, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? launch_bf16(q, k, v, out, BH, Sq, Sk, d, causal, st)
+      bf16 ? launch_bf16(q, k, v, out, BH, Sq, Sk, d, causal, window, st)
            : launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
                         static_cast<const float*>(v), static_cast<float*>(out), BH, Sq, Sk, d,
-                        causal, st);
+                        causal, window, st);
   return static_cast<int>(err);
 }

@@ -30,6 +30,7 @@ MODES = ("auto", "kernel", "reference")
 # (module, attribute, key) for an entry of a dict of counters.
 _COUNTERS = (
     (_tl, "launches"), (_tl, "launches_faults"), (_df, "launches"), (_fa, "launches"),
+    (_fa, "launches_window"),
     *((_fa, "launches_by_dtype", k) for k in _fa.launches_by_dtype),
     *((m, attr, k) for m in (_lg, _sg) for attr in ("launches", "launches_faults")
       for k in getattr(m, attr)),
@@ -171,10 +172,12 @@ def quantize_dense(J: torch.Tensor, bits: int = 8) -> tuple[torch.Tensor, torch.
     return codes, scale.to(torch.float32)
 
 
-def flash_attention(q, k, v, causal: bool = True, mode: str = "auto") -> torch.Tensor:
+def flash_attention(q, k, v, causal: bool = True, mode: str = "auto",
+                    window: int = 0) -> torch.Tensor:
     """(BH, S, d) fused attention with scale 1/sqrt(d): the JAX signature,
     GQA-aligned operands (the caller repeats the KV heads). With `causal`,
-    query i sees keys 0..i."""
+    query i sees keys 0..i; with `window` > 0 as well, only keys j with
+    i - window < j <= i (a sliding window; it needs `causal`)."""
     if _use_kernel(q, mode):
-        return _fa.flash_attention(q, k, v, causal)
-    return _ref.flash_attention_ref(q, k, v, causal)
+        return _fa.flash_attention(q, k, v, causal, window)
+    return _ref.flash_attention_ref(q, k, v, causal, window)

@@ -171,19 +171,32 @@ def tau_leap_step_ref(
 
 
 def flash_attention_ref(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, window: int = 0
 ) -> torch.Tensor:
     """Attention oracle of the flash-attention kernel. q: (BH,Sq,d); k, v:
     (BH,Sk,d); any S. Scores, softmax and p @ v in f32, the result in q's
     dtype. With `causal`, query i sees keys 0..i (aligned at the top left,
-    also when Sq != Sk); masked scores are -1e30."""
+    also when Sq != Sk), and with `window` > 0 only the band of keys
+    i - window < j <= i, the JAX package's `causal_mask(Sq, Sk, window)`;
+    masked scores are -1e30."""
+    check_window(causal, window)
     d = q.shape[-1]
     s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32), k.to(torch.float32))
     s = s / torch.sqrt(torch.tensor(d, dtype=torch.float32, device=q.device))
     if causal:
         Sq, Sk = s.shape[-2], s.shape[-1]
-        mask = (torch.arange(Sk, device=q.device)[None, :]
-                <= torch.arange(Sq, device=q.device)[:, None])
+        qpos = torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window > 0:
+            mask &= kpos > qpos - window
         s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32)).to(q.dtype)
+
+
+def check_window(causal: bool, window: int) -> None:
+    """A band needs the causal mask: raise on a negative window or a window
+    without `causal`."""
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window = {window} needs causal=True and window >= 0 (0: no band)")

@@ -4,15 +4,16 @@ engine, and a synthetic request workload.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     python -m repro_torch.launch.serve --arch phi4-mini-3p8b --no-reduced  # on the card
 
-The port of `repro/launch/serve.py`, with its flags and defaults, except:
-  * `--arch` defaults to phi4-mini-3p8b, a family the port serves (the JAX
-    default, xlstm-125m, is an ssm, not ported yet);
+The port of `repro/launch/serve.py`, with its flags and defaults (`--arch`
+xlstm-125m), except:
   * `--reduced/--no-reduced` (the JAX flag cannot be turned off, so the JAX
     entry point never serves full width; the default is still reduced);
   * `--device` (default cuda; it raises without a card);
   * `--ckpt-dir` is rejected until the training slice brings checkpoints.
-`main` returns a summary: the completions, their tokens and walls, and the
-weights' size.
+Every decoder-only arch is served; whisper-medium (audio) raises. Like the
+JAX driver it submits no image patches for a vlm arch (a reference quirk,
+ROADMAP); `serve` takes requests with `extras` for that. `main` returns a
+summary: the completions, their tokens and walls, and the weights' size.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from repro_torch.serve.engine import Engine, Request
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="phi4-mini-3p8b", choices=list_archs())
+    ap.add_argument("--arch", default="xlstm-125m", choices=list_archs())
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction, default=True)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
@@ -48,21 +49,31 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
     params = model.init_params(cfg, 0, dev)
-    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-
-    eng = Engine(cfg, params, n_slots=args.slots, max_len=args.max_len, seed=0, device=dev)
     rng = np.random.default_rng(0)
-    t0 = time.perf_counter()
+    requests = []
     for uid in range(args.requests):
         prompt = rng.integers(0, cfg.vocab_size, size=int(rng.integers(4, 16))).astype(np.int32)
-        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=args.max_new,
-                           temperature=args.temperature))
+        requests.append(Request(uid=uid, prompt=prompt, max_new_tokens=args.max_new,
+                                temperature=args.temperature))
+    out = serve(cfg, params, requests, slots=args.slots, max_len=args.max_len)
+    print(f"{len(out['completions'])} completions, {out['tokens']} tokens, {out['wall_s']:.1f}s "
+          f"({out['tokens_per_s']:.1f} tok/s)")
+    return {"arch": args.arch, "reduced": args.reduced, **out}
+
+
+def serve(cfg, params: model.DecoderLM, requests: list, *, slots: int, max_len: int) -> dict:
+    """Serve `requests` through an `Engine` on the model's device (seed 0)
+    and return the summary `main` returns, without the arch."""
+    eng = Engine(cfg, params, n_slots=slots, max_len=max_len, seed=0, device=params.device)
+    t0 = time.perf_counter()
+    for req in requests:
+        eng.submit(req)
     done = eng.run()
     dt = time.perf_counter() - t0
     tokens = sum(len(c.tokens) for c in done)
-    print(f"{len(done)} completions, {tokens} tokens, {dt:.1f}s ({tokens / dt:.1f} tok/s)")
-    return {"arch": args.arch, "reduced": args.reduced, "device": str(params.device),
-            "weight_bytes": weight_bytes, "requests": args.requests,
+    return {"device": str(params.device),
+            "weight_bytes": sum(p.numel() * p.element_size() for p in params.parameters()),
+            "requests": len(requests),
             "completions": [{"uid": c.uid, "tokens": c.tokens} for c in done],
             "tokens": tokens, "wall_s": dt, "tokens_per_s": tokens / dt,
             "prefill_ms": [1e3 * s for s in eng.prefill_s],

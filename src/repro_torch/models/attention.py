@@ -1,19 +1,21 @@
-"""Attention: MHA / GQA / MQA, causal prefill on the flash kernel, KV-cache decode.
+"""Attention: MHA / GQA / MQA, causal and sliding-window prefill on the flash
+kernel, KV-cache decode.
 
 The port of `repro/models/attention.py` for the serving path:
   * `attn_prefill` — causal attention over the prompt through
     `ops.flash_attention` (on a CUDA tensor the hand-written bf16 wgmma + TMA
     kernel, on a CPU tensor its plain version) at every length, where the
     JAX package runs dense attention up to 4096 tokens and blockwise above;
-    it also writes the prompt's K/V into the cache.
+    a sliding-window layer (`window` > 0) passes its band to the kernel
+    once the prompt is longer than the window. It writes the prompt's K/V
+    into the cache, or its last T keys at pos % T into a ring of T slots.
   * `attn_decode` — one query token against the whole cache under a
     validity mask, in plain torch ops as in the JAX package: the flash
     kernel takes query lengths that are multiples of 128 only, with the
-    causal mask aligned at the top left.
+    causal mask aligned at the top left. A sliding-window layer's cache is
+    a ring of min(max_len, window) slots written at pos % T.
 
-RoPE is applied to every query and key. Sliding-window attention
-(`attn_local`) is not ported: `transformer` rejects that block kind when it
-builds the block.
+RoPE is applied to every query and key.
 
 Layout: activations (B, S, D); heads split as (B, S, H, hd); KV cache
 (B, T, K, hd) in `kv_cache_dtype`, written in place. Query head h reads KV
@@ -38,7 +40,7 @@ from repro_torch.kernels.flash_attention import SEQ_MULTIPLE
 from repro_torch.models import layers
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # (B, T, K, hd); a decoder stacks its layers in front: (L, B, T, K, hd)
+    k: torch.Tensor  # (B, T, K, hd)
     v: torch.Tensor
     # the running position lives in the serving state, not here
 
@@ -127,50 +129,73 @@ def _flash_heads(t: torch.Tensor, S_pad: int) -> torch.Tensor:
     return out.reshape(B * H, S_pad, hd)
 
 
-def flash_prefill(q, k, v, mode: str = "auto") -> torch.Tensor:
+def flash_prefill(q, k, v, mode: str = "auto", window: int = 0) -> torch.Tensor:
     """Causal attention of q (B,S,H,hd) over k, v (B,S,K,hd) through
-    `ops.flash_attention` -> (B, S, H, hd).
+    `ops.flash_attention` -> (B, S, H, hd); with `window` > 0 query i sees
+    only keys i - window < j <= i.
 
     The kernel takes aligned heads and lengths that are multiples of 128:
     each KV head is repeated for its G query heads (h reads h // G), and the
     sequence is padded at its end with zeros, which the causal mask keeps
-    invisible to every real query; the padded rows are dropped."""
+    invisible to every real query; the padded rows are dropped. A window of
+    S or more is the causal mask itself, so the call then takes none."""
     B, S, H, hd = q.shape
+    window = window if window < S else 0
     G = H // k.shape[2]
     if G > 1:
         k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
     S_pad = -(-S // SEQ_MULTIPLE) * SEQ_MULTIPLE
     o = ops.flash_attention(_flash_heads(q, S_pad), _flash_heads(k, S_pad),
-                            _flash_heads(v, S_pad), causal=True, mode=mode)
+                            _flash_heads(v, S_pad), causal=True, mode=mode, window=window)
     return o.reshape(B, H, S_pad, hd)[:, :, :S].transpose(1, 2)
 
 
-def attn_prefill(attn: Attention, x, cfg, positions, cache: KVCache, *, mode: str = "auto"):
-    """Causal attention over the prompt; writes K/V into cache[:, 0:S] in
-    place. Returns (delta (B, S, D), cache)."""
+def attn_prefill(attn: Attention, x, cfg, positions, cache: KVCache, *, window: int = 0,
+                 mode: str = "auto"):
+    """Causal (with `window` > 0 banded) attention over the prompt; writes
+    K/V into cache[:, 0:S] in place, or, for a sliding-window layer's ring
+    of T < S slots, the last T keys at their pos % T. Returns
+    (delta (B, S, D), cache)."""
     q, k, v = _project_qkv(attn, x, cfg, positions)
     B, S, _ = x.shape
-    out = flash_prefill(q, k, v, mode)
-    cache.k[:, :S] = k.to(cache.k.dtype)
-    cache.v[:, :S] = v.to(cache.v.dtype)
+    out = flash_prefill(q, k, v, mode, window)
+    T = cache.k.shape[1]
+    if window > 0 and T < S:  # the ring: slots (S - T .. S - 1) % T
+        idx = torch.arange(S - T, S, device=x.device) % T
+        cache.k[:, idx] = k[:, -T:].to(cache.k.dtype)
+        cache.v[:, idx] = v[:, -T:].to(cache.v.dtype)
+    else:
+        cache.k[:, :S] = k.to(cache.k.dtype)
+        cache.v[:, :S] = v.to(cache.v.dtype)
     return attn.wo(out.reshape(B, S, -1)), cache
 
 
-def attn_decode(attn: Attention, x, cfg, pos: int, cache: KVCache):
+def attn_decode(attn: Attention, x, cfg, pos: int, cache: KVCache, *, window: int = 0):
     """One-token decode. x: (B, 1, D); pos: the current position (an int).
 
     Writes the new K/V at pos in place (at T-1 once pos >= T, where the JAX
     package's dynamic_update_slice clamps the start) and attends over the
     whole cache with every slot at or before pos counted valid — the
-    standard fixed-shape serving layout. Returns (delta (B, 1, D), cache)."""
+    standard fixed-shape serving layout; with `window` > 0 only the slots
+    in the band pos - window < j <= pos. A window layer whose cache has at
+    most `window` slots keeps a ring: the write goes to pos % T, and every
+    slot is valid once pos >= T (slot s then holds position
+    pos - ((pos - s) mod T)). Returns (delta (B, 1, D), cache)."""
     B = x.shape[0]
     T = cache.k.shape[1]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(attn, x, cfg, positions)
-    write_pos = min(pos, T - 1)
+    ring = 0 < window and T <= window
+    write_pos = pos % T if ring else min(pos, T - 1)
     cache.k[:, write_pos] = k_new[:, 0].to(cache.k.dtype)
     cache.v[:, write_pos] = v_new[:, 0].to(cache.v.dtype)
-    valid = torch.arange(T, device=x.device) <= pos
+    kpos = torch.arange(T, device=x.device)
+    if ring:
+        valid = torch.ones_like(kpos, dtype=torch.bool) if pos >= T else kpos <= pos
+    else:
+        valid = kpos <= pos
+        if window > 0:
+            valid &= kpos > pos - window
     scores = _grouped_scores(q, cache.k.to(x.dtype), cfg)  # (B,K,G,1,T)
     probs = _apply_mask_softmax(scores, valid)
     out = _combine(probs, cache.v.to(x.dtype), x.dtype)

@@ -2,13 +2,18 @@
 
 `params_from_jax(cfg, tree)` takes the JAX `init_params` tree as numpy
 arrays (nested dicts and tuples) and returns a state dict that
-`DecoderLM.load_state_dict` takes: the leading layer axis of the stacked
-block parameters (`params["layers"]["scan"][0]`) unstacked into one entry a
-layer, every 2-D weight transposed from the JAX (d_in, d_out) layout to
-`nn.Linear`'s (d_out, d_in), the bq/bk/bv biases as the projections'
-`bias`, and no head under tied embeddings (the head is the embedding).
-`caches_from_jax(cfg, caches)` does the same for a cache tree; a cache is
-read duck-typed, as `.k` and `.v` or a `(k, v)` tuple.
+`DecoderLM.load_state_dict` takes. The JAX decoder holds its layers as
+`{"scan": (one tree per unit position, stacked over the units), "tail":
+(one tree per tail layer)}`; the port's layer u * len(unit) + p is entry u
+of scan tree p, and the tail follows. Every 2-D weight is transposed from
+the JAX (d_in, d_out) layout to `nn.Linear`'s (d_out, d_in), but the RG-LRU's
+depthwise `conv_w` (W, R), which is no linear map; the bq/bk/bv biases
+become the projections' `bias`; 1-D and 3-D leaves (norm scales, gate biases,
+the block-diagonal mLSTM and sLSTM weights, the experts' stacks) keep their
+shape; under tied embeddings there is no head (the head is the embedding).
+`caches_from_jax(cfg, caches)` turns a cache tree into the port's list of
+per-layer states, in the same order; a state is read duck-typed, by its
+field names or as a tuple in the NamedTuple's order.
 
 Neither imports JAX: the tests convert the JAX arrays to numpy first
 (bfloat16 arrives as ml_dtypes' bfloat16 and is carried through float32,
@@ -21,8 +26,14 @@ import torch
 
 from repro_torch.models.attention import KVCache
 from repro_torch.models.model import _check_family
+from repro_torch.models.rglru import RGLRUState
+from repro_torch.models.transformer import layer_kinds, unit_plan
+from repro_torch.models.xlstm import MLSTMState, SLSTMState
 
 _BIAS = {"bq": "wq", "bk": "wk", "bv": "wv"}
+_NOT_LINEAR = {"conv_w"}
+_STATES = {"attn_global": KVCache, "attn_local": KVCache, "rglru": RGLRUState,
+           "mlstm": MLSTMState, "slstm": SLSTMState}
 
 
 def _tensor(a) -> torch.Tensor:
@@ -45,34 +56,45 @@ def _entry(path: str, name: str, a: np.ndarray):
     """The port's state-dict name and array of one unstacked JAX leaf."""
     if name in _BIAS:
         return path[: -len(name)] + _BIAS[name] + ".bias", a
-    if a.ndim == 2:  # a dense weight: nn.Linear's layout
+    if a.ndim == 2 and name not in _NOT_LINEAR:  # a dense weight: nn.Linear's layout
         return path + ".weight", a.T
-    return path, a  # norm scales, the experts' (E, d_in, d_out) stacks
+    return path, a
 
 
-def _stack(cfg, tree):
-    """The one stacked block tree of an all-attn_global decoder."""
+def _layers(cfg, tree):
+    """(layer index, its tree, take) for every layer of a JAX {"scan",
+    "tail"} decoder tree: take(leaf) is the layer's own array of a leaf of
+    that tree (its entry of a scan-stacked leaf, a tail leaf itself)."""
     _check_family(cfg)
-    if len(tree["scan"]) != 1 or len(tree["tail"]):
-        raise NotImplementedError(f"{cfg.name}: only a decoder of one repeated block is ported")
-    return tree["scan"][0]
+    plan = unit_plan(cfg)
+    n_unit = len(plan.unit)
+    for i, _ in enumerate(layer_kinds(cfg)):
+        if i < plan.n_scan * n_unit:
+            u, p = divmod(i, n_unit)
+            yield i, tree["scan"][p], (lambda a, u=u: np.asarray(a)[u])
+        else:
+            yield i, tree["tail"][i - plan.n_scan * n_unit], np.asarray
 
 
 def params_from_jax(cfg, tree) -> dict[str, torch.Tensor]:
     state = {"embed": _tensor(tree["embed"]),
              "final_norm.scale": _tensor(tree["final_norm"]["scale"])}
-    for path, name, stacked in _leaves(_stack(cfg, tree["layers"])):
-        for i in range(stacked.shape[0]):
-            key, a = _entry(f"layers.{i}.{path}", name, stacked[i])
+    for i, sub, take in _layers(cfg, tree["layers"]):
+        for path, name, a in _leaves(sub):
+            key, a = _entry(f"layers.{i}.{path}", name, take(a))
             state[key] = _tensor(a)
     if not cfg.tie_embeddings:
         state["lm_head.weight"] = _tensor(np.asarray(tree["lm_head"]).T)
     return state
 
 
-def caches_from_jax(cfg, caches) -> KVCache:
-    """The (L, B, T, K, hd) k and v of a JAX `init_caches`/`prefill` cache
-    tree ({"dec": {"scan": (cache,), "tail": ()}}) or of one stacked cache."""
-    c = _stack(cfg, caches["dec"]) if isinstance(caches, dict) else caches
-    k, v = (c.k, c.v) if hasattr(c, "k") else c
-    return KVCache(k=_tensor(k), v=_tensor(v))
+def caches_from_jax(cfg, caches) -> list:
+    """The per-layer states of a JAX `init_caches` / `prefill` / `decode_step`
+    cache tree ({"dec": {"scan": ..., "tail": ...}})."""
+    kinds = layer_kinds(cfg)
+    out = []
+    for i, sub, take in _layers(cfg, caches["dec"]):
+        cls = _STATES[kinds[i]]
+        fields = [getattr(sub, f) for f in cls._fields] if hasattr(sub, "_fields") else list(sub)
+        out.append(cls(*(_tensor(take(a)) for a in fields)))
+    return out

@@ -1,18 +1,23 @@
-"""Decoder-only LMs (the dense and MoE families) for serving.
+"""Decoder-only LMs (the dense, MoE, vlm, hybrid and ssm families) for serving.
 
 The port of the serving half of `repro/models/model.py`:
 
     model = init_params(cfg, seed, device)            # a DecoderLM
-    caches = init_caches(cfg, batch, max_len, device)  # a KVCache
+    caches = init_caches(cfg, batch, max_len, device)  # a state per layer
     logits, caches = model.prefill(tokens, caches)     # last-position (B, V)
     logits, caches = model.decode_step(tokens, pos, caches)
+
+A vlm prefill takes `patch_embeds` (B, n_patches, D), the stub frontend's
+image embeddings, prepended to the text; its positions run over patches and
+text, and `decode_step` offsets the text position by n_patches, as in the
+JAX package, whether or not the prompt had patches.
 
 `prefill` and `decode_step` run under `torch.inference_mode()` and write
 the caches in place. `mode` ("auto" | "kernel" | "reference") is passed to
 `ops.flash_attention` for the prefill attention: "auto" is the hand-written
 kernel on a CUDA device and its plain version on the CPU, with no fallback.
 
-The vlm, hybrid, ssm and audio families are not ported yet and raise
+The audio family (an encoder-decoder) is not ported yet and raises
 (ROADMAP queue 1).
 """
 from __future__ import annotations
@@ -22,15 +27,9 @@ from torch import nn
 
 from repro_torch.core.ising import resolve_device
 from repro_torch.models import layers, transformer
-from repro_torch.models.attention import KVCache
 
-FAMILIES = ("dense", "moe")
-_LATER = {
-    "vlm": "the vlm slice (image patches and their position offset)",
-    "hybrid": "the hybrid and ssm slice (rglru, xlstm, attn_local)",
-    "ssm": "the hybrid and ssm slice (rglru, xlstm, attn_local)",
-    "audio": "the audio encoder-decoder slice (cross-attention)",
-}
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
+_LATER = {"audio": "the audio encoder-decoder slice (the encoder, cross-attention and its cache)"}
 
 
 def _check_family(cfg) -> None:
@@ -59,10 +58,14 @@ class DecoderLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def _embed_inputs(self, tokens):
-        """tokens (B, S) -> (x (B, S, D), positions (B, S) int32)."""
+    def _embed_inputs(self, tokens, patch_embeds=None):
+        """tokens (B, S) -> (x (B, S', D), positions (B, S') int32). A vlm's
+        patch_embeds (B, P, D) go before the text (S' = P + S); the text is
+        where positions >= P (JAX also returns that mask; serving needs none)."""
         x = layers.embed_lookup(self.embed, tokens, self.cfg.embed_scale)
-        B, S = tokens.shape
+        if self.cfg.family == "vlm" and patch_embeds is not None:
+            x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+        B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
         return x, positions
 
@@ -72,17 +75,21 @@ class DecoderLM(nn.Module):
         return layers.unembed(x, w_out, self.cfg.logit_softcap)
 
     @torch.inference_mode()
-    def prefill(self, tokens, caches: KVCache, mode: str = "auto"):
-        """Prompt pass over tokens (B, S). Returns (last-position logits
-        (B, V), caches) with the prompt's K/V written into caches[:, :, :S]."""
-        x, positions = self._embed_inputs(tokens)
+    def prefill(self, tokens, caches: list, mode: str = "auto", patch_embeds=None):
+        """Prompt pass over tokens (B, S), after a vlm's patch_embeds (B, P, D)
+        if given. Returns (last-position logits (B, V), caches) with every
+        layer's state written for the prompt."""
+        x, positions = self._embed_inputs(tokens, patch_embeds)
         x, caches = transformer.decoder_prefill(self.layers, x, self.cfg, positions, caches, mode)
         return self._final_logits(x[:, -1:])[:, 0], caches
 
     @torch.inference_mode()
-    def decode_step(self, tokens, pos: int, caches: KVCache):
-        """tokens: (B,) next input ids at position `pos` (an int). Returns
-        (logits (B, V), caches) with their K/V written at pos."""
+    def decode_step(self, tokens, pos: int, caches: list):
+        """tokens: (B,) next input ids at text position `pos` (an int; a vlm
+        adds n_patches). Returns (logits (B, V), caches) with every layer's
+        state advanced by one token."""
+        if self.cfg.family == "vlm":
+            pos = pos + self.cfg.n_patches
         x = layers.embed_lookup(self.embed, tokens[:, None], self.cfg.embed_scale)
         x, caches = transformer.decoder_decode(self.layers, x, self.cfg, pos, caches)
         return self._final_logits(x)[:, 0], caches
@@ -95,6 +102,6 @@ def init_params(cfg, seed: int = 0, device=None) -> DecoderLM:
     return DecoderLM(cfg, torch.Generator(device=dev).manual_seed(seed))
 
 
-def init_caches(cfg, batch: int, max_len: int, device=None) -> KVCache:
+def init_caches(cfg, batch: int, max_len: int, device=None) -> list:
     _check_family(cfg)
     return transformer.decoder_caches(cfg, batch, max_len, resolve_device(device))

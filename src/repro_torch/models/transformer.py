@@ -1,15 +1,19 @@
 """Decoder blocks and the decoder stack of the serving path.
 
-The port of `repro/models/transformer.py` for decoder-only LMs built of
-`attn_global` blocks with a dense MLP or an MoE channel. Every block returns
-its residual delta and the stack adds it. The JAX package stacks each unit
-position's parameters on a leading layer axis and scans over them; here the
-layers are an `nn.ModuleList` walked in Python, and the KV cache is one
-(L, B, T, K, hd) tensor each for k and v — the layout of the JAX package's
-stacked cache — whose layer slices the blocks write in place.
+The port of `repro/models/transformer.py` for decoder-only LMs. A block's
+temporal mixer is one of the five kinds attn_global | attn_local | rglru |
+mlstm | slstm; its channel mixer a dense MLP, an MoE channel, or none
+(mlstm and slstm embed their own FFN). Every block returns its residual
+delta and the stack adds it.
 
-The `attn_local`, `rglru`, `mlstm` and `slstm` kinds (the hybrid and ssm
-families) are not ported yet and raise.
+The JAX package stacks each unit position's parameters on a leading layer
+axis and scans over the units, then runs the tail layers (depth % unit)
+unscanned; here the layers are one `nn.ModuleList` in the same order
+(layer u * len(unit) + p, then the tail) walked in Python. The caches are
+one list with a state per layer — a `KVCache` (a ring of min(max_len,
+window) slots for attn_local), an `RGLRUState`, an `MLSTMState` or an
+`SLSTMState`, each with its batch on axis 0 — which the blocks write in
+place, where the JAX package stacks the states of a unit position.
 """
 from __future__ import annotations
 
@@ -18,17 +22,10 @@ import dataclasses
 import torch
 from torch import nn
 
-from repro_torch.models import attention, layers, moe
-from repro_torch.models.attention import KVCache
+from repro_torch.models import attention, layers, moe, rglru, xlstm
 
-PORTED_KINDS = ("attn_global",)
-
-
-def _check_kind(kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet; it comes with the hybrid and ssm "
-            "families (ROADMAP queue 1)")
+KINDS = ("attn_global", "attn_local", "rglru", "mlstm", "slstm")
+ATTENTION_KINDS = ("attn_global", "attn_local")
 
 
 def _has_channel(kind: str, cfg) -> bool:
@@ -36,14 +33,24 @@ def _has_channel(kind: str, cfg) -> bool:
 
 
 class Block(nn.Module):
-    """norm1 and the attention; norm2 and the MLP or the MoE channel."""
+    """norm1 and the temporal mixer (attn, rglru, mlstm or slstm, as named
+    in the JAX package's tree); norm2 and the MLP or the MoE channel where
+    the kind has one."""
 
     def __init__(self, gen, kind: str, cfg, dtype):
         super().__init__()
-        _check_kind(kind)
+        if kind not in KINDS:
+            raise ValueError(f"unknown block kind {kind!r}; have {KINDS}")
         self.kind = kind
         self.norm1 = layers.Norm(cfg.d_model, dtype, gen.device)
-        self.attn = attention.attn_init(gen, cfg, dtype)
+        if kind in ATTENTION_KINDS:
+            self.attn = attention.attn_init(gen, cfg, dtype)
+        elif kind == "rglru":
+            self.rglru = rglru.rglru_init(gen, cfg, dtype)
+        elif kind == "mlstm":
+            self.mlstm = xlstm.mlstm_init(gen, cfg, dtype)
+        else:
+            self.slstm = xlstm.slstm_init(gen, cfg, dtype)
         if _has_channel(kind, cfg):
             self.norm2 = layers.Norm(cfg.d_model, dtype, gen.device)
             if cfg.moe:
@@ -54,6 +61,10 @@ class Block(nn.Module):
 
 def block_init(gen, kind: str, cfg, dtype) -> Block:
     return Block(gen, kind, cfg, dtype)
+
+
+def _window(kind: str, cfg) -> int:
+    return cfg.window if kind == "attn_local" else 0
 
 
 def _channel(block: Block, kind: str, x, cfg):
@@ -67,17 +78,81 @@ def _channel(block: Block, kind: str, x, cfg):
     return x + out
 
 
-def block_prefill(block: Block, kind: str, x, cfg, positions, cache: KVCache,
-                  mode: str = "auto"):
-    """Prompt pass that also fills the cache. Returns (x', cache)."""
+def block_cache_init(kind: str, cfg, batch: int, max_len: int, device):
+    """A layer's zeroed decode state: attn_local keeps a ring of
+    min(max_len, window) slots."""
+    if kind in ATTENTION_KINDS:
+        T = min(max_len, cfg.window) if kind == "attn_local" else max_len
+        return attention.init_cache(cfg, batch, T, getattr(torch, cfg.kv_cache_dtype), device)
+    if kind == "rglru":
+        return rglru.rglru_init_state(cfg, batch, getattr(torch, cfg.dtype), device)
+    if kind == "mlstm":
+        return xlstm.mlstm_init_state(cfg, batch, device)
+    return xlstm.slstm_init_state(cfg, batch, device)
+
+
+def _write(state, new) -> None:
+    """Copy each tensor of the state `new` into `state`'s, in place."""
+    for dst, src in zip(state, new):
+        dst.copy_(src)
+
+
+def _rglru_state_from_prefill(u1, h, cfg, state: rglru.RGLRUState) -> None:
+    """The decode state after a prompt pass: the last h, and the last W - 1
+    conv inputs (zeros before the prompt's start when it is shorter)."""
+    W = cfg.conv_width
+    tail = u1[:, -(W - 1):].to(state.conv.dtype)
+    state.h.copy_(h[:, -1])
+    state.conv.zero_()
+    state.conv[:, W - 1 - tail.shape[1]:] = tail
+
+
+def _mlstm_state_from_prefill(mod: xlstm.MLSTM, a, cfg, state: xlstm.MLSTMState) -> None:
+    """(C, n, m) after the prompt, through the chunkwise form."""
+    _, st = xlstm.mlstm_chunkwise(mod, a, cfg.n_heads, cfg.mlstm_chunk)
+    _write(state, st)
+
+
+def block_prefill(block: Block, kind: str, x, cfg, positions, cache, mode: str = "auto"):
+    """Prompt pass that also fills the layer's state in place. Returns (x', cache)."""
     h = layers.apply_norm(cfg.norm, block.norm1, x)
-    delta, cache = attention.attn_prefill(block.attn, h, cfg, positions, cache, mode=mode)
+    if kind in ATTENTION_KINDS:
+        # a ring shorter than the prompt takes its last T keys (attn_prefill)
+        delta, cache = attention.attn_prefill(block.attn, h, cfg, positions, cache,
+                                              window=_window(kind, cfg), mode=mode)
+    elif kind == "rglru":
+        u1, u2, hs = rglru._rglru_scan(block.rglru, h)
+        delta = rglru._out(block.rglru, hs, u2, h.dtype)
+        _rglru_state_from_prefill(u1, hs, cfg, cache)
+    elif kind == "mlstm":
+        mod = block.mlstm
+        a, b = mod.w_up_a(h), mod.w_up_b(h)
+        if h.shape[1] > 4 * cfg.mlstm_chunk:  # one chunkwise pass gives both
+            hm, st = xlstm.mlstm_chunkwise(mod, a, cfg.n_heads, cfg.mlstm_chunk)
+            _write(cache, st)
+        else:
+            hm = xlstm.mlstm_parallel(mod, a, cfg.n_heads)
+            _mlstm_state_from_prefill(mod, a, cfg, cache)
+        delta = xlstm._mlstm_out(mod, hm, b)
+    else:
+        hseq, st = xlstm.slstm_scan(block.slstm, h, cfg,
+                                    xlstm.slstm_init_state(cfg, x.shape[0], x.device))
+        _write(cache, st)
+        delta = xlstm.slstm_block_from_scan(block.slstm, h, hseq)
     return _channel(block, kind, x + delta, cfg), cache
 
 
-def block_decode(block: Block, kind: str, x, cfg, pos: int, cache: KVCache):
+def block_decode(block: Block, kind: str, x, cfg, pos: int, cache):
     h = layers.apply_norm(cfg.norm, block.norm1, x)
-    delta, cache = attention.attn_decode(block.attn, h, cfg, pos, cache)
+    if kind in ATTENTION_KINDS:
+        delta, cache = attention.attn_decode(block.attn, h, cfg, pos, cache,
+                                             window=_window(kind, cfg))
+    elif kind == "rglru":
+        delta, cache = rglru.rglru_decode(block.rglru, h, cfg, cache)
+    elif kind == "mlstm":
+        delta, cache = xlstm.mlstm_block_decode(block.mlstm, h, cfg, cache)
+    else:
+        delta, cache = xlstm.slstm_block_decode(block.slstm, h, cfg, cache)
     return _channel(block, kind, x + delta, cfg), cache
 
 
@@ -101,37 +176,31 @@ def unit_plan(cfg) -> UnitPlan:
     return UnitPlan(unit=unit, n_scan=n_scan, tail=unit[:rem])
 
 
-def _kinds(cfg) -> list[str]:
-    """Every layer's kind, in order; raise on a kind not ported."""
+def layer_kinds(cfg) -> list[str]:
+    """Every layer's kind, in the JAX package's order: unit u's position p is
+    layer u * len(unit) + p, then the tail."""
     plan = unit_plan(cfg)
-    kinds = list(plan.unit) * plan.n_scan + list(plan.tail)
-    for kind in set(kinds):
-        _check_kind(kind)
-    return kinds
+    if plan.n_scan < 1:
+        raise ValueError(f"{cfg.name}: the unit {plan.unit} is larger than {cfg.n_layers} layers")
+    return list(plan.unit) * plan.n_scan + list(plan.tail)
 
 
 def init_decoder_layers(gen, cfg, dtype) -> nn.ModuleList:
-    return nn.ModuleList(block_init(gen, kind, cfg, dtype) for kind in _kinds(cfg))
+    return nn.ModuleList(block_init(gen, kind, cfg, dtype) for kind in layer_kinds(cfg))
 
 
-def decoder_caches(cfg, batch: int, max_len: int, device) -> KVCache:
-    """Zeroed (L, B, T, K, hd) k and v in `kv_cache_dtype`, one layer of the
-    stack for each block (all attn_global)."""
-    shape = (len(_kinds(cfg)), batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    dtype = getattr(torch, cfg.kv_cache_dtype)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+def decoder_caches(cfg, batch: int, max_len: int, device) -> list:
+    """One zeroed state per layer, in layer order."""
+    return [block_cache_init(kind, cfg, batch, max_len, device) for kind in layer_kinds(cfg)]
 
 
-def decoder_prefill(blocks: nn.ModuleList, x, cfg, positions, caches: KVCache,
-                    mode: str = "auto"):
-    for i, block in enumerate(blocks):
-        x, _ = block_prefill(block, block.kind, x, cfg, positions,
-                             KVCache(caches.k[i], caches.v[i]), mode)
+def decoder_prefill(blocks: nn.ModuleList, x, cfg, positions, caches: list, mode: str = "auto"):
+    for block, cache in zip(blocks, caches):
+        x, _ = block_prefill(block, block.kind, x, cfg, positions, cache, mode)
     return x, caches
 
 
-def decoder_decode(blocks: nn.ModuleList, x, cfg, pos: int, caches: KVCache):
-    for i, block in enumerate(blocks):
-        x, _ = block_decode(block, block.kind, x, cfg, pos, KVCache(caches.k[i], caches.v[i]))
+def decoder_decode(blocks: nn.ModuleList, x, cfg, pos: int, caches: list):
+    for block, cache in zip(blocks, caches):
+        x, _ = block_decode(block, block.kind, x, cfg, pos, cache)
     return x, caches

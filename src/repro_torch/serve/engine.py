@@ -8,6 +8,12 @@ then all active slots advance together through one `decode_step` per token.
 Finished slots (EOS or max-tokens) are evicted and refilled from the queue —
 continuous batching.
 
+A request's `extras` go to the prefill: a vlm's `patch_embeds` (P, D), the
+image embeddings put before its prompt. The length check counts the prompt
+and the new tokens, not the patches, as the JAX engine does (a reference
+quirk, ROADMAP): a vlm request with patches needs a `max_len` that holds
+them as well, or its prefill or its decode writes run past the cache.
+
 Decode positions are global per engine step: every slot decodes at the
 largest position of the active slots. A slot whose prompt was shorter keeps
 zero-filled cache rows between its prompt and that position, and the decode
@@ -36,7 +42,6 @@ import torch
 
 from repro_torch.core.ising import resolve_device
 from repro_torch.models import model
-from repro_torch.models.attention import KVCache
 
 
 @dataclasses.dataclass
@@ -45,7 +50,7 @@ class Request:
     prompt: np.ndarray          # (S,) int32
     max_new_tokens: int = 32
     temperature: float = 0.0    # 0 = greedy
-    extras: Optional[dict] = None  # patch_embeds / frames for vlm/audio: not ported yet
+    extras: Optional[dict] = None  # patch_embeds (P, D) for vlm; frames for audio (not ported)
 
 
 @dataclasses.dataclass
@@ -111,12 +116,11 @@ class Engine:
         if S + req.max_new_tokens > self.max_len:
             raise ValueError(f"request {req.uid}: {S} prompt + {req.max_new_tokens} new tokens "
                              f"exceed the engine's max_len {self.max_len}")
-        if req.extras:
-            raise NotImplementedError("request extras (vlm patches, audio frames) come with the "
-                                      "vlm and audio slices (ROADMAP queue 1)")
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int64)[None], device=self.device)
+        extras = {k: torch.as_tensor(np.asarray(v)[None], device=self.device)
+                  for k, v in (req.extras or {}).items()}
         one_cache = model.init_caches(self.cfg, 1, self.max_len, self.device)
-        logits, one_cache = self.params.prefill(tokens, one_cache, self.mode)
+        logits, one_cache = self.params.prefill(tokens, one_cache, self.mode, **extras)
         # place this request's cache into the batched cache at `slot`
         _insert_slot(self.caches, one_cache, slot)
         self.nonfinite_logits += (~torch.isfinite(logits)).sum()
@@ -157,9 +161,13 @@ class Engine:
         self.decode_s.append(time.perf_counter() - t0)
 
 
-def _insert_slot(full: KVCache, one: KVCache, slot: int) -> KVCache:
+def _insert_slot(full: list, one: list, slot: int) -> list:
     """Write `one`'s batch entry 0 into `full` at batch index `slot`, in
-    place; both are layer-stacked (L, B, T, K, hd)."""
-    full.k[:, slot] = one.k[:, 0]
-    full.v[:, slot] = one.v[:, 0]
+    place, for every tensor of every layer's state (batch on axis 0 of each).
+    The JAX engine tells a layer-stacked leaf from an unstacked one by
+    comparing their first axes, which misreads an unstacked (1, R) state at
+    one slot (ROADMAP, deliberate differences); here the axis is known."""
+    for full_state, one_state in zip(full, one):
+        for f, o in zip(full_state, one_state):
+            f[slot] = o[0]
     return full

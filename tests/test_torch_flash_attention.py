@@ -1,7 +1,7 @@
 """The port's flash attention (plain version and dispatch) against the JAX
-package's oracle and its Pallas kernel in interpret mode, the kernel
-wrapper's argument checks, and, on a card, the CUDA kernel against its
-plain version.
+package's oracle and its Pallas kernel in interpret mode, the sliding-window
+band against the JAX package's `causal_mask` attention, the kernel wrapper's
+argument checks, and, on a card, the CUDA kernel against its plain version.
 
 Inputs are made with numpy from a seed and go through both packages. The
 tolerances are the JAX test's (tests/test_kernels.py): 2e-5 in float32 and
@@ -12,12 +12,14 @@ import importlib.util
 from pathlib import Path
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
 from repro.kernels import flash_attention as jfa
 from repro.kernels import ref as jref
+from repro.models import attention as jattention
 from repro_torch.kernels import flash_attention, ops, ref
 
 torch.set_num_threads(1)
@@ -80,6 +82,60 @@ def test_plain_version_takes_any_sequence_length(Sq, Sk, causal):
     np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=2e-5)
     if causal:  # query 0 sees key 0 only
         np.testing.assert_allclose(_f32(got)[:, 0], arrays[2][:, 0], atol=2e-5, rtol=2e-5)
+
+
+# (S, window): a band inside one 128-row tile, across tiles, not a multiple
+# of 128, of one key, and as wide as the sequence
+WINDOWS = [(40, 7), (256, 64), (300, 200), (128, 1), (130, 130)]
+
+
+@pytest.mark.parametrize("S,window", WINDOWS)
+def test_windowed_plain_version_matches_jax_banded_attention(S, window):
+    """The band i - window < j <= i is the JAX package's
+    `causal_mask(S, S, window)` (models/attention.py), held here against
+    dense JAX attention under that mask, f32 scores and softmax."""
+    arrays = _qkv(2, S, S, 16, seed=S + window)
+    got = ops.flash_attention(*_torch(arrays, "float32"), causal=True, window=window)
+    q, k, v = _jax(arrays, "float32")
+    s = jnp.einsum("bqd,bkd->bqk", q, k) / jnp.sqrt(jnp.float32(16))
+    s = jnp.where(jattention.causal_mask(S, S, window)[None], s, -1e30)
+    want = jnp.einsum("bqk,bkd->bqd", jax.nn.softmax(s, axis=-1), v)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=2e-5)
+    if window == 1:  # each query sees itself only
+        np.testing.assert_allclose(_f32(got), arrays[2], atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_window_as_wide_as_the_keys_is_the_causal_call(dtype):
+    tq, tk, tv = _torch(_qkv(2, 256, 256, 32, seed=5), dtype)
+    causal = ops.flash_attention(tq, tk, tv, causal=True)
+    for window in (256, 1000):
+        assert torch.equal(ops.flash_attention(tq, tk, tv, causal=True, window=window), causal)
+    assert not torch.equal(ops.flash_attention(tq, tk, tv, causal=True, window=255), causal)
+
+
+def test_window_checks_and_the_windowed_launch_count(monkeypatch):
+    """A window needs causal (ops, the plain version and the wrapper raise)
+    and, on the kernel, Sq <= Sk; a banded launch counts in launches and in
+    launches_window, with the window passed to the launcher."""
+    tq, tk, tv = _torch(_qkv(2, 128, 256, 64, seed=3), "float32")
+    for fn in (ops.flash_attention, ref.flash_attention_ref, flash_attention.flash_attention):
+        with pytest.raises(ValueError, match="needs causal"):
+            fn(tq, tk, tv, False, window=4)
+        with pytest.raises(ValueError, match="needs causal"):
+            fn(tq, tk, tv, True, window=-1)
+    calls = []
+    monkeypatch.setattr(flash_attention, "check_cuda", lambda t: t.device)
+    monkeypatch.setattr(flash_attention, "_launch",
+                        lambda q, k, v, out, causal, window, bf16, device: calls.append(window))
+    monkeypatch.setattr(flash_attention, "launches", 0)
+    monkeypatch.setattr(flash_attention, "launches_window", 0)
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        flash_attention.flash_attention(tk, tq, tq, True, window=64)
+    flash_attention.flash_attention(tq, tk, tv, True, window=64)
+    flash_attention.flash_attention(tq, tk, tv, True)
+    assert calls == [64, 0]
+    assert flash_attention.launches == 2 and flash_attention.launches_window == 1
 
 
 def test_ops_modes_on_cpu_and_the_kernel_wrapper_checks():
@@ -187,7 +243,7 @@ def test_the_wrapper_routes_by_dtype_and_counts_each(monkeypatch):
     calls = []
     monkeypatch.setattr(flash_attention, "check_cuda", lambda t: t.device)
     monkeypatch.setattr(flash_attention, "_launch",
-                        lambda q, k, v, out, causal, bf16, device: calls.append(bf16))
+                        lambda q, k, v, out, causal, window, bf16, device: calls.append(bf16))
     monkeypatch.setattr(flash_attention, "launches", 0)
     monkeypatch.setattr(flash_attention, "launches_by_dtype", {"float32": 0, "bfloat16": 0})
     for dtype, n in (("bfloat16", 2), ("float32", 1)):
@@ -240,3 +296,21 @@ def test_kernel_matches_plain_version_on_the_card(BH, Sq, Sk, d, causal, dtype):
     plain = ops.flash_attention(q, k, v, causal=causal, mode="reference")
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), plain.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("BH,S,d,window", [(4, 512, 64, 200), (2, 1024, 128, 128),
+                                           (1, 2176, 256, 2048)])
+def test_banded_kernel_matches_plain_version_on_the_card(BH, S, d, window, dtype):
+    """The band on both kernels against the plain version; a window as wide
+    as the keys equals the causal launch bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (an sm_90 card); chip_smoke.py checks it there")
+    q, k, v = _torch(_qkv(BH, S, S, d, seed=S + window), dtype, device="cuda")
+    got = flash_attention.flash_attention(q, k, v, True, window)
+    plain = ops.flash_attention(q, k, v, True, mode="reference", window=window)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), plain.float(), atol=tol, rtol=tol)
+    causal = flash_attention.flash_attention(q, k, v, True)
+    assert torch.equal(flash_attention.flash_attention(q, k, v, True, S), causal)

@@ -1,4 +1,5 @@
-"""The port's serving models against the JAX package, at the reduced configs.
+"""The port's serving models against the JAX package, at the reduced configs
+of the dense, MoE, vlm, hybrid and ssm families.
 
 The JAX `init_params` tree is carried across by `params_from_jax`, and the
 same numpy-seeded tokens and activations go through both packages. The
@@ -35,7 +36,10 @@ torch.set_num_threads(1)
 TOL = dict(atol=2e-5, rtol=2e-5)
 DENSE = ["gemma-2b", "phi3-medium-14b", "phi4-mini-3p8b", "qwen1p5-32b"]
 MOE = ["olmoe-1b-7b", "qwen2-moe-a2p7b"]
-UNPORTED = ["internvl2-2b", "recurrentgemma-9b", "whisper-medium", "xlstm-125m"]
+# vlm (with image patches), hybrid (rglru, rglru, attn_local; a tail rglru),
+# ssm (mlstm, slstm)
+RECURRENT = ["internvl2-2b", "recurrentgemma-9b", "xlstm-125m"]
+UNPORTED = ["whisper-medium"]
 
 
 def _np(x):
@@ -71,21 +75,34 @@ def _tokens(cfg, shape, seed):
 
 def _caches_close(jcaches, tcaches, cfg, **tol):
     got = convert.caches_from_jax(cfg, jax.tree.map(np.asarray, jcaches))
-    np.testing.assert_allclose(_np(tcaches.k), _np(got.k), **tol)
-    np.testing.assert_allclose(_np(tcaches.v), _np(got.v), **tol)
+    assert [type(s) for s in tcaches] == [type(s) for s in got]
+    for layer, (mine, theirs) in enumerate(zip(tcaches, got)):
+        for name, t, j in zip(mine._fields, mine, theirs):
+            np.testing.assert_allclose(_np(t), _np(j), err_msg=f"layer {layer} {name}", **tol)
+
+
+def _patches(cfg, B, seed=1):
+    """A vlm's stub image embeddings, N(0, 0.02) as the smoke run draws them."""
+    return np.random.default_rng(seed).normal(0.0, 0.02, (B, cfg.n_patches, cfg.d_model)).astype(
+        np.float32)
 
 
 def _prefill_and_decode(jcfg, cfg, params, m, n_decode=4, B=2, S=7, T=16, jit=True):
-    """Prefill then n_decode steps in both packages, fed the same tokens (the
-    JAX argmax); yields (what, JAX logits, port logits, JAX caches, port caches)."""
+    """Prefill (after image patches for a vlm) then n_decode steps in both
+    packages, fed the same tokens (the JAX argmax); yields (what, JAX
+    logits, port logits, JAX caches, port caches)."""
     toks = _tokens(cfg, (B, S), seed=S)
+    batch, extras = {"tokens": jnp.asarray(toks)}, {}
+    if cfg.family == "vlm":
+        pe = _patches(cfg, B)
+        batch["patch_embeds"], extras["patch_embeds"] = jnp.asarray(pe), torch.as_tensor(pe)
     jprefill = lambda p, b, c: jmodel.prefill(jcfg, p, b, c)  # noqa: E731
     jdecode = lambda p, t, pos, c: jmodel.decode_step(jcfg, p, t, pos, c)  # noqa: E731
     if jit:
         jprefill, jdecode = jax.jit(jprefill), jax.jit(jdecode)
-    jl, jc = jprefill(params, {"tokens": jnp.asarray(toks)}, jmodel.init_caches(jcfg, B, T))
+    jl, jc = jprefill(params, batch, jmodel.init_caches(jcfg, B, T))
     tl, tc = m.prefill(torch.as_tensor(toks, dtype=torch.int64),
-                       model.init_caches(cfg, B, T, device="cpu"))
+                       model.init_caches(cfg, B, T, device="cpu"), **extras)
     yield "prefill", jl, tl, jc, tc
     for pos in range(S, S + n_decode):
         nxt = np.argmax(np.asarray(jl, np.float32), -1).astype(np.int32)
@@ -99,7 +116,7 @@ def _prefill_and_decode(jcfg, cfg, params, m, n_decode=4, B=2, S=7, T=16, jit=Tr
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_prefill_and_decode_match_jax(arch):
     jcfg, cfg = _configs(arch)
     params, m = _models(jcfg, cfg)
@@ -112,6 +129,52 @@ def test_prefill_and_decode_match_jax(arch):
     assert steps == 5
 
 
+@pytest.mark.parametrize("arch,S,T", [
+    ("recurrentgemma-9b", 45, 60),   # past the window of 32: the ring branch, the band
+    ("recurrentgemma-9b", 100, 140),  # the band over a prompt padded to 128 rows
+    ("xlstm-125m", 300, 320),         # past 4 mLSTM chunks: the chunkwise form
+    ("internvl2-2b", 130, 150),       # 8 patches + 130 tokens: 138 rows, padded to 256
+])
+def test_long_prompts_match_jax(arch, S, T):
+    jcfg, cfg = _configs(arch)
+    params, m = _models(jcfg, cfg)
+    for what, jl, tl, jc, tc in _prefill_and_decode(jcfg, cfg, params, m, n_decode=2, S=S, T=T):
+        np.testing.assert_allclose(_np(tl), _np(jl), err_msg=what, **TOL)
+        _caches_close(jc, tc, cfg, **TOL)
+
+
+def test_windowed_dense_config_matches_jax():
+    """A dense config with sliding-window layers between its global ones
+    (window 4, so the 7-token prompt takes the ring branch and decode wraps
+    the 4-slot ring)."""
+    jcfg, cfg = _configs("phi4-mini-3p8b", block_pattern=("attn_global", "attn_local"), window=4)
+    params, m = _models(jcfg, cfg)
+    assert transformer.layer_kinds(cfg) == ["attn_global", "attn_local"]
+    for what, jl, tl, jc, tc in _prefill_and_decode(jcfg, cfg, params, m):
+        np.testing.assert_allclose(_np(tl), _np(jl), err_msg=what, **TOL)
+        _caches_close(jc, tc, cfg, **TOL)
+    assert tc[1].k.shape[1] == 4 and tc[0].k.shape[1] == 16
+
+
+def test_vlm_positions_and_text_mask_match_jax():
+    """Patches go before the text and positions run over both; JAX's text
+    mask is False exactly over the patches (positions < n_patches), which
+    the port leaves to the positions; without patches the text starts at 0."""
+    jcfg, cfg = _configs("internvl2-2b")
+    params, m = _models(jcfg, cfg)
+    toks = _tokens(cfg, (2, 5), seed=4)
+    pe = _patches(cfg, 2)
+    jx, jpos, jmask = jmodel._embed_inputs(jcfg, params, {"tokens": jnp.asarray(toks),
+                                                          "patch_embeds": jnp.asarray(pe)})
+    x, pos = m._embed_inputs(torch.as_tensor(toks, dtype=torch.int64), torch.as_tensor(pe))
+    np.testing.assert_allclose(_np(x), _np(jx), **TOL)
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos))
+    np.testing.assert_array_equal((pos >= cfg.n_patches).numpy(), np.asarray(jmask))
+    assert pos.shape == (2, cfg.n_patches + 5)
+    x, pos = m._embed_inputs(torch.as_tensor(toks, dtype=torch.int64))
+    assert x.shape[:2] == pos.shape == (2, 5)
+
+
 def test_bf16_prefill_and_decode_match_eager_jax():
     jcfg, cfg = _configs("phi4-mini-3p8b", dtype="bfloat16", kv_cache_dtype="bfloat16")
     params, m = _models(jcfg, cfg)
@@ -121,10 +184,10 @@ def test_bf16_prefill_and_decode_match_eager_jax():
             assert tl.dtype == torch.bfloat16
             np.testing.assert_allclose(_np(tl), _np(jl), atol=0.03, rtol=0, err_msg=what)
             got = convert.caches_from_jax(cfg, jax.tree.map(np.asarray, jc))
-            for t, j in ((tc.k, got.k), (tc.v, got.v)):
-                for layer_t, layer_j in zip(_np(t), _np(j)):
-                    ulp = 2.0 ** (np.floor(np.log2(np.abs(layer_j).max())) - 7)
-                    np.testing.assert_allclose(layer_t, layer_j, atol=4 * ulp, rtol=0,
+            for layer_t, layer_j in zip(tc, got):
+                for t, j in zip(layer_t, layer_j):
+                    ulp = 2.0 ** (np.floor(np.log2(np.abs(_np(j)).max())) - 7)
+                    np.testing.assert_allclose(_np(t), _np(j), atol=4 * ulp, rtol=0,
                                                err_msg=what)
 
 
@@ -315,32 +378,14 @@ def test_unported_families_raise(arch):
         model.init_caches(cfg, 1, 8, device="cpu")
 
 
-@pytest.mark.parametrize("kind", ["attn_local", "rglru", "mlstm", "slstm"])
-def test_unported_block_kinds_raise(kind):
-    cfg = get_config("phi4-mini-3p8b", reduced=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        transformer.block_init(torch.Generator().manual_seed(0), kind, cfg, torch.float32)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        transformer.init_decoder_layers(torch.Generator().manual_seed(0),
-                                        dataclasses.replace(cfg, block_pattern=(kind,)),
-                                        torch.float32)
-
-
-def test_windowed_attention_raises():
-    # a dense config with sliding-window layers: the model build names the kind
-    _, cfg = _configs("phi4-mini-3p8b")
-    windowed = dataclasses.replace(cfg, block_pattern=("attn_global", "attn_local"), window=4)
-    with pytest.raises(NotImplementedError, match="'attn_local' is not ported yet"):
-        model.init_params(windowed, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="'attn_local' is not ported yet"):
-        model.init_caches(windowed, 1, 8, device="cpu")
-
-
 def test_caches_from_jax_reads_tuples_and_named_caches():
-    jcfg, cfg = _configs("phi4-mini-3p8b")
+    jcfg, cfg = _configs("recurrentgemma-9b")
     jc = jax.tree.map(np.asarray, jmodel.init_caches(jcfg, 2, 8))
-    named = jc["dec"]["scan"][0]
-    for tree in (jc, named, (named.k, named.v)):
+    as_tuples = {"dec": jax.tree.map(tuple, jc["dec"],
+                                     is_leaf=lambda x: hasattr(x, "_fields"))}
+    for tree in (jc, as_tuples):
         got = convert.caches_from_jax(cfg, tree)
-        assert got.k.shape == (cfg.n_layers, 2, 8, cfg.n_kv_heads, cfg.resolved_head_dim)
-        assert got.v.dtype == torch.float32
+        assert [type(s).__name__ for s in got] == ["RGLRUState", "RGLRUState", "KVCache",
+                                                   "RGLRUState"]
+        assert got[2].k.shape == (2, 8, cfg.n_kv_heads, cfg.resolved_head_dim)  # min(8, window)
+        assert got[3].h.shape == (2, cfg.lru_width) and got[3].h.dtype == torch.float32
