@@ -10,9 +10,10 @@
     python3 chip_ablate.py serve      # only the serving calls: where their time goes
 
 serve: where a serving call's time goes at full width, for phi4-mini-3p8b,
-olmoe-1b-7b, internvl2-2b, recurrentgemma-9b and xlstm-125m: the host wall
-of a prefill (one 12-token prompt; internvl2-2b's after its 256 image
-patches) and of a decode step (4 slots, text position 64, a 128-row cache;
+olmoe-1b-7b, internvl2-2b, recurrentgemma-9b, xlstm-125m and whisper-medium:
+the host wall of a prefill (one 12-token prompt; internvl2-2b's after its
+256 image patches, whisper-medium's from its 1500 frames, through the
+encoder) and of a decode step (4 slots, text position 64, a 128-row cache;
 internvl2-2b's 384 rows, as chip_smoke.py serves it), median of 20 after 3;
 its device time, the kernels' busy time that torch.profiler records over 5
 calls; the idle share 1 - device / wall; the launches and aten ops a call;
@@ -727,9 +728,9 @@ def ablate_lattice(torch, np, chip_smoke, dev) -> None:
 # the serving calls: full width, random weights from seed 0; a prefill of one
 # 12-token prompt, a decode step of 4 slots at position 64 of a 128-row cache;
 # a vlm as chip_smoke.py serves it: its image patches before the prompt, a
-# cache of chip_smoke.serve_max_len rows (384)
+# cache of chip_smoke.serve_max_len rows (384); whisper from N(0, 0.02) frames
 SERVE_ARCHS = ("phi4-mini-3p8b", "olmoe-1b-7b", "internvl2-2b", "recurrentgemma-9b",
-               "xlstm-125m")
+               "xlstm-125m", "whisper-medium")
 SERVE_PROMPT, SERVE_SLOTS, SERVE_POS, SERVE_CALLS = 12, 4, 64, 5
 CTMC_TREE_CASES = ((16384, 5000), (16384, 20000), (65536, 2000), (262144, 2000))
 CTMC_TREE_SIZES = sorted({n for n, _ in CTMC_TREE_CASES})
@@ -883,13 +884,16 @@ def ablate_serve(torch, np, chip_smoke, dev) -> None:
         prompt = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT), generator=gen, device=dev)
         tokens = torch.randint(0, cfg.vocab_size, (SERVE_SLOTS,), generator=gen, device=dev)
         max_len = chip_smoke.serve_max_len(cfg)
-        patches = None
+        extras = {}
         if cfg.family == "vlm":
-            patches = 0.02 * torch.randn((1, cfg.n_patches, cfg.d_model), generator=gen,
-                                         device=dev)
+            extras["patch_embeds"] = 0.02 * torch.randn((1, cfg.n_patches, cfg.d_model),
+                                                        generator=gen, device=dev)
+        if cfg.family == "audio":
+            extras["frames"] = 0.02 * torch.randn((1, cfg.encoder_seq, cfg.d_model),
+                                                  generator=gen, device=dev)
         caches = model.init_caches(cfg, SERVE_SLOTS, max_len, dev)
         calls = {"prefill": lambda: params.prefill(
-                     prompt, model.init_caches(cfg, 1, max_len, dev), patch_embeds=patches),
+                     prompt, model.init_caches(cfg, 1, max_len, dev), **extras),
                  "decode": lambda: params.decode_step(tokens, SERVE_POS, caches)}
         for name, fn in calls.items():
             walls = []
@@ -914,7 +918,8 @@ def ablate_serve(torch, np, chip_smoke, dev) -> None:
             chip_smoke.emit({
                 "part": "serve", "arch": arch, "call": name,
                 "shape": {"prefill": [1, SERVE_PROMPT], "decode": [SERVE_SLOTS, SERVE_POS]}[name],
-                "patches": 0 if patches is None else cfg.n_patches, "max_len": max_len,
+                "patches": cfg.n_patches if "patch_embeds" in extras else 0,
+                "frames": cfg.encoder_seq if "frames" in extras else 0, "max_len": max_len,
                 "wall_ms": wall, "wall_ms_all": walls, "device_ms": device_ms,
                 "idle_share": 1.0 - device_ms / wall,
                 "launches": sum(a.count for a in kernels) / SERVE_CALLS,
@@ -927,7 +932,7 @@ def ablate_serve(torch, np, chip_smoke, dev) -> None:
                                      a.count / SERVE_CALLS]
                                     for a in sorted(host_ops, key=lambda a: a.self_cpu_time_total,
                                                     reverse=True)[:12]]})
-        del params, caches, calls, patches
+        del params, caches, calls, extras
         torch.cuda.empty_cache()
 
 

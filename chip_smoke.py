@@ -77,7 +77,14 @@ exits nonzero without printing the final result line:
                 causal), f32 running on the CUDA-core kernel: within
                 atol = rtol = 2e-5 (f32) and 2e-2 (bf16), the JAX test's
                 bounds, and in bf16 also within one bf16 ulp (2^-7 |o| +
-                1e-6) of the plain version's f32 result.
+                1e-6) of the plain version's f32 result; then the key-length
+                bound (slice 11), non-causal, f32 and bf16, at (BH, Sq, Sk,
+                d, kv_len) = (16, 1536, 1536, 64, 1500) (whisper-medium's
+                encoder) (16, 128, 1536, 64, 1500) (its cross-attention's
+                prefill) (4, 128, 384, 32, 200) (mid-tile) (2, 256, 512, 64,
+                384) (a tile's edge), the same bounds; kv_len = Sk equal to
+                the unbounded launch bit for bit, and kv_len < Sk with the
+                causal mask refused before any launch.
      check_flash_window — the sliding-window band (slice 10) on both
                 kernels, f32 and bf16, at (BH, S, d, window) = (16, 4096,
                 256, 2048) (recurrentgemma-9b's attn_local prefill) and (4,
@@ -100,7 +107,9 @@ exits nonzero without printing the final result line:
                 sector floor (in the (C, B, n) layout);
                 sparse_fields_global at (64, 65536); the band at (16, 4096,
                 256), window 2048, bf16, beside SDPA with the band as a
-                boolean attn_mask (timing_attention_window).
+                boolean attn_mask (timing_attention_window); the key-length
+                bound at (16, 1536, 64), kv_len 1500, bf16, beside SDPA on
+                the 1500 unpadded keys (timing_attention_kv_len).
   4. main     — sampler_api.run(TauLeap(dt=0.1), backend="cuda") on SK
                 n=2048 seed 0, 256 chains x 2000 steps, geometric(0.3, 3.0)
                 annealing, with and without first_hit, and the same run on
@@ -203,11 +212,17 @@ exits nonzero without printing the final result line:
                 recurrentgemma-9b (4; since slice 10) and xlstm-125m (8)
                 through repro_torch.launch.serve.main with --no-reduced and
                 launch/serve.py's other defaults (4 slots, 12 new tokens,
-                max_len 128, temperature 0.7), and internvl2-2b (4) through
+                max_len 128, temperature 0.7), internvl2-2b (4) through
                 launch.serve.serve with N(0, 0.02) image patches (256, 2048)
-                a request and max_len 384: exactly one bf16 flash launch per
-                attention layer and request (the prefill attention; decode
-                launches none; xlstm none at all), every completion 12
+                a request and max_len 384, and whisper-medium (4; since
+                slice 11) through launch.serve.serve with N(0, 0.02) frames
+                (1500, 1024) a request (main submits none, as the JAX
+                driver does, so it cannot serve whisper): exactly one bf16
+                flash launch per attention layer and request (the prefill
+                attention; decode launches none; xlstm none at all), and
+                for whisper also one per encoder layer and one per
+                cross-attention, both bounded to the 1500 frames (kv_len):
+                72 a request; every completion 12
                 tokens, every logit finite; then, on each config with an
                 attention layer, a greedy run with the kernel held against
                 one with the plain attention on the same weights and
@@ -220,25 +235,38 @@ exits nonzero without printing the final result line:
                 request (a 2100-token prompt at max_len 2176: the ring
                 branch, 12 banded launches at window 2048) held the same
                 way; the kernel at each model's serving prefill shape
-                (heads, 128 or 384, d), and at the long request's banded
-                one (16, 2176, 256, window 2048), against its plain version
+                (heads, 128 or 384, d), at the long request's banded
+                one (16, 2176, 256, window 2048), and at whisper-medium's
+                encoder and cross shapes with kv_len 1500, against its plain version
                 as check_flash holds bf16; weight bytes, peak memory, prefill ms per request,
                 decode ms per step, tokens/s, the decode step's bound (the
-                bytes it reads and writes over HBM); the flash kernel at
-                (24, 128, 128) beside its plain version and SDPA.
+                bytes it reads and writes over HBM; an encoder-decoder's
+                decode reads neither the encoder nor the cross wk and wv);
+                the flash kernel at (24, 128, 128) beside its plain version
+                and SDPA.
+  9. examples — each ported example (repro_torch.examples: quickstart,
+                optimization_cal, boltzmann_mnist --steps 5,
+                neural_decision, serve_lm) through its main once on the
+                card: its headlines held to the bounds its CPU test holds
+                (example_misses), wall and kernel launches (the examples
+                take the samplers' default ref backends, as the JAX scripts
+                do, so none are expected).
 
-    python3 chip_smoke.py --card-serve-gates  # (~40 s on the card) and
-    python3 chip_smoke.py --cpu-serve-gates   # (no card; several minutes)
+    python3 chip_smoke.py --card-serve-gates [arch ...]  # (~40 s on the card) and
+    python3 chip_smoke.py --cpu-serve-gates [arch ...]   # (no card; several minutes)
                 the serve gates' calibration: each serve config with an
                 attention layer, in bf16, at full width on the card, at full
                 depth and narrowed on the CPU, its greedy run with the plain
                 attention (and recurrentgemma-9b's long request) held
                 against the same with every attention output moved by up to
                 one bf16 ulp, with a thousandth of them moved by one ulp, and
-                with the heads' outputs rolled by one (a wrong head map).
+                with the heads' outputs rolled by one (a wrong head map);
+                whisper-medium's encoder and cross-attention outputs too.
+                Named archs only, if any are given.
 
-The last two lines are the kernels summary (the six kernels, the band of
-flash_attention as a row of its own, and the four fault variants, with the
+The last two lines are the kernels summary (the six kernels, the band and
+the key-length bound of flash_attention as rows of their own, and the four
+fault variants, with the
 script's elapsed seconds, the build included) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -352,6 +380,13 @@ ATTENTION_S = 4096
 # d = 256, window 2048) at S = 4096, timed there; and a window that is no
 # multiple of 128 across the tiles of a small shape.
 FLASH_WINDOW_CASES = [(16, 4096, 256, 2048), (4, 512, 64, 200)]
+# The key-length bound (slice 11), (BH, Sq, Sk, d, kv_len), non-causal, in f32
+# and bf16: whisper-medium's encoder (16 heads of 64 over its 1500 frames,
+# padded to 1536) and its cross-attention's prefill (a prompt padded to 128
+# queries over those keys), timed at the first; a bound mid-tile; one at a
+# tile's edge.
+FLASH_KV_LEN_CASES = [(16, 1536, 1536, 64, 1500), (16, 128, 1536, 64, 1500),
+                      (4, 128, 384, 32, 200), (2, 256, 512, 64, 384)]
 
 # -- the redesigned kernels (slice 4) ---------------------------------------------
 
@@ -378,6 +413,7 @@ def counters():
     def reset():
         tau_leap.launches = tau_leap.launches_faults = dense_field.launches = 0
         flash_attention.launches = flash_attention.launches_window = 0
+        flash_attention.launches_kv_len = 0
         for counts in (lattice_gibbs.launches, sparse_gather.launches,
                        lattice_gibbs.launches_faults, sparse_gather.launches_faults,
                        flash_attention.launches_by_dtype):
@@ -391,27 +427,28 @@ def counters():
                 **lattice_gibbs.launches_faults, **sparse_gather.launches_faults,
                 "flash_attention": flash_attention.launches,
                 "flash_attention_window": flash_attention.launches_window,
+                "flash_attention_kv_len": flash_attention.launches_kv_len,
                 "flash_attention_bf16": flash_attention.launches_by_dtype["bfloat16"],
                 "flash_attention_f32": flash_attention.launches_by_dtype["float32"]}
 
     return reset, read
 
 
-def check_attention(torch, ops, what, out, q, k, v, causal, window=0):
-    """Hold a flash_attention output (banded with `window` > 0) against its
-    plain version: within FLASH_TOL in q's dtype, and in bf16 also within
+def check_attention(torch, ops, what, out, q, k, v, causal, window=0, kv_len=None):
+    """Hold a flash_attention output (banded with `window` > 0, its keys
+    bounded by `kv_len`) against its plain version: within FLASH_TOL in q's dtype, and in bf16 also within
     one bf16 ulp of the plain version's f32 result, since both round f32
     values of the same sums (outputs of ~0.01 at S = 4096 would pass 2e-2
     with a key tile dropped). Returns (max |err|, max |err| / one ulp; 0 in
     f32)."""
-    plain = ops.flash_attention(q, k, v, causal, mode="reference", window=window)
+    plain = ops.flash_attention(q, k, v, causal, mode="reference", window=window, kv_len=kv_len)
     tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
     e = (out.float() - plain.float()).abs()
     n_bad = int((e > tol + tol * plain.float().abs()).sum())
     ulps = 0.0
     if q.dtype == torch.bfloat16:
         exact = ops.flash_attention(q.float(), k.float(), v.float(), causal, mode="reference",
-                                    window=window)
+                                    window=window, kv_len=kv_len)
         ulps = float(((out.float() - exact).abs() / (BF16_ULP * exact.abs() + 1e-6)).max())
     finite = bool(torch.isfinite(out).all())
     if out.dtype != q.dtype or out.shape != q.shape or not finite or n_bad or ulps > 1.0:
@@ -595,10 +632,11 @@ DECISION_TARGETS = ((-300.0, 1000.0), (300.0, 1000.0))  # tests/test_ml_and_deci
 
 # (arch, requests): served at full width through launch.serve.main with the JAX
 # entry point's other defaults (a vlm through launch.serve.serve, with image
-# patches), then greedily with the kernel and with the plain attention on the
+# patches; whisper-medium the same way, with frames), then greedily with the kernel and with the plain attention on the
 # same weights and prompts
 SERVE_MODELS = (("phi4-mini-3p8b", 8), ("gemma-2b", 4), ("olmoe-1b-7b", 4),
-                ("internvl2-2b", 4), ("recurrentgemma-9b", 4), ("xlstm-125m", 8))
+                ("internvl2-2b", 4), ("recurrentgemma-9b", 4), ("xlstm-125m", 8),
+                ("whisper-medium", 4))
 SERVE_SLOTS, SERVE_MAX_NEW, SERVE_MAX_LEN = 4, 12, 128
 SERVE_ARGS = ("--no-reduced", "--slots", str(SERVE_SLOTS), "--max-new", str(SERVE_MAX_NEW),
               "--max-len", str(SERVE_MAX_LEN), "--temperature", "0.7")
@@ -618,9 +656,11 @@ SERVE_LONG = {"recurrentgemma-9b": (2100, 2176)}
 # (CPU), recurrentgemma-9b 0.0293 / 0.0385 and its long request 0.0263 /
 # 0.0366; a wrong head map 0.94-1.40 and 0.81-1.12, on the long request
 # 0.12 / 0.20, still 1.5x the hybrid gate, which is why the long request's
-# banded kernel is also held at its served shape. The ssm family (xlstm) has
+# banded kernel is also held at its served shape. audio (whisper-medium, its
+# encoder, self and cross attention all moved): 0.0140 (card) / 0.0134 (CPU);
+# a wrong head map 1.38 / 1.34. The ssm family (xlstm) has
 # no attention layer, so no greedy pair and no gate.
-SERVE_LOGITS_RTOL = {"dense": 6e-2, "moe": 2.5e-1, "vlm": 5e-2, "hybrid": 8e-2}
+SERVE_LOGITS_RTOL = {"dense": 6e-2, "moe": 2.5e-1, "vlm": 5e-2, "hybrid": 8e-2, "audio": 3e-2}
 # A greedy token is held to the plain run's where the plain top-1 minus top-2
 # margin exceeds SERVE_MARGIN times that logits row's RMS, by family: twice the
 # largest max |deviation| / RMS that `--card-serve-gates` (full width) or
@@ -631,8 +671,10 @@ SERVE_LOGITS_RTOL = {"dense": 6e-2, "moe": 2.5e-1, "vlm": 5e-2, "hybrid": 8e-2}
 # must hold some token; on olmoe a flipped expert moves the logits so far that hardly
 # any position clears its margin, so there the gate asserts only that no token
 # flips above it. vlm: 0.113 (card) / 0.090 (CPU); hybrid: 0.147 / 0.156, the
-# long request 0.134 / 0.146.
-SERVE_MARGIN = {"dense": 0.33, "moe": 1.8, "vlm": 0.23, "hybrid": 0.32}
+# long request 0.134 / 0.146; audio: 0.0637 / 0.0641 (whisper-medium's random
+# logits are near flat at the top: on the card its plain margins are 0 to 0.22
+# RMS, in steps of one bf16 ulp, 0.024 RMS).
+SERVE_MARGIN = {"dense": 0.33, "moe": 1.8, "vlm": 0.23, "hybrid": 0.32, "audio": 0.13}
 # the calibration's configs: full depth and head dims, the grouping kept,
 # narrowed to run on the CPU
 SERVE_NARROW = {
@@ -642,6 +684,8 @@ SERVE_NARROW = {
     "internvl2-2b": dict(d_model=256, n_heads=2, n_kv_heads=1, d_ff=1024, vocab_size=8192),
     "recurrentgemma-9b": dict(d_model=512, n_heads=2, n_kv_heads=1, d_ff=1024,
                               vocab_size=8192, lru_width=512),
+    # hd 64 and the 1500 frames kept
+    "whisper-medium": dict(d_model=128, n_heads=2, n_kv_heads=2, d_ff=512, vocab_size=8192),
 }
 
 
@@ -1027,7 +1071,8 @@ def apps_phase(torch, dev, sk, reset, read, smi) -> None:
 def serve_requests(np, cfg, n: int) -> list:
     """(prompt, extras) of the n requests launch.serve.main submits: 4 to 15
     tokens from seed 0; a vlm's with N(0, 0.02) image patches (n_patches,
-    d_model) from seed 1."""
+    d_model) from seed 1, an encoder-decoder's with N(0, 0.02) frames
+    (encoder_seq, d_model) from seed 1."""
     rng, prng = np.random.default_rng(0), np.random.default_rng(1)
     reqs = []
     for _ in range(n):
@@ -1035,6 +1080,9 @@ def serve_requests(np, cfg, n: int) -> list:
         extras = None
         if cfg.family == "vlm":
             extras = {"patch_embeds": prng.normal(0.0, 0.02, (cfg.n_patches, cfg.d_model)).astype(
+                np.float32)}
+        if cfg.family == "audio":
+            extras = {"frames": prng.normal(0.0, 0.02, (cfg.encoder_seq, cfg.d_model)).astype(
                 np.float32)}
         reqs.append((prompt, extras))
     return reqs
@@ -1086,7 +1134,7 @@ def serve_gate(kernel, plain, margin: float) -> dict:
            for uid in rows_p}
     same = {uid: next((j + 1 for j, (a, b) in enumerate(zip(tok_k[uid], tok_p[uid])) if a != b),
                       len(tok_p[uid])) for uid in tok_p}
-    held, near_ties, flipped, deviation, rel_deviation = 0, 0, [], 0.0, 0.0
+    held, near_ties, flipped, deviation, rel_deviation, margins = 0, 0, [], 0.0, 0.0, []
     for uid in rows_p:
         for j in range(same[uid]):
             row_k, row_p = rows_k[uid][j], rows_p[uid][j]
@@ -1094,6 +1142,7 @@ def serve_gate(kernel, plain, margin: float) -> dict:
             dev = float((row_k - row_p).abs().max())
             deviation, rel_deviation = max(deviation, dev), max(rel_deviation, dev / rms)
             top2 = row_p.topk(2).values
+            margins.append(float(top2[0] - top2[1]) / rms)
             if float(top2[0] - top2[1]) <= margin * rms:
                 near_ties += 1
             elif tok_k[uid][j] != tok_p[uid][j]:
@@ -1104,6 +1153,7 @@ def serve_gate(kernel, plain, margin: float) -> dict:
     return {"prefill_logits_rel_l2": rel, "max_rel_l2": max(rel.values()),
             "max_logit_deviation": deviation, "max_rel_deviation": rel_deviation,
             "margin": margin, "tokens_held": held, "tokens_flipped": flipped,
+            "plain_margins_over_rms": sorted(margins, reverse=True),
             "near_tie_positions": near_ties,
             "positions_after_a_difference": sum(len(t) - same[u] for u, t in tok_p.items()),
             "requests_identical": sum(tok_k[u] == tok_p[u] for u in tok_p)}
@@ -1141,18 +1191,23 @@ def serve_phase(torch, np, dev, reset, read, smi, err) -> dict:
     from repro_torch.serve.engine import Request
 
     zero = dict.fromkeys(read(), 0)
-    by_arch, launches_total, launches_window = {}, 0, 0
+    by_arch, launches_total, launches_window, launches_kv_len = {}, 0, 0, 0
     for arch, n_requests in SERVE_MODELS:
         cfg = get_config(arch)
         hd, max_len = cfg.resolved_head_dim, serve_max_len(cfg)
         n_attn = sum(kind in transformer.ATTENTION_KINDS for kind in transformer.layer_kinds(cfg))
-        want = dict(zero, flash_attention=n_attn * n_requests,
-                    flash_attention_bf16=n_attn * n_requests)
+        # an encoder-decoder's prefill also runs each encoder layer's and each
+        # cross-attention's kernel, bounded to the frames (kv_len)
+        n_bounded = cfg.n_encoder_layers + cfg.n_layers if cfg.is_encdec else 0
+        n_flash = n_attn + n_bounded
+        want = dict(zero, flash_attention=n_flash * n_requests,
+                    flash_attention_bf16=n_flash * n_requests,
+                    flash_attention_kv_len=n_bounded * n_requests)
         requests = serve_requests(np, cfg, n_requests)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset()
-        if cfg.family == "vlm":  # launch.serve.main submits no patches, as JAX's does
+        if cfg.family in ("vlm", "audio"):  # launch.serve.main submits no extras, as JAX's
             params = model.init_params(cfg, 0, dev)
             out = serve.serve(cfg, params, [
                 Request(uid=uid, prompt=prompt, max_new_tokens=SERVE_MAX_NEW, temperature=0.7,
@@ -1170,16 +1225,25 @@ def serve_phase(torch, np, dev, reset, read, smi, err) -> dict:
                                  f"completion lengths {lengths}, non-finite logits "
                                  f"{out['nonfinite_logits']}")
         launches_total += launches["flash_attention"]
+        launches_kv_len += launches["flash_attention_kv_len"]
 
         # the decode step reads every weight but the embedding table (only
-        # its B rows, unless it is the tied head) and every layer's state,
-        # and writes back the recurrent states whole (a KV cache: one row)
+        # its B rows, unless it is the tied head), an encoder's layers and
+        # the cross-attentions' wk and wv (the cross K/V are cached), and
+        # every layer's state, and writes back the recurrent states whole
+        # (a KV cache: one row)
         caches = model.init_caches(cfg, SERVE_SLOTS, max_len, dev)
         state_bytes = [sum(t.numel() * t.element_size() for t in st) for st in caches]
         recurrent_bytes = sum(b for st, b in zip(caches, state_bytes) if not hasattr(st, "k"))
         del caches
         embed_bytes = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model * 2
-        decode_bytes = out["weight_bytes"] - embed_bytes + sum(state_bytes) + recurrent_bytes
+        unread_bytes = 0
+        if cfg.is_encdec:
+            unread_bytes = sum(p.numel() * p.element_size() for p in (
+                *params.enc_layers.parameters(), *params.enc_norm.parameters(),
+                *(w for c in params.cross for w in (c.attn.wk.weight, c.attn.wv.weight))))
+        decode_bytes = (out["weight_bytes"] - embed_bytes - unread_bytes + sum(state_bytes)
+                        + recurrent_bytes)
 
         # greedy, with the kernel and with the plain attention, same weights
         # and prompts (without an attention layer both runs are the same)
@@ -1218,6 +1282,20 @@ def serve_phase(torch, np, dev, reset, read, smi, err) -> dict:
             err["flash_attention"] = max(err["flash_attention"], e)
             flash_check = {"shape": [cfg.n_heads, S, S, hd], "max_abs_err": e,
                            "max_bf16_ulps": ulps}
+        if cfg.is_encdec:  # and its encoder's and cross-attention's, bounded to the frames
+            T = cfg.encoder_seq
+            Tp = -(-T // 128) * 128
+            for name, Sq in (("encoder", Tp), ("cross", S)):
+                q = 0.5 * torch.randn((cfg.n_heads, Sq, hd), device=dev, dtype=torch.bfloat16)
+                k, v = (0.5 * torch.randn((cfg.n_heads, Tp, hd), device=dev, dtype=torch.bfloat16)
+                        for _ in range(2))
+                e, ulps = check_attention(
+                    torch, ops, f"serve {arch} {name}",
+                    flash_attention.flash_attention(q, k, v, False, kv_len=T), q, k, v, False,
+                    kv_len=T)
+                err["flash_attention_kv_len"] = max(err["flash_attention_kv_len"], e)
+                flash_check[name] = {"shape": [cfg.n_heads, Sq, Tp, hd], "kv_len": T,
+                                     "max_abs_err": e, "max_bf16_ulps": ulps}
         if arch in SERVE_LONG:  # and at the long request's banded shape
             S = -(-SERVE_LONG[arch][0] // 128) * 128
             q, k, v = (0.5 * torch.randn((cfg.n_heads, S, hd), device=dev, dtype=torch.bfloat16)
@@ -1257,18 +1335,84 @@ def serve_phase(torch, np, dev, reset, read, smi, err) -> dict:
                                                    BF16_OPS_PER_S)
     emit({"phase": "serve_flash_timing", "shape": [hq, S, d], "dtype": "bfloat16", "causal": True,
           **timing, "nvidia_smi": smi})
-    return {"launches": launches_total, "launches_window": launches_window, "shape": [hq, S, d],
-            **timing}
+    return {"launches": launches_total, "launches_window": launches_window,
+            "launches_kv_len": launches_kv_len, "shape": [hq, S, d], **timing}
 
 
-def serve_gates(device: str) -> int:
+# -- the examples (slice 11) -------------------------------------------------------
+
+# (module, arguments) of each ported example run on the card; boltzmann_mnist
+# at 5 CD steps, as the verify recipe runs the JAX script
+EXAMPLES = (("quickstart", ()), ("optimization_cal", ()), ("boltzmann_mnist", ("--steps", "5")),
+            ("neural_decision", ()), ("serve_lm", ()))
+
+
+def example_misses(name: str, out: dict) -> list:
+    """The headline bounds tests/test_torch_examples.py holds each example
+    to on the CPU that `out` (its main's return) misses."""
+    if name == "quickstart":
+        checks = {"ground states found": out["ground_states_found"], "tv < 0.03": out["tv"] < 0.03,
+                  "hit rate 1": out["hit_rate"] == 1.0, "split-R-hat < 1.1": out["split_rhat"] < 1.1}
+    elif name == "optimization_cal":
+        # one chain's anneal ends in the C-A-L ground state or, at some
+        # seeds, in a local minimum near 0.9 of its energy (|m| ~ 0.1 there)
+        at_ground = out["energy"] == out["ground_state_energy"]
+        checks = {"energy <= 0.85 of the ground state's":
+                  out["energy"] <= 0.85 * out["ground_state_energy"],
+                  "template agreement 1 at the ground state":
+                  not at_ground or out["template_agreement"] == 1.0}
+    elif name == "boltzmann_mnist":
+        checks = {"data energy drops": out["data_energy"] < out["data_energy_init"],
+                  "bottom-half agreement > 0.6": out["bottom_half_agreement"] > 0.6}
+    elif name == "neural_decision":
+        by_eta = out["by_eta"]
+        checks = {"every trajectory commits": all(min(r["commit_distances"]) > 0
+                                                  for r in by_eta.values()),
+                  "eta 4 commits later": by_eta[4.0]["commit_median"] > by_eta[1.0]["commit_median"]}
+    else:
+        checks = {"every token served": out["tokens"] == out["requests"] * 16}
+    return [what for what, ok in checks.items() if not ok]
+
+
+def examples_phase(torch, reset, read, smi) -> dict:
+    """Each ported example's main once on the card (module docstring, phase
+    `examples`): its headlines, wall and kernel launches. Returns the
+    launches by example."""
+    import contextlib
+    import importlib
+    import io
+
+    launches = {}
+    for name, args in EXAMPLES:
+        main = importlib.import_module(f"repro_torch.examples.{name}").main
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            out = main([*args, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = {k: c for k, c in read().items() if c}
+        out.pop("completions", None)
+        emit({"phase": "examples", "example": name, "args": list(args), "wall_s": wall,
+              "headline": out, "launches": launches[name],
+              "last_line": printed.getvalue().strip().splitlines()[-1], "nvidia_smi": smi})
+        misses = example_misses(name, out)
+        if misses:
+            raise AssertionError(f"example {name}: misses {misses}: {out}")
+    return launches
+
+
+def serve_gates(device: str, archs=()) -> int:
     """The serve gates' calibration: each SERVE_MODELS config with an
-    attention layer, in bf16, its greedy run with the plain attention (and
-    recurrentgemma's long request) held against three emulations of it:
-    every output moved by up to one bf16 ulp of the f32 result (what the
-    kernel's contract allows), a thousandth of the outputs moved by one ulp,
-    and the heads' outputs rolled by one (a wrong head map). On the card at
-    full width; on the CPU at full depth, narrowed (SERVE_NARROW)."""
+    attention layer (those named in `archs`, if any), in bf16, its greedy
+    run with the plain attention (and recurrentgemma's long request) held
+    against three emulations of it: every output moved by up to one bf16
+    ulp of the f32 result (what the kernel's contract allows), a thousandth
+    of the outputs moved by one ulp, and the heads' outputs rolled by one (a
+    wrong head map). Every call of the attention's plain version is
+    emulated: the prefill's self-attention, and an encoder-decoder's encoder
+    and cross-attention (decode runs no kernel). On the card at full width;
+    on the CPU at full depth, narrowed (SERVE_NARROW)."""
     import dataclasses
     from unittest import mock
 
@@ -1285,21 +1429,32 @@ def serve_gates(device: str) -> int:
     def ulp_of(o):
         return 2.0 ** (torch.floor(torch.log2(o.abs().clamp_min(1e-30))) - 7)
 
-    def within_an_ulp(q, k, v, causal=True, window=0):
-        o = plain(q.float(), k.float(), v.float(), causal, window)
+    calls = {}  # the emulated calls by kind: "causal" (self-attention), "kv_len" (bounded)
+
+    def count(causal, kv_len):
+        kind = "causal" if causal else "kv_len" if kv_len is not None else "full"
+        calls[kind] = calls.get(kind, 0) + 1
+
+    def within_an_ulp(q, k, v, causal=True, window=0, kv_len=None):
+        count(causal, kv_len)
+        o = plain(q.float(), k.float(), v.float(), causal, window, kv_len)
         u = torch.rand(o.shape, generator=gen, device=dev)
         return (o + (2 * u - 1) * ulp_of(o)).to(q.dtype)
 
-    def a_thousandth(q, k, v, causal=True, window=0):
-        o = plain(q.float(), k.float(), v.float(), causal, window)
+    def a_thousandth(q, k, v, causal=True, window=0, kv_len=None):
+        count(causal, kv_len)
+        o = plain(q.float(), k.float(), v.float(), causal, window, kv_len)
         moved = torch.rand(o.shape, generator=gen, device=dev) < 1e-3
         return torch.where(moved, o + ulp_of(o), o).to(q.dtype)
 
-    def heads_rolled(q, k, v, causal=True, window=0):
-        return plain(q, k, v, causal, window).roll(1, dims=0)
+    def heads_rolled(q, k, v, causal=True, window=0, kv_len=None):
+        count(causal, kv_len)
+        return plain(q, k, v, causal, window, kv_len).roll(1, dims=0)
 
     reset, read = counters()
     for arch, n_requests in SERVE_MODELS:
+        if archs and arch not in archs:
+            continue
         cfg = get_config(arch)
         if not any(kind in transformer.ATTENTION_KINDS for kind in transformer.layer_kinds(cfg)):
             continue  # no attention: nothing to emulate
@@ -1318,12 +1473,14 @@ def serve_gates(device: str) -> int:
             base = greedy_runs(cfg, params, requests, max_len, ["reference"], reset, read)
             for name, fn in (("within_one_ulp", within_an_ulp), ("a_thousandth", a_thousandth),
                              ("heads_rolled", heads_rolled)):
+                calls.clear()
                 with mock.patch.object(ref, "flash_attention_ref", fn):
                     emulated = greedy_runs(cfg, params, requests, max_len, ["reference"], reset,
                                            read)
                 gate = serve_gate(emulated["reference"], base["reference"],
                                   SERVE_MARGIN[cfg.family])
-                out[prefix + name] = dict(gate, tokens_flipped=len(gate["tokens_flipped"]))
+                out[prefix + name] = dict(gate, tokens_flipped=len(gate["tokens_flipped"]),
+                                          emulated_calls=dict(calls))
             del base, emulated
         del params
         emit({"phase": "serve_gates", "device": str(dev), "arch": arch, "family": cfg.family,
@@ -1452,13 +1609,13 @@ def main() -> int:
 
     if sys.argv[1:] == ["--cpu-gates"]:
         return cpu_gates()
-    if sys.argv[1:] == ["--cpu-serve-gates"]:
-        return serve_gates("cpu")
-    if sys.argv[1:] == ["--card-serve-gates"]:
+    if sys.argv[1:2] == ["--cpu-serve-gates"]:
+        return serve_gates("cpu", sys.argv[2:])
+    if sys.argv[1:2] == ["--card-serve-gates"]:
         if not torch.cuda.is_available():
             print("chip_smoke.py --card-serve-gates: no CUDA device", file=sys.stderr)
             return 2
-        return serve_gates("cuda")
+        return serve_gates("cuda", sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's kernels need an H100",
               file=sys.stderr)
@@ -1565,7 +1722,8 @@ def main() -> int:
 
     for name in ("lattice_gibbs_sweep", "lattice_gibbs_sweep_bf16", "lattice_gibbs_generic",
                  "lattice_gibbs_generic_bf16", "sparse_fields",
-                 "sparse_fields_global", "colored_gibbs_sweep", "flash_attention"):
+                 "sparse_fields_global", "colored_gibbs_sweep", "flash_attention",
+                 "flash_attention_kv_len"):
         err[name], mism[name] = 0.0, 0
     def lattice_route(route):
         """The sweep through one route, asserting the route taken: the plan
@@ -1793,6 +1951,36 @@ def main() -> int:
               "dtype": dtype, "max_abs_err": e, "tol": FLASH_TOL[dtype],
               "max_bf16_ulps": ulps if dtype == "bfloat16" else None})
         del q, k, v, out_k
+    torch.cuda.synchronize()
+
+    # the key-length bound on both kernels, non-causal; a bound of Sk is the
+    # unbounded launch bit for bit, and a bound below Sk with the causal mask
+    # raises before any launch
+    for BH, Sq, Sk, d, kv_len in FLASH_KV_LEN_CASES:
+        for dtype in ("float32", "bfloat16"):
+            dt_ = getattr(torch, dtype)
+            q, k, v = normal((BH, Sq, d), dt_), normal((BH, Sk, d), dt_), normal((BH, Sk, d), dt_)
+            out_k = flash_attention.flash_attention(q, k, v, False, kv_len=kv_len)
+            e, ulps = check_attention(torch, ops, (BH, Sq, Sk, d, "kv_len", kv_len, dtype), out_k,
+                                      q, k, v, False, kv_len=kv_len)
+            err["flash_attention_kv_len"] = max(err["flash_attention_kv_len"], e)
+            full = bool(torch.equal(flash_attention.flash_attention(q, k, v, False, kv_len=Sk),
+                                    flash_attention.flash_attention(q, k, v, False)))
+            before = flash_attention.launches
+            try:
+                flash_attention.flash_attention(q, k, v, True, kv_len=kv_len)
+                refused = False
+            except ValueError:
+                refused = flash_attention.launches == before
+            if not (full and refused):
+                raise AssertionError(f"flash_attention ({BH}, {Sq}, {Sk}, {d}, {dtype}): kv_len "
+                                     f"= Sk equal to the unbounded launch {full}, causal with "
+                                     f"kv_len {kv_len} refused {refused}")
+            emit({"phase": "check_flash", "BH": BH, "Sq": Sq, "Sk": Sk, "d": d, "causal": False,
+                  "kv_len": kv_len, "dtype": dtype, "max_abs_err": e, "tol": FLASH_TOL[dtype],
+                  "max_bf16_ulps": ulps if dtype == "bfloat16" else None,
+                  "kv_len_sk_equals_unbounded": full, "causal_kv_len_refused": refused})
+            del q, k, v, out_k
     torch.cuda.synchronize()
 
     # the band on both kernels; a window as wide as the keys is the causal
@@ -2044,6 +2232,31 @@ def main() -> int:
           "bound_ms": bounds["flash_attention_window"][0],
           "bound_by": bounds["flash_attention_window"][1], "nvidia_smi": smi})
     del q, k, v, band
+
+    # the key-length bound at whisper-medium's encoder shape, bf16, beside its
+    # plain version and SDPA on the unpadded keys (timed only). Bound: q, k,
+    # v and out once each (padded); 4 d FLOPs for each of the kv_len x kv_len
+    # pairs of the frames.
+    BH, Sq, Sk, d, kv_len = FLASH_KV_LEN_CASES[0]
+    q, k, v = (0.5 * torch.randn((BH, S_, d), device=dev, dtype=torch.bfloat16)
+               for S_ in (Sq, Sk, Sk))
+    ms["flash_attention_kv_len"] = time_ms(
+        torch, lambda: flash_attention.flash_attention(q, k, v, False, kv_len=kv_len), n=50)
+    ms["flash_attention_kv_len_plain"] = time_ms(
+        torch, lambda: ops.flash_attention(q, k, v, False, mode="reference", kv_len=kv_len), n=20)
+    k_, v_ = k[:, :kv_len], v[:, :kv_len]
+    ms["sdpa_kv_len"] = time_ms(torch, lambda: sdpa(q[None, :, :kv_len], k_[None], v_[None],
+                                                    is_causal=False))
+    bounds["flash_attention_kv_len"] = bound(2 * BH * (Sq + Sk) * d * 2,
+                                             4.0 * d * BH * kv_len**2, BF16_OPS_PER_S)
+    emit({"phase": "timing_attention_kv_len", "shape": [BH, Sq, Sk, d], "kv_len": kv_len,
+          "dtype": "bfloat16", "causal": False,
+          **{key: ms[name] for key, name in (("ms", "flash_attention_kv_len"),
+                                             ("plain_ms", "flash_attention_kv_len_plain"),
+                                             ("library_ms", "sdpa_kv_len"))},
+          "bound_ms": bounds["flash_attention_kv_len"][0],
+          "bound_by": bounds["flash_attention_kv_len"][1], "nvidia_smi": smi})
+    del q, k, v, k_, v_
 
     # -- 4. the main path ---------------------------------------------------
     n, n_steps, n_chains = 2048, 2000, 256
@@ -2435,6 +2648,7 @@ def main() -> int:
     fault_launches = fault_paths(torch, dev, prob, cal, mc, targets, reset, read, smi)
     apps_phase(torch, dev, prob, reset, read, smi)
     served = serve_phase(torch, np, dev, reset, read, smi, err)
+    examples_phase(torch, reset, read, smi)
 
     # -- summary -------------------------------------------------------------
     def entry(name, source, replaces, launches, library):
@@ -2498,6 +2712,13 @@ def main() -> int:
                    "src/repro/kernels/flash_attention.py:85", served["launches_window"],
                    "sdpa_window"),
              shape=list(FLASH_WINDOW_CASES[0][:3]), window=FLASH_WINDOW_CASES[0][3]),
+        # the key-length bound: launches on whisper-medium's served prefills
+        # (its encoder and cross-attention layers); times at (16, 1536, 64),
+        # kv_len 1500
+        dict(entry("flash_attention_kv_len", csrc + "flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:85", served["launches_kv_len"],
+                   "sdpa_kv_len"),
+             shape=list(FLASH_KV_LEN_CASES[0][:4]), kv_len=FLASH_KV_LEN_CASES[0][4]),
         # the fault variants: launches on the faults phase's graphed runs
         entry("tau_leap_step_faults", csrc + "tau_leap.cu", "src/repro/kernels/tau_leap.py:82",
               fault_launches["sk_tau_leap"]["tau_leap_step_faults"], "int_mm"),

@@ -47,7 +47,7 @@ LAUNCHERS = {
     "sparse_fields": ("sparse_fields_launch", [_P] * 5 + [_I] * 5 + [_P]),
     "colored_gibbs": ("colored_gibbs_launch", [_P] * 7 + [_I] * 6 + [_P]),
     "colored_gibbs_faults": ("colored_gibbs_faults_launch", [_P] * 9 + [_I] * 6 + [_P]),
-    "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 7 + [_P]),
+    "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 8 + [_P]),
 }
 # The library of a launcher that does not live in csrc/<its name>.cu
 LIBRARY = {"lattice_gibbs_generic": "lattice_gibbs", "tau_leap_faults": "tau_leap",

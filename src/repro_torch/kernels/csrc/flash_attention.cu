@@ -1,11 +1,12 @@
 // flash_attention: online-softmax attention over aligned (BH, S, d) heads,
 // scale 1/sqrt(d), optional causal mask, optionally banded to a sliding
-// window. Replaces the TPU kernel
+// window, and a key-length bound kv_len. Replaces the TPU kernel
 // repro/kernels/flash_attention.py::flash_attention (_flash_kernel).
 //
 // For each head and query row i, over the keys j in tiles, in f32:
 //   s_j   = (q_i . k_j) * scale, or -1e30 where causal and j > i, or where
-//           window > 0 and j <= i - window (the band i - window < j <= i)
+//           window > 0 and j <= i - window (the band i - window < j <= i),
+//           or where j >= kv_len (keys padded past the sequence's end)
 //   m'    = max(m, max_j s_j);  p_j = exp(s_j - m');  alpha = exp(m - m')
 //   l     = alpha * l + sum_j p_j;  acc = alpha * acc + sum_j p_j v_j
 //   out_i = acc / max(l, 1e-30), cast to q's dtype
@@ -20,6 +21,12 @@
 // still -1e30 its p are taken as 0, not exp(0), so nothing is added that
 // alpha would have to clear, and its diagonal always lies in the band, so
 // no row ends without a key. The caller asks Sq <= Sk with a window.
+// A block walks only the ceil(kv_len / tile) key tiles that hold a key below
+// kv_len, which is as exact: the tiles wholly past it would add p = 0. Only
+// the last tile walked can hold masked keys; key 0 is always below kv_len
+// (1 <= kv_len <= Sk), so no row ends without a key. The caller takes
+// kv_len < Sk without the causal mask only (a causal call's padding is
+// already hidden by the diagonal).
 //
 // q: (BH, Sq, d), k and v: (BH, Sk, d), out: (BH, Sq, d), all f32 or all
 // bf16, contiguous, 16-byte aligned; Sq and Sk multiples of 128 (as the
@@ -110,7 +117,7 @@ template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk,
-                           int d, int causal, int window) {
+                           int d, int causal, int window, int kv_len) {
   extern __shared__ float4 smem4[];
   const int stride = d + 4;
   float* qs = reinterpret_cast<float*>(smem4);
@@ -138,7 +145,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.0f;
   }
 
-  int t_begin = 0, n_tiles = Sk / kRows;
+  int t_begin = 0, n_tiles = (kv_len + kRows - 1) / kRows;  // the tiles below kv_len
   if (causal) {
     n_tiles = min(n_tiles, q0 / kRows + 1);
     if (window > 0) t_begin = max(0, q0 - window + 1) / kRows;  // the band's first tile
@@ -183,7 +190,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         float x = s[i][j] * scale;
         const int key = k0 + tx + 16 * j;
-        if (causal && (key > row || (window > 0 && key <= row - window))) x = kNegInf;
+        if ((causal && (key > row || (window > 0 && key <= row - window))) || key >= kv_len)
+          x = kNegInf;
         s[i][j] = x;
         mc = fmaxf(mc, x);
       }
@@ -250,7 +258,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 
 cudaError_t launch_f32(const float* q, const float* k, const float* v, float* out, int BH,
-                       int Sq, int Sk, int d, int causal, int window, cudaStream_t stream) {
+                       int Sq, int Sk, int d, int causal, int window, int kv_len,
+                       cudaStream_t stream) {
   const size_t smem = sizeof(float) * (3 * kRows * static_cast<size_t>(d + 4) + kRows * kPStride);
   auto kernel = d <= 64 ? flash_f32_kernel<64> : d <= 128 ? flash_f32_kernel<128>
                                                           : flash_f32_kernel<256>;
@@ -260,7 +269,7 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, float* ou
     if (err != cudaSuccess) return err;
   }
   kernel<<<dim3(Sq / kRows, BH), kThreads, smem, stream>>>(q, k, v, out, Sq, Sk, d, causal,
-                                                           window);
+                                                           window, kv_len);
   return cudaGetLastError();
 }
 
@@ -297,7 +306,8 @@ template <int DP>
 __global__ void __launch_bounds__(kBf16Threads, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-                  int Sq, int Sk, int d, int causal, int window, float scale_log2) {
+                  int Sq, int Sk, int d, int causal, int window, int kv_len,
+                  float scale_log2) {
   using T = Bf16Tile<DP>;
   constexpr int BN = T::BN;
   extern __shared__ uint8_t smem_raw[];
@@ -311,7 +321,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 
   const int bh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // the longest causal rows first
-  int t_begin = 0, n_tiles = Sk / BN;
+  int t_begin = 0, n_tiles = (kv_len + BN - 1) / BN;  // the tiles below kv_len
   if (causal) {
     n_tiles = min(n_tiles, (q0 + kBlockQ - 1) / BN + 1);
     if (window > 0) t_begin = max(0, q0 - window + 1) / BN;  // the band's first tile
@@ -386,13 +396,14 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 
       // Online softmax on the raw scores, exp2 with the scale folded in.
       const int k0 = (t_begin + it) * BN;
-      // the diagonal crosses the tile, or the band's lower edge does
+      // the diagonal crosses the tile, or the band's lower edge does, or kv_len
       const bool lower = window > 0 && k0 <= wg_row0 + 63 - window;
-      if ((causal && k0 + BN - 1 > wg_row0) || lower) {
+      if ((causal && k0 + BN - 1 > wg_row0) || lower || k0 + BN > kv_len) {
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) {
           const int key = k0 + acc_col(i, lane), row = row0 + 8 * ((i / 2) % 2);
-          if (key > row || (window > 0 && key <= row - window)) sc[i] = kNegInf;
+          if ((causal && (key > row || (window > 0 && key <= row - window))) || key >= kv_len)
+            sc[i] = kNegInf;
         }
       }
       float mx[2] = {kNegInf, kNegInf};
@@ -519,7 +530,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int d, long long rows, int box_
 
 template <int DP>
 cudaError_t launch_bf16_dp(const void* q, const void* k, const void* v, void* out, int BH,
-                           int Sq, int Sk, int d, int causal, int window, cudaStream_t stream) {
+                           int Sq, int Sk, int d, int causal, int window, int kv_len,
+                           cudaStream_t stream) {
   using T = Bf16Tile<DP>;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, d, static_cast<long long>(BH) * Sq, kBlockQ) ||
@@ -533,16 +545,20 @@ cudaError_t launch_bf16_dp(const void* q, const void* k, const void* v, void* ou
   const float scale_log2 =
       static_cast<float>(1.4426950408889634 / std::sqrt(static_cast<double>(d)));
   kernel<<<dim3(Sq / kBlockQ, BH), kBf16Threads, T::kSmemBytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, d, causal, window, scale_log2);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, d, causal, window, kv_len,
+      scale_log2);
   return cudaGetLastError();
 }
 
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, int BH, int Sq,
-                        int Sk, int d, int causal, int window, cudaStream_t stream) {
-  if (d <= 64) return launch_bf16_dp<64>(q, k, v, out, BH, Sq, Sk, d, causal, window, stream);
-  if (d <= 128) return launch_bf16_dp<128>(q, k, v, out, BH, Sq, Sk, d, causal, window, stream);
-  if (d <= 192) return launch_bf16_dp<192>(q, k, v, out, BH, Sq, Sk, d, causal, window, stream);
-  return launch_bf16_dp<256>(q, k, v, out, BH, Sq, Sk, d, causal, window, stream);
+                        int Sk, int d, int causal, int window, int kv_len, cudaStream_t stream) {
+  if (d <= 64)
+    return launch_bf16_dp<64>(q, k, v, out, BH, Sq, Sk, d, causal, window, kv_len, stream);
+  if (d <= 128)
+    return launch_bf16_dp<128>(q, k, v, out, BH, Sq, Sk, d, causal, window, kv_len, stream);
+  if (d <= 192)
+    return launch_bf16_dp<192>(q, k, v, out, BH, Sq, Sk, d, causal, window, kv_len, stream);
+  return launch_bf16_dp<256>(q, k, v, out, BH, Sq, Sk, d, causal, window, kv_len, stream);
 }
 
 }  // namespace
@@ -551,16 +567,17 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
 // cudaErrorInvalidValue when a tensor map cannot be encoded). bf16 != 0:
 // all four tensors are bf16 and go to flash_bf16_kernel, else f32 to
 // flash_f32_kernel. window > 0 bands the causal mask (causal != 0 and
-// Sq <= Sk). The caller has checked the shapes, alignment, the window and
-// 1 <= BH <= 65535.
+// Sq <= Sk). Keys at or past kv_len are masked (1 <= kv_len <= Sk; below Sk
+// only with causal == 0). The caller has checked the shapes, alignment, the
+// window, kv_len and 1 <= BH <= 65535.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int BH, int Sq, int Sk, int d, int causal, int window,
-                                      int bf16, void* stream) {
+                                      int kv_len, int bf16, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? launch_bf16(q, k, v, out, BH, Sq, Sk, d, causal, window, st)
+      bf16 ? launch_bf16(q, k, v, out, BH, Sq, Sk, d, causal, window, kv_len, st)
            : launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
                         static_cast<const float*>(v), static_cast<float*>(out), BH, Sq, Sk, d,
-                        causal, window, st);
+                        causal, window, kv_len, st);
   return static_cast<int>(err);
 }

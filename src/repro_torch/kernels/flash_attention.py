@@ -1,9 +1,11 @@
 """CUDA kernel: flash attention, online softmax over aligned heads.
 
 out = softmax(q kᵀ / sqrt(d), causal mask) v for every head of (BH, S, d)
-operands, the causal mask optionally banded to a sliding window, with the
-scores, the running max and sum and the accumulator in f32 and no score
-tile in device memory. Source `csrc/flash_attention.cu`.
+operands, the causal mask optionally banded to a sliding window, the keys
+optionally bounded to the first kv_len (a non-causal call over keys padded to
+a multiple of 128), with the scores, the running max and sum and the
+accumulator in f32 and no score tile in device memory. Source
+`csrc/flash_attention.cu`.
 
 Replaces the TPU kernel `repro/kernels/flash_attention.py::flash_attention`
 (`_flash_kernel`, the `pl.pallas_call` at line 85). The TPU kernel grids
@@ -12,8 +14,8 @@ statistics in VMEM scratch from one k step to the next, visiting every k
 block also under the causal mask (its docstring leaves trimming the key
 range of a band to the caller). Here a block walks its key tiles in a loop
 from the first tile that meets the band (tile 0 without one) and stops
-before the first tile wholly above the diagonal (exact: the skipped tiles
-add p = 0).
+before the first tile wholly above the diagonal, or wholly at or past
+kv_len (exact: the skipped tiles add p = 0).
 GQA is the caller's: heads come aligned, with the KV heads repeated.
 
 What bounds it on the H100: at the phi4-mini prefill shape (24 heads,
@@ -38,10 +40,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import check_cuda, check_tensor
-from repro_torch.kernels.ref import check_window
+from repro_torch.kernels.ref import check_kv_len, check_window
 
 launches = 0  # kernel launches in this process; chip_smoke.py resets and reads it
 launches_window = 0  # the launches among them with a band (window > 0)
+launches_kv_len = 0  # the launches among them with a key-length bound (kv_len < Sk)
 # the same launches by dtype: "bfloat16" went to the wgmma kernel, "float32"
 # to the CUDA-core kernel
 launches_by_dtype = {"float32": 0, "bfloat16": 0}
@@ -53,15 +56,18 @@ MAX_HEADS = 65535  # gridDim.y
 
 
 def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, window: int = 0
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, window: int = 0,
+    kv_len: int | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel: q (BH,Sq,d), k and v (BH,Sk,d), all f32 or all
     bf16, contiguous on one sm_90 device; Sq and Sk multiples of 128, d a
     multiple of 8 up to 256 -> (BH,Sq,d) in q's dtype in a fresh tensor.
     With `causal`, query i sees keys 0..i (aligned at the top left); with
     `window` > 0 as well, only keys i - window < j <= i, which needs
-    Sq <= Sk (a query past Sk - 1 + window would see no key)."""
-    global launches, launches_window
+    Sq <= Sk (a query past Sk - 1 + window would see no key). With `kv_len`
+    (None: Sk) every query sees only keys j < kv_len, 1 <= kv_len <= Sk,
+    below Sk only without `causal`."""
+    global launches, launches_window, launches_kv_len
     check_window(causal, window)
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
@@ -71,6 +77,7 @@ def flash_attention(
         raise ValueError(f"q and k must be (BH, S, d), got {tuple(q.shape)} and {tuple(k.shape)}")
     BH, Sq, d = q.shape
     Sk = k.shape[1]
+    kv_len = check_kv_len(causal, kv_len, Sk)
     if Sq % SEQ_MULTIPLE or Sk % SEQ_MULTIPLE:
         raise ValueError(
             f"Sq = {Sq} and Sk = {Sk} must be multiples of {SEQ_MULTIPLE}: pad the sequence"
@@ -92,19 +99,20 @@ def flash_attention(
     if BH == 0 or Sq == 0:
         return out
     bf16 = q.dtype == torch.bfloat16
-    _launch(q, k, v, out, causal, window, bf16, dev)
+    _launch(q, k, v, out, causal, window, kv_len, bf16, dev)
     launches += 1
     launches_window += window > 0
+    launches_kv_len += kv_len < Sk
     launches_by_dtype["bfloat16" if bf16 else "float32"] += 1
     return out
 
 
-def _launch(q, k, v, out, causal: bool, window: int, bf16: bool, device) -> None:
+def _launch(q, k, v, out, causal: bool, window: int, kv_len: int, bf16: bool, device) -> None:
     """One launch on the device's current stream: the wgmma kernel when
     `bf16`, else the CUDA-core kernel; raise on a CUDA error."""
     BH, Sq, d = q.shape
     code = _build.launcher("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq, k.shape[1], d,
-        int(causal), window, int(bf16), torch.cuda.current_stream(device).cuda_stream,
+        int(causal), window, kv_len, int(bf16), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check("flash_attention", code)

@@ -173,11 +173,13 @@ def quantize_dense(J: torch.Tensor, bits: int = 8) -> tuple[torch.Tensor, torch.
 
 
 def flash_attention(q, k, v, causal: bool = True, mode: str = "auto",
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, kv_len: int | None = None) -> torch.Tensor:
     """(BH, S, d) fused attention with scale 1/sqrt(d): the JAX signature,
     GQA-aligned operands (the caller repeats the KV heads). With `causal`,
     query i sees keys 0..i; with `window` > 0 as well, only keys j with
-    i - window < j <= i (a sliding window; it needs `causal`)."""
+    i - window < j <= i (a sliding window; it needs `causal`). With `kv_len`
+    (None: all Sk keys) only the keys j < kv_len: keys padded past a
+    sequence's end, in a call without `causal`."""
     if _use_kernel(q, mode):
-        return _fa.flash_attention(q, k, v, causal, window)
-    return _ref.flash_attention_ref(q, k, v, causal, window)
+        return _fa.flash_attention(q, k, v, causal, window, kv_len)
+    return _ref.flash_attention_ref(q, k, v, causal, window, kv_len)

@@ -171,15 +171,18 @@ def tau_leap_step_ref(
 
 
 def flash_attention_ref(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, window: int = 0
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, window: int = 0,
+    kv_len: int | None = None,
 ) -> torch.Tensor:
     """Attention oracle of the flash-attention kernel. q: (BH,Sq,d); k, v:
     (BH,Sk,d); any S. Scores, softmax and p @ v in f32, the result in q's
     dtype. With `causal`, query i sees keys 0..i (aligned at the top left,
     also when Sq != Sk), and with `window` > 0 only the band of keys
     i - window < j <= i, the JAX package's `causal_mask(Sq, Sk, window)`;
-    masked scores are -1e30."""
+    with `kv_len` (None: Sk; below Sk only without `causal`) only the keys
+    j < kv_len; masked scores are -1e30."""
     check_window(causal, window)
+    kv_len = check_kv_len(causal, kv_len, k.shape[-2])
     d = q.shape[-1]
     s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32), k.to(torch.float32))
     s = s / torch.sqrt(torch.tensor(d, dtype=torch.float32, device=q.device))
@@ -191,6 +194,8 @@ def flash_attention_ref(
         if window > 0:
             mask &= kpos > qpos - window
         s = s.masked_fill(~mask, -1e30)
+    if kv_len < s.shape[-1]:
+        s[..., kv_len:] = -1e30
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32)).to(q.dtype)
 
@@ -200,3 +205,16 @@ def check_window(causal: bool, window: int) -> None:
     without `causal`."""
     if window < 0 or (window and not causal):
         raise ValueError(f"window = {window} needs causal=True and window >= 0 (0: no band)")
+
+
+def check_kv_len(causal: bool, kv_len: int | None, Sk: int) -> int:
+    """The key-length bound of an attention call over Sk keys (None: Sk).
+    Raise unless 1 <= kv_len <= Sk, and on kv_len < Sk with `causal`: the
+    causal mask already hides keys padded after the queries' own."""
+    if kv_len is None:
+        return Sk
+    if not 1 <= kv_len <= Sk:
+        raise ValueError(f"kv_len = {kv_len} must lie in [1, Sk = {Sk}]")
+    if causal and kv_len < Sk:
+        raise ValueError(f"kv_len = {kv_len} < Sk = {Sk} needs causal=False")
+    return int(kv_len)

@@ -10,10 +10,16 @@ xlstm-125m), except:
     entry point never serves full width; the default is still reduced);
   * `--device` (default cuda; it raises without a card);
   * `--ckpt-dir` is rejected until the training slice brings checkpoints.
-Every decoder-only arch is served; whisper-medium (audio) raises. Like the
-JAX driver it submits no image patches for a vlm arch (a reference quirk,
-ROADMAP); `serve` takes requests with `extras` for that. `main` returns a
-summary: the completions, their tokens and walls, and the weights' size.
+Every arch is served. Like the JAX driver `main` submits no `extras`: no
+image patches for a vlm arch, and no frames for whisper-medium, whose
+prefill then raises a KeyError as the JAX one does (reference quirks,
+ROADMAP). `serve` takes requests with `extras` for both, for example
+
+    serve(cfg, params, [Request(uid=0, prompt=prompt, extras={"frames": frames})],
+          slots=4, max_len=128)   # frames (encoder_seq, d_model)
+
+`main` returns a summary: the completions, their tokens and walls, and the
+weights' size.
 """
 from __future__ import annotations
 

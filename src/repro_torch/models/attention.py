@@ -1,5 +1,5 @@
-"""Attention: MHA / GQA / MQA, causal and sliding-window prefill on the flash
-kernel, KV-cache decode.
+"""Attention: MHA / GQA / MQA, causal, sliding-window and non-causal prefill
+on the flash kernel, KV-cache decode, cross-attention over an encoder.
 
 The port of `repro/models/attention.py` for the serving path:
   * `attn_prefill` — causal attention over the prompt through
@@ -14,8 +14,20 @@ The port of `repro/models/attention.py` for the serving path:
     kernel takes query lengths that are multiples of 128 only, with the
     causal mask aligned at the top left. A sliding-window layer's cache is
     a ring of min(max_len, window) slots written at pos % T.
+  * `attn_encoder` — non-causal attention without RoPE over an encoder's
+    frames (the JAX package's `attn_train(..., causal=False, rope=False)`),
+    through `ops.flash_attention(..., causal=False, kv_len=S)`: the keys are
+    padded to a multiple of 128 and the padding masked by the kernel's
+    key-length bound.
+  * `cross_kv`, `attn_cross_prefill` and `attn_cross` — cross-attention of
+    decoder queries over an encoder's K/V: at prefill through the kernel
+    (non-causal, the encoder's length as kv_len), at decode (one query) in
+    plain torch ops with the JAX package's rounding, as `attn_decode` does.
+    As in the JAX package, the cross projections take no qkv biases.
 
-RoPE is applied to every query and key.
+RoPE is applied to every query and key of the self-attention, as the JAX
+package's `attn_prefill` and `attn_decode` do by default (serving never
+turns it off there); the encoder and the cross-attention take none.
 
 Layout: activations (B, S, D); heads split as (B, S, H, hd); KV cache
 (B, T, K, hd) in `kv_cache_dtype`, written in place. Query head h reads KV
@@ -25,7 +37,9 @@ Softmax scale: the kernel and its plain version scale the scores by
 1/sqrt(hd) in float32; the JAX package divides scores in the activation
 dtype by sqrt(hd) rounded to that dtype (11.3125 for 11.3137 in bf16 at
 hd = 128). In float32 the two agree; in bf16 the difference is deliberate.
-Decode keeps the JAX package's rounding.
+Decode keeps the JAX package's rounding. At hd = 64 (whisper-medium)
+sqrt(hd) = 8 is exact in every dtype, so the kernel's f32 scale and the JAX
+package's bf16 division agree and the difference does not arise.
 """
 from __future__ import annotations
 
@@ -33,6 +47,7 @@ import functools
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
@@ -43,6 +58,13 @@ class KVCache(NamedTuple):
     k: torch.Tensor  # (B, T, K, hd)
     v: torch.Tensor
     # the running position lives in the serving state, not here
+
+
+class CrossKV(NamedTuple):
+    """A decoder layer's static cross-attention K/V over the encoder's
+    output, written at prefill and read at every decode step."""
+    k: torch.Tensor  # (B, T_enc, K, hd)
+    v: torch.Tensor
 
 
 class Attention(nn.Module):
@@ -62,16 +84,18 @@ def attn_init(gen, cfg, dtype) -> Attention:
     return Attention(gen, cfg, dtype)
 
 
-def _project_qkv(attn: Attention, x, cfg, positions):
-    """x (B, S, D) -> q (B, S, H, hd), k and v (B, S, K, hd), RoPE applied.
-    The JAX package's sharding constraints are no-ops without a mesh."""
+def _project_qkv(attn: Attention, x, cfg, positions, rope: bool = True):
+    """x (B, S, D) -> q (B, S, H, hd), k and v (B, S, K, hd), RoPE applied
+    with `rope`. The JAX package's sharding constraints are no-ops without a
+    mesh."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q = attn.wq(x).reshape(B, S, cfg.n_heads, hd)
     k = attn.wk(x).reshape(B, S, cfg.n_kv_heads, hd)
     v = attn.wv(x).reshape(B, S, cfg.n_kv_heads, hd)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    if rope:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -129,24 +153,34 @@ def _flash_heads(t: torch.Tensor, S_pad: int) -> torch.Tensor:
     return out.reshape(B * H, S_pad, hd)
 
 
-def flash_prefill(q, k, v, mode: str = "auto", window: int = 0) -> torch.Tensor:
-    """Causal attention of q (B,S,H,hd) over k, v (B,S,K,hd) through
-    `ops.flash_attention` -> (B, S, H, hd); with `window` > 0 query i sees
-    only keys i - window < j <= i.
+def _padded(S: int) -> int:
+    return -(-S // SEQ_MULTIPLE) * SEQ_MULTIPLE
+
+
+def flash_prefill(q, k, v, mode: str = "auto", window: int = 0,
+                  causal: bool = True) -> torch.Tensor:
+    """Attention of q (B,Sq,H,hd) over k, v (B,Sk,K,hd) through
+    `ops.flash_attention` -> (B, Sq, H, hd): causal (Sq = Sk), with
+    `window` > 0 query i seeing only keys i - window < j <= i; or, without
+    `causal`, every query seeing all Sk keys.
 
     The kernel takes aligned heads and lengths that are multiples of 128:
     each KV head is repeated for its G query heads (h reads h // G), and the
-    sequence is padded at its end with zeros, which the causal mask keeps
-    invisible to every real query; the padded rows are dropped. A window of
-    S or more is the causal mask itself, so the call then takes none."""
+    queries and keys are padded at their ends with zeros. The causal mask
+    keeps the padded keys invisible to every real query; without it the call
+    passes kv_len = Sk, which masks them. The padded query rows are dropped.
+    A window of S or more is the causal mask itself, so the call then takes
+    none."""
     B, S, H, hd = q.shape
+    Sk = k.shape[1]
     window = window if window < S else 0
     G = H // k.shape[2]
     if G > 1:
         k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
-    S_pad = -(-S // SEQ_MULTIPLE) * SEQ_MULTIPLE
-    o = ops.flash_attention(_flash_heads(q, S_pad), _flash_heads(k, S_pad),
-                            _flash_heads(v, S_pad), causal=True, mode=mode, window=window)
+    S_pad, Sk_pad = _padded(S), _padded(Sk)
+    o = ops.flash_attention(_flash_heads(q, S_pad), _flash_heads(k, Sk_pad),
+                            _flash_heads(v, Sk_pad), causal=causal, mode=mode, window=window,
+                            kv_len=None if causal else Sk)
     return o.reshape(B, H, S_pad, hd)[:, :, :S].transpose(1, 2)
 
 
@@ -200,3 +234,48 @@ def attn_decode(attn: Attention, x, cfg, pos: int, cache: KVCache, *, window: in
     probs = _apply_mask_softmax(scores, valid)
     out = _combine(probs, cache.v.to(x.dtype), x.dtype)
     return attn.wo(out.reshape(B, 1, -1)), cache
+
+
+def attn_encoder(attn: Attention, x, cfg, mode: str = "auto"):
+    """Non-causal attention over all S positions of x (B, S, D), without
+    RoPE (an encoder layer's): the JAX package's `attn_train(...,
+    causal=False, rope=False)`, through the kernel with kv_len = S. Returns
+    the delta (B, S, D)."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(attn, x, cfg, None, rope=False)
+    out = flash_prefill(q, k, v, mode, causal=False)
+    return attn.wo(out.reshape(B, S, -1))
+
+
+def cross_kv(attn: Attention, enc_out, cfg) -> CrossKV:
+    """The cross-attention K/V of enc_out (B, T, D): (B, T, K, hd) each,
+    projected without biases, as in the JAX package."""
+    B, T, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    return CrossKV(k=F.linear(enc_out, attn.wk.weight).reshape(B, T, cfg.n_kv_heads, hd),
+                   v=F.linear(enc_out, attn.wv.weight).reshape(B, T, cfg.n_kv_heads, hd))
+
+
+def _cross_q(attn: Attention, x, cfg):
+    B, S, _ = x.shape
+    return F.linear(x, attn.wq.weight).reshape(B, S, cfg.n_heads, cfg.resolved_head_dim)
+
+
+def attn_cross_prefill(attn: Attention, x, enc_kv: CrossKV, cfg, mode: str = "auto"):
+    """Cross-attention of the prompt x (B, S, D) over all T encoder
+    positions through the kernel: the queries padded to a multiple of 128,
+    the T keys padded too and masked by kv_len = T. Returns the delta."""
+    B, S, _ = x.shape
+    out = flash_prefill(_cross_q(attn, x, cfg), enc_kv.k, enc_kv.v, mode, causal=False)
+    return attn.wo(out.reshape(B, S, -1))
+
+
+def attn_cross(attn: Attention, x, enc_kv: CrossKV, cfg):
+    """Cross-attention of x (B, S, D) over the encoder's K/V in plain torch
+    ops with the JAX package's rounding (scores in x's dtype divided by
+    sqrt(hd), a float32 softmax), the decode step's. Returns the delta."""
+    B, S, _ = x.shape
+    scores = _grouped_scores(_cross_q(attn, x, cfg), enc_kv.k, cfg)  # (B,K,G,S,T)
+    probs = torch.softmax(scores.to(torch.float32), dim=-1)
+    out = _combine(probs, enc_kv.v, x.dtype)
+    return attn.wo(out.reshape(B, S, -1))

@@ -15,6 +15,12 @@ shape; under tied embeddings there is no head (the head is the embedding).
 per-layer states, in the same order; a state is read duck-typed, by its
 field names or as a tuple in the NamedTuple's order.
 
+The audio family's encoder layers (`enc_layers`, stacked over the encoder's
+depth like a scan) become `enc_layers.<i>`, `enc_norm` stays, and the
+stacked per-decoder-layer cross-attention (`cross`: norm and attn) becomes
+`cross.<i>`; its cache tree's `cross_kv` (k, v), each (L, B, T, K, hd),
+becomes one `CrossKV` per decoder layer after the decoder's states.
+
 Neither imports JAX: the tests convert the JAX arrays to numpy first
 (bfloat16 arrives as ml_dtypes' bfloat16 and is carried through float32,
 which holds it exactly).
@@ -24,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import CrossKV, KVCache
 from repro_torch.models.model import _check_family
 from repro_torch.models.rglru import RGLRUState
 from repro_torch.models.transformer import layer_kinds, unit_plan
@@ -76,6 +82,15 @@ def _layers(cfg, tree):
             yield i, tree["tail"][i - plan.n_scan * n_unit], np.asarray
 
 
+def _stacked(state: dict, prefix: str, tree: dict, depth: int) -> None:
+    """Entry i of every leaf of a tree stacked over `depth` layers, as
+    `<prefix>.<i>.<path>`."""
+    for i in range(depth):
+        for path, name, a in _leaves(tree):
+            key, a = _entry(f"{prefix}.{i}.{path}", name, a[i])
+            state[key] = _tensor(a)
+
+
 def params_from_jax(cfg, tree) -> dict[str, torch.Tensor]:
     state = {"embed": _tensor(tree["embed"]),
              "final_norm.scale": _tensor(tree["final_norm"]["scale"])}
@@ -83,6 +98,10 @@ def params_from_jax(cfg, tree) -> dict[str, torch.Tensor]:
         for path, name, a in _leaves(sub):
             key, a = _entry(f"layers.{i}.{path}", name, take(a))
             state[key] = _tensor(a)
+    if cfg.is_encdec:
+        _stacked(state, "enc_layers", tree["enc_layers"], cfg.n_encoder_layers)
+        state["enc_norm.scale"] = _tensor(tree["enc_norm"]["scale"])
+        _stacked(state, "cross", tree["cross"], cfg.n_layers)
     if not cfg.tie_embeddings:
         state["lm_head.weight"] = _tensor(np.asarray(tree["lm_head"]).T)
     return state
@@ -90,11 +109,15 @@ def params_from_jax(cfg, tree) -> dict[str, torch.Tensor]:
 
 def caches_from_jax(cfg, caches) -> list:
     """The per-layer states of a JAX `init_caches` / `prefill` / `decode_step`
-    cache tree ({"dec": {"scan": ..., "tail": ...}})."""
+    cache tree ({"dec": {"scan": ..., "tail": ...}}, and "cross_kv" for the
+    audio family)."""
     kinds = layer_kinds(cfg)
     out = []
     for i, sub, take in _layers(cfg, caches["dec"]):
         cls = _STATES[kinds[i]]
         fields = [getattr(sub, f) for f in cls._fields] if hasattr(sub, "_fields") else list(sub)
         out.append(cls(*(_tensor(take(a)) for a in fields)))
+    if cfg.is_encdec:
+        k, v = (np.asarray(a) for a in caches["cross_kv"])
+        out += [CrossKV(_tensor(k[i]), _tensor(v[i])) for i in range(cfg.n_layers)]
     return out

@@ -1,8 +1,9 @@
-"""Decoder-only LMs (the dense, MoE, vlm, hybrid and ssm families) for serving.
+"""The served models: decoder-only LMs (the dense, MoE, vlm, hybrid and ssm
+families) and the audio encoder-decoder.
 
 The port of the serving half of `repro/models/model.py`:
 
-    model = init_params(cfg, seed, device)            # a DecoderLM
+    model = init_params(cfg, seed, device)            # a DecoderLM or EncoderDecoderLM
     caches = init_caches(cfg, batch, max_len, device)  # a state per layer
     logits, caches = model.prefill(tokens, caches)     # last-position (B, V)
     logits, caches = model.decode_step(tokens, pos, caches)
@@ -17,8 +18,14 @@ the caches in place. `mode` ("auto" | "kernel" | "reference") is passed to
 `ops.flash_attention` for the prefill attention: "auto" is the hand-written
 kernel on a CUDA device and its plain version on the CPU, with no fallback.
 
-The audio family (an encoder-decoder) is not ported yet and raises
-(ROADMAP queue 1).
+The audio family (whisper) is an `EncoderDecoderLM`: its prefill takes
+`frames` (B, encoder_seq, D), the stub frontend's embeddings, runs the
+encoder (sinusoidal positions, non-causal layers without RoPE), then the
+decoder over the text (sinusoidal positions; self-attention with RoPE, as
+the JAX package's serving path has it, then cross-attention over the
+encoder), and writes each decoder layer's static cross K/V into its cache.
+Its decode takes the text position's row of a 4096-row sinusoid table (the
+row clamped to 4095, as the JAX package's gather clamps).
 """
 from __future__ import annotations
 
@@ -26,17 +33,15 @@ import torch
 from torch import nn
 
 from repro_torch.core.ising import resolve_device
-from repro_torch.models import layers, transformer
+from repro_torch.models import attention, layers, transformer
 
-FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
-_LATER = {"audio": "the audio encoder-decoder slice (the encoder, cross-attention and its cache)"}
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
+DECODE_POSITIONS = 4096  # rows of the encoder-decoder's decode sinusoid table
 
 
 def _check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; it comes with "
-            f"{_LATER.get(cfg.family, 'a later slice')} (ROADMAP queue 1)")
+        raise NotImplementedError(f"{cfg.name}: unknown family {cfg.family!r}; have {FAMILIES}")
 
 
 class DecoderLM(nn.Module):
@@ -95,13 +100,122 @@ class DecoderLM(nn.Module):
         return self._final_logits(x)[:, 0], caches
 
 
+class CrossLayer(nn.Module):
+    """A decoder layer's cross-attention: its norm and attn (wq, wk, wv, wo)."""
+
+    def __init__(self, gen, cfg, dtype):
+        super().__init__()
+        self.norm = layers.Norm(cfg.d_model, dtype, gen.device)
+        self.attn = attention.attn_init(gen, cfg, dtype)
+
+
+class EncoderDecoderLM(DecoderLM):
+    """The audio family: a DecoderLM (embed, the decoder layers, final_norm,
+    lm_head) with enc_layers (n_encoder_layers attention blocks), enc_norm,
+    and cross (one CrossLayer per decoder layer)."""
+
+    def __init__(self, cfg, gen: torch.Generator):
+        super().__init__(cfg, gen)
+        dtype = getattr(torch, cfg.dtype)
+        self.enc_layers = nn.ModuleList(transformer.block_init(gen, "attn_global", cfg, dtype)
+                                        for _ in range(cfg.n_encoder_layers))
+        self.enc_norm = layers.Norm(cfg.d_model, dtype, gen.device)
+        self.cross = nn.ModuleList(CrossLayer(gen, cfg, dtype) for _ in range(cfg.n_layers))
+
+    def _positions(self, S: int, dtype) -> torch.Tensor:
+        return layers.sinusoidal_positions(S, self.cfg.d_model, dtype, self.device)
+
+    @torch.inference_mode()
+    def encode(self, frames, mode: str = "auto"):
+        """frames (B, T, D), the stub frontend's embeddings -> (B, T, D):
+        sinusoidal positions, then each encoder layer's non-causal attention
+        (no RoPE) and MLP, then enc_norm."""
+        cfg = self.cfg
+        x = frames.to(self.embed.dtype)
+        x = x + self._positions(x.shape[1], x.dtype)[None]
+        for block in self.enc_layers:
+            h = layers.apply_norm(cfg.norm, block.norm1, x)
+            x = x + attention.attn_encoder(block.attn, h, cfg, mode)
+            x = transformer._channel(block, "attn_global", x, cfg)
+        return layers.apply_norm(cfg.norm, self.enc_norm, x)
+
+    def _check_frames(self, frames) -> None:
+        if frames is None:  # the JAX prefill reads batch["frames"]: a KeyError
+            raise KeyError(f"frames: {self.cfg.name} prefills from frames (B, "
+                           f"{self.cfg.encoder_seq}, {self.cfg.d_model}); none were given")
+        if frames.ndim != 3 or frames.shape[1] != self.cfg.encoder_seq:
+            raise ValueError(f"frames of shape {tuple(frames.shape)}; {self.cfg.name} takes "
+                             f"(B, encoder_seq = {self.cfg.encoder_seq}, {self.cfg.d_model}), "
+                             "the length of its cross cache")
+
+    @torch.inference_mode()
+    def prefill(self, tokens, caches: list, mode: str = "auto", frames=None):
+        """Encode `frames` (B, encoder_seq, D), then the prompt tokens (B, S)
+        through the decoder. Returns (last-position logits (B, V), caches)
+        with each decoder layer's KV cache written for the prompt and its
+        cross state (caches[n_layers + i]) for the encoder's output."""
+        self._check_frames(frames)
+        cfg = self.cfg
+        enc_out = self.encode(frames, mode)
+        x = layers.embed_lookup(self.embed, tokens, cfg.embed_scale)
+        B, S = tokens.shape
+        x = x + self._positions(S, x.dtype)[None]
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+        L = cfg.n_layers
+        for block, cross, cache, cross_cache in zip(self.layers, self.cross, caches[:L],
+                                                    caches[L:]):
+            h = layers.apply_norm(cfg.norm, block.norm1, x)
+            delta, _ = attention.attn_prefill(block.attn, h, cfg, positions, cache, mode=mode)
+            x = x + delta
+            hc = layers.apply_norm(cfg.norm, cross.norm, x)
+            kv = attention.cross_kv(cross.attn, enc_out, cfg)
+            transformer._write(cross_cache, kv)
+            x = x + attention.attn_cross_prefill(cross.attn, hc, kv, cfg, mode)
+            x = transformer._channel(block, "attn_global", x, cfg)
+        return self._final_logits(x[:, -1:])[:, 0], caches
+
+    @torch.inference_mode()
+    def decode_step(self, tokens, pos: int, caches: list):
+        """tokens: (B,) next input ids at text position `pos` (an int; its
+        sinusoid row is min(pos, 4095)). Returns (logits (B, V), caches)
+        with each self-attention cache advanced by one token; the cross
+        states are read only."""
+        cfg = self.cfg
+        x = layers.embed_lookup(self.embed, tokens[:, None], cfg.embed_scale)
+        row = min(pos, DECODE_POSITIONS - 1)
+        x = x + self._positions(DECODE_POSITIONS, x.dtype)[row][None, None]
+        L = cfg.n_layers
+        for block, cross, cache, cross_cache in zip(self.layers, self.cross, caches[:L],
+                                                    caches[L:]):
+            h = layers.apply_norm(cfg.norm, block.norm1, x)
+            delta, _ = attention.attn_decode(block.attn, h, cfg, pos, cache)
+            x = x + delta
+            hc = layers.apply_norm(cfg.norm, cross.norm, x)
+            x = x + attention.attn_cross(cross.attn, hc, cross_cache, cfg)
+            x = transformer._channel(block, "attn_global", x, cfg)
+        return self._final_logits(x)[:, 0], caches
+
+
 def init_params(cfg, seed: int = 0, device=None) -> DecoderLM:
-    """A DecoderLM with random weights drawn on `device` (None: the CUDA
-    device) by a generator seeded with `seed`."""
+    """A DecoderLM (an EncoderDecoderLM for the audio family) with random
+    weights drawn on `device` (None: the CUDA device) by a generator seeded
+    with `seed`."""
     dev = resolve_device(device)
-    return DecoderLM(cfg, torch.Generator(device=dev).manual_seed(seed))
+    cls = EncoderDecoderLM if cfg.is_encdec else DecoderLM
+    return cls(cfg, torch.Generator(device=dev).manual_seed(seed))
 
 
 def init_caches(cfg, batch: int, max_len: int, device=None) -> list:
+    """A zeroed state per decoder layer, in layer order; for the audio
+    family then one `CrossKV` (batch, encoder_seq, K, hd) in the model's
+    dtype per decoder layer."""
     _check_family(cfg)
-    return transformer.decoder_caches(cfg, batch, max_len, resolve_device(device))
+    dev = resolve_device(device)
+    caches = transformer.decoder_caches(cfg, batch, max_len, dev)
+    if cfg.is_encdec:
+        shape = (batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+        dtype = getattr(torch, cfg.dtype)
+        caches += [attention.CrossKV(torch.zeros(shape, dtype=dtype, device=dev),
+                                     torch.zeros(shape, dtype=dtype, device=dev))
+                   for _ in range(cfg.n_layers)]
+    return caches

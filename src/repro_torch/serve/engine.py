@@ -9,7 +9,8 @@ Finished slots (EOS or max-tokens) are evicted and refilled from the queue —
 continuous batching.
 
 A request's `extras` go to the prefill: a vlm's `patch_embeds` (P, D), the
-image embeddings put before its prompt. The length check counts the prompt
+image embeddings put before its prompt, or an encoder-decoder's `frames`
+(encoder_seq, D), which its encoder reads. The length check counts the prompt
 and the new tokens, not the patches, as the JAX engine does (a reference
 quirk, ROADMAP): a vlm request with patches needs a `max_len` that holds
 them as well, or its prefill or its decode writes run past the cache.
@@ -50,7 +51,7 @@ class Request:
     prompt: np.ndarray          # (S,) int32
     max_new_tokens: int = 32
     temperature: float = 0.0    # 0 = greedy
-    extras: Optional[dict] = None  # patch_embeds (P, D) for vlm; frames for audio (not ported)
+    extras: Optional[dict] = None  # patch_embeds (P, D) for vlm; frames (T, D) for audio
 
 
 @dataclasses.dataclass
@@ -60,7 +61,7 @@ class Completion:
 
 
 class Engine:
-    """Serves `params` (a DecoderLM) on its device, which must be `device`
+    """Serves `params` (a DecoderLM or EncoderDecoderLM) on its device, which must be `device`
     (None: the CUDA device). `mode` goes to the prefill attention
     (`ops.flash_attention`: "auto" | "kernel" | "reference"); `keep_logits`
     keeps every sampled logits row (module docstring)."""

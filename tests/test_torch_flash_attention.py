@@ -1,7 +1,8 @@
 """The port's flash attention (plain version and dispatch) against the JAX
 package's oracle and its Pallas kernel in interpret mode, the sliding-window
-band against the JAX package's `causal_mask` attention, the kernel wrapper's
-argument checks, and, on a card, the CUDA kernel against its plain version.
+band against the JAX package's `causal_mask` attention, the key-length bound
+against JAX attention under a key mask, the kernel wrapper's argument checks,
+and, on a card, the CUDA kernel against its plain version.
 
 Inputs are made with numpy from a seed and go through both packages. The
 tolerances are the JAX test's (tests/test_kernels.py): 2e-5 in float32 and
@@ -127,7 +128,8 @@ def test_window_checks_and_the_windowed_launch_count(monkeypatch):
     calls = []
     monkeypatch.setattr(flash_attention, "check_cuda", lambda t: t.device)
     monkeypatch.setattr(flash_attention, "_launch",
-                        lambda q, k, v, out, causal, window, bf16, device: calls.append(window))
+                        lambda q, k, v, out, causal, window, kv_len, bf16, device:
+                        calls.append(window))
     monkeypatch.setattr(flash_attention, "launches", 0)
     monkeypatch.setattr(flash_attention, "launches_window", 0)
     with pytest.raises(ValueError, match="Sq <= Sk"):
@@ -136,6 +138,63 @@ def test_window_checks_and_the_windowed_launch_count(monkeypatch):
     flash_attention.flash_attention(tq, tk, tv, True)
     assert calls == [64, 0]
     assert flash_attention.launches == 2 and flash_attention.launches_window == 1
+
+
+# (BH, Sq, Sk, d, kv_len): whisper's 1500 frames padded to 1536 keys (the
+# encoder's square call, narrowed, and the cross-attention's 128 queries), a
+# bound mid-tile, and one at Sk (no key masked)
+KV_LENS = [(2, 1536, 1536, 16, 1500), (2, 128, 1536, 64, 1500), (4, 128, 384, 32, 200),
+           (2, 256, 384, 16, 384)]
+
+
+@pytest.mark.parametrize("BH,Sq,Sk,d,kv_len", KV_LENS)
+def test_kv_len_plain_version_matches_jax_key_masked_attention(BH, Sq, Sk, d, kv_len):
+    """Keys j >= kv_len get no weight: held against dense JAX attention
+    under that key mask (f32 scores and softmax); kv_len = Sk is the
+    unbounded call bit for bit, and the keys past kv_len do not matter."""
+    arrays = _qkv(BH, Sq, Sk, d, seed=Sk + kv_len)
+    tq, tk, tv = _torch(arrays, "float32")
+    got = ops.flash_attention(tq, tk, tv, causal=False, kv_len=kv_len)
+    q, k, v = _jax(arrays, "float32")
+    s = jnp.einsum("bqd,bkd->bqk", q, k) / jnp.sqrt(jnp.float32(d))
+    s = jnp.where((jnp.arange(Sk) < kv_len)[None, None], s, -1e30)
+    want = jnp.einsum("bqk,bkd->bqd", jax.nn.softmax(s, axis=-1), v)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=2e-5)
+    if kv_len == Sk:
+        assert torch.equal(got, ops.flash_attention(tq, tk, tv, causal=False))
+    else:
+        moved = [tk.clone(), tv.clone()]
+        for t in moved:
+            t[:, kv_len:] = 7.0
+        assert torch.equal(ops.flash_attention(tq, *moved, causal=False, kv_len=kv_len), got)
+
+
+def test_kv_len_checks_and_the_bounded_launch_count(monkeypatch):
+    """kv_len must lie in [1, Sk], and below Sk it needs causal=False (ops,
+    the plain version and the wrapper raise); a bounded launch counts in
+    launches and launches_kv_len, kv_len = Sk (or None) in launches alone,
+    and the bound reaches the launcher; nothing launches for a refusal."""
+    tq, tk, tv = _torch(_qkv(2, 128, 256, 64, seed=3), "float32")
+    calls = []
+    monkeypatch.setattr(flash_attention, "check_cuda", lambda t: t.device)
+    monkeypatch.setattr(flash_attention, "_launch",
+                        lambda q, k, v, out, causal, window, kv_len, bf16, device:
+                        calls.append((causal, kv_len)))
+    monkeypatch.setattr(flash_attention, "launches", 0)
+    monkeypatch.setattr(flash_attention, "launches_kv_len", 0)
+    for fn in (ops.flash_attention, ref.flash_attention_ref, flash_attention.flash_attention):
+        for kv_len in (0, -3, 257):
+            with pytest.raises(ValueError, match="must lie in"):
+                fn(tq, tk, tv, False, kv_len=kv_len)
+        with pytest.raises(ValueError, match="needs causal=False"):
+            fn(tq, tk, tv, True, kv_len=200)
+    assert calls == [] and flash_attention.launches == 0
+    flash_attention.flash_attention(tq, tk, tv, False, kv_len=200)
+    flash_attention.flash_attention(tq, tk, tv, False, kv_len=256)
+    flash_attention.flash_attention(tq, tk, tv, True, kv_len=256)
+    flash_attention.flash_attention(tq, tk, tv, False)
+    assert calls == [(False, 200), (False, 256), (True, 256), (False, 256)]
+    assert flash_attention.launches == 4 and flash_attention.launches_kv_len == 1
 
 
 def test_ops_modes_on_cpu_and_the_kernel_wrapper_checks():
@@ -243,7 +302,8 @@ def test_the_wrapper_routes_by_dtype_and_counts_each(monkeypatch):
     calls = []
     monkeypatch.setattr(flash_attention, "check_cuda", lambda t: t.device)
     monkeypatch.setattr(flash_attention, "_launch",
-                        lambda q, k, v, out, causal, window, bf16, device: calls.append(bf16))
+                        lambda q, k, v, out, causal, window, kv_len, bf16, device:
+                        calls.append(bf16))
     monkeypatch.setattr(flash_attention, "launches", 0)
     monkeypatch.setattr(flash_attention, "launches_by_dtype", {"float32": 0, "bfloat16": 0})
     for dtype, n in (("bfloat16", 2), ("float32", 1)):
@@ -314,3 +374,22 @@ def test_banded_kernel_matches_plain_version_on_the_card(BH, S, d, window, dtype
     torch.testing.assert_close(got.float(), plain.float(), atol=tol, rtol=tol)
     causal = flash_attention.flash_attention(q, k, v, True)
     assert torch.equal(flash_attention.flash_attention(q, k, v, True, S), causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("BH,Sq,Sk,d,kv_len", [(16, 1536, 1536, 64, 1500),
+                                               (16, 128, 1536, 64, 1500),
+                                               (4, 128, 384, 32, 200), (2, 256, 512, 64, 384)])
+def test_bounded_kernel_matches_plain_version_on_the_card(BH, Sq, Sk, d, kv_len, dtype):
+    """The key-length bound on both kernels against the plain version; a
+    bound of Sk equals the unbounded launch bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (an sm_90 card); chip_smoke.py checks it there")
+    q, k, v = _torch(_qkv(BH, Sq, Sk, d, seed=Sk + kv_len), dtype, device="cuda")
+    got = flash_attention.flash_attention(q, k, v, False, kv_len=kv_len)
+    plain = ops.flash_attention(q, k, v, False, mode="reference", kv_len=kv_len)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), plain.float(), atol=tol, rtol=tol)
+    assert torch.equal(flash_attention.flash_attention(q, k, v, False, kv_len=Sk),
+                       flash_attention.flash_attention(q, k, v, False))

@@ -57,6 +57,7 @@ def _port_modules():
 def test_importing_every_port_module_loads_no_jax_and_no_repro():
     modules = _port_modules()
     assert "repro_torch.core.sampler_api" in modules and len(modules) >= 18, modules
+    assert {"repro_torch.examples.quickstart", "repro_torch.examples.serve_lm"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}:\n"

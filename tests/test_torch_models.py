@@ -1,5 +1,5 @@
 """The port's serving models against the JAX package, at the reduced configs
-of the dense, MoE, vlm, hybrid and ssm families.
+of the dense, MoE, vlm, hybrid, ssm and audio (encoder-decoder) families.
 
 The JAX `init_params` tree is carried across by `params_from_jax`, and the
 same numpy-seeded tokens and activations go through both packages. The
@@ -14,6 +14,10 @@ on the CPU); the JAX package runs dense attention. Tolerances:
     0.03 absolute (one bf16 ulp at 0.5 is 2^-8, so about eight ulps; 1.4 ulps
     seen); each layer's caches to four bf16 ulps of the layer's largest
     value (1.5 seen, in the second layer; the first differs by one ulp).
+    whisper-medium's bf16 case holds its self and cross caches the same way.
+The reduced whisper-medium has 32 frames: its encoder and cross-attention
+pad them to 128 keys and mask the padding by the kernel's key-length bound
+on this path too.
 """
 import dataclasses
 
@@ -39,7 +43,7 @@ MOE = ["olmoe-1b-7b", "qwen2-moe-a2p7b"]
 # vlm (with image patches), hybrid (rglru, rglru, attn_local; a tail rglru),
 # ssm (mlstm, slstm)
 RECURRENT = ["internvl2-2b", "recurrentgemma-9b", "xlstm-125m"]
-UNPORTED = ["whisper-medium"]
+ENCDEC = ["whisper-medium"]  # audio: encoder, cross-attention, static cross cache
 
 
 def _np(x):
@@ -87,15 +91,25 @@ def _patches(cfg, B, seed=1):
         np.float32)
 
 
+def _frames(cfg, B, seed=1):
+    """An encoder-decoder's stub frontend embeddings, N(0, 0.02)."""
+    return np.random.default_rng(seed).normal(0.0, 0.02, (B, cfg.encoder_seq, cfg.d_model)).astype(
+        np.float32)
+
+
 def _prefill_and_decode(jcfg, cfg, params, m, n_decode=4, B=2, S=7, T=16, jit=True):
-    """Prefill (after image patches for a vlm) then n_decode steps in both
-    packages, fed the same tokens (the JAX argmax); yields (what, JAX
-    logits, port logits, JAX caches, port caches)."""
+    """Prefill (after image patches for a vlm, from frames for an
+    encoder-decoder) then n_decode steps in both packages, fed the same
+    tokens (the JAX argmax); yields (what, JAX logits, port logits, JAX
+    caches, port caches)."""
     toks = _tokens(cfg, (B, S), seed=S)
     batch, extras = {"tokens": jnp.asarray(toks)}, {}
     if cfg.family == "vlm":
         pe = _patches(cfg, B)
         batch["patch_embeds"], extras["patch_embeds"] = jnp.asarray(pe), torch.as_tensor(pe)
+    if cfg.family == "audio":
+        fr = _frames(cfg, B)
+        batch["frames"], extras["frames"] = jnp.asarray(fr), torch.as_tensor(fr)
     jprefill = lambda p, b, c: jmodel.prefill(jcfg, p, b, c)  # noqa: E731
     jdecode = lambda p, t, pos, c: jmodel.decode_step(jcfg, p, t, pos, c)  # noqa: E731
     if jit:
@@ -116,7 +130,7 @@ def _prefill_and_decode(jcfg, cfg, params, m, n_decode=4, B=2, S=7, T=16, jit=Tr
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT + ENCDEC)
 def test_prefill_and_decode_match_jax(arch):
     jcfg, cfg = _configs(arch)
     params, m = _models(jcfg, cfg)
@@ -134,6 +148,7 @@ def test_prefill_and_decode_match_jax(arch):
     ("recurrentgemma-9b", 100, 140),  # the band over a prompt padded to 128 rows
     ("xlstm-125m", 300, 320),         # past 4 mLSTM chunks: the chunkwise form
     ("internvl2-2b", 130, 150),       # 8 patches + 130 tokens: 138 rows, padded to 256
+    ("whisper-medium", 130, 150),     # 130 queries padded to 256 over 32 frames (kv_len)
 ])
 def test_long_prompts_match_jax(arch, S, T):
     jcfg, cfg = _configs(arch)
@@ -176,7 +191,17 @@ def test_vlm_positions_and_text_mask_match_jax():
 
 
 def test_bf16_prefill_and_decode_match_eager_jax():
-    jcfg, cfg = _configs("phi4-mini-3p8b", dtype="bfloat16", kv_cache_dtype="bfloat16")
+    _hold_bf16_to_eager_jax("phi4-mini-3p8b")
+
+
+def test_whisper_bf16_prefill_and_decode_match_eager_jax():
+    """The encoder, the self and the cross caches in bf16; hd = 16 here, so
+    sqrt(hd) = 4 is exact in bf16 as whisper-medium's 8 is."""
+    _hold_bf16_to_eager_jax("whisper-medium")
+
+
+def _hold_bf16_to_eager_jax(arch):
+    jcfg, cfg = _configs(arch, dtype="bfloat16", kv_cache_dtype="bfloat16")
     params, m = _models(jcfg, cfg)
     assert m.embed.dtype == torch.bfloat16
     with jax.disable_jit():
@@ -364,20 +389,6 @@ def test_capacity_matches_jax():
             assert moe._capacity(gs, m) == jmoe._capacity(gs, m)
 
 
-# ---------------------------------------------------------------------------
-# what is not ported yet raises
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        model.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        model.init_caches(cfg, 1, 8, device="cpu")
-
-
 def test_caches_from_jax_reads_tuples_and_named_caches():
     jcfg, cfg = _configs("recurrentgemma-9b")
     jc = jax.tree.map(np.asarray, jmodel.init_caches(jcfg, 2, 8))
@@ -389,3 +400,127 @@ def test_caches_from_jax_reads_tuples_and_named_caches():
                                                    "RGLRUState"]
         assert got[2].k.shape == (2, 8, cfg.n_kv_heads, cfg.resolved_head_dim)  # min(8, window)
         assert got[3].h.shape == (2, cfg.lru_width) and got[3].h.dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# the audio encoder-decoder: encoder, cross-attention, the reference's quirks
+# ---------------------------------------------------------------------------
+
+
+def _whisper():
+    jcfg, cfg = _configs("whisper-medium")
+    params, m = _models(jcfg, cfg)
+    return jcfg, cfg, params, m
+
+
+@pytest.mark.parametrize("S", [5, 127, 128, 129, 300])
+def test_attn_encoder_matches_jax(S):
+    """Non-causal attention without RoPE (the JAX encoder's attn_train call)
+    at lengths around the kernel's 128-key tiles: the padded keys are masked
+    by kv_len = S."""
+    jcfg, cfg, params, m = _whisper()
+    jp = jax.tree.map(lambda a: a[0], params["enc_layers"]["attn"])
+    x = _x((2, S, cfg.d_model), S)
+    pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (2, S))
+    want = jattention.attn_train(jp, jnp.asarray(x), jcfg, pos, causal=False, rope=False)
+    got = attention.attn_encoder(m.enc_layers[0].attn, torch.as_tensor(x), cfg)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("S,T", [(7, 32), (1, 32), (130, 300)])
+def test_cross_kv_and_attn_cross_match_jax(S, T):
+    """cross_kv, and cross-attention over T encoder positions at prefill
+    (through the kernel's plain version: queries and keys padded, kv_len =
+    T) and in plain torch (the decode path), against the JAX attn_cross."""
+    jcfg, cfg, params, m = _whisper()
+    jp = jax.tree.map(lambda a: a[0], params["cross"]["attn"])
+    attn = m.cross[0].attn
+    enc, x = _x((2, T, cfg.d_model), T), _x((2, S, cfg.d_model), S + 1)
+    jkv = jattention.cross_kv(jp, jnp.asarray(enc), jcfg)
+    kv = attention.cross_kv(attn, torch.as_tensor(enc), cfg)
+    for mine, theirs in zip(kv, jkv):
+        np.testing.assert_allclose(_np(mine), _np(theirs), **TOL)
+    want = jattention.attn_cross(jp, jnp.asarray(x), jkv, jcfg)
+    np.testing.assert_allclose(
+        _np(attention.attn_cross_prefill(attn, torch.as_tensor(x), kv, cfg)), _np(want), **TOL)
+    np.testing.assert_allclose(_np(attention.attn_cross(attn, torch.as_tensor(x), kv, cfg)),
+                               _np(want), **TOL)
+
+
+def test_encode_matches_jax():
+    jcfg, cfg, params, m = _whisper()
+    fr = _frames(cfg, 2)
+    want = jmodel.encode(jcfg, params, jnp.asarray(fr))
+    got = m.encode(torch.as_tensor(fr))
+    assert got.shape == (2, cfg.encoder_seq, cfg.d_model)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+def test_whisper_quirk_a_serving_self_attention_applies_rope():
+    """The JAX prefill's decoder self-attention takes attn_prefill's default
+    rope=True; its training path passes rope=False. The port's prefill
+    follows the serving path: it equals the JAX prefill, and the logits of
+    the training path's decoder (rope=False) differ from both."""
+    jcfg, cfg, params, m = _whisper()
+    toks, fr = _tokens(cfg, (2, 9), seed=3), _frames(cfg, 2)
+    want, _ = jmodel.prefill(jcfg, params, {"tokens": jnp.asarray(toks), "frames": jnp.asarray(fr)},
+                             jmodel.init_caches(jcfg, 2, 16))
+    got, _ = m.prefill(torch.as_tensor(toks, dtype=torch.int64),
+                       model.init_caches(cfg, 2, 16, device="cpu"), frames=torch.as_tensor(fr))
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    enc = jmodel.encode(jcfg, params, jnp.asarray(fr))
+    x = jlayers.embed_lookup(params["embed"], jnp.asarray(toks), jcfg.embed_scale)
+    x = x + jlayers.sinusoidal_positions(9, jcfg.d_model, x.dtype)[None]
+    positions = jnp.broadcast_to(jnp.arange(9, dtype=jnp.int32), (2, 9))
+    x = jmodel._decoder_encdec(jcfg, params, x, positions, enc, None)
+    no_rope = jmodel._final_logits(jcfg, params, x[:, -1:])[:, 0]
+    assert np.abs(_np(no_rope) - _np(want)).max() > 100 * TOL["atol"]
+
+
+def test_whisper_quirk_c_decode_clamps_the_position_table():
+    """Decode adds row pos of a 4096-row sinusoid table; past row 4095 the
+    JAX gather clamps the row, and the port does the same: at pos 4100 and
+    5000 (the self-attention write clamps to the cache's last slot too)
+    both packages agree. The self caches' keys are held to 1e-4 absolute:
+    their RoPE angles reach 5000 rad, where the two packages' float32 sin
+    and cos differ by about 1e-5 (2.3e-5 seen on keys of ~1)."""
+    jcfg, cfg, params, m = _whisper()
+    toks, fr = _tokens(cfg, (2, 5), seed=5), _frames(cfg, 2)
+    jl, jc = jmodel.prefill(jcfg, params, {"tokens": jnp.asarray(toks), "frames": jnp.asarray(fr)},
+                            jmodel.init_caches(jcfg, 2, 8))
+    tl, tc = m.prefill(torch.as_tensor(toks, dtype=torch.int64),
+                       model.init_caches(cfg, 2, 8, device="cpu"), frames=torch.as_tensor(fr))
+    for pos in (4095, 4100, 5000):
+        nxt = np.argmax(np.asarray(jl, np.float32), -1).astype(np.int32)
+        jl, jc = jmodel.decode_step(jcfg, params, jnp.asarray(nxt), jnp.asarray(pos, jnp.int32), jc)
+        tl, tc = m.decode_step(torch.as_tensor(nxt, dtype=torch.int64), pos, tc)
+        np.testing.assert_allclose(_np(tl), _np(jl), err_msg=f"pos {pos}", **TOL)
+        _caches_close(jc, tc, cfg, atol=1e-4, rtol=2e-5)
+    assert model.DECODE_POSITIONS == 4096
+
+
+def test_whisper_prefill_needs_frames_of_the_encoder_length():
+    """No frames is a KeyError, as the JAX prefill's batch["frames"]; frames
+    of another length than encoder_seq (the cross cache's) a ValueError."""
+    jcfg, cfg, params, m = _whisper()
+    toks = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(KeyError, match="frames"):
+        m.prefill(toks, model.init_caches(cfg, 1, 8, device="cpu"))
+    with pytest.raises(KeyError):
+        jmodel.prefill(jcfg, params, {"tokens": jnp.zeros((1, 4), jnp.int32)},
+                       jmodel.init_caches(jcfg, 1, 8))
+    for T in (cfg.encoder_seq - 1, cfg.encoder_seq + 5):
+        with pytest.raises(ValueError, match="encoder_seq"):
+            m.prefill(toks, model.init_caches(cfg, 1, 8, device="cpu"),
+                      frames=torch.zeros((1, T, cfg.d_model)))
+
+
+def test_whisper_caches_are_decoder_then_cross_states():
+    cfg = get_config("whisper-medium", reduced=True)
+    caches = model.init_caches(cfg, 3, 8, device="cpu")
+    L = cfg.n_layers
+    assert [type(c).__name__ for c in caches] == ["KVCache"] * L + ["CrossKV"] * L
+    assert caches[L].k.shape == (3, cfg.encoder_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    m = model.init_params(cfg, 0, device="cpu")
+    assert isinstance(m, model.EncoderDecoderLM) and len(m.enc_layers) == cfg.n_encoder_layers
+    assert len(m.cross) == L

@@ -6,7 +6,8 @@ the weights carried across by `params_from_jax`: 2 slots and 5 requests of
 unequal prompt lengths and token budgets, so slots are evicted and refilled
 at different steps and decode on the shared position clock; a vlm's
 requests with and without image patches; a prompt longer than
-recurrentgemma's window (32 at the reduced width), through the ring branch.
+recurrentgemma's window (32 at the reduced width), through the ring branch;
+whisper-medium's requests, each with its frames.
 At one slot the port departs from the JAX engine, whose slot insert loses
 an unstacked recurrent state (ROADMAP, deliberate differences): there the
 port is held to a direct prefill and decode. Temperature sampling draws from the
@@ -45,13 +46,17 @@ def _pair(arch):
 
 def _requests(cfg, shapes, seed=0, patches=False):
     """(uid, prompt, max new tokens, extras) of each (prompt length, max new
-    tokens); with `patches` a vlm's N(0, 0.02) image embeddings."""
+    tokens); with `patches` a vlm's N(0, 0.02) image embeddings; an
+    encoder-decoder's always with N(0, 0.02) frames."""
     rng = np.random.default_rng(seed)
     reqs = []
     for uid, (S, n) in enumerate(shapes):
         prompt = rng.integers(0, cfg.vocab_size, S).astype(np.int32)
         extras = ({"patch_embeds": rng.normal(0.0, 0.02, (cfg.n_patches, cfg.d_model)).astype(
             np.float32)} if patches else None)
+        if cfg.family == "audio":
+            extras = {"frames": rng.normal(0.0, 0.02, (cfg.encoder_seq, cfg.d_model)).astype(
+                np.float32)}
         reqs.append((uid, prompt, n, extras))
     return reqs
 
@@ -75,7 +80,7 @@ def _both(arch, shapes, n_slots, max_len=32, patches=False):
 
 
 @pytest.mark.parametrize("arch", ["gemma-2b", "phi4-mini-3p8b", "olmoe-1b-7b", "internvl2-2b",
-                                  "recurrentgemma-9b", "xlstm-125m"])
+                                  "recurrentgemma-9b", "xlstm-125m", "whisper-medium"])
 def test_greedy_engine_equals_jax(arch):
     got, want = _both(arch, REQUESTS, n_slots=2)
     assert got == want
@@ -234,8 +239,21 @@ def test_launch_serve_rejects_a_checkpoint():
 
 
 def test_unported_family_raises_through_main():
-    with pytest.raises(NotImplementedError, match="not ported yet.*audio"):
+    """whisper-medium through the driver (a reference quirk): `main` submits
+    no extras, as the JAX driver does, and the prefill reads the frames, so
+    both raise a KeyError; `serve` with frames serves it."""
+    with pytest.raises(KeyError, match="frames"):
         serve.main(["--device", "cpu", "--arch", "whisper-medium"])
+    jcfg, cfg, params, m = _pair("whisper-medium")
+    jeng = jengine.Engine(jcfg, params, n_slots=2, max_len=32, seed=0)
+    jeng.submit(jengine.Request(uid=0, prompt=np.zeros(4, np.int32), max_new_tokens=2))
+    with pytest.raises(KeyError, match="frames"):
+        jeng.run()
+    reqs = [engine.Request(uid=uid, prompt=prompt, max_new_tokens=n, temperature=0.7,
+                           extras=extras)
+            for uid, prompt, n, extras in _requests(cfg, REQUESTS[:3])]
+    out = serve.serve(cfg, m, reqs, slots=2, max_len=32)
+    assert out["tokens"] == sum(n for _, n in REQUESTS[:3]) and out["nonfinite_logits"] == 0
 
 
 def test_entry_points_raise_without_a_card():
