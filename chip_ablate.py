@@ -8,6 +8,17 @@
     python3 chip_ablate.py ctmc_tree  # only the sparse CTMC's tree: two repairs, a rebuild
     python3 chip_ablate.py faults     # only the fault variants against their base kernels
     python3 chip_ablate.py serve      # only the serving calls: where their time goes
+    python3 chip_ablate.py train      # only the full-width train step: where its time goes
+
+train: where a train step's time goes at full width: gemma-2b in bf16,
+batch 4 x 1024 tokens (chip_smoke.py's TRAIN_FULL), after two warm steps:
+the host wall of the forward and backward (`train_forward` and
+`torch.autograd.grad`) and of the AdamW update (clipping included), each
+ended by a synchronize, median of 3, under remat "dots" (the config's),
+"full" and "none", with the peak memory of each; then one whole step of
+"dots" under torch.profiler: its device time (the kernels' busy time), the
+idle share 1 - device / wall, the launches, and the top kernels by device
+time.
 
 serve: where a serving call's time goes at full width, for phi4-mini-3p8b,
 olmoe-1b-7b, internvl2-2b, recurrentgemma-9b, xlstm-125m and whisper-medium:
@@ -936,6 +947,85 @@ def ablate_serve(torch, np, chip_smoke, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def ablate_train(torch, np, chip_smoke, dev) -> None:
+    """Where a full-width train step's time goes (module docstring)."""
+    import dataclasses
+    import statistics
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import convert
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import TrainConfig, init_state
+
+    f = chip_smoke.TRAIN_FULL
+    base = get_config(f["arch"])
+    pipe = TokenPipeline(DataConfig(vocab_size=base.vocab_size, seq_len=f["seq"],
+                                    global_batch=f["batch"]), dev)
+    ocfg = adamw.AdamWConfig(lr=3e-3)
+    state = init_state(base, TrainConfig(), 0, dev)
+    m = state.params
+    params = dict(m.named_parameters())
+    decay = convert.decay_mask(base, params)
+    opt = state.opt
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    for remat in ("dots", "full", "none"):
+        m.cfg = dataclasses.replace(base, remat=remat)
+        fwd_bwd, opt_ms = [], []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(5):
+            batch = pipe.global_batch(i)
+
+            def grads():
+                loss, _ = m.train_forward(batch)
+                return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+            g, ms = timed(grads)
+            (opt, _), ms2 = timed(lambda: adamw.update(g, opt, params, ocfg, 0.1, decay=decay))
+            del g
+            fwd_bwd.append(ms)
+            opt_ms.append(ms2)
+        chip_smoke.emit({"part": "train", "arch": f["arch"], "remat": remat,
+                         "batch": f["batch"], "seq": f["seq"],
+                         "forward_backward_ms": statistics.median(fwd_bwd[2:]),
+                         "optimizer_ms": statistics.median(opt_ms[2:]),
+                         "forward_backward_ms_all": fwd_bwd, "optimizer_ms_all": opt_ms,
+                         "peak_bytes": torch.cuda.max_memory_allocated(dev)})
+    m.cfg = base
+    batch = pipe.global_batch(9)
+
+    def step():
+        loss, _ = m.train_forward(batch)
+        g = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        return adamw.update(g, opt, params, ocfg, 0.1, decay=decay)
+
+    _, wall = timed(step)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(step)
+    kernels = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    device_ms = sum(a.self_device_time_total for a in kernels) / 1e3
+    chip_smoke.emit({
+        "part": "train", "arch": f["arch"], "remat": base.remat, "profiled_step_wall_ms": wall,
+        "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall,
+        "launches": sum(a.count for a in kernels),
+        "top_kernels_ms": [[a.key[:90], a.self_device_time_total / 1e3, a.count]
+                           for a in sorted(kernels, key=lambda a: a.self_device_time_total,
+                                           reverse=True)[:15]]})
+    del state, m, params, opt
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -943,7 +1033,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_ablate.py: no CUDA device", file=sys.stderr)
         return 2
-    known = ["int8", "sparse", "lattice", "ctmc_tree", "faults", "serve"]
+    known = ["int8", "sparse", "lattice", "ctmc_tree", "faults", "serve", "train"]
     parts = sys.argv[1:] or known
     if not set(parts) <= set(known):
         print(f"chip_ablate.py: unknown parts {parts}; use {', '.join(known[:-1])} and/or "
@@ -965,6 +1055,8 @@ def main() -> int:
         ablate_faults(torch, np, chip_smoke, dev)
     if "serve" in parts:
         ablate_serve(torch, np, chip_smoke, dev)
+    if "train" in parts:
+        ablate_train(torch, np, chip_smoke, dev)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     return 0

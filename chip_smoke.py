@@ -244,9 +244,36 @@ exits nonzero without printing the final result line:
                 decode reads neither the encoder nor the cross wk and wv);
                 the flash kernel at (24, 128, 128) beside its plain version
                 and SDPA.
-  9. examples — each ported example (repro_torch.examples: quickstart,
+  9. train    — the training stack (slice 12), which launches no kernel:
+                the JAX training forward attends through plain attention,
+                and the flash kernel has no backward (its wrapper refuses
+                autograd). full_width: launch.train.train on gemma-2b's full
+                config in bf16, 10 steps of batch 4 x 1024 tokens (dense
+                attention), the driver's lr and schedule, no checkpoint:
+                every loss and grad norm finite, the last loss at least
+                TRAIN_LOSS_DROP below the first, no kernel launched; ms a
+                step (median after the first), tokens/s, peak memory, the
+                state's bytes and the step's bound (6 N tokens at 989
+                TFLOP/s plus 22 bytes a parameter over 3.35 TB/s).
+                card_vs_cpu: each family's reduced config (gemma-2b,
+                olmoe-1b-7b with the boltzmann router, internvl2-2b with
+                patches, recurrentgemma-9b, xlstm-125m, whisper-medium with
+                frames), float32, two make_train_step steps on the card and
+                on the CPU from the same weights, batches and Gumbel draws:
+                the losses, grad norms and the params after step 2 within
+                TRAIN_CARD_RTOL (relative). resume: xlstm-125m at full width
+                through launch.train.main, 6 steps saving at 3 and 6, then a
+                fresh run from step 3 alone, under torch's deterministic
+                algorithms (CUBLAS_WORKSPACE_CONFIG is set at the start):
+                the recovery line, and every leaf of the two step-6
+                checkpoints equal bit for bit. serve_restored:
+                launch.serve.main --ckpt-dir on that directory serves
+                exactly what the trained params serve, and not what the
+                random init serves.
+ 10. examples — each ported example (repro_torch.examples: quickstart,
                 optimization_cal, boltzmann_mnist --steps 5,
-                neural_decision, serve_lm) through its main once on the
+                neural_decision, serve_lm, train_lm into a fresh checkpoint
+                directory) through its main once on the
                 card: its headlines held to the bounds its CPU test holds
                 (example_misses), wall and kernel launches (the examples
                 take the samplers' default ref backends, as the JAX scripts
@@ -263,6 +290,9 @@ exits nonzero without printing the final result line:
                 with the heads' outputs rolled by one (a wrong head map);
                 whisper-medium's encoder and cross-attention outputs too.
                 Named archs only, if any are given.
+    python3 chip_smoke.py --card-train-gates  # (~100 s on the card)
+                the train phase's calibration: the same runs, every number
+                its gates read printed, none held.
 
 The last two lines are the kernels summary (the six kernels, the band and
 the key-length bound of flash_attention as rows of their own, and the four
@@ -273,6 +303,8 @@ script's elapsed seconds, the build included) and
 from __future__ import annotations
 
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1339,12 +1371,225 @@ def serve_phase(torch, np, dev, reset, read, smi, err) -> dict:
             "launches_kv_len": launches_kv_len, "shape": [hq, S, d], **timing}
 
 
+# -- training (slice 12) ------------------------------------------------------------
+
+# the main path: launch.train.train at full width in bf16, the driver's
+# defaults otherwise (lr 3e-3, warmup 2, the cosine over the run); 4096
+# tokens a step, so every attention takes the dense path
+TRAIN_FULL = dict(arch="gemma-2b", steps=10, batch=4, seq=1024)
+# the least drop from the first loss to the last of that run (step 0 learns
+# nothing: its lr scale is 0): less than half of the 3.364 that both
+# `--card-train-gates` runs gave (12.656 to 9.292, equal to the last digit)
+TRAIN_LOSS_DROP = 1.5
+# each family's reduced config (float32) on the card against the CPU, two
+# make_train_step steps from the same weights, batches and Gumbel draws:
+# the losses, grad norms and the params after step 2, relative L2, within
+# TRAIN_CARD_RTOL: about 4x the largest difference both `--card-train-gates`
+# runs gave (xlstm-125m's params, 1.33e-5; the losses within 7.7e-8)
+TRAIN_FAMILIES = (("gemma-2b", None), ("olmoe-1b-7b", "boltzmann"), ("internvl2-2b", None),
+                  ("recurrentgemma-9b", None), ("xlstm-125m", None), ("whisper-medium", None))
+TRAIN_CARD_RTOL = 5e-5
+# checkpoint and resume at full width through launch.train.main: 6 steps
+# saving at 3 (and 6), then a fresh run from step 3 alone
+TRAIN_RESUME = ["--arch", "xlstm-125m", "--steps", "6", "--ckpt-every", "3", "--batch", "4",
+                "--seq", "128"]
+TRAIN_OPT_BYTES = 22  # a parameter's AdamW traffic: bf16 grad read, f32 mu and nu and bf16
+# param read and written
+
+
+def _train_main(main, argv) -> tuple[dict, str]:
+    """A driver's main run with its printed lines captured."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        out = main(argv)
+    return out, printed.getvalue()
+
+
+def train_full_width(torch, dev, reset, read, smi, hold: bool) -> None:
+    """The main path (module docstring, phase `train`, part full_width)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import TrainConfig
+
+    f = TRAIN_FULL
+    cfg = get_config(f["arch"])
+    tcfg = TrainConfig(optimizer=adamw.AdamWConfig(lr=3e-3), total_steps=f["steps"],
+                       warmup_steps=max(2, f["steps"] // 20))
+    torch.cuda.empty_cache()
+    reset()
+    t0 = time.perf_counter()
+    out, printed = _train_main(lambda _: train.train(cfg, tcfg, steps=f["steps"], batch=f["batch"],
+                                                     seq=f["seq"], device=dev), None)
+    wall = time.perf_counter() - t0
+    launches = {k: c for k, c in read().items() if c}
+    state = out.pop("state")
+    n = out["n_params"]
+    state_bytes = sum(t.numel() * t.element_size() for t in state.params.parameters()) * 2 + sum(
+        t.numel() * 4 for t in (*state.opt.mu.values(), *state.opt.nu.values()))
+    del state
+    torch.cuda.empty_cache()
+    tokens = out["tokens_per_step"]
+    ms = statistics.median(out["step_ms"][1:])
+    flops_ms = 1e3 * 6 * n * tokens / BF16_OPS_PER_S
+    opt_ms = 1e3 * TRAIN_OPT_BYTES * n / HBM_BYTES_PER_S
+    losses = out["losses"]
+    drop = losses[0] - losses[-1]
+    emit({"phase": "train", "part": "full_width", **f, "dtype": cfg.dtype, "remat": cfg.remat,
+          "n_params": n, "losses": losses, "grad_norms": out["grad_norms"], "loss_drop": drop,
+          "step_ms": out["step_ms"], "ms_per_step_median": ms,
+          "tokens_per_s": tokens / ms * 1e3, "peak_bytes": out["peak_bytes"],
+          "state_bytes": state_bytes, "bound_ms": flops_ms + opt_ms,
+          "bound_flops_ms": flops_ms, "bound_optimizer_ms": opt_ms,
+          "flash_launches": launches, "wall_s": wall,
+          "printed": printed.strip().splitlines()[-3:], "nvidia_smi": smi})
+    finite = all(math.isfinite(x) for x in losses + out["grad_norms"])
+    if hold and (not finite or launches or drop < TRAIN_LOSS_DROP):
+        raise AssertionError(f"train full width: finite {finite}, kernel launches {launches}, "
+                             f"loss drop {drop} (at least {TRAIN_LOSS_DROP})")
+
+
+def _rel(torch, got, want) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float(torch.linalg.norm(got - want) / torch.linalg.norm(want).clamp_min(1e-30))
+
+
+def train_card_vs_cpu(torch, np, dev, arch, router, hold: bool) -> None:
+    """One family's reduced config, two train steps on the card and on the
+    CPU from the same weights, batches and draws (part card_vs_cpu)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import TrainConfig, init_state, make_train_step
+
+    cfg = get_config(arch, reduced=True)
+    if router:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, router_mode=router))
+    tcfg = TrainConfig(optimizer=adamw.AdamWConfig(lr=1e-2), warmup_steps=1, total_steps=10)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2):
+        ids = rng.integers(0, cfg.vocab_size, (4, 33)).astype(np.int64)
+        b = {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+        if cfg.family == "vlm":
+            b["patch_embeds"] = rng.normal(0, 0.02, (4, cfg.n_patches, cfg.d_model))
+        if cfg.family == "audio":
+            b["frames"] = rng.normal(0, 0.02, (4, cfg.encoder_seq, cfg.d_model))
+        batches.append({k: torch.as_tensor(v.astype(np.float32) if v.dtype == np.float64 else v)
+                        for k, v in b.items()})
+    runs = {}
+    for where in ("cpu", dev):
+        state = init_state(cfg, tcfg, 0, where)
+        if where != "cpu":  # the CPU run's weights
+            state.params.load_state_dict(runs["cpu"]["init"])
+        init = {k: v.clone() for k, v in state.params.state_dict().items()}
+        step_fn, metrics = make_train_step(cfg, tcfg), []
+        for i, b in enumerate(batches):
+            state, m = step_fn(state, {k: v.to(where) for k, v in b.items()},
+                               torch.Generator().manual_seed(i))
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs[str(where)] = {"init": init, "metrics": metrics,
+                            "params": dict(state.params.named_parameters())}
+    cpu, card = runs["cpu"], runs[str(dev)]
+    err = {k: max(abs(c[k] - g[k]) / max(abs(c[k]), 1e-30)
+                  for c, g in zip(cpu["metrics"], card["metrics"]))
+           for k in ("loss", "ce_loss", "grad_norm")}
+    err["params"] = max(_rel(torch, card["params"][n], p) for n, p in cpu["params"].items())
+    moved = math.sqrt(sum(float((p.detach() - cpu["init"][n]).square().sum())
+                          for n, p in cpu["params"].items())
+                      / sum(float(t.square().sum()) for t in cpu["init"].values()))
+    worst = max(err.values())
+    emit({"phase": "train", "part": "card_vs_cpu", "arch": arch, "router": router,
+          "losses_cpu": [m["loss"] for m in cpu["metrics"]],
+          "losses_card": [m["loss"] for m in card["metrics"]], "rel_err": err,
+          "params_moved": moved, "gate": TRAIN_CARD_RTOL})
+    if hold and not worst <= TRAIN_CARD_RTOL:
+        raise AssertionError(f"train {arch}: card against CPU {err} (gate {TRAIN_CARD_RTOL})")
+
+
+def train_resume(torch, dev, smi, hold: bool) -> None:
+    """Checkpoint and resume at full width, then serve from the checkpoint
+    (parts resume and serve_restored), under torch's deterministic
+    algorithms."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, train
+    from repro_torch.train import checkpoint
+
+    cfg = get_config(TRAIN_RESUME[1])
+    args = [*TRAIN_RESUME, "--device", dev.type]
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, crashed = os.path.join(tmp, "whole"), os.path.join(tmp, "crashed")
+        torch.use_deterministic_algorithms(True)
+        try:
+            t0 = time.perf_counter()
+            a, _ = _train_main(train.main, [*args, "--ckpt-dir", whole])
+            shutil.copytree(os.path.join(whole, "step_000000003"),
+                            os.path.join(crashed, "step_000000003"))
+            b, printed = _train_main(train.main, [*args, "--ckpt-dir", crashed])
+            wall = time.perf_counter() - t0
+            tensors = [checkpoint._flatten(checkpoint.restore(d, 6)) for d in (whole, crashed)]
+            differ = [k for k in tensors[0] if not torch.equal(tensors[0][k], tensors[1][k])]
+            max_abs = max(float((tensors[0][k].double() - tensors[1][k].double()).abs().max())
+                          for k in tensors[0])
+            disk = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in
+                       os.walk(os.path.join(whole, "step_000000006")) for f in fs)
+            emit({"phase": "train", "part": "resume", "argv": args,
+                  "losses_whole": a["losses"], "losses_resumed": b["losses"],
+                  "start_resumed": b["start"], "recovery_line": printed.splitlines()[0],
+                  "leaves": len(tensors[0]), "leaves_differing": len(differ),
+                  "max_abs_diff": max_abs, "checkpoint_bytes": disk,
+                  "step_ms_whole": a["step_ms"], "wall_s": wall,
+                  "deterministic": torch.are_deterministic_algorithms_enabled(),
+                  "nvidia_smi": smi})
+            ok = (not differ and b["start"] == 3 and a["losses"][3:] == b["losses"]
+                  and printed.startswith("[recovery] resumed from committed step 3"))
+            if hold and not ok:
+                raise AssertionError(f"train resume: {len(differ)} leaves differ ({differ[:5]}), "
+                                     f"start {b['start']}, losses {a['losses']} / {b['losses']}")
+            argv = ["--arch", cfg.name, "--no-reduced", "--requests", "4", "--device", dev.type]
+            served, printed = _train_main(serve.main, [*argv, "--ckpt-dir", crashed])
+            want = serve.serve(cfg, b["state"].params, serve.requests(cfg, 4, 12, 0.7),
+                               slots=4, max_len=128)
+            fresh, _ = _train_main(serve.main, argv)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    same = served["completions"] == want["completions"]
+    emit({"phase": "train", "part": "serve_restored", "restored_step": served["restored_step"],
+          "printed": printed.strip().splitlines()[0], "tokens": served["tokens"],
+          "equal_to_the_trained_params": same,
+          "differs_from_random_init": served["completions"] != fresh["completions"]})
+    if hold and not (same and served["restored_step"] == 6
+                     and served["completions"] != fresh["completions"]):
+        raise AssertionError(f"serve --ckpt-dir: restored step {served['restored_step']}, equal "
+                             f"to the trained params {same}")
+
+
+def train_phase(torch, np, dev, reset, read, smi, hold: bool = True) -> None:
+    """Training (module docstring, phase `train`); with `hold` off (the
+    calibration of --card-train-gates) the numbers only."""
+    train_full_width(torch, dev, reset, read, smi, hold)
+    reset()
+    for arch, router in TRAIN_FAMILIES:
+        train_card_vs_cpu(torch, np, dev, arch, router, hold)
+    train_resume(torch, dev, smi, hold)
+    launches = {k: c for k, c in read().items() if c}
+    if launches:  # training launches no kernel
+        raise AssertionError(f"train: kernel launches {launches}")
+
+
 # -- the examples (slice 11) -------------------------------------------------------
 
 # (module, arguments) of each ported example run on the card; boltzmann_mnist
 # at 5 CD steps, as the verify recipe runs the JAX script
 EXAMPLES = (("quickstart", ()), ("optimization_cal", ()), ("boltzmann_mnist", ("--steps", "5")),
-            ("neural_decision", ()), ("serve_lm", ()))
+            ("neural_decision", ()), ("serve_lm", ()), ("train_lm", ()))
 
 
 def example_misses(name: str, out: dict) -> list:
@@ -1369,6 +1614,8 @@ def example_misses(name: str, out: dict) -> list:
         checks = {"every trajectory commits": all(min(r["commit_distances"]) > 0
                                                   for r in by_eta.values()),
                   "eta 4 commits later": by_eta[4.0]["commit_median"] > by_eta[1.0]["commit_median"]}
+    elif name == "train_lm":
+        checks = {"the loss falls": out["last_loss"] < out["first_loss"]}
     else:
         checks = {"every token served": out["tokens"] == out["requests"] * 16}
     return [what for what, ok in checks.items() if not ok]
@@ -1382,9 +1629,14 @@ def examples_phase(torch, reset, read, smi) -> dict:
     import importlib
     import io
 
+    import tempfile
+
     launches = {}
     for name, args in EXAMPLES:
         main = importlib.import_module(f"repro_torch.examples.{name}").main
+        if name == "train_lm":  # a fresh checkpoint directory: it resumes from any
+            tmp = tempfile.TemporaryDirectory()
+            args = (*args, "--ckpt-dir", tmp.name)
         reset()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()) as printed:
@@ -1396,10 +1648,28 @@ def examples_phase(torch, reset, read, smi) -> dict:
         emit({"phase": "examples", "example": name, "args": list(args), "wall_s": wall,
               "headline": out, "launches": launches[name],
               "last_line": printed.getvalue().strip().splitlines()[-1], "nvidia_smi": smi})
+        if name == "train_lm":
+            tmp.cleanup()
         misses = example_misses(name, out)
         if misses:
             raise AssertionError(f"example {name}: misses {misses}: {out}")
     return launches
+
+
+def train_gates(torch, np) -> int:
+    """The train phase's calibration on the card: every number its gates
+    read (the full-width losses, the card against the CPU, the resume's
+    difference), with no gate held."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    reset, read = counters()
+    train_phase(torch, np, torch.device("cuda", 0), reset, read, smi, hold=False)
+    return 0
 
 
 def serve_gates(device: str, archs=()) -> int:
@@ -1604,6 +1874,9 @@ def main() -> int:
               "of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    # deterministic cuBLAS for the train phase's resume check: read once, at
+    # the process's first matrix product
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
 
@@ -1620,6 +1893,8 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device; the port's kernels need an H100",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--card-train-gates"]:
+        return train_gates(torch, np)
 
     from repro_torch.core import ising, problems
     from repro_torch.core.ising import king_color_masks
@@ -2648,6 +2923,7 @@ def main() -> int:
     fault_launches = fault_paths(torch, dev, prob, cal, mc, targets, reset, read, smi)
     apps_phase(torch, dev, prob, reset, read, smi)
     served = serve_phase(torch, np, dev, reset, read, smi, err)
+    train_phase(torch, np, dev, reset, read, smi)
     examples_phase(torch, reset, read, smi)
 
     # -- summary -------------------------------------------------------------

@@ -1,1 +1,2 @@
-"""Data for the applications (PyTorch): the synthetic 16x16 digits."""
+"""Data (PyTorch): the synthetic 16x16 digits of the applications and the
+LMs' synthetic Zipf token pipeline."""

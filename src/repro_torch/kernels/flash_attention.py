@@ -18,6 +18,13 @@ before the first tile wholly above the diagonal, or wholly at or past
 kv_len (exact: the skipped tiles add p = 0).
 GQA is the caller's: heads come aligned, with the KV heads repeated.
 
+The kernel has no backward (nor has the TPU kernel: no custom_vjp), and
+its output, written through ctypes into a fresh tensor, carries no
+grad_fn. So with grad mode on and q, k or v requiring grad the wrapper
+raises before anything else instead of returning a result that would
+silently cut their gradients; training attends through the plain
+`models.attention.attn_train`, as the JAX package does.
+
 What bounds it on the H100: at the phi4-mini prefill shape (24 heads,
 S = 4096, d = 128, causal, bf16) 101 MB of q, k, v and out (30 µs at
 3.35 TB/s) against 103 GFLOP (104 µs at 989 bf16 TFLOP/s): operations.
@@ -68,6 +75,7 @@ def flash_attention(
     (None: Sk) every query sees only keys j < kv_len, 1 <= kv_len <= Sk,
     below Sk only without `causal`."""
     global launches, launches_window, launches_kv_len
+    check_no_autograd(q, k, v)
     check_window(causal, window)
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
@@ -105,6 +113,16 @@ def flash_attention(
     launches_kv_len += kv_len < Sk
     launches_by_dtype["bfloat16" if bf16 else "float32"] += 1
     return out
+
+
+def check_no_autograd(q, k, v) -> None:
+    """Raise if autograd would have to differentiate the kernel's output."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "the flash attention kernel has no backward: its output would carry no gradient "
+            "into q, k or v. Train through models.attention.attn_train (plain torch ops), or "
+            "call the kernel under torch.no_grad() / torch.inference_mode()"
+        )
 
 
 def _launch(q, k, v, out, causal: bool, window: int, kv_len: int, bf16: bool, device) -> None:

@@ -1,7 +1,15 @@
 """Attention: MHA / GQA / MQA, causal, sliding-window and non-causal prefill
-on the flash kernel, KV-cache decode, cross-attention over an encoder.
+on the flash kernel, KV-cache decode, cross-attention over an encoder, and
+the training forward in plain differentiable torch ops.
 
-The port of `repro/models/attention.py` for the serving path:
+The port of `repro/models/attention.py`. Training:
+  * `attn_train` — the whole sequence, causal (banded with `window` > 0)
+    or bidirectional (an encoder's), with or without RoPE: dense attention
+    (`_attn_dense`) up to BLOCKWISE_THRESHOLD tokens and blockwise above it
+    (`_attn_blockwise`, queries in blocks of Q_BLOCK), as in the JAX
+    package, with its rounding (see below). It never reaches the flash
+    kernel, which has no backward in either package.
+Serving:
   * `attn_prefill` — causal attention over the prompt through
     `ops.flash_attention` (on a CUDA tensor the hand-written bf16 wgmma + TMA
     kernel, on a CPU tensor its plain version) at every length, where the
@@ -37,7 +45,7 @@ Softmax scale: the kernel and its plain version scale the scores by
 1/sqrt(hd) in float32; the JAX package divides scores in the activation
 dtype by sqrt(hd) rounded to that dtype (11.3125 for 11.3137 in bf16 at
 hd = 128). In float32 the two agree; in bf16 the difference is deliberate.
-Decode keeps the JAX package's rounding. At hd = 64 (whisper-medium)
+Decode and training keep the JAX package's rounding. At hd = 64 (whisper-medium)
 sqrt(hd) = 8 is exact in every dtype, so the kernel's f32 scale and the JAX
 package's bf16 division agree and the difference does not arise.
 """
@@ -136,6 +144,55 @@ def causal_mask(Sq: int, Sk: int, window: int = 0, offset: int = 0, device=None)
     if window > 0:
         m &= kpos > (qpos - window)
     return m
+
+
+# Sequences longer than this take the blockwise path (O(S * Q_BLOCK) score
+# memory for causal, O(Q_BLOCK * window) for banded) instead of S x S.
+BLOCKWISE_THRESHOLD = 4096
+Q_BLOCK = 1024
+
+
+def _attn_dense(q, k, v, cfg, mask, out_dtype):
+    return _combine(_apply_mask_softmax(_grouped_scores(q, k, cfg), mask), v, out_dtype)
+
+
+def _attn_blockwise(q, k, v, cfg, *, causal: bool, window: int, out_dtype):
+    """Exact attention with the queries in blocks of Q_BLOCK: causal block i
+    sees keys [0, (i+1) Q); banded (causal, `window` > 0) the band
+    [i Q - window + 1, (i+1) Q); bidirectional every key."""
+    S = q.shape[1]
+    outs = []
+    for qs in range(0, S, Q_BLOCK):
+        qe = min(S, qs + Q_BLOCK)
+        if causal and window > 0:
+            ks = max(0, qs - window + 1)
+            mask = causal_mask(qe - qs, qe - ks, window, offset=qs - ks, device=q.device)
+            kk, vv = k[:, ks:qe], v[:, ks:qe]
+        elif causal:
+            mask = causal_mask(qe - qs, qe, 0, offset=qs, device=q.device)
+            kk, vv = k[:, :qe], v[:, :qe]
+        else:
+            mask = torch.ones((qe - qs, k.shape[1]), dtype=torch.bool, device=q.device)
+            kk, vv = k, v
+        outs.append(_attn_dense(q[:, qs:qe], kk, vv, cfg, mask, out_dtype))
+    return torch.cat(outs, dim=1)
+
+
+def attn_train(attn: Attention, x, cfg, positions, *, window: int = 0, causal: bool = True,
+               rope: bool = True):
+    """The training forward over the whole sequence x (B, S, D) -> delta
+    (B, S, D), in plain differentiable torch ops: causal (with `window` > 0
+    banded) or, without `causal`, bidirectional; RoPE on q and k with
+    `rope`. Dense up to BLOCKWISE_THRESHOLD tokens, blockwise above."""
+    q, k, v = _project_qkv(attn, x, cfg, positions, rope)
+    B, S, _ = x.shape
+    if S > BLOCKWISE_THRESHOLD:
+        out = _attn_blockwise(q, k, v, cfg, causal=causal, window=window, out_dtype=x.dtype)
+    else:
+        mask = (causal_mask(S, S, window, device=x.device) if causal
+                else torch.ones((S, S), dtype=torch.bool, device=x.device))
+        out = _attn_dense(q, k, v, cfg, mask, x.dtype)
+    return attn.wo(out.reshape(B, S, -1))
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype, device) -> KVCache:
@@ -273,7 +330,8 @@ def attn_cross_prefill(attn: Attention, x, enc_kv: CrossKV, cfg, mode: str = "au
 def attn_cross(attn: Attention, x, enc_kv: CrossKV, cfg):
     """Cross-attention of x (B, S, D) over the encoder's K/V in plain torch
     ops with the JAX package's rounding (scores in x's dtype divided by
-    sqrt(hd), a float32 softmax), the decode step's. Returns the delta."""
+    sqrt(hd), a float32 softmax), the decode step's and training's.
+    Returns the delta."""
     B, S, _ = x.shape
     scores = _grouped_scores(_cross_q(attn, x, cfg), enc_kv.k, cfg)  # (B,K,G,S,T)
     probs = torch.softmax(scores.to(torch.float32), dim=-1)

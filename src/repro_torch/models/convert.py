@@ -1,7 +1,8 @@
-"""Weights and caches carried across from the JAX package's trees.
+"""Weights, caches and train states carried across from and to the JAX
+package's trees.
 
 `params_from_jax(cfg, tree)` takes the JAX `init_params` tree as numpy
-arrays (nested dicts and tuples) and returns a state dict that
+arrays or tensors (nested dicts and tuples) and returns a state dict that
 `DecoderLM.load_state_dict` takes. The JAX decoder holds its layers as
 `{"scan": (one tree per unit position, stacked over the units), "tail":
 (one tree per tail layer)}`; the port's layer u * len(unit) + p is entry u
@@ -21,7 +22,16 @@ stacked per-decoder-layer cross-attention (`cross`: norm and attn) becomes
 `cross.<i>`; its cache tree's `cross_kv` (k, v), each (L, B, T, K, hd),
 becomes one `CrossKV` per decoder layer after the decoder's states.
 
-Neither imports JAX: the tests convert the JAX arrays to numpy first
+`params_to_jax(cfg, named)` is the inverse, for any tensors named like the
+model's parameters (the parameters, AdamW's moments, the error-feedback
+residuals): the JAX tree of CPU tensors in their dtype.
+`train_state_to_jax` and `load_train_state` carry a whole train state
+(params, opt.mu, opt.nu, opt.count, ef.residual, step) across as the JAX
+`TrainState` tree, the one `train.checkpoint` writes and reads.
+`decay_mask` says which parameters AdamW decays: those whose JAX leaf,
+stacked over the scanned layers, has ndim >= 2.
+
+None imports JAX: the tests convert the JAX arrays to numpy first
 (bfloat16 arrives as ml_dtypes' bfloat16 and is carried through float32,
 which holds it exactly).
 """
@@ -37,12 +47,18 @@ from repro_torch.models.transformer import layer_kinds, unit_plan
 from repro_torch.models.xlstm import MLSTMState, SLSTMState
 
 _BIAS = {"bq": "wq", "bk": "wk", "bv": "wv"}
+_BIAS_OF = {w: b for b, w in _BIAS.items()}
+_STACKED = ("layers", "enc_layers", "cross")  # per-layer modules, "<name>.<i>.<path>"
 _NOT_LINEAR = {"conv_w"}
 _STATES = {"attn_global": KVCache, "attn_local": KVCache, "rglru": RGLRUState,
            "mlstm": MLSTMState, "slstm": SLSTMState}
 
 
 def _tensor(a) -> torch.Tensor:
+    """A CPU tensor of a numpy array (bfloat16 through float32, which holds
+    it exactly) or of a tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
@@ -50,20 +66,20 @@ def _tensor(a) -> torch.Tensor:
 
 
 def _leaves(tree: dict, prefix: str = ""):
-    """(dotted path, leaf name, array) of every leaf of a nested dict."""
+    """(dotted path, leaf name, leaf) of every leaf of a nested dict."""
     for name, value in tree.items():
         if isinstance(value, dict):
             yield from _leaves(value, f"{prefix}{name}.")
         else:
-            yield f"{prefix}{name}", name, np.asarray(value)
+            yield f"{prefix}{name}", name, value
 
 
-def _entry(path: str, name: str, a: np.ndarray):
-    """The port's state-dict name and array of one unstacked JAX leaf."""
+def _entry(path: str, name: str, a: torch.Tensor):
+    """The port's state-dict name and tensor of one unstacked JAX leaf."""
     if name in _BIAS:
         return path[: -len(name)] + _BIAS[name] + ".bias", a
     if a.ndim == 2 and name not in _NOT_LINEAR:  # a dense weight: nn.Linear's layout
-        return path + ".weight", a.T
+        return path + ".weight", a.T.contiguous()
     return path, a
 
 
@@ -77,34 +93,155 @@ def _layers(cfg, tree):
     for i, _ in enumerate(layer_kinds(cfg)):
         if i < plan.n_scan * n_unit:
             u, p = divmod(i, n_unit)
-            yield i, tree["scan"][p], (lambda a, u=u: np.asarray(a)[u])
+            yield i, tree["scan"][p], (lambda a, u=u: _tensor(a[u]))
         else:
-            yield i, tree["tail"][i - plan.n_scan * n_unit], np.asarray
+            yield i, tree["tail"][i - plan.n_scan * n_unit], _tensor
 
 
 def _stacked(state: dict, prefix: str, tree: dict, depth: int) -> None:
     """Entry i of every leaf of a tree stacked over `depth` layers, as
     `<prefix>.<i>.<path>`."""
-    for i in range(depth):
-        for path, name, a in _leaves(tree):
-            key, a = _entry(f"{prefix}.{i}.{path}", name, a[i])
-            state[key] = _tensor(a)
+    for path, name, a in _leaves(tree):
+        for i in range(depth):
+            key, t = _entry(f"{prefix}.{i}.{path}", name, _tensor(a[i]))
+            state[key] = t
 
 
 def params_from_jax(cfg, tree) -> dict[str, torch.Tensor]:
+    """The port's state dict of a JAX params tree of `cfg` (module
+    docstring). A tree of another config's layout raises a KeyError."""
+    try:
+        return _params_from_jax(cfg, tree)
+    except (KeyError, IndexError) as e:
+        raise KeyError(f"the tree does not hold {cfg.name}'s params (no {e})") from e
+
+
+def _params_from_jax(cfg, tree) -> dict[str, torch.Tensor]:
     state = {"embed": _tensor(tree["embed"]),
              "final_norm.scale": _tensor(tree["final_norm"]["scale"])}
     for i, sub, take in _layers(cfg, tree["layers"]):
         for path, name, a in _leaves(sub):
-            key, a = _entry(f"layers.{i}.{path}", name, take(a))
-            state[key] = _tensor(a)
+            key, t = _entry(f"layers.{i}.{path}", name, take(a))
+            state[key] = t
     if cfg.is_encdec:
         _stacked(state, "enc_layers", tree["enc_layers"], cfg.n_encoder_layers)
         state["enc_norm.scale"] = _tensor(tree["enc_norm"]["scale"])
         _stacked(state, "cross", tree["cross"], cfg.n_layers)
     if not cfg.tie_embeddings:
-        state["lm_head.weight"] = _tensor(np.asarray(tree["lm_head"]).T)
+        state["lm_head.weight"] = _tensor(tree["lm_head"]).T.contiguous()
     return state
+
+
+def _jax_path(parts: list[str]) -> tuple[list[str], bool]:
+    """The JAX tree path of a port parameter path within a layer (or at the
+    top), and whether its tensor is transposed there: the inverse of
+    `_entry`."""
+    if parts[-1] == "bias" and parts[-2] in _BIAS_OF:
+        return parts[:-2] + [_BIAS_OF[parts[-2]]], False
+    if parts[-1] == "weight":
+        return parts[:-1], True
+    return parts, False
+
+
+def _scanned(cfg) -> int:
+    """The number of decoder layers the JAX package stacks into its scan."""
+    plan = unit_plan(cfg)
+    return plan.n_scan * len(plan.unit)
+
+
+def params_to_jax(cfg, named: dict) -> dict:
+    """The JAX `init_params` tree of the port's named tensors (a model's
+    state dict, or the optimizer's moments under the same names), the
+    inverse of `params_from_jax`: the decoder's layers stacked by unit
+    position over the units into {"scan": (...), "tail": (...)}, the
+    encoder's and the cross layers stacked over their depth, every
+    nn.Linear weight transposed back to (d_in, d_out), the qkv biases back
+    to bq, bk, bv. Leaves are CPU tensors in their own dtype."""
+    _check_family(cfg)
+    plan = unit_plan(cfg)
+    n_unit, n_scanned = len(plan.unit), _scanned(cfg)
+    flat, stacks = {}, {}
+    for name, t in named.items():
+        t = _tensor(t)
+        parts = name.split(".")
+        if parts[0] in _STACKED:
+            i = int(parts[1])
+            path, transposed = _jax_path(parts[2:])
+            t = t.T if transposed else t
+            if parts[0] != "layers":
+                stacks.setdefault((parts[0], *path), {})[i] = t
+            elif i < n_scanned:
+                u, p = divmod(i, n_unit)
+                stacks.setdefault(("layers", "scan", p, *path), {})[u] = t
+            else:
+                flat[("layers", "tail", i - n_scanned, *path)] = t
+        else:
+            path, transposed = _jax_path(parts)
+            flat[tuple(path)] = t.T if transposed else t
+    for key, by_index in stacks.items():
+        flat[key] = torch.stack([by_index[i] for i in range(len(by_index))])
+    tree = _nest(flat)
+    layers = tree.setdefault("layers", {})
+    layers["scan"] = tuple(layers.get("scan", {}).get(p, {}) for p in range(n_unit))
+    layers["tail"] = tuple(layers.get("tail", {}).get(p, {}) for p in range(len(plan.tail)))
+    return tree
+
+
+def _nest(flat: dict) -> dict:
+    tree = {}
+    for path, t in flat.items():
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = t
+    return tree
+
+
+def decay_mask(cfg, named: dict) -> dict[str, bool]:
+    """Whether AdamW decays each named parameter: the JAX package decays a
+    leaf whose array has ndim >= 2 in its tree, where the scanned decoder
+    layers, the encoder's and the cross layers are stacked (one more
+    dimension) and the tail layers and the top-level leaves are not."""
+    n_scanned = _scanned(cfg)
+
+    def stacked(parts):
+        return parts[0] in _STACKED and (parts[0] != "layers" or int(parts[1]) < n_scanned)
+
+    return {name: t.ndim + stacked(name.split(".")) >= 2 for name, t in named.items()}
+
+
+def train_state_to_jax(cfg, state) -> dict:
+    """The JAX `TrainState` tree of a port train state (params, opt.mu,
+    opt.nu, opt.count, ef.residual when ef is kept, step), as
+    `train.checkpoint.save` writes it; the counts are int32 scalars."""
+    tree = {"params": params_to_jax(cfg, dict(state.params.named_parameters())),
+            "opt": {"mu": params_to_jax(cfg, state.opt.mu), "nu": params_to_jax(cfg, state.opt.nu),
+                    "count": torch.tensor(state.opt.count, dtype=torch.int32)},
+            "step": torch.tensor(state.step, dtype=torch.int32)}
+    if state.ef is not None:
+        tree["ef"] = {"residual": params_to_jax(cfg, state.ef.residual)}
+    return tree
+
+
+def load_train_state(cfg, state, tree):
+    """Write a JAX `TrainState` tree (a checkpoint's) into the port train
+    state: the tensors in place, cast to their dtypes. Returns the state
+    with the restored counts. A state that keeps ef needs the tree's."""
+    state.params.load_state_dict(params_from_jax(cfg, tree["params"]), strict=True)
+    with torch.no_grad():
+        for name in ("mu", "nu"):
+            _copy_into(getattr(state.opt, name), params_from_jax(cfg, tree["opt"][name]))
+        if state.ef is not None:
+            _copy_into(state.ef.residual, params_from_jax(cfg, tree["ef"]["residual"]))
+    opt = state.opt._replace(count=int(tree["opt"]["count"]))
+    return state._replace(opt=opt, step=int(tree["step"]))
+
+
+def _copy_into(dst: dict, src: dict) -> None:
+    if dst.keys() != src.keys():
+        raise KeyError(f"the tree's names {sorted(src.keys() ^ dst.keys())} do not match")
+    for name, t in dst.items():
+        t.copy_(src[name])
 
 
 def caches_from_jax(cfg, caches) -> list:

@@ -1,12 +1,23 @@
-"""The served models: decoder-only LMs (the dense, MoE, vlm, hybrid and ssm
-families) and the audio encoder-decoder.
+"""The models: decoder-only LMs (the dense, MoE, vlm, hybrid and ssm
+families) and the audio encoder-decoder, for training and for serving.
 
-The port of the serving half of `repro/models/model.py`:
+The port of `repro/models/model.py`:
 
     model = init_params(cfg, seed, device)            # a DecoderLM or EncoderDecoderLM
+    loss, metrics = model.train_forward(batch, gen)    # the training forward
     caches = init_caches(cfg, batch, max_len, device)  # a state per layer
     logits, caches = model.prefill(tokens, caches)     # last-position (B, V)
     logits, caches = model.decode_step(tokens, pos, caches)
+
+`train_forward` takes the JAX batch dict ({"tokens", "labels"} (B, S) int,
+plus "patch_embeds" (B, P, D) for a vlm, "frames" (B, T, D) for the audio
+family) and returns (ce + aux, {"ce_loss", "aux_loss"}): the mean
+cross-entropy of the text positions through `train.loss.chunked_ce` (8
+chunks) and the MoE channels' load-balance loss. It runs in plain
+differentiable torch ops (attention through `attention.attn_train`, never
+the flash kernel) with every unit of layers under `transformer.remat`. The
+Boltzmann router's Gumbel draws come from `gen`, one tensor per MoE layer
+drawn before the layers run, or are given outright (`gumbels`).
 
 A vlm prefill takes `patch_embeds` (B, n_patches, D), the stub frontend's
 image embeddings, prepended to the text; its positions run over patches and
@@ -25,15 +36,22 @@ decoder over the text (sinusoidal positions; self-attention with RoPE, as
 the JAX package's serving path has it, then cross-attention over the
 encoder), and writes each decoder layer's static cross K/V into its cache.
 Its decode takes the text position's row of a 4096-row sinusoid table (the
-row clamped to 4095, as the JAX package's gather clamps).
+row clamped to 4095, as the JAX package's gather clamps). Its training
+forward runs the encoder in plain torch ops (dense non-causal attention, no
+RoPE) and the decoder's self-attention without RoPE, as the JAX
+`_decoder_encdec` does (a reference quirk: serving applies it), each layer
+under `transformer.remat`.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
 
 from repro_torch.core.ising import resolve_device
-from repro_torch.models import attention, layers, transformer
+from repro_torch.models import attention, layers, moe, transformer
+from repro_torch.train import loss as train_loss
 
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
 DECODE_POSITIONS = 4096  # rows of the encoder-decoder's decode sinusoid table
@@ -74,10 +92,45 @@ class DecoderLM(nn.Module):
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
         return x, positions
 
+    def _w_out(self) -> torch.Tensor:
+        """The unembedding (vocab, D): the embedding itself when tied."""
+        return self.embed if self.lm_head is None else self.lm_head.weight
+
     def _final_logits(self, x):
         x = layers.apply_norm(self.cfg.norm, self.final_norm, x)
-        w_out = self.embed if self.lm_head is None else self.lm_head.weight
-        return layers.unembed(x, w_out, self.cfg.logit_softcap)
+        return layers.unembed(x, self._w_out(), self.cfg.logit_softcap)
+
+    def router_draws(self, n_tokens: int, gen: torch.Generator | None):
+        """The Boltzmann router's Gumbel draws for n_tokens tokens: one
+        (G, gs, E) tensor per layer with an MoE channel (None for the
+        others), drawn from `gen` in layer order; None when the config
+        draws nothing."""
+        cfg = self.cfg
+        if not (cfg.moe and cfg.moe.router_mode == "boltzmann"):
+            return None
+        if gen is None:
+            raise ValueError(f"{cfg.name}: the boltzmann router draws from a generator; none given")
+        shape = moe.router_shape(cfg, n_tokens)
+        return [moe.draw_gumbel(gen, shape, self.device)
+                if transformer._has_channel(block.kind, cfg) else None for block in self.layers]
+
+    def _train_loss(self, x, labels, aux):
+        """(ce + aux, metrics) of the last hidden states x (B, S', D): a
+        vlm's patch positions (the first S' - S) are not scored."""
+        x = layers.apply_norm(self.cfg.norm, self.final_norm, x)
+        x = x[:, x.shape[1] - labels.shape[1]:]
+        ce = train_loss.chunked_ce(x, self._w_out(), labels, n_chunks=8,
+                                   softcap=self.cfg.logit_softcap)
+        return ce + aux, {"ce_loss": ce, "aux_loss": aux}
+
+    def train_forward(self, batch: dict, gen: torch.Generator | None = None, gumbels=None):
+        """The training forward of a batch dict (module docstring). Returns
+        (loss, {"ce_loss", "aux_loss"}), float32 scalars."""
+        x, positions = self._embed_inputs(batch["tokens"], batch.get("patch_embeds"))
+        if gumbels is None:
+            gumbels = self.router_draws(x.shape[0] * x.shape[1], gen)
+        x, aux = transformer.decoder_train(self.layers, x, self.cfg, positions, gumbels)
+        return self._train_loss(x, batch["labels"], aux)
 
     @torch.inference_mode()
     def prefill(self, tokens, caches: list, mode: str = "auto", patch_embeds=None):
@@ -139,6 +192,50 @@ class EncoderDecoderLM(DecoderLM):
             x = transformer._channel(block, "attn_global", x, cfg)
         return layers.apply_norm(cfg.norm, self.enc_norm, x)
 
+    def _encode_train(self, frames):
+        """The encoder's training forward: as `encode`, in plain torch ops
+        (dense non-causal attention over all frames, no RoPE), each layer
+        under `transformer.remat`."""
+        cfg = self.cfg
+        x = frames.to(self.embed.dtype)
+        x = x + self._positions(x.shape[1], x.dtype)[None]
+
+        def layer(block, x):
+            h = layers.apply_norm(cfg.norm, block.norm1, x)
+            x = x + attention.attn_train(block.attn, h, cfg, None, causal=False, rope=False)
+            return transformer._channel(block, "attn_global", x, cfg)
+
+        wrap = transformer.remat(cfg)
+        for block in self.enc_layers:
+            x = wrap(functools.partial(layer, block))(x)
+        return layers.apply_norm(cfg.norm, self.enc_norm, x)
+
+    def _decoder_layer_train(self, block, cross, x, enc_out):
+        """One decoder layer's training forward: causal self-attention
+        without RoPE (the JAX package's quirk), cross-attention, the MLP."""
+        cfg = self.cfg
+        h = layers.apply_norm(cfg.norm, block.norm1, x)
+        x = x + attention.attn_train(block.attn, h, cfg, None, rope=False)
+        hc = layers.apply_norm(cfg.norm, cross.norm, x)
+        kv = attention.cross_kv(cross.attn, enc_out, cfg)
+        x = x + attention.attn_cross(cross.attn, hc, kv, cfg)
+        return transformer._channel(block, "attn_global", x, cfg)
+
+    def train_forward(self, batch: dict, gen: torch.Generator | None = None, gumbels=None):
+        """The training forward from batch["frames"] (B, T, D) and the text
+        (module docstring); the aux loss is zero (no MoE). Returns (loss,
+        {"ce_loss", "aux_loss"})."""
+        cfg = self.cfg
+        enc_out = self._encode_train(batch["frames"])
+        tokens = batch["tokens"]
+        x = layers.embed_lookup(self.embed, tokens, cfg.embed_scale)
+        x = x + self._positions(tokens.shape[1], x.dtype)[None]
+        wrap = transformer.remat(cfg)
+        for block, cross in zip(self.layers, self.cross):
+            x = wrap(functools.partial(self._decoder_layer_train, block, cross))(x, enc_out)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._train_loss(x, batch["labels"], aux)
+
     def _check_frames(self, frames) -> None:
         if frames is None:  # the JAX prefill reads batch["frames"]: a KeyError
             raise KeyError(f"frames: {self.cfg.name} prefills from frames (B, "
@@ -194,6 +291,13 @@ class EncoderDecoderLM(DecoderLM):
             x = x + attention.attn_cross(cross.attn, hc, cross_cache, cfg)
             x = transformer._channel(block, "attn_global", x, cfg)
         return self._final_logits(x)[:, 0], caches
+
+
+def cross_entropy(logits, labels):
+    """The mean cross-entropy of logits (..., V) in float32 against labels."""
+    logits = logits.to(torch.float32)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).mean()
 
 
 def init_params(cfg, seed: int = 0, device=None) -> DecoderLM:

@@ -63,6 +63,23 @@ def _capacity(group_size: int, m) -> int:
     return max(4, int(math.ceil(c / 4) * 4))
 
 
+def router_shape(cfg, n_tokens: int) -> tuple[int, int, int]:
+    """(G, gs, E): the router logits' shape for n_tokens tokens, the shape
+    of the Boltzmann router's Gumbel draws."""
+    m = cfg.moe
+    gs = min(m.group_size, n_tokens)
+    return -(-n_tokens // gs), gs, m.n_experts
+
+
+def draw_gumbel(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """Standard Gumbel draws -log(-log u), u uniform in [tiny, 1) from `gen`
+    (on its own device), as jax.random.gumbel draws them; then moved to
+    `device`, so a CPU generator gives the card and the CPU the same draws."""
+    u = torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return (-torch.log(-torch.log(u))).to(device)
+
+
 def _select_experts(logits, m, gumbel=None):
     """Return (indices (..., k), weights (..., k), probs (..., E))."""
     probs = torch.softmax(logits.to(torch.float32), dim=-1)

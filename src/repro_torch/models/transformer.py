@@ -1,4 +1,4 @@
-"""Decoder blocks and the decoder stack of the serving path.
+"""Decoder blocks and the decoder stack, for training and for serving.
 
 The port of `repro/models/transformer.py` for decoder-only LMs. A block's
 temporal mixer is one of the five kinds attn_global | attn_local | rglru |
@@ -14,13 +14,25 @@ one list with a state per layer — a `KVCache` (a ring of min(max_len,
 window) slots for attn_local), an `RGLRUState`, an `MLSTMState` or an
 `SLSTMState`, each with its batch on axis 0 — which the blocks write in
 place, where the JAX package stacks the states of a unit position.
+
+Training (`block_train`, `decoder_train`) writes nothing in place. Each
+unit of the block pattern runs under `remat(cfg)`, as the JAX package
+wraps its scan body: "none" keeps every activation, "full" keeps only the
+unit's input and recomputes the rest in the backward pass, and "dots"
+keeps the outputs of the matrix products without a batch dimension (the
+projections: aten mm and addmm; the attention's and the experts' batched
+products are recomputed), JAX's dots_with_no_batch_dims_saveable. The tail
+layers run without it, as in the JAX package. The Boltzmann router's Gumbel
+draws come in per layer (`gumbels`), drawn before any checkpointed region.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention, layers, moe, rglru, xlstm
 
@@ -76,6 +88,81 @@ def _channel(block: Block, kind: str, x, cfg):
     else:
         out = layers.mlp_apply(block.mlp, h2, cfg.act)
     return x + out
+
+
+def block_train(block: Block, kind: str, x, cfg, positions, gumbel=None):
+    """The training forward of one block: x -> (x', aux), aux the MoE
+    channel's load-balance loss (a float32 zero without one). `gumbel`
+    (G, gs, E): the Boltzmann router's draws for this layer."""
+    h = layers.apply_norm(cfg.norm, block.norm1, x)
+    if kind in ATTENTION_KINDS:
+        delta = attention.attn_train(block.attn, h, cfg, positions, window=_window(kind, cfg))
+    elif kind == "rglru":
+        delta = rglru.rglru_train(block.rglru, h, cfg)
+    elif kind == "mlstm":
+        delta = xlstm.mlstm_block_train(block.mlstm, h, cfg)
+    else:
+        delta = xlstm.slstm_block_train(block.slstm, h, cfg)
+    x = x + delta
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if _has_channel(kind, cfg):
+        h2 = layers.apply_norm(cfg.norm, block.norm2, x)
+        if cfg.moe:
+            out, aux = moe.moe_apply(block.moe, h2, cfg, gumbel, with_aux=True)
+        else:
+            out = layers.mlp_apply(block.mlp, h2, cfg.act)
+        x = x + out
+    return x, aux
+
+
+REMATS = ("none", "dots", "full")
+# the products "dots" keeps: those without a batch dimension (nn.Linear's)
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def remat(cfg):
+    """fn -> fn under cfg.remat: itself ("none"), or a non-reentrant
+    activation checkpoint of it ("full"; "dots" saving the products of
+    _DOTS)."""
+    if cfg.remat not in REMATS:
+        raise ValueError(f"{cfg.name}: remat {cfg.remat!r}; have {REMATS}")
+    if cfg.remat == "none":
+        return lambda fn: fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts, _DOTS)
+
+    def wrap(fn):
+        return lambda *args: ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrap
+
+
+def decoder_train(blocks: nn.ModuleList, x, cfg, positions, gumbels=None):
+    """Every layer's training forward. Returns (x, total aux float32).
+    `gumbels`: one draw (or None) per layer, in layer order."""
+    plan = unit_plan(cfg)
+    n = len(plan.unit)
+    gumbels = [None] * len(blocks) if gumbels is None else gumbels
+
+    def unit_fn(start, x, *draws):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j, g in enumerate(draws):
+            block = blocks[start + j]
+            x, a = block_train(block, block.kind, x, cfg, positions, g)
+            aux = aux + a
+        return x, aux
+
+    wrap = remat(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for u in range(plan.n_scan):
+        start = u * n
+        x, a = wrap(functools.partial(unit_fn, start))(x, *gumbels[start:start + n])
+        aux = aux + a
+    for i in range(plan.n_scan * n, len(blocks)):
+        x, a = block_train(blocks[i], blocks[i].kind, x, cfg, positions, gumbels[i])
+        aux = aux + a
+    return x, aux
 
 
 def block_cache_init(kind: str, cfg, batch: int, max_len: int, device):

@@ -21,7 +21,9 @@ Stabiliser: the states start at m = -1e30, never -inf, so log_f + m - m_new
 stays finite; a padded chunk's steps take itilde = -1e30 and log_f = 0 and
 leave the carried state as it was. The cumulative sums and maxima run in
 torch's order, which may round otherwise than XLA's (the tests bound it).
-Decode writes the states in place.
+Decode writes the states in place. The causal decay matrix masks before
+its exp (`_masked_exp`), so its gradient stays finite where the JAX
+package's turns NaN (a deliberate difference; the values are the same).
 """
 from __future__ import annotations
 
@@ -95,6 +97,14 @@ def _mlstm_qkv_gates(mod: MLSTM, a, H: int):
     return q, k, v, itilde, log_f
 
 
+def _masked_exp(logD, tri):
+    """exp(logD) where the (t, s) mask `tri` holds, else 0, with the mask
+    applied before the exp: the JAX package's where(tri, exp(logD), 0)
+    gives the same values, but once a masked logD overflows exp to inf its
+    gradient is 0 * inf = NaN (a fault of the reference, ROADMAP)."""
+    return torch.exp(torch.where(tri[None, :, :, None], logD, -torch.inf))
+
+
 def mlstm_parallel(mod: MLSTM, a, H: int) -> torch.Tensor:
     """The parallel quadratic form. a: (B, S, Du) -> (B, S, Du)."""
     B, S, Du = a.shape
@@ -106,7 +116,7 @@ def mlstm_parallel(mod: MLSTM, a, H: int) -> torch.Tensor:
     # decay D_ts = exp(F_t - F_s + i_s - m_t) = exp(u_s - mstar_t), s <= t
     logD = u[:, None, :, :] - mstar[:, :, None, :]      # (B, t, s, H)
     tri = torch.ones((S, S), dtype=torch.bool, device=a.device).tril()
-    Dmat = torch.where(tri[None, :, :, None], torch.exp(logD), 0.0)
+    Dmat = _masked_exp(logD, tri)
     scores = torch.einsum("bthd,bshd->btsh", q.to(_F32), k.to(_F32))
     w = scores * Dmat
     denom = torch.maximum(torch.abs(w.sum(dim=2)), torch.exp(-m))  # (B, t, H)
@@ -168,7 +178,7 @@ def mlstm_chunkwise(mod: MLSTM, a, H: int, chunk: int):
         m = Fc + torch.maximum(m0[:, None], mstar)      # (B, L, H)
         inter_w = torch.exp(Fc + m0[:, None] - m)       # weight of C0 / n0
         logD = u[:, None, :, :] + Fc[:, :, None, :] - m[:, :, None, :]
-        Dm = torch.where(tri[None, :, :, None], torch.exp(logD), 0.0)
+        Dm = _masked_exp(logD, tri)
         scores = torch.einsum("bthd,bshd->btsh", qf, kf) * Dm
         num = torch.einsum("btsh,bshd->bthd", scores, vf)
         num = num + inter_w[..., None] * torch.einsum("bhde,bthe->bthd", C0, qf)

@@ -17,7 +17,10 @@ of the JAX test that covers it:
   * neural_decision at 2 seeds x 120 outer steps (main's own arguments):
     every trajectory commits, and eta = 4 commits later than eta = 1 (the
     JAX test's qualitative check);
-  * serve_lm at its reduced default: every request completes its tokens.
+  * serve_lm at its reduced default: every request completes its tokens;
+  * train_lm at its defaults (reduced gemma-2b, 60 steps) into a fresh
+    checkpoint directory: the loss falls; a second run resumes from the
+    last checkpoint (step 50) and says so.
 
 The sampled numbers are the port's own (torch cannot replay threefry), so
 the bounds are the examples' qualitative claims, not JAX's values. They are
@@ -30,7 +33,7 @@ import pytest
 import torch
 
 from repro_torch.examples import (boltzmann_mnist, neural_decision, optimization_cal, quickstart,
-                                  serve_lm)
+                                  serve_lm, train_lm)
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
@@ -79,3 +82,13 @@ def test_serve_lm(arch, capsys):
     assert out["requests"] == 6 and not _misses("serve_lm", out)
     assert all(len(t) == 16 for t in out["completions"].values())
     assert "6 requests, 96 tokens" in capsys.readouterr().out
+
+
+def test_train_lm(tmp_path, capsys):
+    out = train_lm.main(["--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    text = capsys.readouterr().out
+    assert not _misses("train_lm", out) and out["start"] == 0
+    assert "checkpointed step 25" in text and "checkpointed step 50" in text
+    assert text.count("loss") == 7 and text.strip().endswith("done.")
+    again = train_lm.main(["--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    assert again["start"] == 50 and "resumed from checkpoint step 50" in capsys.readouterr().out

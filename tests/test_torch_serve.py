@@ -26,7 +26,7 @@ from repro.configs import get_config as jget_config
 from repro.models import model as jmodel
 from repro.serve import engine as jengine
 from repro_torch.configs import get_config
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import convert, model, transformer
 from repro_torch.serve import engine
 
@@ -233,9 +233,13 @@ def test_launch_serve_main_serves_every_decoder_family(arch):
     assert out["arch"] == arch and out["tokens"] == 12 and out["nonfinite_logits"] == 0
 
 
-def test_launch_serve_rejects_a_checkpoint():
-    with pytest.raises(SystemExit):
-        serve.main(["--device", "cpu", "--ckpt-dir", "ckpt"])
+def test_launch_serve_rejects_a_checkpoint(tmp_path):
+    """`--ckpt-dir` restores a training checkpoint's params: one of another
+    arch (here gemma-2b's, served as xlstm-125m) is refused by name."""
+    train.main(["--device", "cpu", "--reduced", "--steps", "1", "--batch", "2", "--seq", "8",
+                "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(KeyError):
+        serve.main(["--device", "cpu", "--ckpt-dir", str(tmp_path)])
 
 
 def test_unported_family_raises_through_main():
