@@ -9,6 +9,16 @@
     python3 chip_ablate.py faults     # only the fault variants against their base kernels
     python3 chip_ablate.py serve      # only the serving calls: where their time goes
     python3 chip_ablate.py train      # only the full-width train step: where its time goes
+    python3 chip_ablate.py shard      # only the (1, 1) sharded train step against the unsharded
+
+shard: the full-width train step (chip_smoke.py's TRAIN_FULL, gemma-2b in
+bf16) through `launch.train.train`, unsharded and then on a (1, 1) NCCL mesh
+under the config's rules (tp_sp; every tensor a DTensor), each from a fresh
+state: the driver's host wall of a step (ended by reading the loss), median
+of steps 3-5; then one step's profile, the difference of a 3-step and a
+1-step run under torch.profiler, halved: its device time, the idle share,
+the kernel launches, the aten ops the host dispatched, and the ops with the
+most host time.
 
 train: where a train step's time goes at full width: gemma-2b in bf16,
 batch 4 x 1024 tokens (chip_smoke.py's TRAIN_FULL), after two warm steps:
@@ -1026,6 +1036,76 @@ def ablate_train(torch, np, chip_smoke, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def ablate_shard(torch, np, chip_smoke, dev) -> None:
+    """The (1, 1) sharded train step against the unsharded one (module
+    docstring)."""
+    import collections
+    import statistics
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train.train_step import TrainConfig
+
+    f = chip_smoke.TRAIN_FULL
+    cfg = get_config(f["arch"])
+    tcfg = TrainConfig(total_steps=100, warmup_steps=2)
+    cuda = dev.type == "cuda"  # the CPU only in a rehearsal, on gloo
+
+    def run(steps, mesh):
+        out = train.train(cfg, tcfg, steps=steps, batch=f["batch"], seq=f["seq"], device=dev,
+                          mesh=mesh)
+        del out["state"]
+        if cuda:
+            torch.cuda.empty_cache()
+        return out
+
+    def profiled(steps, mesh):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = run(steps, mesh)
+        kern = collections.Counter()
+        aten = collections.Counter()
+        host = collections.Counter()
+        for a in prof.key_averages():
+            if a.device_type == DeviceType.CUDA:
+                kern["n"] += a.count
+                kern["us"] += a.self_device_time_total
+            elif a.device_type == DeviceType.CPU:
+                host[a.key[:80]] += a.self_cpu_time_total
+                if a.key.startswith("aten::"):
+                    aten["n"] += a.count
+        return out, kern, aten, host
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if cuda else "gloo", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1, device_id=dev if cuda else None)
+        try:
+            mesh = make_test_mesh((1, 1), ("data", "model"), dev.type)
+            for name, m in (("unsharded", None), ("mesh_1x1", mesh)):
+                timed = run(5, m)
+                # one step's profile: a 3-step run less a 1-step run, halved
+                # (each run's state init and first step cancel)
+                one, k1, a1, h1 = profiled(1, m)
+                three, k3, a3, h3 = profiled(3, m)
+                wall = sum(three["step_ms"][1:]) / 2
+                device_ms = (k3["us"] - k1["us"]) / 2e3
+                host = {key: (h3[key] - h1[key]) / 2e3 for key in h3}
+                chip_smoke.emit({
+                    "part": "shard", "run": name, "arch": f["arch"], "batch": f["batch"],
+                    "seq": f["seq"], "rules": timed["rules"],
+                    "step_ms": statistics.median(timed["step_ms"][2:]),
+                    "step_ms_all": timed["step_ms"], "profiled_step_wall_ms": wall,
+                    "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall,
+                    "launches": (k3["n"] - k1["n"]) / 2, "aten_ops": (a3["n"] - a1["n"]) / 2,
+                    "top_cpu_self_ms": sorted(host.items(), key=lambda kv: -kv[1])[:12]})
+        finally:
+            dist.destroy_process_group()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1033,7 +1113,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_ablate.py: no CUDA device", file=sys.stderr)
         return 2
-    known = ["int8", "sparse", "lattice", "ctmc_tree", "faults", "serve", "train"]
+    known = ["int8", "sparse", "lattice", "ctmc_tree", "faults", "serve", "train", "shard"]
     parts = sys.argv[1:] or known
     if not set(parts) <= set(known):
         print(f"chip_ablate.py: unknown parts {parts}; use {', '.join(known[:-1])} and/or "
@@ -1057,6 +1137,8 @@ def main() -> int:
         ablate_serve(torch, np, chip_smoke, dev)
     if "train" in parts:
         ablate_train(torch, np, chip_smoke, dev)
+    if "shard" in parts:
+        ablate_shard(torch, np, chip_smoke, dev)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     return 0

@@ -270,7 +270,23 @@ exits nonzero without printing the final result line:
                 launch.serve.main --ckpt-dir on that directory serves
                 exactly what the trained params serve, and not what the
                 random init serves.
- 10. examples — each ported example (repro_torch.examples: quickstart,
+ 10. shard    — the scale-out stack (slice 13), which launches no kernel.
+                mesh_1x1: torch.distributed over NCCL with one rank (a file
+                store in a temporary directory), launch.mesh.make_test_mesh
+                ((1, 1)) on the card, and the train phase's full-width run
+                (gemma-2b, 10 steps of 4 x 1024 tokens) through
+                launch.train.train(..., mesh=mesh) under the tp_sp and then
+                the fsdp_pure rules of launch.specs.rules_for (every tensor
+                a DTensor): the ten losses within TRAIN_CARD_RTOL of the
+                unsharded run's (and whether they are bit-equal), the median
+                ms a step and its ratio to the unsharded step, peak memory.
+                dryrun: `python -m repro_torch.launch.dryrun --arch gemma-2b
+                --shape decode_32k --mesh single --force` in a child process
+                (its fake world of 256 ranks cannot share a process with
+                NCCL), its artifacts in a temporary directory: the record
+                `ok`, its roofline line (modelled at the H100's data-sheet
+                rates, not measured).
+ 11. examples — each ported example (repro_torch.examples: quickstart,
                 optimization_cal, boltzmann_mnist --steps 5,
                 neural_decision, serve_lm, train_lm into a fresh checkpoint
                 directory) through its main once on the
@@ -1407,8 +1423,9 @@ def _train_main(main, argv) -> tuple[dict, str]:
     return out, printed.getvalue()
 
 
-def train_full_width(torch, dev, reset, read, smi, hold: bool) -> None:
-    """The main path (module docstring, phase `train`, part full_width)."""
+def train_full_width(torch, dev, reset, read, smi, hold: bool) -> dict:
+    """The main path (module docstring, phase `train`, part full_width).
+    Returns its losses, ms a step and peak bytes (the shard phase's baseline)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.optim import adamw
@@ -1449,6 +1466,7 @@ def train_full_width(torch, dev, reset, read, smi, hold: bool) -> None:
     if hold and (not finite or launches or drop < TRAIN_LOSS_DROP):
         raise AssertionError(f"train full width: finite {finite}, kernel launches {launches}, "
                              f"loss drop {drop} (at least {TRAIN_LOSS_DROP})")
+    return {"losses": losses, "ms_per_step_median": ms, "peak_bytes": out["peak_bytes"]}
 
 
 def _rel(torch, got, want) -> float:
@@ -1571,10 +1589,11 @@ def train_resume(torch, dev, smi, hold: bool) -> None:
                              f"to the trained params {same}")
 
 
-def train_phase(torch, np, dev, reset, read, smi, hold: bool = True) -> None:
+def train_phase(torch, np, dev, reset, read, smi, hold: bool = True) -> dict:
     """Training (module docstring, phase `train`); with `hold` off (the
-    calibration of --card-train-gates) the numbers only."""
-    train_full_width(torch, dev, reset, read, smi, hold)
+    calibration of --card-train-gates) the numbers only. Returns the full
+    width run's baseline (`train_full_width`)."""
+    baseline = train_full_width(torch, dev, reset, read, smi, hold)
     reset()
     for arch, router in TRAIN_FAMILIES:
         train_card_vs_cpu(torch, np, dev, arch, router, hold)
@@ -1582,6 +1601,107 @@ def train_phase(torch, np, dev, reset, read, smi, hold: bool = True) -> None:
     launches = {k: c for k, c in read().items() if c}
     if launches:  # training launches no kernel
         raise AssertionError(f"train: kernel launches {launches}")
+    return baseline
+
+
+# -- the scale-out stack (slice 13) ------------------------------------------------
+
+# the rule sets the (1, 1) sharded step runs under (launch.specs.rules_for)
+SHARD_STRATEGIES = ("tp_sp", "fsdp_pure")
+# the dry-run cell run in a child process (a fake world of 256 ranks)
+SHARD_DRYRUN = ["--arch", "gemma-2b", "--shape", "decode_32k", "--mesh", "single", "--force"]
+
+
+def shard_step(torch, dev, reset, read, smi, baseline: dict) -> None:
+    """Part (1, 1) of phase `shard` (module docstring): the train phase's
+    full-width run again through launch.train.train on a (1, 1) NCCL mesh,
+    under each of SHARD_STRATEGIES, held to the unsharded run's losses."""
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import TrainConfig
+
+    f = TRAIN_FULL
+    tcfg = TrainConfig(optimizer=adamw.AdamWConfig(lr=3e-3), total_steps=f["steps"],
+                       warmup_steps=max(2, f["steps"] // 20))
+    with tempfile.TemporaryDirectory() as tmp:
+        cuda = dev.type == "cuda"  # the CPU only in a rehearsal, on gloo
+        dist.init_process_group("nccl" if cuda else "gloo", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1, device_id=dev if cuda else None)
+        try:
+            mesh = make_test_mesh((1, 1), ("data", "model"), dev.type)
+            for strategy in SHARD_STRATEGIES:
+                cfg = dataclasses.replace(get_config(f["arch"]), strategy=strategy)
+                torch.cuda.empty_cache()
+                reset()
+                t0 = time.perf_counter()
+                out, printed = _train_main(lambda _: train.train(
+                    cfg, tcfg, steps=f["steps"], batch=f["batch"], seq=f["seq"], device=dev,
+                    mesh=mesh), None)
+                wall = time.perf_counter() - t0
+                del out["state"]
+                torch.cuda.empty_cache()
+                launches = {k: c for k, c in read().items() if c}
+                losses, want = out["losses"], baseline["losses"]
+                worst = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+                ms = statistics.median(out["step_ms"][1:])
+                emit({"phase": "shard", "part": "mesh_1x1", "strategy": strategy, **f,
+                      "mesh": out["mesh"], "rules": out["rules"], "losses": losses,
+                      "unsharded_losses": want, "losses_max_rel": worst,
+                      "bit_equal": losses == want, "gate": TRAIN_CARD_RTOL,
+                      "grad_norms": out["grad_norms"], "step_ms": out["step_ms"],
+                      "ms_per_step_median": ms,
+                      "ratio_to_unsharded": ms / baseline["ms_per_step_median"],
+                      "unsharded_ms_per_step_median": baseline["ms_per_step_median"],
+                      "peak_bytes": out["peak_bytes"],
+                      "unsharded_peak_bytes": baseline["peak_bytes"],
+                      "flash_launches": launches, "wall_s": wall,
+                      "printed": printed.strip().splitlines()[-2:], "nvidia_smi": smi})
+                finite = all(math.isfinite(x) for x in losses + out["grad_norms"])
+                if not (finite and worst <= TRAIN_CARD_RTOL) or launches:
+                    raise AssertionError(f"shard {strategy}: losses {worst} from the unsharded "
+                                         f"run (gate {TRAIN_CARD_RTOL}), finite {finite}, "
+                                         f"kernel launches {launches}")
+        finally:
+            dist.destroy_process_group()
+
+
+def shard_dryrun(smi) -> None:
+    """Part dryrun of phase `shard`: one dry-run cell in a child process
+    (the fake world and NCCL cannot share one), its record `ok`."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as art:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *SHARD_DRYRUN, "--artifacts", art],
+            env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True, text=True,
+            timeout=300)
+        wall = time.perf_counter() - t0
+        name = "{}__{}__{}.json".format(*SHARD_DRYRUN[1:6:2])
+        path = Path(art) / name
+        rec = json.loads(path.read_text()) if path.exists() else {"status": "missing"}
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[")]
+    emit({"phase": "shard", "part": "dryrun", "argv": SHARD_DRYRUN, "returncode": proc.returncode,
+          "status": rec["status"], "line": lines[-1] if lines else None,
+          "n_params": rec.get("n_params"), "trace_s": rec.get("trace_s"),
+          "roofline": rec.get("roofline"), "collectives": rec.get("collectives"),
+          "memory": rec.get("memory"), "wall_s": wall, "nvidia_smi": smi})
+    if proc.returncode or rec["status"] != "ok":
+        raise AssertionError(f"shard dryrun: exit {proc.returncode}, status {rec['status']}: "
+                             f"{rec.get('error')} {proc.stderr[-2000:]}")
+
+
+def shard_phase(torch, dev, reset, read, smi, baseline: dict) -> None:
+    """The scale-out stack (module docstring, phase `shard`)."""
+    shard_step(torch, dev, reset, read, smi, baseline)
+    shard_dryrun(smi)
 
 
 # -- the examples (slice 11) -------------------------------------------------------
@@ -2923,7 +3043,8 @@ def main() -> int:
     fault_launches = fault_paths(torch, dev, prob, cal, mc, targets, reset, read, smi)
     apps_phase(torch, dev, prob, reset, read, smi)
     served = serve_phase(torch, np, dev, reset, read, smi, err)
-    train_phase(torch, np, dev, reset, read, smi)
+    baseline = train_phase(torch, np, dev, reset, read, smi)
+    shard_phase(torch, dev, reset, read, smi, baseline)
     examples_phase(torch, reset, read, smi)
 
     # -- summary -------------------------------------------------------------

@@ -61,6 +61,7 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import SEQ_MULTIPLE
 from repro_torch.models import layers
+from repro_torch.sharding.partition import active_axis_size, constrain, shards_divide
 
 class KVCache(NamedTuple):
     k: torch.Tensor  # (B, T, K, hd)
@@ -78,6 +79,10 @@ class CrossKV(NamedTuple):
 class Attention(nn.Module):
     """wq, wk, wv (with the bq, bk, bv biases under `qkv_bias`) and wo."""
 
+    AXES = {"wq.weight": ("heads", "fsdp"), "wk.weight": ("kv_heads", "fsdp"),
+            "wv.weight": ("kv_heads", "fsdp"), "wo.weight": ("fsdp", "heads"),
+            "wq.bias": ("heads",), "wk.bias": ("kv_heads",), "wv.bias": ("kv_heads",)}
+
     def __init__(self, gen, cfg, dtype):
         super().__init__()
         hd = cfg.resolved_head_dim
@@ -92,19 +97,73 @@ def attn_init(gen, cfg, dtype) -> Attention:
     return Attention(gen, cfg, dtype)
 
 
+def _heads_tp(cfg) -> bool:
+    """Whether q is laid out head-parallel on the mesh's tensor axis: where
+    it divides both head counts. The JAX package asks the query heads
+    alone; DTensor splits a sharded dimension only into a multiple of its
+    mesh axis (GSPMD pads instead), and GQA splits the heads into (KV heads,
+    group), so whole groups must lie on a rank. True without a mesh."""
+    m = max(active_axis_size("heads"), 1)
+    return cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
+
+
 def _project_qkv(attn: Attention, x, cfg, positions, rope: bool = True):
     """x (B, S, D) -> q (B, S, H, hd), k and v (B, S, K, hd), RoPE applied
-    with `rope`. The JAX package's sharding constraints are no-ops without a
-    mesh."""
+    with `rope`, then laid out for the active mesh (no-ops without one), as
+    the JAX package decides through `active_axis_size`:
+      * head counts divisible by the tensor axis -> head-TP (scores sharded
+        over heads, no attention collectives; see `_heads_tp`);
+      * otherwise context-parallel q (scores sharded over the query
+        sequence, k/v gathered once per layer). The JAX package's padded-head
+        TP for a blockwise prompt under `blockwise_context_parallel=False`
+        has no DTensor layout (no padded sharding): it raises;
+      * a decode step against a head_dim-sharded cache aligns q on head_dim,
+        so the score contraction is a local partial sum.
+    A projection whose sharding does not split into its heads is gathered
+    over the tensor axis before the split (`partition.shards_divide`)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = attn.wq(x).reshape(B, S, cfg.n_heads, hd)
-    k = attn.wk(x).reshape(B, S, cfg.n_kv_heads, hd)
-    v = attn.wv(x).reshape(B, S, cfg.n_kv_heads, hd)
+    kv_div = cfg.n_kv_heads % max(active_axis_size("kv_heads"), 1) == 0
+    hd_sharded = active_axis_size("kv_hd") > 1
+
+    def split(t, n):
+        if not shards_divide(t, -1, n):
+            t = constrain(t, ("batch", None, None))
+        return t.reshape(B, S, n, hd)
+
+    q = split(attn.wq(x), cfg.n_heads)
+    k = split(attn.wk(x), cfg.n_kv_heads)
+    v = split(attn.wv(x), cfg.n_kv_heads)
     if rope:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    kv_axes = ("batch", None, "kv_heads" if kv_div else None, "kv_hd" if hd_sharded else None)
+    if S == 1 and hd_sharded:
+        q = constrain(q, ("kv_batch", None, None, "kv_hd"))
+    elif _heads_tp(cfg):
+        q = constrain(q, ("batch", None, "heads", None))
+    elif S > 1:
+        if S > BLOCKWISE_THRESHOLD and not cfg.blockwise_context_parallel:
+            raise NotImplementedError(
+                f"{cfg.name}: padded-head TP (blockwise_context_parallel=False) at "
+                f"{cfg.n_heads} heads on a tensor axis of {active_axis_size('heads')}: DTensor "
+                "has no padded sharding")
+        q = constrain(q, ("batch", "seq", None, None))  # context parallel
+    return q, constrain(k, kv_axes), constrain(v, kv_axes)
+
+
+def _merge_out(attn: Attention, out, cfg):
+    """The output projection of the heads out (B, S, H, hd). Unless q is
+    head-parallel, the heads are gathered over the tensor axis before they
+    merge (a decode step's are sharded on head_dim, which DTensor does not
+    flatten), and the merged (B, S, H * hd) is held so: the constraint's
+    backward gathers wo's input gradient before autograd splits it into
+    heads (and groups) again."""
+    B, S = out.shape[:2]
+    if _heads_tp(cfg):
+        return attn.wo(out.reshape(B, S, -1))
+    o = constrain(out, ("batch", None, None, None)).reshape(B, S, -1)
+    return attn.wo(constrain(o, ("batch", None, None)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,6 +178,8 @@ def _grouped_scores(q, k, cfg):
     scores divided by sqrt(hd) rounded to q's dtype, as in the JAX package."""
     B, Sq, H, hd = q.shape
     K = cfg.n_kv_heads
+    if not shards_divide(q, 2, K):  # under a mesh: see _heads_tp
+        q = constrain(q, ("batch", None, None, None))
     qg = q.reshape(B, Sq, K, H // K, hd)
     return torch.einsum("bqkgd,bskd->bkgqs", qg, k) / _score_divisor(hd, q.dtype)
 
@@ -192,7 +253,7 @@ def attn_train(attn: Attention, x, cfg, positions, *, window: int = 0, causal: b
         mask = (causal_mask(S, S, window, device=x.device) if causal
                 else torch.ones((S, S), dtype=torch.bool, device=x.device))
         out = _attn_dense(q, k, v, cfg, mask, x.dtype)
-    return attn.wo(out.reshape(B, S, -1))
+    return _merge_out(attn, out, cfg)
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype, device) -> KVCache:
@@ -258,7 +319,7 @@ def attn_prefill(attn: Attention, x, cfg, positions, cache: KVCache, *, window: 
     else:
         cache.k[:, :S] = k.to(cache.k.dtype)
         cache.v[:, :S] = v.to(cache.v.dtype)
-    return attn.wo(out.reshape(B, S, -1)), cache
+    return _merge_out(attn, out, cfg), cache
 
 
 def attn_decode(attn: Attention, x, cfg, pos: int, cache: KVCache, *, window: int = 0):
@@ -290,7 +351,7 @@ def attn_decode(attn: Attention, x, cfg, pos: int, cache: KVCache, *, window: in
     scores = _grouped_scores(q, cache.k.to(x.dtype), cfg)  # (B,K,G,1,T)
     probs = _apply_mask_softmax(scores, valid)
     out = _combine(probs, cache.v.to(x.dtype), x.dtype)
-    return attn.wo(out.reshape(B, 1, -1)), cache
+    return _merge_out(attn, out, cfg), cache
 
 
 def attn_encoder(attn: Attention, x, cfg, mode: str = "auto"):
@@ -301,7 +362,7 @@ def attn_encoder(attn: Attention, x, cfg, mode: str = "auto"):
     B, S, _ = x.shape
     q, k, v = _project_qkv(attn, x, cfg, None, rope=False)
     out = flash_prefill(q, k, v, mode, causal=False)
-    return attn.wo(out.reshape(B, S, -1))
+    return _merge_out(attn, out, cfg)
 
 
 def cross_kv(attn: Attention, enc_out, cfg) -> CrossKV:
@@ -324,7 +385,7 @@ def attn_cross_prefill(attn: Attention, x, enc_kv: CrossKV, cfg, mode: str = "au
     the T keys padded too and masked by kv_len = T. Returns the delta."""
     B, S, _ = x.shape
     out = flash_prefill(_cross_q(attn, x, cfg), enc_kv.k, enc_kv.v, mode, causal=False)
-    return attn.wo(out.reshape(B, S, -1))
+    return _merge_out(attn, out, cfg)
 
 
 def attn_cross(attn: Attention, x, enc_kv: CrossKV, cfg):
@@ -336,4 +397,4 @@ def attn_cross(attn: Attention, x, enc_kv: CrossKV, cfg):
     scores = _grouped_scores(_cross_q(attn, x, cfg), enc_kv.k, cfg)  # (B,K,G,S,T)
     probs = torch.softmax(scores.to(torch.float32), dim=-1)
     out = _combine(probs, enc_kv.v, x.dtype)
-    return attn.wo(out.reshape(B, S, -1))
+    return _merge_out(attn, out, cfg)

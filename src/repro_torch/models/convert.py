@@ -22,9 +22,10 @@ stacked per-decoder-layer cross-attention (`cross`: norm and attn) becomes
 `cross.<i>`; its cache tree's `cross_kv` (k, v), each (L, B, T, K, hd),
 becomes one `CrossKV` per decoder layer after the decoder's states.
 
-`params_to_jax(cfg, named)` is the inverse, for any tensors named like the
-model's parameters (the parameters, AdamW's moments, the error-feedback
-residuals): the JAX tree of CPU tensors in their dtype.
+`params_to_jax(cfg, named)` is the inverse (`jax_leaf` maps each name to
+its JAX leaf), for any tensors named like the model's parameters (the
+parameters, AdamW's moments, the error-feedback residuals): the JAX tree of
+CPU tensors in their dtype.
 `train_state_to_jax` and `load_train_state` carry a whole train state
 (params, opt.mu, opt.nu, opt.count, ef.residual, step) across as the JAX
 `TrainState` tree, the one `train.checkpoint` writes and reads.
@@ -56,8 +57,11 @@ _STATES = {"attn_global": KVCache, "attn_local": KVCache, "rglru": RGLRUState,
 
 def _tensor(a) -> torch.Tensor:
     """A CPU tensor of a numpy array (bfloat16 through float32, which holds
-    it exactly) or of a tensor."""
+    it exactly) or of a tensor (a DTensor's whole value, gathered: every
+    rank of its mesh must call this)."""
     if isinstance(a, torch.Tensor):
+        if hasattr(a, "full_tensor"):
+            a = a.full_tensor()
         return a.detach().cpu()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
@@ -143,6 +147,25 @@ def _jax_path(parts: list[str]) -> tuple[list[str], bool]:
     return parts, False
 
 
+def jax_leaf(cfg, name: str) -> tuple[tuple, bool, int | None]:
+    """Where a port parameter lives in the JAX `init_params` tree: (its leaf's
+    path, whether the port's tensor is that leaf transposed, and its index
+    on the leaf's stacked layer axis, None for a leaf of one layer)."""
+    parts = name.split(".")
+    if parts[0] not in _STACKED:
+        path, transposed = _jax_path(parts)
+        return tuple(path), transposed, None
+    i = int(parts[1])
+    path, transposed = _jax_path(parts[2:])
+    if parts[0] != "layers":
+        return (parts[0], *path), transposed, i
+    n_unit, n_scanned = len(unit_plan(cfg).unit), _scanned(cfg)
+    if i < n_scanned:
+        u, p = divmod(i, n_unit)
+        return ("layers", "scan", p, *path), transposed, u
+    return ("layers", "tail", i - n_scanned, *path), transposed, None
+
+
 def _scanned(cfg) -> int:
     """The number of decoder layers the JAX package stacks into its scan."""
     plan = unit_plan(cfg)
@@ -159,25 +182,16 @@ def params_to_jax(cfg, named: dict) -> dict:
     to bq, bk, bv. Leaves are CPU tensors in their own dtype."""
     _check_family(cfg)
     plan = unit_plan(cfg)
-    n_unit, n_scanned = len(plan.unit), _scanned(cfg)
+    n_unit = len(plan.unit)
     flat, stacks = {}, {}
     for name, t in named.items():
+        path, transposed, index = jax_leaf(cfg, name)
         t = _tensor(t)
-        parts = name.split(".")
-        if parts[0] in _STACKED:
-            i = int(parts[1])
-            path, transposed = _jax_path(parts[2:])
-            t = t.T if transposed else t
-            if parts[0] != "layers":
-                stacks.setdefault((parts[0], *path), {})[i] = t
-            elif i < n_scanned:
-                u, p = divmod(i, n_unit)
-                stacks.setdefault(("layers", "scan", p, *path), {})[u] = t
-            else:
-                flat[("layers", "tail", i - n_scanned, *path)] = t
+        t = t.T if transposed else t
+        if index is None:
+            flat[path] = t
         else:
-            path, transposed = _jax_path(parts)
-            flat[tuple(path)] = t.T if transposed else t
+            stacks.setdefault(path, {})[index] = t
     for key, by_index in stacks.items():
         flat[key] = torch.stack([by_index[i] for i in range(len(by_index))])
     tree = _nest(flat)
@@ -225,10 +239,12 @@ def train_state_to_jax(cfg, state) -> dict:
 
 def load_train_state(cfg, state, tree):
     """Write a JAX `TrainState` tree (a checkpoint's) into the port train
-    state: the tensors in place, cast to their dtypes. Returns the state
-    with the restored counts. A state that keeps ef needs the tree's."""
-    state.params.load_state_dict(params_from_jax(cfg, tree["params"]), strict=True)
+    state: the tensors in place, cast to their dtypes, a DTensor's by its
+    own placements (each rank keeps its shard of the whole tensor). Returns
+    the state with the restored counts. A state that keeps ef needs the
+    tree's."""
     with torch.no_grad():
+        _copy_into(dict(state.params.named_parameters()), params_from_jax(cfg, tree["params"]))
         for name in ("mu", "nu"):
             _copy_into(getattr(state.opt, name), params_from_jax(cfg, tree["opt"][name]))
         if state.ef is not None:
@@ -241,7 +257,12 @@ def _copy_into(dst: dict, src: dict) -> None:
     if dst.keys() != src.keys():
         raise KeyError(f"the tree's names {sorted(src.keys() ^ dst.keys())} do not match")
     for name, t in dst.items():
-        t.copy_(src[name])
+        value = src[name].to(device=t.device, dtype=t.dtype)
+        if hasattr(t, "device_mesh"):
+            from torch.distributed.tensor import distribute_tensor
+
+            value = distribute_tensor(value, t.device_mesh, t.placements, src_data_rank=None)
+        t.copy_(value)
 
 
 def caches_from_jax(cfg, caches) -> list:

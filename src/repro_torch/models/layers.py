@@ -10,6 +10,7 @@ JAX weights across where the two must agree.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -17,14 +18,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding import partition
+from repro_torch.sharding.partition import constrain
+
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
 
 
+def device_of(gen: torch.Generator) -> torch.device:
+    """Where the parameters drawn from `gen` are made: the generator's own
+    device, or the meta device inside `torch.device("meta")` (shapes only,
+    no memory: `model.init_params(..., device="meta")`)."""
+    default = torch.get_default_device()
+    return default if default.type == "meta" else gen.device
+
+
 def normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
-    """N(0, scale^2) drawn in float32 on the generator's device, then cast."""
-    return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
+    """N(0, scale^2) drawn in float32 on `device_of(gen)`, then cast."""
+    return (torch.randn(shape, generator=gen, device=device_of(gen)) * scale).to(dtype)
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype, scale: Optional[float] = None,
@@ -33,15 +45,80 @@ def dense_init(gen, d_in: int, d_out: int, dtype, scale: Optional[float] = None,
     1/sqrt(d_in) by default, and a zero bias when `bias`; made on the
     generator's device, never on the host."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    lin = nn.utils.skip_init(nn.Linear, d_in, d_out, bias=bias, device=gen.device, dtype=dtype)
+    lin = nn.utils.skip_init(nn.Linear, d_in, d_out, bias=bias, device=device_of(gen), dtype=dtype)
     lin.weight = nn.Parameter(normal(gen, (d_out, d_in), scale, dtype))
     if bias:
-        lin.bias = nn.Parameter(torch.zeros((d_out,), dtype=dtype, device=gen.device))
+        lin.bias = nn.Parameter(torch.zeros((d_out,), dtype=dtype, device=device_of(gen)))
     return lin
+
+
+def param_axes(module: nn.Module) -> dict[str, tuple]:
+    """{name: logical axes} of every parameter of `module`, as the `AXES`
+    table of the module class that owns it declares them: the JAX leaf's
+    axes without the stacked "layers" axis, reversed for an nn.Linear weight
+    (the transpose of the JAX layout). A parameter no table declares, or
+    axes of another rank than the parameter's, raise."""
+    declared = {}
+    for prefix, mod in module.named_modules():
+        for local, axes in getattr(type(mod), "AXES", {}).items():
+            declared[f"{prefix}.{local}" if prefix else local] = axes
+    out = {}
+    for name, p in module.named_parameters():
+        if name not in declared:
+            raise KeyError(f"no AXES entry declares the parameter {name}")
+        if len(declared[name]) != p.ndim:
+            raise ValueError(f"{name}: axes {declared[name]} for shape {tuple(p.shape)}")
+        out[name] = declared[name]
+    return out
+
+
+@contextlib.contextmanager
+def fsdp_gathered(module: nn.Module):
+    """Within, `module` computes with each parameter all-gathered over the
+    mesh axes of its "fsdp" dimension, when the active rules map "fsdp" to
+    more than one device: each parameter stays sharded and is gathered
+    where its layer runs, as FSDP does, and the gather's backward
+    reduce-scatters the gradient into the shards. A layer list's (an
+    nn.ModuleList child's) parameters are left to each layer, which gathers
+    its own: inside its checkpointed region, so the recomputation gathers
+    again and a rank holds one layer's gathered weights at a time. Without
+    such rules nothing changes.
+
+    DTensor picks each op's strategy by the cost of moving its inputs
+    alone: left to it, a product of batch-sharded activations with an
+    fsdp-sharded weight contracts the sharded dimension and all-reduces the
+    whole output (the vocabulary's logits, at gemma-2b's 256000)."""
+    if partition.active_axis_size("fsdp") == 1:
+        yield
+        return
+    from torch.distributed.tensor import Replicate
+    from torch.nn.utils.stateless import _reparametrize_module
+
+    lists = {n for n, c in module.named_children() if isinstance(c, nn.ModuleList)}
+    axes = param_axes(module)
+    full = {}
+    for name, p in module.named_parameters():
+        if name.split(".")[0] in lists or "fsdp" not in axes[name]:
+            continue
+        d = axes[name].index("fsdp")
+        placements = tuple(Replicate() if pl.is_shard(d) else pl for pl in p.placements)
+        if placements != tuple(p.placements):
+            full[name] = p.redistribute(p.device_mesh, placements)
+    with _reparametrize_module(module, full):
+        yield
+
+
+def linear_weights(module: nn.Module) -> set[str]:
+    """The names of the nn.Linear weights of `module`: each the transpose of
+    its JAX leaf."""
+    return {f"{n}.weight" if n else "weight" for n, mod in module.named_modules()
+            if isinstance(mod, nn.Linear)}
 
 
 class Norm(nn.Module):
     """The scale of an rmsnorm or a layernorm (no bias, as in the JAX package)."""
+
+    AXES = {"scale": (None,)}
 
     def __init__(self, d: int, dtype, device):
         super().__init__()
@@ -66,7 +143,13 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.
 
 
 def apply_norm(kind: str, norm: Norm, x: torch.Tensor) -> torch.Tensor:
-    return rmsnorm(x, norm.scale) if kind == "rmsnorm" else layernorm(x, norm.scale)
+    """The norm of a block's (or the model's) input. Under a mesh its output
+    is gathered over every axis but the batch's: it feeds the projections,
+    and a sequence-parallel residual (batch and sequence both sharded) is
+    gathered once here, where DTensor would gather it at each projection
+    (and its older releases cannot flatten the two sharded dimensions)."""
+    y = rmsnorm(x, norm.scale) if kind == "rmsnorm" else layernorm(x, norm.scale)
+    return constrain(y, ("batch",) + (None,) * (y.ndim - 1))
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +193,9 @@ def sinusoidal_positions(seq: int, d: int, dtype, device=None) -> torch.Tensor:
 class MLP(nn.Module):
     """w_gate (gated activations only), w_up, w_down."""
 
+    AXES = {"w_gate.weight": ("mlp", "fsdp"), "w_up.weight": ("mlp", "fsdp"),
+            "w_down.weight": ("fsdp", "mlp")}
+
     def __init__(self, gen, d_model: int, d_ff: int, act: str, dtype):
         super().__init__()
         if act in ("swiglu", "geglu"):
@@ -130,6 +216,7 @@ def mlp_apply(mlp: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
         h = F.gelu(mlp.w_gate(x), approximate="tanh") * mlp.w_up(x)
     else:
         h = F.gelu(mlp.w_up(x), approximate="tanh")
+    h = constrain(h, ("batch",) + (None,) * (h.ndim - 2) + ("mlp",))
     return mlp.w_down(h)
 
 
@@ -156,4 +243,4 @@ def unembed(x: torch.Tensor, w_out: torch.Tensor, softcap: float = 0.0) -> torch
     logits = F.linear(x, w_out)
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
-    return logits
+    return constrain(logits, ("batch",) + (None,) * (logits.ndim - 2) + ("vocab",))

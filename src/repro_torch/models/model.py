@@ -24,8 +24,9 @@ image embeddings, prepended to the text; its positions run over patches and
 text, and `decode_step` offsets the text position by n_patches, as in the
 JAX package, whether or not the prompt had patches.
 
-`prefill` and `decode_step` run under `torch.inference_mode()` and write
-the caches in place. `mode` ("auto" | "kernel" | "reference") is passed to
+`prefill` and `decode_step` run under `torch.inference_mode()` (under
+`no_grad` where a mesh is active: the dry run's) and write the caches in
+place. `mode` ("auto" | "kernel" | "reference") is passed to
 `ops.flash_attention` for the prefill attention: "auto" is the hand-written
 kernel on a CUDA device and its plain version on the CPU, with no fallback.
 
@@ -51,10 +52,23 @@ from torch import nn
 
 from repro_torch.core.ising import resolve_device
 from repro_torch.models import attention, layers, moe, transformer
+from repro_torch.sharding.partition import active_mesh, constrain
 from repro_torch.train import loss as train_loss
 
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
 DECODE_POSITIONS = 4096  # rows of the encoder-decoder's decode sinusoid table
+
+
+def _serving(fn):
+    """Run `fn` under `torch.inference_mode()`, or under `no_grad` where a
+    mesh is active (the dry run's sharded prefill and decode: DTensor
+    refuses inference tensors)."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with torch.no_grad() if active_mesh() is not None else torch.inference_mode():
+            return fn(*args, **kwargs)
+
+    return wrapper
 
 
 def _check_family(cfg) -> None:
@@ -66,6 +80,8 @@ class DecoderLM(nn.Module):
     """embed (vocab, D); layers; final_norm; lm_head (D -> vocab) unless
     the embedding is tied, when the head is the embedding itself."""
 
+    AXES = {"embed": ("vocab", "fsdp"), "lm_head.weight": ("vocab", "fsdp")}
+
     def __init__(self, cfg, gen: torch.Generator):
         super().__init__()
         _check_family(cfg)
@@ -73,13 +89,17 @@ class DecoderLM(nn.Module):
         self.cfg = cfg
         self.embed = layers.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)
         self.layers = transformer.init_decoder_layers(gen, cfg, dtype)
-        self.final_norm = layers.Norm(cfg.d_model, dtype, gen.device)
+        self.final_norm = layers.Norm(cfg.d_model, dtype, layers.device_of(gen))
         self.lm_head = (None if cfg.tie_embeddings
                         else layers.dense_init(gen, cfg.d_model, cfg.vocab_size, dtype, scale=0.02))
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def param_axes(self) -> dict[str, tuple]:
+        """{parameter name: logical axes} (`layers.param_axes`)."""
+        return layers.param_axes(self)
 
     def _embed_inputs(self, tokens, patch_embeds=None):
         """tokens (B, S) -> (x (B, S', D), positions (B, S') int32). A vlm's
@@ -125,14 +145,19 @@ class DecoderLM(nn.Module):
 
     def train_forward(self, batch: dict, gen: torch.Generator | None = None, gumbels=None):
         """The training forward of a batch dict (module docstring). Returns
-        (loss, {"ce_loss", "aux_loss"}), float32 scalars."""
-        x, positions = self._embed_inputs(batch["tokens"], batch.get("patch_embeds"))
-        if gumbels is None:
-            gumbels = self.router_draws(x.shape[0] * x.shape[1], gen)
-        x, aux = transformer.decoder_train(self.layers, x, self.cfg, positions, gumbels)
-        return self._train_loss(x, batch["labels"], aux)
+        (loss, {"ce_loss", "aux_loss"}), float32 scalars. Under a mesh the
+        embedding, final norm and head are gathered over their fsdp axis
+        for the call, each layer's parameters in its layer
+        (`layers.fsdp_gathered`)."""
+        with layers.fsdp_gathered(self):
+            x, positions = self._embed_inputs(batch["tokens"], batch.get("patch_embeds"))
+            x = constrain(x, ("batch", "seq", "embed"))
+            if gumbels is None:
+                gumbels = self.router_draws(x.shape[0] * x.shape[1], gen)
+            x, aux = transformer.decoder_train(self.layers, x, self.cfg, positions, gumbels)
+            return self._train_loss(x, batch["labels"], aux)
 
-    @torch.inference_mode()
+    @_serving
     def prefill(self, tokens, caches: list, mode: str = "auto", patch_embeds=None):
         """Prompt pass over tokens (B, S), after a vlm's patch_embeds (B, P, D)
         if given. Returns (last-position logits (B, V), caches) with every
@@ -141,7 +166,7 @@ class DecoderLM(nn.Module):
         x, caches = transformer.decoder_prefill(self.layers, x, self.cfg, positions, caches, mode)
         return self._final_logits(x[:, -1:])[:, 0], caches
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(self, tokens, pos: int, caches: list):
         """tokens: (B,) next input ids at text position `pos` (an int; a vlm
         adds n_patches). Returns (logits (B, V), caches) with every layer's
@@ -158,7 +183,7 @@ class CrossLayer(nn.Module):
 
     def __init__(self, gen, cfg, dtype):
         super().__init__()
-        self.norm = layers.Norm(cfg.d_model, dtype, gen.device)
+        self.norm = layers.Norm(cfg.d_model, dtype, layers.device_of(gen))
         self.attn = attention.attn_init(gen, cfg, dtype)
 
 
@@ -172,13 +197,13 @@ class EncoderDecoderLM(DecoderLM):
         dtype = getattr(torch, cfg.dtype)
         self.enc_layers = nn.ModuleList(transformer.block_init(gen, "attn_global", cfg, dtype)
                                         for _ in range(cfg.n_encoder_layers))
-        self.enc_norm = layers.Norm(cfg.d_model, dtype, gen.device)
+        self.enc_norm = layers.Norm(cfg.d_model, dtype, layers.device_of(gen))
         self.cross = nn.ModuleList(CrossLayer(gen, cfg, dtype) for _ in range(cfg.n_layers))
 
     def _positions(self, S: int, dtype) -> torch.Tensor:
         return layers.sinusoidal_positions(S, self.cfg.d_model, dtype, self.device)
 
-    @torch.inference_mode()
+    @_serving
     def encode(self, frames, mode: str = "auto"):
         """frames (B, T, D), the stub frontend's embeddings -> (B, T, D):
         sinusoidal positions, then each encoder layer's non-causal attention
@@ -201,9 +226,10 @@ class EncoderDecoderLM(DecoderLM):
         x = x + self._positions(x.shape[1], x.dtype)[None]
 
         def layer(block, x):
-            h = layers.apply_norm(cfg.norm, block.norm1, x)
-            x = x + attention.attn_train(block.attn, h, cfg, None, causal=False, rope=False)
-            return transformer._channel(block, "attn_global", x, cfg)
+            with layers.fsdp_gathered(block):
+                h = layers.apply_norm(cfg.norm, block.norm1, x)
+                x = x + attention.attn_train(block.attn, h, cfg, None, causal=False, rope=False)
+                return transformer._channel(block, "attn_global", x, cfg)
 
         wrap = transformer.remat(cfg)
         for block in self.enc_layers:
@@ -214,27 +240,29 @@ class EncoderDecoderLM(DecoderLM):
         """One decoder layer's training forward: causal self-attention
         without RoPE (the JAX package's quirk), cross-attention, the MLP."""
         cfg = self.cfg
-        h = layers.apply_norm(cfg.norm, block.norm1, x)
-        x = x + attention.attn_train(block.attn, h, cfg, None, rope=False)
-        hc = layers.apply_norm(cfg.norm, cross.norm, x)
-        kv = attention.cross_kv(cross.attn, enc_out, cfg)
-        x = x + attention.attn_cross(cross.attn, hc, kv, cfg)
-        return transformer._channel(block, "attn_global", x, cfg)
+        with layers.fsdp_gathered(block), layers.fsdp_gathered(cross):
+            h = layers.apply_norm(cfg.norm, block.norm1, x)
+            x = x + attention.attn_train(block.attn, h, cfg, None, rope=False)
+            hc = layers.apply_norm(cfg.norm, cross.norm, x)
+            kv = attention.cross_kv(cross.attn, enc_out, cfg)
+            x = x + attention.attn_cross(cross.attn, hc, kv, cfg)
+            return transformer._channel(block, "attn_global", x, cfg)
 
     def train_forward(self, batch: dict, gen: torch.Generator | None = None, gumbels=None):
         """The training forward from batch["frames"] (B, T, D) and the text
         (module docstring); the aux loss is zero (no MoE). Returns (loss,
-        {"ce_loss", "aux_loss"})."""
+        {"ce_loss", "aux_loss"}), gathered as `DecoderLM.train_forward`."""
         cfg = self.cfg
-        enc_out = self._encode_train(batch["frames"])
-        tokens = batch["tokens"]
-        x = layers.embed_lookup(self.embed, tokens, cfg.embed_scale)
-        x = x + self._positions(tokens.shape[1], x.dtype)[None]
-        wrap = transformer.remat(cfg)
-        for block, cross in zip(self.layers, self.cross):
-            x = wrap(functools.partial(self._decoder_layer_train, block, cross))(x, enc_out)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return self._train_loss(x, batch["labels"], aux)
+        with layers.fsdp_gathered(self):
+            enc_out = self._encode_train(batch["frames"])
+            tokens = batch["tokens"]
+            x = layers.embed_lookup(self.embed, tokens, cfg.embed_scale)
+            x = x + self._positions(tokens.shape[1], x.dtype)[None]
+            wrap = transformer.remat(cfg)
+            for block, cross in zip(self.layers, self.cross):
+                x = wrap(functools.partial(self._decoder_layer_train, block, cross))(x, enc_out)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            return self._train_loss(x, batch["labels"], aux)
 
     def _check_frames(self, frames) -> None:
         if frames is None:  # the JAX prefill reads batch["frames"]: a KeyError
@@ -245,7 +273,7 @@ class EncoderDecoderLM(DecoderLM):
                              f"(B, encoder_seq = {self.cfg.encoder_seq}, {self.cfg.d_model}), "
                              "the length of its cross cache")
 
-    @torch.inference_mode()
+    @_serving
     def prefill(self, tokens, caches: list, mode: str = "auto", frames=None):
         """Encode `frames` (B, encoder_seq, D), then the prompt tokens (B, S)
         through the decoder. Returns (last-position logits (B, V), caches)
@@ -271,7 +299,7 @@ class EncoderDecoderLM(DecoderLM):
             x = transformer._channel(block, "attn_global", x, cfg)
         return self._final_logits(x[:, -1:])[:, 0], caches
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(self, tokens, pos: int, caches: list):
         """tokens: (B,) next input ids at text position `pos` (an int; its
         sinusoid row is min(pos, 4095)). Returns (logits (B, V), caches)
@@ -303,10 +331,25 @@ def cross_entropy(logits, labels):
 def init_params(cfg, seed: int = 0, device=None) -> DecoderLM:
     """A DecoderLM (an EncoderDecoderLM for the audio family) with random
     weights drawn on `device` (None: the CUDA device) by a generator seeded
-    with `seed`."""
+    with `seed`; on the meta device, parameters of the right shapes and
+    dtypes that hold no memory (the dry run's)."""
     dev = resolve_device(device)
     cls = EncoderDecoderLM if cfg.is_encdec else DecoderLM
+    if dev.type == "meta":  # shapes only: a CPU generator draws nothing there
+        with torch.device("meta"):
+            return cls(cfg, torch.Generator().manual_seed(seed))
     return cls(cfg, torch.Generator(device=dev).manual_seed(seed))
+
+
+def cache_axes(cfg) -> list:
+    """The logical axes of `init_caches`' states, in the same order: the
+    JAX `cache_axes` without the stacked "layers" axis."""
+    _check_family(cfg)
+    axes = [transformer.block_cache_axes(kind) for kind in transformer.layer_kinds(cfg)]
+    if cfg.is_encdec:
+        a = ("kv_batch", "kv_seq", "kv_heads", None)
+        axes += [attention.CrossKV(a, a) for _ in range(cfg.n_layers)]
+    return axes
 
 
 def init_caches(cfg, batch: int, max_len: int, device=None) -> list:

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers
+from repro_torch.sharding.partition import active_axis_size, constrain
 
 
 class MoE(nn.Module):
@@ -33,6 +34,10 @@ class MoE(nn.Module):
     only) and w_up (E, d_model, d_expert) and w_down (E, d_expert, d_model),
     in the JAX package's layout; with shared experts, `shared` (an MLP of
     width n_shared * d_expert) and `shared_gate` (d_model -> 1)."""
+
+    AXES = {"router.weight": (None, "fsdp"), "w_gate": ("experts", "fsdp", "mlp"),
+            "w_up": ("experts", "fsdp", "mlp"), "w_down": ("experts", "mlp", "fsdp"),
+            "shared_gate.weight": (None, "fsdp")}
 
     def __init__(self, gen, cfg, dtype):
         super().__init__()
@@ -104,14 +109,19 @@ def moe_apply(moe: MoE, x, cfg, gumbel=None, *, with_aux: bool = False):
     after padding."""
     m = cfg.moe
     B, S, D = x.shape
-    tokens = x.reshape(B * S, D)
     T = B * S
     gs = min(m.group_size, T)
     pad = (-T) % gs  # pad T to a multiple of the group size
+    G = (T + pad) // gs
+    # under a mesh DTensor merges and splits only whole shards: the tokens
+    # sharded on the batch alone, and on none where the groups do not
+    # divide the batch axes
+    batch = "batch" if G % active_axis_size("batch") == 0 else None
+    x = constrain(x, (batch, None, None))
+    tokens = x.reshape(T, D)
     if pad:
         tokens = F.pad(tokens, (0, 0, 0, pad))
-    G = tokens.shape[0] // gs
-    xg = tokens.reshape(G, gs, D)
+    xg = constrain(tokens.reshape(G, gs, D), (batch, None, None))
 
     logits = moe.router(xg)  # (G, gs, E)
     idx, w, probs = _select_experts(logits, m, gumbel)  # (G,gs,k), (G,gs,k)
@@ -132,6 +142,7 @@ def moe_apply(moe: MoE, x, cfg, gumbel=None, *, with_aux: bool = False):
     combine = dispatch * (w[..., None] * onehot).sum(dim=2)[..., None]
 
     expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
+    expert_in = constrain(expert_in, (batch, "experts", None, None))
     up = torch.einsum("gecd,edf->gecf", expert_in, moe.w_up)
     if hasattr(moe, "w_gate"):
         gate = torch.einsum("gecd,edf->gecf", expert_in, moe.w_gate)
@@ -139,9 +150,10 @@ def moe_apply(moe: MoE, x, cfg, gumbel=None, *, with_aux: bool = False):
     else:
         h = F.gelu(up, approximate="tanh")
     expert_out = torch.einsum("gecf,efd->gecd", h, moe.w_down)
+    expert_out = constrain(expert_out, (batch, "experts", None, None))
     out = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), expert_out)
-
-    out = out.reshape(-1, D)[:T].reshape(B, S, D)
+    out = constrain(out, (batch, None, None)).reshape(-1, D)
+    out = (out[:T] if pad else out).reshape(B, S, D)
 
     if m.n_shared > 0:
         shared = layers.mlp_apply(moe.shared, x, cfg.act)

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers
+from repro_torch.sharding.partition import constrain
 
 _C = 8.0
 
@@ -42,9 +43,14 @@ class RGLRU(nn.Module):
     """w_in1, w_in2 (D -> R), w_out (R -> D), w_a, w_x (R -> R), the depthwise
     conv_w (W, R), the biases b_a, b_x and lambda_raw (R,)."""
 
+    AXES = {"w_in1.weight": ("mlp", "fsdp"), "w_in2.weight": ("mlp", "fsdp"),
+            "w_out.weight": ("fsdp", "mlp"), "conv_w": (None, "mlp"),
+            "w_a.weight": ("mlp", "mlp"), "w_x.weight": ("mlp", "mlp"),
+            "b_a": ("mlp",), "b_x": ("mlp",), "lambda_raw": ("mlp",)}
+
     def __init__(self, gen, cfg, dtype):
         super().__init__()
-        R, D, dev = cfg.lru_width or cfg.d_model, cfg.d_model, gen.device
+        R, D, dev = cfg.lru_width or cfg.d_model, cfg.d_model, layers.device_of(gen)
         self.w_in1 = layers.dense_init(gen, D, R, dtype)
         self.w_in2 = layers.dense_init(gen, D, R, dtype)
         self.w_out = layers.dense_init(gen, R, D, dtype)
@@ -99,14 +105,15 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _rglru_scan(mod: RGLRU, x):
     """The prompt pass: (u1, u2, h) of x (B, S, D); h (B, S, R) float32."""
-    u1 = mod.w_in1(x)
+    u1 = constrain(mod.w_in1(x), ("batch", None, "mlp"))
     u2 = mod.w_in2(x)
     a, b = _gates(mod, _conv_train(mod.conv_w, u1))
     return u1, u2, linear_scan(a, b)
 
 
 def _out(mod: RGLRU, h, u2, dtype):
-    return mod.w_out(h.to(dtype) * F.gelu(u2, approximate="tanh"))
+    y = h.to(dtype) * F.gelu(u2, approximate="tanh")
+    return mod.w_out(constrain(y, ("batch",) + (None,) * (y.ndim - 2) + ("mlp",)))
 
 
 def rglru_train(mod: RGLRU, x, cfg) -> torch.Tensor:

@@ -35,6 +35,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention, layers, moe, rglru, xlstm
+from repro_torch.sharding.partition import constrain
 
 KINDS = ("attn_global", "attn_local", "rglru", "mlstm", "slstm")
 ATTENTION_KINDS = ("attn_global", "attn_local")
@@ -54,7 +55,7 @@ class Block(nn.Module):
         if kind not in KINDS:
             raise ValueError(f"unknown block kind {kind!r}; have {KINDS}")
         self.kind = kind
-        self.norm1 = layers.Norm(cfg.d_model, dtype, gen.device)
+        self.norm1 = layers.Norm(cfg.d_model, dtype, layers.device_of(gen))
         if kind in ATTENTION_KINDS:
             self.attn = attention.attn_init(gen, cfg, dtype)
         elif kind == "rglru":
@@ -64,7 +65,7 @@ class Block(nn.Module):
         else:
             self.slstm = xlstm.slstm_init(gen, cfg, dtype)
         if _has_channel(kind, cfg):
-            self.norm2 = layers.Norm(cfg.d_model, dtype, gen.device)
+            self.norm2 = layers.Norm(cfg.d_model, dtype, layers.device_of(gen))
             if cfg.moe:
                 self.moe = moe.moe_init(gen, cfg, dtype)
             else:
@@ -93,26 +94,29 @@ def _channel(block: Block, kind: str, x, cfg):
 def block_train(block: Block, kind: str, x, cfg, positions, gumbel=None):
     """The training forward of one block: x -> (x', aux), aux the MoE
     channel's load-balance loss (a float32 zero without one). `gumbel`
-    (G, gs, E): the Boltzmann router's draws for this layer."""
-    h = layers.apply_norm(cfg.norm, block.norm1, x)
-    if kind in ATTENTION_KINDS:
-        delta = attention.attn_train(block.attn, h, cfg, positions, window=_window(kind, cfg))
-    elif kind == "rglru":
-        delta = rglru.rglru_train(block.rglru, h, cfg)
-    elif kind == "mlstm":
-        delta = xlstm.mlstm_block_train(block.mlstm, h, cfg)
-    else:
-        delta = xlstm.slstm_block_train(block.slstm, h, cfg)
-    x = x + delta
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if _has_channel(kind, cfg):
-        h2 = layers.apply_norm(cfg.norm, block.norm2, x)
-        if cfg.moe:
-            out, aux = moe.moe_apply(block.moe, h2, cfg, gumbel, with_aux=True)
+    (G, gs, E): the Boltzmann router's draws for this layer. Under a mesh
+    the block's parameters are gathered over their fsdp axis within
+    (`layers.fsdp_gathered`)."""
+    with layers.fsdp_gathered(block):
+        h = layers.apply_norm(cfg.norm, block.norm1, x)
+        if kind in ATTENTION_KINDS:
+            delta = attention.attn_train(block.attn, h, cfg, positions, window=_window(kind, cfg))
+        elif kind == "rglru":
+            delta = rglru.rglru_train(block.rglru, h, cfg)
+        elif kind == "mlstm":
+            delta = xlstm.mlstm_block_train(block.mlstm, h, cfg)
         else:
-            out = layers.mlp_apply(block.mlp, h2, cfg.act)
-        x = x + out
-    return x, aux
+            delta = xlstm.slstm_block_train(block.slstm, h, cfg)
+        x = x + delta
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if _has_channel(kind, cfg):
+            h2 = layers.apply_norm(cfg.norm, block.norm2, x)
+            if cfg.moe:
+                out, aux = moe.moe_apply(block.moe, h2, cfg, gumbel, with_aux=True)
+            else:
+                out = layers.mlp_apply(block.mlp, h2, cfg.act)
+            x = x + out
+    return constrain(x, ("batch", "seq", "embed")), aux
 
 
 REMATS = ("none", "dots", "full")
@@ -176,6 +180,20 @@ def block_cache_init(kind: str, cfg, batch: int, max_len: int, device):
     if kind == "mlstm":
         return xlstm.mlstm_init_state(cfg, batch, device)
     return xlstm.slstm_init_state(cfg, batch, device)
+
+
+def block_cache_axes(kind: str):
+    """The logical axes of a layer's decode state (`block_cache_init`)."""
+    if kind in ATTENTION_KINDS:
+        a = ("kv_batch", "kv_seq", "kv_heads", "kv_hd")
+        return attention.KVCache(a, a)
+    if kind == "rglru":
+        return rglru.RGLRUState(h=("kv_batch", "mlp"), conv=("kv_batch", None, "mlp"))
+    if kind == "mlstm":
+        return xlstm.MLSTMState(C=("kv_batch", "heads", None, None), n=("kv_batch", "heads", None),
+                                m=("kv_batch", "heads"))
+    a = ("kv_batch", "mlp")
+    return xlstm.SLSTMState(c=a, n=a, h=a, m=a)
 
 
 def _write(state, new) -> None:

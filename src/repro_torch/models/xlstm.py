@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers
+from repro_torch.sharding.partition import constrain, shards_divide
 
 
 class MLSTMState(NamedTuple):
@@ -60,9 +61,14 @@ class MLSTM(nn.Module):
     """w_up_a, w_up_b (D -> 2D), the block-diagonal w_q, w_k, w_v (H, d, d),
     w_if (2D -> 2H) with its bias b_if, w_down (2D -> D) and the norm gn."""
 
+    AXES = {"w_up_a.weight": ("mlp", "fsdp"), "w_up_b.weight": ("mlp", "fsdp"),
+            "w_q": ("heads", None, None), "w_k": ("heads", None, None),
+            "w_v": ("heads", None, None), "w_if.weight": (None, "mlp"), "b_if": (None,),
+            "w_down.weight": ("fsdp", "mlp")}
+
     def __init__(self, gen, cfg, dtype):
         super().__init__()
-        D, H, dev = cfg.d_model, cfg.n_heads, gen.device
+        D, H, dev = cfg.d_model, cfg.n_heads, layers.device_of(gen)
         Du = 2 * D
         d = Du // H
         self.w_up_a = layers.dense_init(gen, D, Du, dtype)
@@ -86,6 +92,8 @@ def _mlstm_qkv_gates(mod: MLSTM, a, H: int):
     (B, S, H) in float32."""
     B, S, Du = a.shape
     d = Du // H
+    if not shards_divide(a, -1, H):  # under a mesh: DTensor splits only whole shards
+        a = constrain(a, ("batch", None, None))
     ah = a.reshape(B, S, H, d)
     q = torch.einsum("bshd,hde->bshe", ah, mod.w_q)
     k = torch.einsum("bshd,hde->bshe", ah, mod.w_k) / float(
@@ -204,7 +212,7 @@ def _mlstm_out(mod: MLSTM, h, b):
 def mlstm_block_train(mod: MLSTM, x, cfg) -> torch.Tensor:
     """x (B, S, D) -> (B, S, D): the chunkwise form above 4 chunks, else the
     parallel one."""
-    a, b = mod.w_up_a(x), mod.w_up_b(x)
+    a, b = constrain(mod.w_up_a(x), ("batch", None, "mlp")), mod.w_up_b(x)
     if x.shape[1] > 4 * cfg.mlstm_chunk:
         h, _ = mlstm_chunkwise(mod, a, cfg.n_heads, cfg.mlstm_chunk)
     else:
@@ -235,9 +243,12 @@ class SLSTM(nn.Module):
     """w_gates (D -> 4D), the block-diagonal recurrent r_gates (H, dh, 4 dh),
     b_gates (4D,), the norm gn, and the post-up FFN (geglu) with ffn_norm."""
 
+    AXES = {"w_gates.weight": ("mlp", "fsdp"), "r_gates": ("heads", None, None),
+            "b_gates": (None,)}
+
     def __init__(self, gen, cfg, dtype):
         super().__init__()
-        D, H, dev = cfg.d_model, cfg.n_heads, gen.device
+        D, H, dev = cfg.d_model, cfg.n_heads, layers.device_of(gen)
         dh = D // H
         self.w_gates = layers.dense_init(gen, D, 4 * D, dtype)
         self.r_gates = nn.Parameter(layers.normal(gen, (H, dh, 4 * dh), 0.02, dtype))
@@ -259,7 +270,8 @@ def _slstm_cell(mod: SLSTM, wx_t, state: SLSTMState, H: int) -> SLSTMState:
     (new tensors; the caller decides where they go)."""
     B = wx_t.shape[0]
     D = wx_t.shape[1] // 4
-    hprev = state.h.reshape(B, H, D // H)
+    h = state.h if shards_divide(state.h, -1, H) else constrain(state.h, ("batch", None))
+    hprev = h.reshape(B, H, D // H)
     rec = torch.einsum("bhd,hde->bhe", hprev, mod.r_gates.to(_F32))
     gates = wx_t.to(_F32) + rec.reshape(B, 4 * D) + mod.b_gates.to(_F32)
     itilde, ftilde, ztilde, otilde = torch.split(gates, D, dim=-1)

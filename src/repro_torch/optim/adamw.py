@@ -48,7 +48,7 @@ class OptState(NamedTuple):
 
 def init(params: dict) -> OptState:
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=_F32, device=p.device) for n, p in params.items()}
+        return {n: torch.zeros_like(p, dtype=_F32) for n, p in params.items()}
 
     return OptState(mu=zeros(), nu=zeros(), count=0)
 

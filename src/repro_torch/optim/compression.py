@@ -22,8 +22,7 @@ class EFState(NamedTuple):
 
 
 def init(params: dict) -> EFState:
-    return EFState(residual={n: torch.zeros(p.shape, dtype=_F32, device=p.device)
-                             for n, p in params.items()})
+    return EFState(residual={n: torch.zeros_like(p, dtype=_F32) for n, p in params.items()})
 
 
 def _q8(x: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,12 @@ int16, then as torch.bfloat16), bit for bit, without ml_dtypes.
 `restore` rebuilds the tree from the names alone (no tree to fill, as the
 JAX one takes): nested dicts, and tuples where a level's keys are "#i".
 Leaves come back as CPU tensors in the manifest's dtype.
+
+A sharded train state is saved whole, in the same format:
+`convert.train_state_to_jax` gathers each DTensor (`full_tensor`; every
+rank calls it) and rank 0 writes; `convert.load_train_state` restores the
+tree into the state's own placements (`distribute_tensor`), the
+counterpart of JAX's `restore(..., shardings=...)`.
 """
 from __future__ import annotations
 

@@ -17,7 +17,12 @@ from torch.utils import checkpoint as ckpt
 def ce_from_logits(logits, labels):
     """(sum of the cross-entropy over (B, S) in float32, the count B * S)."""
     logits = logits.to(torch.float32)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    # the gold logit as a masked sum over the vocabulary, exact (one term is
+    # not zero): on a vocab-sharded DTensor it is a local product and a
+    # partial sum, where a gather takes DTensor's masked-partial route,
+    # which a checkpoint's recomputation breaks
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.where(labels[..., None].long() == vocab, logits, 0.0).sum(dim=-1)
     return (torch.logsumexp(logits, dim=-1) - gold).sum(), logits.shape[0] * logits.shape[1]
 
 

@@ -1,13 +1,32 @@
 """Train step: loss -> grads (microbatched) -> int8 error-feedback
-compression -> clipping, schedule and AdamW.
+compression -> clipping, schedule and AdamW, on one device or sharded over
+a DeviceMesh.
 
-The port of `repro/train/train_step.py`, on one device (the JAX package's
-sharding constraints and its compressed reduce across a mesh need
-`sharding/`, which is not ported):
+The port of `repro/train/train_step.py`:
 
     state = init_state(cfg, tcfg, seed, device)
     step_fn = make_train_step(cfg, tcfg)
     state, metrics = step_fn(state, batch, gen)
+
+Sharded (the JAX driver's `axis_rules` + `struct_shardings` + jit):
+
+    with partition.axis_rules(mesh, rules):
+        state = init_state(cfg, tcfg, seed, device, mesh=mesh, rules=rules)
+        step_fn = make_train_step(cfg, tcfg, param_axes=state_axes(state).params)
+        state, metrics = step_fn(state, dtensor_batch, gen)
+
+There the parameters are DTensors placed by `partition.struct_shardings` of
+their logical axes (`DecoderLM.param_axes`), the AdamW moments and the
+error-feedback residuals take their parameter's placements (JAX's
+`adamw.opt_state_axes`), and the step runs under DTensor's
+`implicit_replication`, so a tensor the model makes itself (a mask, RoPE's
+angles, an `arange`, a zero state, the router's Gumbel draws) counts as
+replicated. The model gathers each layer's parameters over their fsdp axis
+where the layer runs, again when a checkpoint recomputes it
+(`layers.fsdp_gathered`). With `param_axes` the gradients are constrained
+to their parameter's layout before compression and AdamW, as JAX's step
+constrains them (the gathers' backward reduce-scatters into the FSDP
+shards). Microbatches split each rank's local shard of the batch.
 
 The state is a NamedTuple like the JAX one: `params` is the model (a
 `DecoderLM`), `opt` AdamW's moments and count, `ef` the error-feedback
@@ -26,13 +45,15 @@ loss, ce_loss, aux_loss, grad_norm, and lr_scale (a CPU float32 scalar).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.models import convert, model
+from repro_torch.models import convert, layers, model
 from repro_torch.optim import adamw, compression, schedules
+from repro_torch.sharding import partition
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,17 +72,74 @@ class TrainState(NamedTuple):
     step: int
 
 
-def init_state(cfg, tcfg: TrainConfig, seed: int = 0, device=None) -> TrainState:
+def init_state(cfg, tcfg: TrainConfig, seed: int = 0, device=None, *, mesh=None,
+               rules: Optional[dict] = None) -> TrainState:
     """A model with random weights from `seed` on `device` (None: the CUDA
-    device), zero moments (and residuals with compression), step 0."""
+    device), zero moments (and residuals with compression), step 0. With a
+    `mesh` every parameter becomes a DTensor placed by its logical axes
+    under `rules` (`shard_params`), and the moments and residuals follow."""
     m = model.init_params(cfg, seed, device)
+    if mesh is not None:
+        shard_params(m, mesh, rules)
     params = dict(m.named_parameters())
     ef = compression.init(params) if tcfg.compress_grads else None
     return TrainState(params=m, opt=adamw.init(params), ef=ef, step=0)
 
 
-def make_train_step(cfg, tcfg: TrainConfig):
-    """Returns step_fn(state, batch, gen=None) -> (state, metrics)."""
+def shard_params(m: torch.nn.Module, mesh, rules: Optional[dict] = None) -> None:
+    """Replace every parameter of `m` (the same whole tensor on every rank)
+    by a DTensor placed by `partition.struct_shardings` of its logical axes:
+    each rank keeps its shard."""
+    named = dict(m.named_parameters())
+    placements = partition.struct_shardings(named, m.param_axes(), mesh, rules,
+                                            transposed=layers.linear_weights(m))
+    for name, p in named.items():
+        owner, _, leaf = name.rpartition(".")
+        setattr(m.get_submodule(owner), leaf, torch.nn.Parameter(
+            partition.distribute(p.detach(), mesh, placements[name]), requires_grad=p.requires_grad))
+
+
+def state_axes(state: TrainState) -> TrainState:
+    """The logical axes of a train state, {name: axes} per part: the moments
+    and the residuals take their parameter's axes; the counts are scalars."""
+    axes = state.params.param_axes()
+    return TrainState(params=axes, opt=adamw.OptState(mu=axes, nu=axes, count=()),
+                      ef=compression.EFState(residual=axes) if state.ef is not None else None,
+                      step=())
+
+
+def _microbatch(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Rows i/n of the batch tensor v; of a DTensor, rows i/n of each rank's
+    local shard (the batch axis may be split over the mesh)."""
+    local = v.to_local() if hasattr(v, "to_local") else v
+    if local.shape[0] % n:
+        raise ValueError(f"a batch shard of {local.shape[0]} rows does not split into {n} "
+                         "microbatches")
+    mb = local.shape[0] // n
+    part = local[i * mb:(i + 1) * mb]
+    if local is v:
+        return part
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(part, v.device_mesh, v.placements, run_check=False)
+
+
+def sharded_step():
+    """DTensor's implicit replication under an active mesh: the plain
+    tensors the model makes count as replicated."""
+    if partition.active_mesh() is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
+def make_train_step(cfg, tcfg: TrainConfig, param_axes: Optional[dict] = None):
+    """Returns step_fn(state, batch, gen=None) -> (state, metrics).
+
+    param_axes: {name: logical axes} of the parameters; when given, each
+    gradient is constrained to its parameter's layout before compression
+    and AdamW (a no-op without an active mesh)."""
 
     def grads_of(m, params: dict, batch: dict, gen):
         B = batch["tokens"].shape[0]
@@ -74,11 +152,10 @@ def make_train_step(cfg, tcfg: TrainConfig):
         if B % mb:
             raise ValueError(f"batch {B} is no multiple of the microbatch {mb}")
         n = B // mb
-        acc = {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for name, p in params.items()}
+        acc = {name: torch.zeros_like(p, dtype=torch.float32) for name, p in params.items()}
         loss_sum, sums = 0.0, {}
         for i in range(n):
-            part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            part = {k: _microbatch(v, i, n) for k, v in batch.items()}
             loss, metrics = m.train_forward(part, gen)
             grads = torch.autograd.grad(loss, list(params.values()))
             for a, g in zip(acc.values(), grads):
@@ -97,13 +174,17 @@ def make_train_step(cfg, tcfg: TrainConfig):
         params = dict(m.named_parameters())
         if decay is None:
             decay = convert.decay_mask(cfg, params)
-        loss, metrics, grads = grads_of(m, params, batch, gen)
-        ef = state.ef
-        if tcfg.compress_grads:
-            grads, ef = compression.compress(grads, ef)
-        lr_scale = schedules.cosine_with_warmup(state.step, tcfg.warmup_steps, tcfg.total_steps)
-        opt, opt_m = adamw.update(grads, state.opt, params, tcfg.optimizer, lr_scale,
-                                  decay=decay)
+        with sharded_step():
+            loss, metrics, grads = grads_of(m, params, batch, gen)
+            if param_axes is not None:
+                grads = {k: partition.constrain(g, param_axes[k]) for k, g in grads.items()}
+            ef = state.ef
+            if tcfg.compress_grads:
+                grads, ef = compression.compress(grads, ef)
+            lr_scale = schedules.cosine_with_warmup(state.step, tcfg.warmup_steps,
+                                                    tcfg.total_steps)
+            opt, opt_m = adamw.update(grads, state.opt, params, tcfg.optimizer, lr_scale,
+                                      decay=decay)
         metrics.update(opt_m, loss=loss, lr_scale=lr_scale)
         return TrainState(params=m, opt=opt, ef=ef, step=state.step + 1), metrics
 
