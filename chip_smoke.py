@@ -280,12 +280,19 @@ exits nonzero without printing the final result line:
                 a DTensor): the ten losses within TRAIN_CARD_RTOL of the
                 unsharded run's (and whether they are bit-equal), the median
                 ms a step and its ratio to the unsharded step, peak memory.
-                dryrun: `python -m repro_torch.launch.dryrun --arch gemma-2b
-                --shape decode_32k --mesh single --force` in a child process
-                (its fake world of 256 ranks cannot share a process with
-                NCCL), its artifacts in a temporary directory: the record
-                `ok`, its roofline line (modelled at the H100's data-sheet
-                rates, not measured).
+                gloo_2x2: 4 gloo processes on the host's
+                CPU, a 2x2 mesh, two train steps through launch.train.train
+                of reduced gemma-2b under each rule set, of reduced
+                qwen2-moe-a2p7b with 3 experts (TP on their FFN width) and
+                of reduced recurrentgemma-9b (SHARD_GLOO), each against the
+                unsharded driver from the same seed: losses, grad norms and
+                every parameter within SHARD_GLOO["rtol"] (relative).
+                dryrun: launch.dryrun.sweep of the SHARD_DRYRUN cells,
+                each in a child process (a fake world of 256 ranks cannot
+                share a process with NCCL), as many at once as the host has
+                cores, artifacts in a temporary directory: every record `ok` on the host's torch, with its
+                roofline line (modelled at the H100's data-sheet rates, not
+                measured). added_wall: the two parts' seconds.
  11. examples — each ported example (repro_torch.examples: quickstart,
                 optimization_cal, boltzmann_mnist --steps 5,
                 neural_decision, serve_lm, train_lm into a fresh checkpoint
@@ -1608,8 +1615,67 @@ def train_phase(torch, np, dev, reset, read, smi, hold: bool = True) -> dict:
 
 # the rule sets the (1, 1) sharded step runs under (launch.specs.rules_for)
 SHARD_STRATEGIES = ("tp_sp", "fsdp_pure")
-# the dry-run cell run in a child process (a fake world of 256 ranks)
-SHARD_DRYRUN = ["--arch", "gemma-2b", "--shape", "decode_32k", "--mesh", "single", "--force"]
+# the dry-run cells, each in a child process (a fake world of 256 ranks)
+# through launch.dryrun.sweep: gemma-2b's decode, one cell of each class of layout torch
+# 2.11's DTensor refuses unless the models state it (the grouped scores
+# under context parallelism, the MoE's combine, the RG-LRU's conv), and
+# qwen1p5-32b's prefill, the padded-head TP layout
+SHARD_DRYRUN = [("gemma-2b", "decode_32k", "single"), ("gemma-2b", "train_4k", "single"),
+                ("qwen2-moe-a2p7b", "prefill_32k", "single"),
+                ("recurrentgemma-9b", "train_4k", "single"),
+                ("qwen1p5-32b", "prefill_32k", "single")]
+# the 2x2 gloo mesh of 4 CPU processes: reduced configs' sharded train steps
+# against the unsharded step: gemma-2b under each of SHARD_STRATEGIES,
+# qwen2-moe-a2p7b with 3 experts (the tensor axis of 2 does not divide them:
+# TP on their FFN width; no qkv bias, whose k bias has a zero gradient but
+# for rounding, which AdamW scales to steps of the learning rate's size) and
+# recurrentgemma-9b (the RG-LRU's gates, conv and scan on local shards)
+SHARD_GLOO = {"steps": 2, "batch": 4, "seq": 16, "rtol": 2e-5,
+              "cases": [{"arch": "gemma-2b", "strategy": s} for s in SHARD_STRATEGIES]
+              + [{"arch": "qwen2-moe-a2p7b", "strategy": "tp_sp", "n_experts": 3,
+                  "qkv_bias": False},
+                 {"arch": "recurrentgemma-9b", "strategy": "tp_sp"}]}
+_GLOO_WORKER = r"""
+import json, sys
+import torch, torch.distributed as dist
+rank, tmp, spec, src = int(sys.argv[1]), sys.argv[2], json.loads(sys.argv[3]), sys.argv[4]
+dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank, world_size=4)
+torch.set_num_threads(1)
+sys.path.insert(0, src)
+from chip_smoke import gloo_config
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.launch.train import train
+from repro_torch.optim import adamw
+from repro_torch.train.train_step import TrainConfig
+mesh = make_test_mesh((2, 2), ("data", "model"), "cpu")
+tcfg = TrainConfig(optimizer=adamw.AdamWConfig(lr=1e-2), warmup_steps=1, total_steps=10)
+res = {}
+for i, case in enumerate(spec["cases"]):
+    s = train(gloo_config(case), tcfg, steps=spec["steps"], batch=spec["batch"],
+              seq=spec["seq"], device="cpu", ckpt_dir=f"{tmp}/{i}", mesh=mesh)
+    res[i] = {"losses": s["losses"], "grad_norms": s["grad_norms"], "rules": s["rules"]}
+    full = {n: p.full_tensor() for n, p in s["state"].params.named_parameters()}
+    if rank == 0:
+        torch.save(full, f"{tmp}/{i}.pt")
+if rank == 0:
+    with open(f"{tmp}/result.json", "w") as f:
+        json.dump(res, f)
+dist.destroy_process_group()
+"""
+
+
+def gloo_config(case: dict):
+    """The reduced config of a SHARD_GLOO case."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(case["arch"], reduced=True), strategy=case["strategy"])
+    if "n_experts" in case:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=case["n_experts"]))
+    if "qkv_bias" in case:
+        cfg = dataclasses.replace(cfg, qkv_bias=case["qkv_bias"])
+    return cfg
 
 
 def shard_step(torch, dev, reset, read, smi, baseline: dict) -> None:
@@ -1673,35 +1739,97 @@ def shard_step(torch, dev, reset, read, smi, baseline: dict) -> None:
 
 
 def shard_dryrun(smi) -> None:
-    """Part dryrun of phase `shard`: one dry-run cell in a child process
-    (the fake world and NCCL cannot share one), its record `ok`."""
+    """Part dryrun of phase `shard`: the SHARD_DRYRUN cells through
+    launch.dryrun.sweep, each in a child process of its own (the fake world
+    and NCCL cannot share one), as many at once as the host has cores;
+    every record `ok`."""
     import tempfile
+
+    from repro_torch.launch import dryrun
 
     with tempfile.TemporaryDirectory() as art:
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", *SHARD_DRYRUN, "--artifacts", art],
-            env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True, text=True,
-            timeout=300)
+        recs = dryrun.sweep(SHARD_DRYRUN, force=True, art_dir=art)
         wall = time.perf_counter() - t0
-        name = "{}__{}__{}.json".format(*SHARD_DRYRUN[1:6:2])
-        path = Path(art) / name
-        rec = json.loads(path.read_text()) if path.exists() else {"status": "missing"}
-    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[")]
-    emit({"phase": "shard", "part": "dryrun", "argv": SHARD_DRYRUN, "returncode": proc.returncode,
-          "status": rec["status"], "line": lines[-1] if lines else None,
-          "n_params": rec.get("n_params"), "trace_s": rec.get("trace_s"),
-          "roofline": rec.get("roofline"), "collectives": rec.get("collectives"),
-          "memory": rec.get("memory"), "wall_s": wall, "nvidia_smi": smi})
-    if proc.returncode or rec["status"] != "ok":
-        raise AssertionError(f"shard dryrun: exit {proc.returncode}, status {rec['status']}: "
-                             f"{rec.get('error')} {proc.stderr[-2000:]}")
+    bad = []
+    for (arch, shape, mesh), rec in zip(SHARD_DRYRUN, recs):
+        emit({"phase": "shard", "part": "dryrun", "cell": [arch, shape, mesh],
+              "status": rec["status"], "n_params": rec.get("n_params"),
+              "trace_s": rec.get("trace_s"), "roofline": rec.get("roofline"),
+              "collectives": rec.get("collectives"), "memory": rec.get("memory"),
+              "error": rec.get("error"), "torch": _torch_version(), "nvidia_smi": smi})
+        if rec["status"] != "ok":
+            bad.append(f"{arch} x {shape} x {mesh}: {rec['status']}: {rec.get('error')}")
+    emit({"phase": "shard", "part": "dryrun_all", "cells": len(SHARD_DRYRUN), "wall_s": wall})
+    if bad:
+        raise AssertionError("shard dryrun: " + "; ".join(bad))
+
+
+def _torch_version() -> str:
+    import torch
+
+    return torch.__version__
+
+
+def shard_gloo(smi) -> None:
+    """Part gloo_2x2 of phase `shard` (module docstring): each SHARD_GLOO
+    case's train steps on a 2x2 mesh of 4 gloo processes on the host's CPU,
+    held within SHARD_GLOO["rtol"] of the port's unsharded step from the
+    same seed: losses, grad norms and every parameter after the steps."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import TrainConfig
+
+    g = SHARD_GLOO
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+        procs = [subprocess.Popen([sys.executable, "-W", "ignore", "-c", _GLOO_WORKER, str(r),
+                                   tmp, json.dumps(g), str(Path(__file__).resolve().parent)],
+                                  env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for r in range(4)]
+        outs = [p.communicate(timeout=600) for p in procs]
+        wall = time.perf_counter() - t0
+        for p, (_, err) in zip(procs, outs):
+            if p.returncode:
+                raise AssertionError(f"shard gloo_2x2: a worker exited {p.returncode}: "
+                                     f"{err[-2000:]}")
+        res = json.loads(Path(tmp, "result.json").read_text())
+        tcfg = TrainConfig(optimizer=adamw.AdamWConfig(lr=1e-2), warmup_steps=1, total_steps=10)
+        for i, case in enumerate(g["cases"]):
+            plain, _ = _train_main(lambda _: train.train(
+                gloo_config(case), tcfg, steps=g["steps"], batch=g["batch"], seq=g["seq"],
+                device="cpu", ckpt_dir=f"{tmp}/unsharded{i}"), None)
+            want = {n: p.detach() for n, p in plain["state"].params.named_parameters()}
+            got = res[str(i)]
+            scalars = max(abs(a - b) / abs(b) for a, b in zip(
+                got["losses"] + got["grad_norms"], plain["losses"] + plain["grad_norms"]))
+            params = torch.load(Path(tmp, f"{i}.pt"))
+            worst = max(float((params[n].detach() - w).norm() / w.norm().clamp_min(1e-30))
+                        for n, w in want.items())
+            emit({"phase": "shard", "part": "gloo_2x2", **case,
+                  **{k: g[k] for k in ("steps", "batch", "seq", "rtol")},
+                  "rules": got["rules"], "losses": got["losses"],
+                  "unsharded_losses": plain["losses"], "scalars_max_rel": scalars,
+                  "params_max_rel": worst, "wall_s": wall, "torch": _torch_version(),
+                  "nvidia_smi": smi})
+            if not (scalars <= g["rtol"] and worst <= g["rtol"]):
+                raise AssertionError(f"shard gloo_2x2 {case}: losses and grad norms "
+                                     f"{scalars}, params {worst} from the unsharded step "
+                                     f"(rtol {g['rtol']})")
 
 
 def shard_phase(torch, dev, reset, read, smi, baseline: dict) -> None:
     """The scale-out stack (module docstring, phase `shard`)."""
     shard_step(torch, dev, reset, read, smi, baseline)
+    t0 = time.perf_counter()
+    shard_gloo(smi)
     shard_dryrun(smi)
+    emit({"phase": "shard", "part": "added_wall", "wall_s": time.perf_counter() - t0})
 
 
 # -- the examples (slice 11) -------------------------------------------------------

@@ -26,9 +26,10 @@ sweep is resumable; a cell that raises is recorded as an error with its
 exception and the sweep goes on; so is a cell that traces longer than
 `CELL_TIMEOUT_S` seconds (DTensor's redistribution planner searches a
 graph of placements whose size grows with the mesh's dimensions: on the
-3-D multi-pod mesh some cells do not finish). A sweep needs a process of its own (the
-fake world is its default process group); `--mesh both` runs each mesh's
-sweep in a child process.
+3-D multi-pod mesh some cells do not finish). One arch on one mesh is
+traced in this process (the fake world is its default process group); a
+sweep of more (no `--arch`, or `--mesh both`) runs each arch and mesh in a
+child process of its own, as many at once as the host has cores (`sweep`).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch a] [--shape s]
@@ -218,6 +219,49 @@ def run_cell(arch, shape_name, mesh_name, mesh, force=False, art_dir=ART_DIR):
     return rec
 
 
+def sweep(cells, force=False, art_dir=ART_DIR) -> list[dict]:
+    """Trace `cells`, (arch, shape or None for all four, mesh name)
+    triples, each in a child process of its own (a fake world needs its
+    own process), as many at once as the host has cores. Each child's lines
+    are printed as it ends, then the tally; returns the cells' records.
+    Raises if a child exits non-zero, with its stderr."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    src = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p), OMP_NUM_THREADS="1")
+
+    def run(cell):
+        arch, shape, mesh_name = cell
+        shapes = [shape] if shape else list(SHAPES)
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             *(["--shape", shape] if shape else []), "--mesh", mesh_name,
+             *(["--force"] if force else []), "--artifacts", art_dir],
+            capture_output=True, text=True, env=env,
+            timeout=len(shapes) * CELL_TIMEOUT_S + 300)
+        if proc.returncode:
+            raise RuntimeError(f"dry run of {arch} x {shape or 'every shape'} x {mesh_name} "
+                               f"exited {proc.returncode}: {proc.stderr[-3000:]}")
+        recs = []
+        for s in shapes:
+            with open(os.path.join(art_dir, f"{arch}__{s}__{mesh_name}.json")) as f:
+                recs.append(json.load(f))
+        return proc.stdout, recs
+
+    records = []
+    with ThreadPoolExecutor(max(1, min(len(cells), os.cpu_count() or 1))) as pool:
+        for out, recs in pool.map(run, cells):
+            print("\n".join(ln for ln in out.splitlines() if ln.startswith("[")
+                            and not ln.startswith("[trace")), flush=True)
+            records += recs
+    results = {"ok": 0, "skipped": 0, "error": 0}
+    for rec in records:
+        results[rec["status"]] += 1
+    print(f"\ndone: {results}")
+    return records
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -238,13 +282,9 @@ def main(argv=None):
                 print(f"{a:22} {s:12} {'SKIP: ' + skip if skip else 'runnable'}")
         return
 
-    if args.mesh == "both":
-        child = [*(["--arch", args.arch] if args.arch else []),
-                 *(["--shape", args.shape] if args.shape else []),
-                 *(["--force"] if args.force else []), "--artifacts", args.artifacts]
-        for m in ("single", "multi"):
-            subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *child,
-                            "--mesh", m], check=True)
+    meshes = ("single", "multi") if args.mesh == "both" else (args.mesh,)
+    if len(archs) * len(meshes) > 1:
+        sweep([(a, args.shape, m) for m in meshes for a in archs], args.force, args.artifacts)
         return
 
     import torch.distributed as dist

@@ -23,6 +23,11 @@ sees every op a step runs on one rank and counts, at the *local* shapes:
                    DTensor turns a shard-to-shard all-to-all into an
                    all-gather and a local chunk: counted as that all-gather.
   * n_while      — 0: a loop over layers runs, so it is counted by running.
+  * a loop over time (`layers.scan`: the sLSTM's steps, the mLSTM's
+    chunks) runs its body once, forward and backward, and the counts of
+    its ops are multiplied by the trip count (`trips`), as hlo_analysis
+    multiplies a while body by its known_trip_count (a subclass with
+    `fold_scans = False` runs and counts every trip).
 
 DTensor: a mode wrapped around a DTensor op sees the *global* op (a
 `FlopCounterMode` around a 256-way sharded matmul counts the whole
@@ -38,6 +43,7 @@ fake tensors to infer shapes are run and not counted.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import defaultdict
 
@@ -119,9 +125,12 @@ class StepCounter(TorchDispatchMode):
     """Counts FLOPs, HBM bytes and collective bytes of the ops run under it
     (module docstring)."""
 
+    fold_scans = True  # `layers.scan` runs its body once, counted `trips` times
+
     def __init__(self, node_size: int = NODE_SIZE):
         super().__init__()
         self.node_size = node_size
+        self._trips = 1
         self.flops = 0.0
         self.hbm = 0.0
         self.ici = 0.0
@@ -139,24 +148,34 @@ class StepCounter(TorchDispatchMode):
             self._count(func, args, kwargs, out)
         return out
 
+    @contextlib.contextmanager
+    def trips(self, n: int):
+        """Count the ops run inside as n times each (a folded loop's body)."""
+        outer = self._trips
+        self._trips = outer * n
+        try:
+            yield
+        finally:
+            self._trips = outer
+
     def _count(self, func, args, kwargs, out) -> None:
         packet = func._overloadpacket
         if packet in flop_registry:
-            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+            self.flops += self._trips * flop_registry[packet](*args, **kwargs, out_val=out)
         if func.namespace in ("_c10d_functional", "_dtensor") and packet.__name__ in _COLLECTIVES:
             self._collective(_COLLECTIVES[packet.__name__], func, args, kwargs, out)
         if func.is_view or func in self._no_bytes:
             return
-        self.hbm += _bytes((args, kwargs)) + _bytes(out)  # in place: the target twice
+        self.hbm += self._trips * (_bytes((args, kwargs)) + _bytes(out))  # in place: twice
 
     def _collective(self, kind, func, args, kwargs, out) -> None:
         name = _group_name(func, args, kwargs)
         if name not in self._ranks:
             self._ranks[name] = _group_ranks(name)
-        nbytes = _bytes(out)
+        nbytes = self._trips * _bytes(out)
         weighted = nbytes * _FACTORS[kind]
         d = self.by_kind[kind]
-        d["count"] += 1
+        d["count"] += self._trips
         d["bytes"] += nbytes
         if crosses_nodes(self._ranks[name], self.node_size):
             self.dcn += weighted

@@ -61,7 +61,8 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import SEQ_MULTIPLE
 from repro_torch.models import layers
-from repro_torch.sharding.partition import active_axis_size, constrain, shards_divide
+from repro_torch.sharding import partition
+from repro_torch.sharding.partition import active_axis_size, constrain
 
 class KVCache(NamedTuple):
     k: torch.Tensor  # (B, T, K, hd)
@@ -107,33 +108,39 @@ def _heads_tp(cfg) -> bool:
     return cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
 
 
+def _padded_tp(cfg, S: int) -> bool:
+    """Whether a prompt of S tokens takes the JAX package's padded-head TP:
+    longer than BLOCKWISE_THRESHOLD under `blockwise_context_parallel=False`
+    where the heads are not head-parallel (`_heads_tp`)."""
+    return S > BLOCKWISE_THRESHOLD and not cfg.blockwise_context_parallel and not _heads_tp(cfg)
+
+
 def _project_qkv(attn: Attention, x, cfg, positions, rope: bool = True):
     """x (B, S, D) -> q (B, S, H, hd), k and v (B, S, K, hd), RoPE applied
     with `rope`, then laid out for the active mesh (no-ops without one), as
     the JAX package decides through `active_axis_size`:
       * head counts divisible by the tensor axis -> head-TP (scores sharded
         over heads, no attention collectives; see `_heads_tp`);
+      * a prompt past BLOCKWISE_THRESHOLD under
+        `blockwise_context_parallel=False` -> padded-head TP: q's KV groups
+        padded with zero heads to a multiple of the tensor axis and sharded
+        over it (`_pad_groups`; GSPMD pads an uneven sharding, DTensor does
+        not), k and v laid out as JAX lays them and padded like q where
+        the attention reads them (`_padded_like_q`);
       * otherwise context-parallel q (scores sharded over the query
-        sequence, k/v gathered once per layer). The JAX package's padded-head
-        TP for a blockwise prompt under `blockwise_context_parallel=False`
-        has no DTensor layout (no padded sharding): it raises;
+        sequence, k/v gathered once per layer);
       * a decode step against a head_dim-sharded cache aligns q on head_dim,
         so the score contraction is a local partial sum.
-    A projection whose sharding does not split into its heads is gathered
-    over the tensor axis before the split (`partition.shards_divide`)."""
+    The projections are split into heads by `partition.reshape`: their
+    features are sharded over the tensor axis, a legal split where the
+    axis divides the head count, else gathered over it first."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     kv_div = cfg.n_kv_heads % max(active_axis_size("kv_heads"), 1) == 0
     hd_sharded = active_axis_size("kv_hd") > 1
-
-    def split(t, n):
-        if not shards_divide(t, -1, n):
-            t = constrain(t, ("batch", None, None))
-        return t.reshape(B, S, n, hd)
-
-    q = split(attn.wq(x), cfg.n_heads)
-    k = split(attn.wk(x), cfg.n_kv_heads)
-    v = split(attn.wv(x), cfg.n_kv_heads)
+    q = partition.reshape(attn.wq(x), (B, S, cfg.n_heads, hd))
+    k = partition.reshape(attn.wk(x), (B, S, cfg.n_kv_heads, hd))
+    v = partition.reshape(attn.wv(x), (B, S, cfg.n_kv_heads, hd))
     if rope:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
@@ -142,27 +149,56 @@ def _project_qkv(attn: Attention, x, cfg, positions, rope: bool = True):
         q = constrain(q, ("kv_batch", None, None, "kv_hd"))
     elif _heads_tp(cfg):
         q = constrain(q, ("batch", None, "heads", None))
+    elif S > 1 and _padded_tp(cfg, S):
+        q = constrain(_pad_groups(constrain(q, ("batch", None, None, None)), cfg.n_kv_heads),
+                      ("batch", None, "heads", None))
+        kv_axes = ("batch", None, "kv_heads", None)  # padded like q where read
     elif S > 1:
-        if S > BLOCKWISE_THRESHOLD and not cfg.blockwise_context_parallel:
-            raise NotImplementedError(
-                f"{cfg.name}: padded-head TP (blockwise_context_parallel=False) at "
-                f"{cfg.n_heads} heads on a tensor axis of {active_axis_size('heads')}: DTensor "
-                "has no padded sharding")
         q = constrain(q, ("batch", "seq", None, None))  # context parallel
     return q, constrain(k, kv_axes), constrain(v, kv_axes)
+
+
+def _pad_groups(t, K: int):
+    """t (B, S, K * G, hd), its heads whole on each rank -> (B, S, K' * G,
+    hd): the K groups padded with zero groups to K', the next multiple of
+    the tensor axis, so that each rank holds whole groups. A local pad of
+    each rank's shard (`partition.on_shards`)."""
+    B, S, H, hd = t.shape
+    pad = (-K) % max(active_axis_size("heads"), 1)
+
+    def local(t):
+        g = t.reshape(t.shape[0], t.shape[1], K, H // K, hd)
+        return F.pad(g, (0, 0, 0, 0, 0, pad)).reshape(t.shape[0], t.shape[1], -1, hd)
+
+    return partition.on_shards(local, t)
+
+
+def _padded_like_q(q, k, v, cfg):
+    """k and v as the attention reads them: under padded-head TP (q has
+    more heads than the model) padded with zero heads to q's groups and
+    sharded over the tensor axis as q is; as they are otherwise."""
+    if q.shape[2] == cfg.n_heads:
+        return k, v
+    return tuple(constrain(_pad_groups(constrain(t, ("batch", None, None, None)), t.shape[2]),
+                           ("batch", None, "heads", None)) for t in (k, v))
 
 
 def _merge_out(attn: Attention, out, cfg):
     """The output projection of the heads out (B, S, H, hd). Unless q is
     head-parallel, the heads are gathered over the tensor axis before they
-    merge (a decode step's are sharded on head_dim, which DTensor does not
-    flatten), and the merged (B, S, H * hd) is held so: the constraint's
-    backward gathers wo's input gradient before autograd splits it into
-    heads (and groups) again."""
+    merge (a decode step's are sharded on head_dim, which the merge cannot
+    keep), the padded heads of padded-head TP dropped, and the merged
+    (B, S, H * hd) is held so: the constraint's backward gathers wo's input
+    gradient before autograd splits it into heads (and groups) again."""
     B, S = out.shape[:2]
     if _heads_tp(cfg):
-        return attn.wo(out.reshape(B, S, -1))
-    o = constrain(out, ("batch", None, None, None)).reshape(B, S, -1)
+        # the sharded heads lead the merged (heads, head_dim) run, evenly:
+        # a legal view
+        return attn.wo(partition.reshape(out, (B, S, -1)))
+    o = constrain(out, ("batch", None, None, None))
+    if o.shape[2] != cfg.n_heads:  # padded-head TP: the zero heads go
+        o = o[:, :, :cfg.n_heads]
+    o = partition.reshape(o, (B, S, -1))
     return attn.wo(constrain(o, ("batch", None, None)))
 
 
@@ -175,13 +211,16 @@ def _score_divisor(hd: int, dtype: torch.dtype) -> float:
 
 def _grouped_scores(q, k, cfg):
     """(B,Sq,H,hd) x (B,Sk,K,hd) -> (B,K,G,Sq,Sk), GQA without a repeat; the
-    scores divided by sqrt(hd) rounded to q's dtype, as in the JAX package."""
+    scores divided by sqrt(hd) rounded to q's dtype, as in the JAX package.
+    K is k's head count (padded under padded-head TP). Under a mesh q's
+    heads are sharded only where the tensor axis divides K (whole groups on
+    a rank), so their split into (K, G) is a legal view; the einsum runs on
+    each rank's shards (`partition.einsum`): torch's bmm would flatten the
+    sharded batch and heads into one dimension."""
     B, Sq, H, hd = q.shape
-    K = cfg.n_kv_heads
-    if not shards_divide(q, 2, K):  # under a mesh: see _heads_tp
-        q = constrain(q, ("batch", None, None, None))
-    qg = q.reshape(B, Sq, K, H // K, hd)
-    return torch.einsum("bqkgd,bskd->bkgqs", qg, k) / _score_divisor(hd, q.dtype)
+    K = k.shape[2]
+    qg = partition.reshape(q, (B, Sq, K, H // K, hd))
+    return partition.einsum("bqkgd,bskd->bkgqs", qg, k) / _score_divisor(hd, q.dtype)
 
 
 def _apply_mask_softmax(scores, mask):
@@ -192,8 +231,9 @@ def _apply_mask_softmax(scores, mask):
 
 def _combine(probs, v, out_dtype):
     B, K, G, Sq, Sk = probs.shape
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(out_dtype), v)
-    return out.reshape(B, Sq, K * G, -1)
+    out = partition.einsum("bkgqs,bskd->bqkgd", probs.to(out_dtype), v)
+    # the (K, G) merge: K leads the run, the only one sharded (head-TP)
+    return partition.reshape(out, (B, Sq, K * G, -1))
 
 
 def causal_mask(Sq: int, Sk: int, window: int = 0, offset: int = 0, device=None) -> torch.Tensor:
@@ -246,6 +286,7 @@ def attn_train(attn: Attention, x, cfg, positions, *, window: int = 0, causal: b
     banded) or, without `causal`, bidirectional; RoPE on q and k with
     `rope`. Dense up to BLOCKWISE_THRESHOLD tokens, blockwise above."""
     q, k, v = _project_qkv(attn, x, cfg, positions, rope)
+    k, v = _padded_like_q(q, k, v, cfg)
     B, S, _ = x.shape
     if S > BLOCKWISE_THRESHOLD:
         out = _attn_blockwise(q, k, v, cfg, causal=causal, window=window, out_dtype=x.dtype)
@@ -302,6 +343,21 @@ def flash_prefill(q, k, v, mode: str = "auto", window: int = 0,
     return o.reshape(B, H, S_pad, hd)[:, :, :S].transpose(1, 2)
 
 
+def _flash(q, k, v, mode: str = "auto", window: int = 0, causal: bool = True):
+    """`flash_prefill` under the active mesh: on each rank's shards
+    (`partition.on_shards`), since each (batch, head) pair's attention is
+    independent of the others. q, k and v are laid out by batch and, where
+    the tensor axis divides k's heads (head-TP, padded-head TP: whole
+    groups on a rank), by heads; a context-parallel q is gathered over its
+    sequence first, as the causal mask needs each query's position."""
+    if partition.active_mesh() is None:
+        return flash_prefill(q, k, v, mode, window, causal)
+    heads = "heads" if k.shape[2] % max(active_axis_size("heads"), 1) == 0 else None
+    q, k, v = (constrain(t, ("batch", None, heads, None)) for t in (q, k, v))
+    return partition.on_shards(
+        lambda q, k, v: flash_prefill(q, k, v, mode, window, causal), q, k, v)
+
+
 def attn_prefill(attn: Attention, x, cfg, positions, cache: KVCache, *, window: int = 0,
                  mode: str = "auto"):
     """Causal (with `window` > 0 banded) attention over the prompt; writes
@@ -310,12 +366,14 @@ def attn_prefill(attn: Attention, x, cfg, positions, cache: KVCache, *, window: 
     (delta (B, S, D), cache)."""
     q, k, v = _project_qkv(attn, x, cfg, positions)
     B, S, _ = x.shape
-    out = flash_prefill(q, k, v, mode, window)
+    out = _flash(q, *_padded_like_q(q, k, v, cfg), mode, window)
     T = cache.k.shape[1]
-    if window > 0 and T < S:  # the ring: slots (S - T .. S - 1) % T
-        idx = torch.arange(S - T, S, device=x.device) % T
-        cache.k[:, idx] = k[:, -T:].to(cache.k.dtype)
-        cache.v[:, idx] = v[:, -T:].to(cache.v.dtype)
+    if window > 0 and T < S:  # the ring: position p in slot p % T
+        r = S % T  # the last T positions S - T .. S - 1 start at slot r
+        for c, t in ((cache.k, k), (cache.v, v)):
+            last = t[:, -T:].to(c.dtype)
+            c[:, r:] = last[:, :T - r]  # two slice writes (DTensor has no
+            c[:, :r] = last[:, T - r:]  # sharded index_put on older releases)
     else:
         cache.k[:, :S] = k.to(cache.k.dtype)
         cache.v[:, :S] = v.to(cache.v.dtype)
@@ -349,6 +407,10 @@ def attn_decode(attn: Attention, x, cfg, pos: int, cache: KVCache, *, window: in
         if window > 0:
             valid &= kpos > pos - window
     scores = _grouped_scores(q, cache.k.to(x.dtype), cfg)  # (B,K,G,1,T)
+    if active_axis_size("kv_hd") > 1:
+        # a head_dim-sharded cache gives each rank a partial sum of the
+        # scores: reduced here, before the mask and softmax need them whole
+        scores = constrain(scores, ("kv_batch", None, None, None, None))
     probs = _apply_mask_softmax(scores, valid)
     out = _combine(probs, cache.v.to(x.dtype), x.dtype)
     return _merge_out(attn, out, cfg), cache
@@ -361,22 +423,25 @@ def attn_encoder(attn: Attention, x, cfg, mode: str = "auto"):
     the delta (B, S, D)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(attn, x, cfg, None, rope=False)
-    out = flash_prefill(q, k, v, mode, causal=False)
+    out = _flash(q, k, v, mode, causal=False)
     return _merge_out(attn, out, cfg)
 
 
 def cross_kv(attn: Attention, enc_out, cfg) -> CrossKV:
     """The cross-attention K/V of enc_out (B, T, D): (B, T, K, hd) each,
-    projected without biases, as in the JAX package."""
+    projected without biases, as in the JAX package. The projections'
+    features split into heads as in `_project_qkv` (`partition.reshape`)."""
     B, T, _ = enc_out.shape
     hd = cfg.resolved_head_dim
-    return CrossKV(k=F.linear(enc_out, attn.wk.weight).reshape(B, T, cfg.n_kv_heads, hd),
-                   v=F.linear(enc_out, attn.wv.weight).reshape(B, T, cfg.n_kv_heads, hd))
+    shape = (B, T, cfg.n_kv_heads, hd)
+    return CrossKV(k=partition.reshape(F.linear(enc_out, attn.wk.weight), shape),
+                   v=partition.reshape(F.linear(enc_out, attn.wv.weight), shape))
 
 
 def _cross_q(attn: Attention, x, cfg):
+    """The cross-attention's q (B, S, H, hd), split as `cross_kv`'s K/V."""
     B, S, _ = x.shape
-    return F.linear(x, attn.wq.weight).reshape(B, S, cfg.n_heads, cfg.resolved_head_dim)
+    return partition.reshape(F.linear(x, attn.wq.weight), (B, S, cfg.n_heads, cfg.resolved_head_dim))
 
 
 def attn_cross_prefill(attn: Attention, x, enc_kv: CrossKV, cfg, mode: str = "auto"):
@@ -384,7 +449,7 @@ def attn_cross_prefill(attn: Attention, x, enc_kv: CrossKV, cfg, mode: str = "au
     positions through the kernel: the queries padded to a multiple of 128,
     the T keys padded too and masked by kv_len = T. Returns the delta."""
     B, S, _ = x.shape
-    out = flash_prefill(_cross_q(attn, x, cfg), enc_kv.k, enc_kv.v, mode, causal=False)
+    out = _flash(_cross_q(attn, x, cfg), enc_kv.k, enc_kv.v, mode, causal=False)
     return _merge_out(attn, out, cfg)
 
 

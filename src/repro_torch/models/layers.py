@@ -15,8 +15,10 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from repro_torch.sharding import partition
 from repro_torch.sharding.partition import constrain
@@ -91,7 +93,6 @@ def fsdp_gathered(module: nn.Module):
     if partition.active_axis_size("fsdp") == 1:
         yield
         return
-    from torch.distributed.tensor import Replicate
     from torch.nn.utils.stateless import _reparametrize_module
 
     lists = {n for n, c in module.named_children() if isinstance(c, nn.ModuleList)}
@@ -150,6 +151,93 @@ def apply_norm(kind: str, norm: Norm, x: torch.Tensor) -> torch.Tensor:
     (and its older releases cannot flatten the two sharded dimensions)."""
     y = rmsnorm(x, norm.scale) if kind == "rmsnorm" else layernorm(x, norm.scale)
     return constrain(y, ("batch",) + (None,) * (y.ndim - 1))
+
+
+def residual(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """x + delta, a block's residual add, with delta laid out as the
+    residual stream first (a no-op without a mesh). Under sequence
+    parallelism a projection's partial sums then reduce-scatter onto the
+    sequence, and in the backward pass the residual's sequence-sharded
+    gradient is gathered here, before the projection's matmul flattens
+    batch and sequence into one dimension: a merge that keeps only its
+    leading dimension sharded (`partition.reshape`), where DTensor would
+    otherwise carry a strided shard of the sequence into the weight
+    gradients (on a 3-D mesh, a search of its redistribution planner)."""
+    return x + constrain(delta, ("batch", "seq", "embed"))
+
+
+# ---------------------------------------------------------------------------
+# A loop over time
+# ---------------------------------------------------------------------------
+
+
+def scan(step, carry: tuple, xs: tuple, consts: tuple = ()):
+    """The JAX package's lax.scan over dim 1: for each t, carry, y_t =
+    step(carry, *(x[:, t] for x in xs), *consts); returns (the y_t stacked
+    on dim 1, the last carry). carry is a tuple of tensors.
+
+    Under an op counter that folds loops (a dispatch mode whose
+    `fold_scans` is set: launch.step_analysis.StepCounter) the body runs
+    once for all S trips, forward and backward, under the counter's
+    `trips(S)`, as hlo_analysis multiplies a while body by its trip count;
+    its outputs then stand for every trip's, shapes and not values (the dry
+    run's meta tensors hold none, and a meta op costs ~0.2 ms of Python)."""
+    S = xs[0].shape[1]
+    counter = next((m for m in _get_current_dispatch_mode_stack()
+                    if getattr(m, "fold_scans", False)), None)
+    if counter is None:
+        ys = []
+        for x_t in zip(*(x.unbind(1) for x in xs)):
+            carry, y = step(carry, *x_t, *consts)
+            ys.append(y)
+        return torch.stack(ys, dim=1), tuple(carry)
+    ins = (*carry, *(x[:, 0] for x in xs), *consts)
+    with counter.trips(S):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+            *carry, y = _OneTrip.apply(counter, S, step, len(carry), len(xs), *ins)
+        else:
+            carry, y = step(tuple(carry), *ins[len(carry):])
+    return y.unsqueeze(1).expand(y.shape[0], S, *y.shape[1:]).contiguous(), tuple(carry)
+
+
+def _kept(t):
+    return t
+
+
+class _OneTrip(torch.autograd.Function):
+    """One trip of a folded `scan` whose backward runs under the counter's
+    trips as well: the body's graph is built inside and differentiated in
+    `backward`. The carry is differentiated as every trip but the first
+    differentiates it, and each const's gradient is added to a running sum
+    once a trip, as autograd sums a tensor's gradients over the trips that
+    read it (counted; one trip's gradient stands for the sum)."""
+
+    @staticmethod
+    def forward(ctx, counter, n, step, n_carry, n_x, *ins):
+        # the body's graph keeps its own saved tensors: an activation
+        # checkpoint's hooks would hand them to its recomputation, which
+        # rebuilds a graph of its own here
+        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(_kept, _kept):
+            ctx.ins = [t.detach().requires_grad_(t.requires_grad or (
+                i < n_carry and t.is_floating_point())) for i, t in enumerate(ins)]
+            carry, y = step(tuple(ctx.ins[:n_carry]), *ctx.ins[n_carry:])
+            ctx.outs = (*carry, y)
+        ctx.counter, ctx.n, ctx.n_carry, ctx.n_x = counter, n, n_carry, n_x
+        ctx.wanted = [t.requires_grad for t in ins]
+        return tuple(t.detach() for t in ctx.outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        pairs = [(o, g) for o, g in zip(ctx.outs, grads) if o.requires_grad and g is not None]
+        wants = [t for t in ctx.ins if t.requires_grad]
+        with ctx.counter.trips(ctx.n):
+            got = dict(zip(map(id, wants), torch.autograd.grad(
+                [o for o, _ in pairs], wants, [g for _, g in pairs], allow_unused=True)))
+            for t in ctx.ins[ctx.n_carry + ctx.n_x:]:
+                if got.get(id(t)) is not None:
+                    torch.add(got[id(t)], got[id(t)])  # the sum over trips
+        return (None,) * 5 + tuple(got.get(id(t)) if want else None
+                                   for t, want in zip(ctx.ins, ctx.wanted))
 
 
 # ---------------------------------------------------------------------------
@@ -231,11 +319,41 @@ def embed_init(gen, vocab: int, d_model: int, dtype) -> nn.Parameter:
 
 def embed_lookup(embed_w: torch.Tensor, tokens: torch.Tensor, scale_by_dim: bool) -> torch.Tensor:
     """With `scale_by_dim` the rows are scaled by sqrt(D) computed in their
-    dtype (bf16-rounded at full width), as the JAX package does."""
-    x = embed_w[tokens]
+    dtype (bf16-rounded at full width), as the JAX package does. Under a
+    mesh the lookup runs on each rank's shards (`_sharded_lookup`)."""
+    x = _sharded_lookup(embed_w, tokens) if isinstance(tokens, DTensor) else embed_w[tokens]
     if scale_by_dim:  # the scalar on the host: no device scalar to wait for
         x = x * float(torch.tensor(embed_w.shape[-1], dtype=x.dtype).sqrt())
     return x
+
+
+def _sharded_lookup(embed_w, tokens):
+    """embed_w[tokens] on each rank's shards, as GSPMD lowers a gather from a
+    vocab-sharded table: the table is gathered over every axis but its
+    vocabulary's, and each rank looks up the tokens of its own batch shard
+    in its own vocabulary rows, zeros for the tokens other ranks hold; the
+    result is a partial sum over the vocabulary's axis. DTensor's gather
+    and its gradient take no batch sharded over two mesh axes on older
+    releases."""
+    table = constrain(embed_w, ("vocab", None))
+    vocab_dims = [md for md, p in enumerate(table.placements) if p.is_shard(0)]
+    if len(vocab_dims) > 1:
+        raise ValueError(f"embedding placed {table.placements}: the vocabulary on two mesh axes")
+    mesh = table.device_mesh
+    lo = 0
+    if vocab_dims:
+        md = vocab_dims[0]
+        lo = mesh.get_coordinate()[md] * -(-table.shape[0] // mesh.shape[md])
+    placements = [Shard(0) if tp.is_shard(0) else Partial() if md in vocab_dims else Replicate()
+                  for md, tp in enumerate(tokens.placements)]
+
+    def lookup(tok, rows):
+        local = tok - lo
+        hit = (local >= 0) & (local < rows.shape[0])
+        return rows[local.clamp(0, max(rows.shape[0] - 1, 0))] * hit[..., None].to(rows.dtype)
+
+    return partition.on_shards(lookup, tokens, table, placements=tuple(placements),
+                               shape=(*tokens.shape, table.shape[1]))
 
 
 def unembed(x: torch.Tensor, w_out: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:

@@ -31,11 +31,12 @@ place. `mode` ("auto" | "kernel" | "reference") is passed to
 kernel on a CUDA device and its plain version on the CPU, with no fallback.
 
 The audio family (whisper) is an `EncoderDecoderLM`: its prefill takes
-`frames` (B, encoder_seq, D), the stub frontend's embeddings, runs the
-encoder (sinusoidal positions, non-causal layers without RoPE), then the
-decoder over the text (sinusoidal positions; self-attention with RoPE, as
-the JAX package's serving path has it, then cross-attention over the
-encoder), and writes each decoder layer's static cross K/V into its cache.
+`frames` (B, T, D), the stub frontend's embeddings (serving gives
+encoder_seq of them), runs the encoder (sinusoidal positions, non-causal
+layers without RoPE), then the decoder over the text (sinusoidal
+positions; self-attention with RoPE, as the JAX package's serving path has
+it, then cross-attention over the encoder), and returns each decoder
+layer's cross K/V of T rows in place of the given cross states.
 Its decode takes the text position's row of a 4096-row sinusoid table (the
 row clamped to 4095, as the JAX package's gather clamps). Its training
 forward runs the encoder in plain torch ops (dense non-causal attention, no
@@ -228,7 +229,8 @@ class EncoderDecoderLM(DecoderLM):
         def layer(block, x):
             with layers.fsdp_gathered(block):
                 h = layers.apply_norm(cfg.norm, block.norm1, x)
-                x = x + attention.attn_train(block.attn, h, cfg, None, causal=False, rope=False)
+                x = layers.residual(x, attention.attn_train(block.attn, h, cfg, None,
+                                                            causal=False, rope=False))
                 return transformer._channel(block, "attn_global", x, cfg)
 
         wrap = transformer.remat(cfg)
@@ -242,10 +244,10 @@ class EncoderDecoderLM(DecoderLM):
         cfg = self.cfg
         with layers.fsdp_gathered(block), layers.fsdp_gathered(cross):
             h = layers.apply_norm(cfg.norm, block.norm1, x)
-            x = x + attention.attn_train(block.attn, h, cfg, None, rope=False)
+            x = layers.residual(x, attention.attn_train(block.attn, h, cfg, None, rope=False))
             hc = layers.apply_norm(cfg.norm, cross.norm, x)
             kv = attention.cross_kv(cross.attn, enc_out, cfg)
-            x = x + attention.attn_cross(cross.attn, hc, kv, cfg)
+            x = layers.residual(x, attention.attn_cross(cross.attn, hc, kv, cfg))
             return transformer._channel(block, "attn_global", x, cfg)
 
     def train_forward(self, batch: dict, gen: torch.Generator | None = None, gumbels=None):
@@ -266,19 +268,22 @@ class EncoderDecoderLM(DecoderLM):
 
     def _check_frames(self, frames) -> None:
         if frames is None:  # the JAX prefill reads batch["frames"]: a KeyError
-            raise KeyError(f"frames: {self.cfg.name} prefills from frames (B, "
-                           f"{self.cfg.encoder_seq}, {self.cfg.d_model}); none were given")
-        if frames.ndim != 3 or frames.shape[1] != self.cfg.encoder_seq:
+            raise KeyError(f"frames: {self.cfg.name} prefills from frames (B, T, "
+                           f"{self.cfg.d_model}); none were given")
+        if frames.ndim != 3 or frames.shape[2] != self.cfg.d_model:
             raise ValueError(f"frames of shape {tuple(frames.shape)}; {self.cfg.name} takes "
-                             f"(B, encoder_seq = {self.cfg.encoder_seq}, {self.cfg.d_model}), "
-                             "the length of its cross cache")
+                             f"(B, T, d_model = {self.cfg.d_model})")
 
     @_serving
     def prefill(self, tokens, caches: list, mode: str = "auto", frames=None):
-        """Encode `frames` (B, encoder_seq, D), then the prompt tokens (B, S)
-        through the decoder. Returns (last-position logits (B, V), caches)
-        with each decoder layer's KV cache written for the prompt and its
-        cross state (caches[n_layers + i]) for the encoder's output."""
+        """Encode `frames` (B, T, D), any T, then the prompt tokens (B, S)
+        through the decoder. Returns (last-position logits (B, V), caches):
+        each decoder layer's KV cache written for the prompt in place, and
+        after them one `CrossKV` (B, T, K, hd) per decoder layer of the
+        encoder's output, in place of the given cross states (the JAX
+        prefill returns the `cross_kv` its scan built from the frames).
+        Serving gives encoder_seq frames, the length of `init_caches`'
+        cross states."""
         self._check_frames(frames)
         cfg = self.cfg
         enc_out = self.encode(frames, mode)
@@ -287,24 +292,24 @@ class EncoderDecoderLM(DecoderLM):
         x = x + self._positions(S, x.dtype)[None]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
         L = cfg.n_layers
-        for block, cross, cache, cross_cache in zip(self.layers, self.cross, caches[:L],
-                                                    caches[L:]):
+        cross_kvs = []
+        for block, cross, cache in zip(self.layers, self.cross, caches[:L]):
             h = layers.apply_norm(cfg.norm, block.norm1, x)
             delta, _ = attention.attn_prefill(block.attn, h, cfg, positions, cache, mode=mode)
             x = x + delta
             hc = layers.apply_norm(cfg.norm, cross.norm, x)
             kv = attention.cross_kv(cross.attn, enc_out, cfg)
-            transformer._write(cross_cache, kv)
+            cross_kvs.append(kv)
             x = x + attention.attn_cross_prefill(cross.attn, hc, kv, cfg, mode)
             x = transformer._channel(block, "attn_global", x, cfg)
-        return self._final_logits(x[:, -1:])[:, 0], caches
+        return self._final_logits(x[:, -1:])[:, 0], caches[:L] + cross_kvs
 
     @_serving
     def decode_step(self, tokens, pos: int, caches: list):
         """tokens: (B,) next input ids at text position `pos` (an int; its
         sinusoid row is min(pos, 4095)). Returns (logits (B, V), caches)
         with each self-attention cache advanced by one token; the cross
-        states are read only."""
+        states, of whatever length, are read only."""
         cfg = self.cfg
         x = layers.embed_lookup(self.embed, tokens[:, None], cfg.embed_scale)
         row = min(pos, DECODE_POSITIONS - 1)

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers
+from repro_torch.sharding import partition
 from repro_torch.sharding.partition import active_axis_size, constrain
 
 
@@ -113,17 +114,25 @@ def moe_apply(moe: MoE, x, cfg, gumbel=None, *, with_aux: bool = False):
     gs = min(m.group_size, T)
     pad = (-T) % gs  # pad T to a multiple of the group size
     G = (T + pad) // gs
-    # under a mesh DTensor merges and splits only whole shards: the tokens
-    # sharded on the batch alone, and on none where the groups do not
-    # divide the batch axes
+    # under a mesh the tokens are sharded on the batch alone, and on none
+    # where the groups do not divide the batch axes: then the merge of
+    # (B, S) into tokens and their split into (G, gs) keep that sharding
+    # (`partition.reshape`: the sharded dimension leads both, evenly)
     batch = "batch" if G % active_axis_size("batch") == 0 else None
+    # expert parallelism where the tensor axis divides the experts (their
+    # weights are sharded on them); otherwise the weights are sharded on
+    # their FFN width (the rules' next mapping) and the experts' inputs
+    # stay whole on the tensor axis: GSPMD pads 60 experts to 64 on 16
+    # ranks, DTensor pads nothing
+    experts = "experts" if m.n_experts % active_axis_size("experts") == 0 else None
     x = constrain(x, (batch, None, None))
-    tokens = x.reshape(T, D)
+    tokens = partition.reshape(x, (T, D))
     if pad:
         tokens = F.pad(tokens, (0, 0, 0, pad))
-    xg = constrain(tokens.reshape(G, gs, D), (batch, None, None))
+    xg = constrain(partition.reshape(tokens, (G, gs, D)), (batch, None, None))
 
-    logits = moe.router(xg)  # (G, gs, E)
+    # the routing is laid out as the tokens: the einsums below take it so
+    logits = constrain(moe.router(xg), (batch, None, None))  # (G, gs, E)
     idx, w, probs = _select_experts(logits, m, gumbel)  # (G,gs,k), (G,gs,k)
 
     C = _capacity(gs, m)
@@ -131,32 +140,42 @@ def moe_apply(moe: MoE, x, cfg, gumbel=None, *, with_aux: bool = False):
     onehot = (idx[..., None] == torch.arange(m.n_experts, device=x.device)).to(torch.float32)
     # capacity slot per (token, choice): running count of earlier tokens
     # routed to the same expert within the group
-    pos_in_expert = torch.cumsum(onehot.reshape(G, gs * m.top_k, m.n_experts), dim=1)
-    pos_in_expert = pos_in_expert.reshape(G, gs, m.top_k, m.n_experts) * onehot - 1.0
+    pos_in_expert = torch.cumsum(partition.reshape(onehot, (G, gs * m.top_k, m.n_experts)), dim=1)
+    pos_in_expert = partition.reshape(pos_in_expert, (G, gs, m.top_k, m.n_experts)) * onehot - 1.0
     kept = (pos_in_expert < C) & (pos_in_expert >= 0)
     # one_hot of the slot, all zeros for -1 (not routed) and for slots >= C
     slot_oh = (pos_in_expert[..., None] == torch.arange(C, device=x.device)).to(torch.float32)
     slot_oh = slot_oh * kept.to(torch.float32)[..., None]
-    dispatch = torch.einsum("gske,gskec->gsec", onehot, slot_oh)
+    # the einsums on each rank's shards (`partition.einsum`): torch's bmm
+    # would flatten a sharded dimension inside a run of dimensions
+    dispatch = partition.einsum("gske,gskec->gsec", onehot, slot_oh)
     # dispatch: (G, gs, E, C) — 1 where token s goes to expert e slot c
     combine = dispatch * (w[..., None] * onehot).sum(dim=2)[..., None]
 
-    expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
-    expert_in = constrain(expert_in, (batch, "experts", None, None))
-    up = torch.einsum("gecd,edf->gecf", expert_in, moe.w_up)
+    expert_in = partition.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
+    expert_in = constrain(expert_in, (batch, experts, None, None))
+    # the weights as the products use them: sharded on the experts or on
+    # their FFN width, gathered over their fsdp axis (a serving step's
+    # weights are still fsdp-sharded; a training layer's gathered already)
+    ffn = None if experts else "mlp"
+    w_in = (experts, None, ffn)
+    up = partition.einsum("gecd,edf->gecf", expert_in, constrain(moe.w_up, w_in))
     if hasattr(moe, "w_gate"):
-        gate = torch.einsum("gecd,edf->gecf", expert_in, moe.w_gate)
+        gate = partition.einsum("gecd,edf->gecf", expert_in, constrain(moe.w_gate, w_in))
         h = (F.silu(gate) if cfg.act == "swiglu" else F.gelu(gate, approximate="tanh")) * up
     else:
         h = F.gelu(up, approximate="tanh")
-    expert_out = torch.einsum("gecf,efd->gecd", h, moe.w_down)
-    expert_out = constrain(expert_out, (batch, "experts", None, None))
-    out = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), expert_out)
-    out = constrain(out, (batch, None, None)).reshape(-1, D)
-    out = (out[:T] if pad else out).reshape(B, S, D)
+    expert_out = partition.einsum("gecf,efd->gecd", h, constrain(moe.w_down, (experts, ffn, None)))
+    expert_out = constrain(expert_out, (batch, experts, None, None))
+    out = partition.einsum("gsec,gecd->gsd", combine.to(x.dtype), expert_out)
+    out = partition.reshape(constrain(out, (batch, None, None)), (-1, D))
+    out = partition.reshape(out[:T] if pad else out, (B, S, D))
 
     if m.n_shared > 0:
-        shared = layers.mlp_apply(moe.shared, x, cfg.act)
+        # the shared experts' partial sums reduced here, laid out as the
+        # routed output (batch-sharded): in the backward pass the gate's
+        # gradient then reaches its matmul with the sequence whole
+        shared = constrain(layers.mlp_apply(moe.shared, x, cfg.act), (batch, None, None))
         out = out + torch.sigmoid(moe.shared_gate(x)) * shared
 
     if not with_aux:

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers
+from repro_torch.sharding import partition
 from repro_torch.sharding.partition import constrain
 
 _C = 8.0
@@ -69,10 +70,18 @@ def rglru_init(gen, cfg, dtype) -> RGLRU:
 
 
 def _gates(mod: RGLRU, u):
-    """u: (..., R) conv output -> (a, b) in float32."""
-    uf = u.to(torch.float32)
-    r = torch.sigmoid(F.linear(uf, mod.w_a.weight.to(torch.float32)) + mod.b_a.to(torch.float32))
-    i = torch.sigmoid(F.linear(uf, mod.w_x.weight.to(torch.float32)) + mod.b_x.to(torch.float32))
+    """u: (..., R) conv output -> (a, b) in float32. Under a mesh u is laid
+    out by batch and channels, as w_a's and w_x's input channels are
+    (row-parallel): each product's partial sums are reduce-scattered onto
+    the channels before the bias, which is sharded so."""
+    lead = ("batch",) + (None,) * (u.ndim - 2)
+    uf = constrain(u.to(torch.float32), lead + ("mlp",))
+
+    def gate(lin, bias):
+        z = constrain(F.linear(uf, lin.weight.to(torch.float32)), lead + ("mlp",))
+        return torch.sigmoid(z + bias.to(torch.float32))
+
+    r, i = gate(mod.w_a, mod.b_a), gate(mod.w_x, mod.b_x)
     log_a = -_C * F.softplus(mod.lambda_raw.to(torch.float32)) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * i * uf
@@ -104,11 +113,17 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _rglru_scan(mod: RGLRU, x):
-    """The prompt pass: (u1, u2, h) of x (B, S, D); h (B, S, R) float32."""
+    """The prompt pass: (u1, u2, h) of x (B, S, D); h (B, S, R) float32.
+    Under a mesh the conv and the scan run on each rank's shards
+    (`partition.on_shards`): both mix only the sequence, which u1 and the
+    gates hold whole (batch and channels sharded, the conv's taps sharded
+    on the channels as u1 is)."""
     u1 = constrain(mod.w_in1(x), ("batch", None, "mlp"))
     u2 = mod.w_in2(x)
-    a, b = _gates(mod, _conv_train(mod.conv_w, u1))
-    return u1, u2, linear_scan(a, b)
+    conv_w = constrain(mod.conv_w, (None, "mlp"))
+    c = partition.on_shards(lambda u, w: _conv_train(w, u), u1, conv_w)
+    a, b = (constrain(t, ("batch", None, "mlp")) for t in _gates(mod, c))
+    return u1, u2, partition.on_shards(linear_scan, a, b)
 
 
 def _out(mod: RGLRU, h, u2, dtype):
@@ -135,7 +150,10 @@ def rglru_decode(mod: RGLRU, x, cfg, state: RGLRUState):
     u1 = mod.w_in1(x[:, 0])  # (B, R)
     u2 = mod.w_in2(x[:, 0])
     window = torch.cat([state.conv, u1[:, None].to(state.conv.dtype)], dim=1)
-    c = torch.einsum("bwr,wr->br", window.to(x.dtype), mod.conv_w)
+    # the taps' product on each rank's shards: the window and the taps are
+    # laid out on the channels alike (the state's layout)
+    window = constrain(window, ("kv_batch", None, "mlp"))
+    c = partition.einsum("bwr,wr->br", window.to(x.dtype), constrain(mod.conv_w, (None, "mlp")))
     a, b = _gates(mod, c)
     h = a * state.h + b
     state.h.copy_(h)

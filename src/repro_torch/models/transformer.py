@@ -88,7 +88,7 @@ def _channel(block: Block, kind: str, x, cfg):
         out = moe.moe_apply(block.moe, h2, cfg)  # serving routes by top-k
     else:
         out = layers.mlp_apply(block.mlp, h2, cfg.act)
-    return x + out
+    return layers.residual(x, out)
 
 
 def block_train(block: Block, kind: str, x, cfg, positions, gumbel=None):
@@ -107,7 +107,7 @@ def block_train(block: Block, kind: str, x, cfg, positions, gumbel=None):
             delta = xlstm.mlstm_block_train(block.mlstm, h, cfg)
         else:
             delta = xlstm.slstm_block_train(block.slstm, h, cfg)
-        x = x + delta
+        x = layers.residual(x, delta)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if _has_channel(kind, cfg):
             h2 = layers.apply_norm(cfg.norm, block.norm2, x)
@@ -115,7 +115,7 @@ def block_train(block: Block, kind: str, x, cfg, positions, gumbel=None):
                 out, aux = moe.moe_apply(block.moe, h2, cfg, gumbel, with_aux=True)
             else:
                 out = layers.mlp_apply(block.mlp, h2, cfg.act)
-            x = x + out
+            x = layers.residual(x, out)
     return constrain(x, ("batch", "seq", "embed")), aux
 
 
@@ -240,8 +240,7 @@ def block_prefill(block: Block, kind: str, x, cfg, positions, cache, mode: str =
             _mlstm_state_from_prefill(mod, a, cfg, cache)
         delta = xlstm._mlstm_out(mod, hm, b)
     else:
-        hseq, st = xlstm.slstm_scan(block.slstm, h, cfg,
-                                    xlstm.slstm_init_state(cfg, x.shape[0], x.device))
+        hseq, st = xlstm.slstm_scan(block.slstm, h, cfg)
         _write(cache, st)
         delta = xlstm.slstm_block_from_scan(block.slstm, h, hseq)
     return _channel(block, kind, x + delta, cfg), cache

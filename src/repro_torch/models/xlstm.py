@@ -34,7 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers
-from repro_torch.sharding.partition import constrain, shards_divide
+from repro_torch.sharding import partition
+from repro_torch.sharding.partition import constrain
 
 
 class MLSTMState(NamedTuple):
@@ -92,14 +93,17 @@ def _mlstm_qkv_gates(mod: MLSTM, a, H: int):
     (B, S, H) in float32."""
     B, S, Du = a.shape
     d = Du // H
-    if not shards_divide(a, -1, H):  # under a mesh: DTensor splits only whole shards
-        a = constrain(a, ("batch", None, None))
-    ah = a.reshape(B, S, H, d)
-    q = torch.einsum("bshd,hde->bshe", ah, mod.w_q)
-    k = torch.einsum("bshd,hde->bshe", ah, mod.w_k) / float(
+    # a's features are sharded over the tensor axis: a legal split into
+    # heads where the axis divides H, else gathered first
+    ah = partition.reshape(a, (B, S, H, d))
+    q = partition.einsum("bshd,hde->bshe", ah, mod.w_q)
+    k = partition.einsum("bshd,hde->bshe", ah, mod.w_k) / float(
         torch.tensor(d, dtype=a.dtype).sqrt())
-    v = torch.einsum("bshd,hde->bshe", ah, mod.w_v)
-    gates = (mod.w_if(a) + mod.b_if).to(_F32)  # (B, S, 2H)
+    v = partition.einsum("bshd,hde->bshe", ah, mod.w_v)
+    # (B, S, 2H), laid out as the batch (w_if's partial sums reduced here): in
+    # the backward pass the gates' gradient then reaches w_if's matmul with
+    # its sequence whole, which it flattens with the batch
+    gates = constrain(mod.w_if(a) + mod.b_if, ("batch", None, None)).to(_F32)
     itilde, ftilde = gates[..., :H], gates[..., H:]
     log_f = -F.softplus(-ftilde)  # log sigmoid(ftilde): a bounded forget
     return q, k, v, itilde, log_f
@@ -114,22 +118,40 @@ def _masked_exp(logD, tri):
 
 
 def mlstm_parallel(mod: MLSTM, a, H: int) -> torch.Tensor:
-    """The parallel quadratic form. a: (B, S, Du) -> (B, S, Du)."""
+    """The parallel quadratic form. a: (B, S, Du) -> (B, S, Du). Under a
+    mesh it runs on each rank's shards, laid out as `mlstm_chunkwise` lays
+    them out."""
     B, S, Du = a.shape
+    h = partition.on_shards(_mlstm_parallel_local, *_mlstm_local_inputs(mod, a, H))
+    # (H, d) merge: the heads lead the run, whole on every rank
+    return partition.reshape(h, (B, S, Du)).to(a.dtype)
+
+
+def _mlstm_local_inputs(mod: MLSTM, a, H: int):
+    """q, k, v (B, S, H, d) and the gates (B, S, H) of a, laid out for a
+    computation on each rank's shards: the forms mix the sequence and each
+    head's width, so all are gathered over every axis but the batch."""
     q, k, v, itilde, log_f = _mlstm_qkv_gates(mod, a, H)
+    return (*(constrain(t, ("batch", None, None, None)) for t in (q, k, v)),
+            *(constrain(t, ("batch", None, None)) for t in (itilde, log_f)))
+
+
+def _mlstm_parallel_local(q, k, v, itilde, log_f):
+    """The parallel form of q, k, v (B, S, H, d) and the gates (B, S, H) ->
+    h (B, S, H, d) float32."""
+    S = q.shape[1]
     Fc = torch.cumsum(log_f, dim=1)                     # (B, S, H)
     u = itilde - Fc
     mstar = torch.cummax(u, dim=1).values               # running max
     m = Fc + mstar                                      # stabiliser per target t
     # decay D_ts = exp(F_t - F_s + i_s - m_t) = exp(u_s - mstar_t), s <= t
     logD = u[:, None, :, :] - mstar[:, :, None, :]      # (B, t, s, H)
-    tri = torch.ones((S, S), dtype=torch.bool, device=a.device).tril()
+    tri = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
     Dmat = _masked_exp(logD, tri)
     scores = torch.einsum("bthd,bshd->btsh", q.to(_F32), k.to(_F32))
     w = scores * Dmat
     denom = torch.maximum(torch.abs(w.sum(dim=2)), torch.exp(-m))  # (B, t, H)
-    h = torch.einsum("btsh,bshd->bthd", w, v.to(_F32)) / denom[..., None]
-    return h.reshape(B, S, Du).to(a.dtype)
+    return torch.einsum("btsh,bshd->bthd", w, v.to(_F32)) / denom[..., None]
 
 
 def mlstm_step(mod: MLSTM, a_t, H: int, state: MLSTMState):
@@ -144,11 +166,12 @@ def mlstm_step(mod: MLSTM, a_t, H: int, state: MLSTMState):
     i_eff = torch.exp(itilde - m_new)
     kf, vf, qf = k.to(_F32), v.to(_F32), q.to(_F32)
     C = (f_eff[..., None, None] * state.C
-         + i_eff[..., None, None] * torch.einsum("bhd,bhe->bhde", vf, kf))
+         + i_eff[..., None, None] * partition.einsum("bhd,bhe->bhde", vf, kf))
     n = f_eff[..., None] * state.n + i_eff[..., None] * kf
-    num = torch.einsum("bhde,bhe->bhd", C, qf)
-    denom = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n, qf)), torch.exp(-m_new))
-    h = (num / denom[..., None]).reshape(B, Du).to(a_t.dtype)
+    num = partition.einsum("bhde,bhe->bhd", C, qf)
+    denom = torch.maximum(torch.abs(partition.einsum("bhd,bhd->bh", n, qf)), torch.exp(-m_new))
+    # (H, d) merge: the heads lead the run, sharded only where the axis divides them
+    h = partition.reshape(num / denom[..., None], (B, Du)).to(a_t.dtype)
     state.C.copy_(C)
     state.n.copy_(n)
     state.m.copy_(m_new)
@@ -158,51 +181,70 @@ def mlstm_step(mod: MLSTM, a_t, H: int, state: MLSTMState):
 def mlstm_chunkwise(mod: MLSTM, a, H: int, chunk: int):
     """The chunkwise form: a loop over chunks carrying (C, n, m), quadratic
     only within a chunk; the same stabilised math as mlstm_parallel and
-    mlstm_step. a: (B, S, Du) -> (h (B, S, Du), the state after S steps)."""
+    mlstm_step. a: (B, S, Du) -> (h (B, S, Du), the state after S steps).
+    Under a mesh the loop runs on each rank's shards (`partition.on_shards`,
+    the inputs laid out by `_mlstm_local_inputs`)."""
     B, S, Du = a.shape
-    d = Du // H
+    h, C, n, m = partition.on_shards(lambda *t: _mlstm_chunk_loop(*t, chunk=chunk),
+                                     *_mlstm_local_inputs(mod, a, H))
+    return partition.reshape(h, (B, S, Du)).to(a.dtype), MLSTMState(C=C, n=n, m=m)
+
+
+def _mlstm_chunk_loop(q, k, v, itilde, log_f, chunk: int):
+    """The chunkwise loop of q, k, v (B, S, H, d) and the gates (B, S, H)
+    -> (h (B, S, H, d) float32, C, n, m), a `layers.scan` over chunks. The
+    sequence is padded to whole chunks; a padded step leaves the carried
+    state as it was (i = 0, f = 1) and its q, k and v are zeros, those of a
+    zero input."""
+    B, S, H, d = q.shape
     pad = (-S) % chunk
     if pad:
-        a = F.pad(a, (0, 0, 0, pad))
-    Sp = a.shape[1]
-    q, k, v, itilde, log_f = _mlstm_qkv_gates(mod, a, H)
-    if pad:
-        # padded steps leave the carried state as it was: i = 0, f = 1
-        valid = (torch.arange(Sp, device=a.device) < S)[None, :, None]
-        itilde = torch.where(valid, itilde, -1e30)
-        log_f = torch.where(valid, log_f, 0.0)
-    C0 = torch.zeros((B, H, d, d), dtype=_F32, device=a.device)
-    n0 = torch.zeros((B, H, d), dtype=_F32, device=a.device)
-    m0 = torch.full((B, H), -1e30, dtype=_F32, device=a.device)
-    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=a.device).tril()
-    hs = []
-    for c0 in range(0, Sp, chunk):
-        sl = slice(c0, c0 + chunk)
-        qf, kf, vf = q[:, sl].to(_F32), k[:, sl].to(_F32), v[:, sl].to(_F32)
-        it, lf = itilde[:, sl], log_f[:, sl]            # (B, L, H)
-        Fc = torch.cumsum(lf, dim=1)                    # intra-chunk cumulative forget
-        u = it - Fc
-        mstar = torch.cummax(u, dim=1).values
-        m = Fc + torch.maximum(m0[:, None], mstar)      # (B, L, H)
-        inter_w = torch.exp(Fc + m0[:, None] - m)       # weight of C0 / n0
-        logD = u[:, None, :, :] + Fc[:, :, None, :] - m[:, :, None, :]
-        Dm = _masked_exp(logD, tri)
-        scores = torch.einsum("bthd,bshd->btsh", qf, kf) * Dm
-        num = torch.einsum("btsh,bshd->bthd", scores, vf)
-        num = num + inter_w[..., None] * torch.einsum("bhde,bthe->bthd", C0, qf)
-        dots = scores.sum(dim=2) + inter_w * torch.einsum("bhd,bthd->bth", n0, qf)
-        denom = torch.maximum(torch.abs(dots), torch.exp(-m))
-        hs.append(num / denom[..., None])
-        # the chunk-end state
-        F_L = Fc[:, -1]                                 # (B, H)
-        m_end = F_L + torch.maximum(m0, mstar[:, -1])
-        wC = torch.exp(u + F_L[:, None] - m_end[:, None])  # per source s
-        carry = torch.exp(F_L + m0 - m_end)
-        C0 = carry[..., None, None] * C0 + torch.einsum("bsh,bshd,bshe->bhde", wC, vf, kf)
-        n0 = carry[..., None] * n0 + torch.einsum("bsh,bshd->bhd", wC, kf)
-        m0 = m_end
-    h = torch.cat(hs, dim=1).reshape(B, Sp, Du)[:, :S]
-    return h.to(a.dtype), MLSTMState(C=C0, n=n0, m=m0)
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        itilde = F.pad(itilde, (0, 0, 0, pad), value=-1e30)
+        log_f = F.pad(log_f, (0, 0, 0, pad))
+    Sp = q.shape[1]
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
+
+    def step(state, *chunk_in):
+        h, *state = _mlstm_chunk(*chunk_in[:5], *state, chunk_in[5])
+        return state, h
+
+    chunks = tuple(t.reshape(B, Sp // chunk, chunk, *t.shape[2:])
+                   for t in (q, k, v, itilde, log_f))
+    h, (C, n, m) = layers.scan(step, _mlstm_zero_state(B, H, d, q.device), chunks, (tri,))
+    return h.reshape(B, Sp, H, d)[:, :S], C, n, m
+
+
+def _mlstm_zero_state(B: int, H: int, d: int, device):
+    return (torch.zeros((B, H, d, d), dtype=_F32, device=device),
+            torch.zeros((B, H, d), dtype=_F32, device=device),
+            torch.full((B, H), -1e30, dtype=_F32, device=device))
+
+
+def _mlstm_chunk(q, k, v, it, lf, C0, n0, m0, tri):
+    """One chunk of L steps: q, k, v (B, L, H, d), the gates (B, L, H), from
+    the carried (C0, n0, m0) -> (h (B, L, H, d) float32, C, n, m)."""
+    qf, kf, vf = q.to(_F32), k.to(_F32), v.to(_F32)
+    Fc = torch.cumsum(lf, dim=1)                    # intra-chunk cumulative forget
+    u = it - Fc
+    mstar = torch.cummax(u, dim=1).values
+    m = Fc + torch.maximum(m0[:, None], mstar)      # (B, L, H)
+    inter_w = torch.exp(Fc + m0[:, None] - m)       # weight of C0 / n0
+    logD = u[:, None, :, :] + Fc[:, :, None, :] - m[:, :, None, :]
+    Dm = _masked_exp(logD, tri)
+    scores = torch.einsum("bthd,bshd->btsh", qf, kf) * Dm
+    num = torch.einsum("btsh,bshd->bthd", scores, vf)
+    num = num + inter_w[..., None] * torch.einsum("bhde,bthe->bthd", C0, qf)
+    dots = scores.sum(dim=2) + inter_w * torch.einsum("bhd,bthd->bth", n0, qf)
+    denom = torch.maximum(torch.abs(dots), torch.exp(-m))
+    # the chunk-end state
+    F_L = Fc[:, -1]                                 # (B, H)
+    m_end = F_L + torch.maximum(m0, mstar[:, -1])
+    wC = torch.exp(u + F_L[:, None] - m_end[:, None])  # per source s
+    carry = torch.exp(F_L + m0 - m_end)
+    C = carry[..., None, None] * C0 + torch.einsum("bsh,bshd,bshe->bhde", wC, vf, kf)
+    n = carry[..., None] * n0 + torch.einsum("bsh,bshd->bhd", wC, kf)
+    return num / denom[..., None], C, n, m_end
 
 
 def _mlstm_out(mod: MLSTM, h, b):
@@ -265,15 +307,17 @@ def slstm_init(gen, cfg, dtype) -> SLSTM:
     return SLSTM(gen, cfg, dtype)
 
 
-def _slstm_cell(mod: SLSTM, wx_t, state: SLSTMState, H: int) -> SLSTMState:
+def _slstm_cell(r_gates, b_gates, wx_t, state: SLSTMState, H: int) -> SLSTMState:
     """wx_t: (B, 4D), the input's contribution at step t -> the next state
-    (new tensors; the caller decides where they go)."""
+    (new tensors; the caller decides where they go). r_gates (H, dh, 4 dh)
+    and b_gates (4D,) are the block's."""
     B = wx_t.shape[0]
     D = wx_t.shape[1] // 4
-    h = state.h if shards_divide(state.h, -1, H) else constrain(state.h, ("batch", None))
-    hprev = h.reshape(B, H, D // H)
-    rec = torch.einsum("bhd,hde->bhe", hprev, mod.r_gates.to(_F32))
-    gates = wx_t.to(_F32) + rec.reshape(B, 4 * D) + mod.b_gates.to(_F32)
+    # h's width is sharded over the tensor axis in a decode state: a legal
+    # split into heads where the axis divides H, else gathered first
+    hprev = partition.reshape(state.h, (B, H, D // H))
+    rec = partition.einsum("bhd,hde->bhe", hprev, r_gates.to(_F32))
+    gates = wx_t.to(_F32) + partition.reshape(rec, (B, 4 * D)) + b_gates.to(_F32)
     itilde, ftilde, ztilde, otilde = torch.split(gates, D, dim=-1)
     log_f = -F.softplus(-ftilde)
     m_new = torch.maximum(log_f + state.m, itilde)
@@ -285,15 +329,31 @@ def _slstm_cell(mod: SLSTM, wx_t, state: SLSTMState, H: int) -> SLSTMState:
     return SLSTMState(c=c, n=n, h=h, m=m_new)
 
 
-def slstm_scan(mod: SLSTM, x, cfg, state: SLSTMState):
+def slstm_scan(mod: SLSTM, x, cfg, state: SLSTMState | None = None):
     """x: (B, S, D) -> (h (B, S, D) in x's dtype, the state after S steps);
-    a loop over time."""
-    wx = mod.w_gates(x)  # (B, S, 4D)
-    hs = []
-    for t in range(x.shape[1]):
-        state = _slstm_cell(mod, wx[:, t], state, cfg.n_heads)
-        hs.append(state.h)
-    return torch.stack(hs, dim=1).to(x.dtype), state
+    a loop over time (`layers.scan`) from `state` (None: `slstm_init_state`).
+
+    Under a mesh the loop runs on each rank's shards as plain tensors
+    (`partition.on_shards`), where DTensor would dispatch every op of every
+    step: after `w_gates` the cell is elementwise per batch row, but its
+    recurrent term mixes the whole width and the loop the whole sequence,
+    so w_gates' output and the cell's weights are gathered over every axis
+    but the batch first, and the result is placed as that output is."""
+    wx = constrain(mod.w_gates(x), ("batch", None, None))  # (B, S, 4D)
+    r_gates, b_gates = constrain(mod.r_gates, (None, None, None)), constrain(mod.b_gates, (None,))
+
+    def step(st, wx_t, r_gates, b_gates):
+        st = _slstm_cell(r_gates, b_gates, wx_t, SLSTMState(*st), cfg.n_heads)
+        return st, st.h
+
+    def loop(wx, r_gates, b_gates, *st):
+        st = st or slstm_init_state(cfg, wx.shape[0], wx.device)
+        # the weights in f32 once, not at every step
+        h, st = layers.scan(step, tuple(st), (wx,), (r_gates.to(_F32), b_gates.to(_F32)))
+        return (h.to(x.dtype), *st)
+
+    h, *st = partition.on_shards(loop, wx, r_gates, b_gates, *(state or ()))
+    return h, SLSTMState(*st)
 
 
 def slstm_block_from_scan(mod: SLSTM, x, hseq):
@@ -305,13 +365,13 @@ def slstm_block_from_scan(mod: SLSTM, x, hseq):
 
 
 def slstm_block_train(mod: SLSTM, x, cfg) -> torch.Tensor:
-    h, _ = slstm_scan(mod, x, cfg, slstm_init_state(cfg, x.shape[0], x.device))
+    h, _ = slstm_scan(mod, x, cfg)
     return slstm_block_from_scan(mod, x, h)
 
 
 def slstm_block_decode(mod: SLSTM, x, cfg, state: SLSTMState):
     """One step; the state written in place."""
-    new = _slstm_cell(mod, mod.w_gates(x[:, 0]), state, cfg.n_heads)
+    new = _slstm_cell(mod.r_gates, mod.b_gates, mod.w_gates(x[:, 0]), state, cfg.n_heads)
     for dst, src in zip(state, new):
         dst.copy_(src)
     return slstm_block_from_scan(mod, x, state.h[:, None]), state

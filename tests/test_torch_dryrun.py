@@ -1,9 +1,10 @@
 """The dry run (`repro_torch.launch.dryrun`) and its report: `--list`
 prints the JAX package's lines; gemma-2b x decode_32k x single traces `ok`
 in a fake world of 256 ranks (a process of its own) with the JAX
-package's parameter count; a skipped cell and a cell that raises are
-recorded and the sweep goes on; a cached cell is not traced again; the
-report renders the records."""
+package's parameter count, and so does whisper-medium's prefill of 32768
+frames; a skipped cell and a cell that raises are recorded and the sweep
+goes on; a cached cell is not traced again; the report renders the
+records."""
 import json
 import os
 import pathlib
@@ -35,6 +36,25 @@ def test_list_prints_the_jax_lines(capsys):
     assert capsys.readouterr().out == _run("repro.launch.dryrun", "--list")
 
 
+# a sweep of one arch whose every traced cell is made to raise: the
+# records of the errors, and the sweep going on past each
+_RAISING = r"""
+import sys
+from repro_torch.launch import dryrun
+orig = dryrun.lower_cell
+
+
+def raising(arch, shape, mesh, mesh_name):
+    if dryrun.cell_skip_reason(dryrun.get_config(arch), dryrun.SHAPES[shape]):
+        return orig(arch, shape, mesh, mesh_name)
+    raise RuntimeError(f"made to raise: {arch} x {shape}")
+
+
+dryrun.lower_cell = raising
+dryrun.main(["--arch", "phi4-mini-3p8b", "--mesh", "single", "--artifacts", sys.argv[1]])
+"""
+
+
 @pytest.fixture(scope="module")
 def records(tmp_path_factory):
     art = tmp_path_factory.mktemp("art")
@@ -44,12 +64,16 @@ def records(tmp_path_factory):
              "--artifacts", str(art))
     again = _run("repro_torch.launch.dryrun", "--arch", "gemma-2b", "--shape", "decode_32k",
                  "--mesh", "single", "--artifacts", str(art))
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-W", "ignore", "-c", _RAISING, str(art)],
+                          capture_output=True, text=True, env=env, timeout=300, cwd=str(REPO))
+    assert proc.returncode == 0, proc.stderr[-3000:]
     recs = {p.stem: json.loads(p.read_text()) for p in art.glob("*.json")}
-    return art, recs, again
+    return art, recs, again, proc.stdout
 
 
 def test_decode_cell_runs_ok_with_the_jax_param_count(records):
-    _, recs, again = records
+    _, recs, again, _ = records
     rec = recs["gemma-2b__decode_32k__single"]
     assert rec["status"] == "ok" and rec["n_chips"] == 256
     structs, _ = jspecs.param_specs_and_axes(jget_config("gemma-2b"))
@@ -66,17 +90,32 @@ def test_decode_cell_runs_ok_with_the_jax_param_count(records):
 
 
 def test_skipped_and_failing_cells_are_recorded(records):
-    _, recs, _ = records
+    """A skipped cell is recorded as such; a cell that raises is recorded
+    with its exception and trace, and the sweep goes on to the next."""
+    _, recs, _, out = records
     assert recs["gemma-2b__long_500k__single"]["status"] == "skipped"
-    err = recs["whisper-medium__prefill_32k__single"]
-    assert err["status"] == "error" and "encoder_seq" in err["error"] and err["trace"]
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        err = recs[f"phi4-mini-3p8b__{shape}__single"]
+        assert err["status"] == "error" and err["trace"]
+        assert err["error"] == f"RuntimeError: made to raise: phi4-mini-3p8b x {shape}"
+    assert recs["phi4-mini-3p8b__long_500k__single"]["status"] == "skipped"
+    assert "done: {'ok': 0, 'skipped': 1, 'error': 3}" in out
+
+
+def test_whisper_prefill_of_32k_frames_runs_ok(records):
+    """whisper-medium's prefill_32k: 32768 frames (the stressed dimension),
+    a cross cache of as many rows built by the prefill, as the JAX
+    prefill's scan builds it."""
+    _, recs, _, _ = records
+    rec = recs["whisper-medium__prefill_32k__single"]
+    assert rec["status"] == "ok" and rec["n_chips"] == 256 and rec["roofline"]["flops"] > 0
 
 
 def test_report_renders_the_records(records, capsys):
-    art, _, _ = records
+    art, _, _, _ = records
     report.main(["--artifacts", str(art)])
     out = capsys.readouterr().out
-    assert "**Mesh 16x16 (256 GPUs)** — 1 traced, 1 skipped, 1 errors" in out
+    assert "**Mesh 16x16 (256 GPUs)** — 2 traced, 2 skipped, 3 errors" in out
     assert "| gemma-2b__decode_32k | ok | 2.51B |" in out
     assert "989 TFLOP/s" in out and "not measured" in out and "v5e" not in out
 

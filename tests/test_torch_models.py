@@ -501,7 +501,9 @@ def test_whisper_quirk_c_decode_clamps_the_position_table():
 
 def test_whisper_prefill_needs_frames_of_the_encoder_length():
     """No frames is a KeyError, as the JAX prefill's batch["frames"]; frames
-    of another length than encoder_seq (the cross cache's) a ValueError."""
+    that are not (B, T, d_model) a ValueError. The encoder length T is the
+    frames' own: the JAX prefill builds its cross caches from the frames it
+    is given (test_whisper_prefill_at_another_frame_count_matches_jax)."""
     jcfg, cfg, params, m = _whisper()
     toks = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(KeyError, match="frames"):
@@ -509,10 +511,37 @@ def test_whisper_prefill_needs_frames_of_the_encoder_length():
     with pytest.raises(KeyError):
         jmodel.prefill(jcfg, params, {"tokens": jnp.zeros((1, 4), jnp.int32)},
                        jmodel.init_caches(jcfg, 1, 8))
-    for T in (cfg.encoder_seq - 1, cfg.encoder_seq + 5):
-        with pytest.raises(ValueError, match="encoder_seq"):
+    for shape in ((1, cfg.encoder_seq, cfg.d_model + 1), (cfg.encoder_seq, cfg.d_model)):
+        with pytest.raises(ValueError, match="d_model"):
             m.prefill(toks, model.init_caches(cfg, 1, 8, device="cpu"),
-                      frames=torch.zeros((1, T, cfg.d_model)))
+                      frames=torch.zeros(shape))
+
+
+@pytest.mark.parametrize("T", [20, 45])
+def test_whisper_prefill_at_another_frame_count_matches_jax(T):
+    """Frames of T != encoder_seq: the prefill's logits and its T-row cross
+    caches (one per decoder layer, in place of the encoder_seq-row ones it
+    was given) equal the JAX prefill's, and a decode step over them the JAX
+    step's, in f32 within 2e-5."""
+    jcfg, cfg, params, m = _whisper()
+    assert T != cfg.encoder_seq
+    toks = _tokens(cfg, (2, 6), seed=T)
+    fr = np.random.default_rng(T).normal(0.0, 0.02, (2, T, cfg.d_model)).astype(np.float32)
+    jl, jc = jmodel.prefill(jcfg, params, {"tokens": jnp.asarray(toks), "frames": jnp.asarray(fr)},
+                            jmodel.init_caches(jcfg, 2, 16))
+    tl, tc = m.prefill(torch.as_tensor(toks, dtype=torch.int64),
+                       model.init_caches(cfg, 2, 16, device="cpu"), frames=torch.as_tensor(fr))
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    L = cfg.n_layers
+    jk, jv = (np.asarray(a) for a in jc["cross_kv"])
+    for i, kv in enumerate(tc[L:]):
+        assert kv.k.shape == (2, T, cfg.n_kv_heads, cfg.resolved_head_dim)
+        np.testing.assert_allclose(_np(kv.k), jk[i], err_msg=f"layer {i} k", **TOL)
+        np.testing.assert_allclose(_np(kv.v), jv[i], err_msg=f"layer {i} v", **TOL)
+    nxt = np.argmax(np.asarray(jl, np.float32), -1).astype(np.int32)
+    jl, _ = jmodel.decode_step(jcfg, params, jnp.asarray(nxt), jnp.asarray(6, jnp.int32), jc)
+    tl, _ = m.decode_step(torch.as_tensor(nxt, dtype=torch.int64), 6, tc)
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
 
 
 def test_whisper_caches_are_decoder_then_cross_states():

@@ -6,7 +6,12 @@ tests/test_sharding_numerics.py.
 Each worker runs `launch.train.train(..., mesh=mesh)` (the sharded driver)
 for two steps of reduced gemma-2b from a step-0 checkpoint that holds the
 JAX package's initial params (restored into the mesh's placements), and
-saves the step-2 checkpoint (gathered, written by rank 0). Losses, grad
+saves the step-2 checkpoint (gathered, written by rank 0); then two steps
+of reduced xlstm-125m (the recurrences on each rank's shards), of reduced
+qwen2-moe-a2p7b with 3 experts (TP on their FFN width), of reduced
+recurrentgemma-9b and of reduced whisper-medium, recurrentgemma's
+prefill and decode step, and a
+padded-head TP prefill, each held within 2e-5 of the port's unsharded run. Losses, grad
 norms and the params after the steps are held within 2e-5 (relative) of
 the port's unsharded driver from the same checkpoint and of JAX's jitted
 step on the same batches and params; the 2x2 checkpoint restored unsharded
@@ -16,6 +21,7 @@ is refused. Under the fsdp_pure rules on a fake 2x2 world, each layer
 gathers its parameters where it runs and again when its checkpoint is
 recomputed, and no layer's gathered weights outlive its forward.
 """
+import dataclasses
 import json
 import os
 import pathlib
@@ -33,7 +39,7 @@ from repro.optim import adamw as jadamw
 from repro.train import train_step as jtrain_step
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.launch import train
-from repro_torch.models import convert
+from repro_torch.models import convert, model
 from repro_torch.optim import adamw
 from repro_torch.train import checkpoint
 from repro_torch.train.train_step import TrainConfig, init_state
@@ -69,6 +75,87 @@ for strategy in ("tp_sp", "fsdp_pure"):
                                     for n, p in s["state"].params.named_parameters()}}
     if rank == 0:
         torch.save(full, f"{out}/{strategy}.pt")
+
+# the sLSTM and mLSTM loops on each rank's shards
+cfg = get_config("xlstm-125m", reduced=True)
+s = train(cfg, tcfg, steps=2, batch=4, seq=16, device="cpu", ckpt_dir=f"{out}/xlstm_train",
+          mesh=mesh)
+res["xlstm_train"] = {"losses": s["losses"], "grad_norms": s["grad_norms"]}
+full = {n: p.full_tensor() for n, p in s["state"].params.named_parameters()}
+if rank == 0:
+    torch.save(full, f"{out}/xlstm_train.pt")
+
+# MoE experts the tensor axis does not divide (3 on 2: TP on their FFN
+# width), recurrentgemma's RG-LRU (row-parallel gates, the conv and the
+# scan on local shards) and whisper's encoder and cross attention
+moe_cfg = get_config("qwen2-moe-a2p7b", reduced=True)
+moe_cfg = dataclasses.replace(moe_cfg, qkv_bias=False,
+                              moe=dataclasses.replace(moe_cfg.moe, n_experts=3))
+for case, cfg in (("moe_ffn_width_train", moe_cfg),
+                  ("rglru_train", get_config("recurrentgemma-9b", reduced=True)),
+                  ("whisper_train", get_config("whisper-medium", reduced=True))):
+    s = train(cfg, tcfg, steps=2, batch=4, seq=16, device="cpu", ckpt_dir=f"{out}/{case}",
+              mesh=mesh)
+    res[case] = {"losses": s["losses"], "grad_norms": s["grad_norms"]}
+    full = {n: p.full_tensor() for n, p in s["state"].params.named_parameters()}
+    if rank == 0:
+        torch.save(full, f"{out}/{case}.pt")
+
+# recurrentgemma serving: a 40-token prefill (the attention ring of 32 slots
+# written in two slices; one KV head, so the caches' head_dim on the tensor
+# axis), then a decode step under the decode rules from the unsharded caches
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun, specs
+from repro_torch.models import attention, model
+from repro_torch.sharding import partition
+from repro_torch.train import train_step as ts
+cfg = get_config("recurrentgemma-9b", reduced=True)
+toks = torch.randint(0, cfg.vocab_size, (4, 41), generator=torch.Generator().manual_seed(2))
+m = model.init_params(cfg, 0, "cpu")
+with torch.no_grad():
+    _, plain_caches = m.prefill(toks[:, :40], model.init_caches(cfg, 4, 48, "cpu"),
+                                mode="reference")
+serve = {}
+for kind in ("prefill", "decode"):
+    rules = specs.rules_for(cfg, ShapeConfig(kind, 48, 4, kind), mesh)
+    serve[kind + "_rules"] = rules
+    with partition.axis_rules(mesh, rules):
+        m = model.init_params(cfg, 0, "cpu")
+        ts.shard_params(m, mesh, rules)
+        caches = model.init_caches(cfg, 4, 48, "cpu") if kind == "prefill" else plain_caches
+        caches = dryrun._placed_caches(caches, model.cache_axes(cfg), mesh, rules)
+        with ts.sharded_step():
+            if kind == "prefill":
+                tokens = dryrun._placed({"t": toks[:, :40]}, {"t": ("batch", None)}, mesh,
+                                        rules)["t"]
+                logits, caches = m.prefill(tokens, caches, mode="reference")
+            else:
+                tokens = dryrun._placed({"t": toks[:, 40]}, {"t": ("kv_batch",)}, mesh,
+                                        rules)["t"]
+                logits, caches = m.decode_step(tokens, 40, caches)
+    serve[kind] = {"logits": logits.full_tensor().tolist(),
+                   "caches": [[t.full_tensor().tolist() for t in c] for c in caches]}
+res["rglru_serve"] = serve
+
+# padded-head TP: 3 heads on a tensor axis of 2, a prompt past the threshold
+attention.BLOCKWISE_THRESHOLD = 8
+pads = []
+pad_groups = attention._pad_groups
+attention._pad_groups = lambda t, K: pads.append(K) or pad_groups(t, K)
+cfg = dataclasses.replace(get_config("qwen1p5-32b", reduced=True), n_heads=3, n_kv_heads=3,
+                          head_dim=16, blockwise_context_parallel=False)
+rules = specs.rules_for(cfg, ShapeConfig("p", 16, 4, "prefill"), mesh)
+toks = torch.randint(0, cfg.vocab_size, (4, 16), generator=torch.Generator().manual_seed(1))
+with partition.axis_rules(mesh, rules):
+    m = model.init_params(cfg, 0, "cpu")
+    ts.shard_params(m, mesh, rules)
+    caches = dryrun._placed_caches(model.init_caches(cfg, 4, 24, "cpu"), model.cache_axes(cfg),
+                                   mesh, rules)
+    tokens = dryrun._placed({"t": toks}, {"t": ("batch", None)}, mesh, rules)["t"]
+    with ts.sharded_step():
+        logits, caches = m.prefill(tokens, caches, mode="reference")
+res["padded"] = {"logits": logits.full_tensor().tolist(), "pads": pads,
+                 "k": caches[0].k.full_tensor().tolist()}
 if rank == 0:
     with open(f"{out}/result.json", "w") as f:
         json.dump(res, f)
@@ -162,6 +249,73 @@ def test_2x2_step_matches_both_unsharded_steps(sharded, strategy):
     assert restored.step == STEPS and restored.opt.count == STEPS
     for name, p in restored.params.named_parameters():
         assert torch.equal(p, sharded_params[name]), name
+
+
+@pytest.mark.parametrize("case", ["xlstm_train", "moe_ffn_width_train", "rglru_train",
+                                  "whisper_train", "rglru_serve", "padded_head_prefill"])
+def test_2x2_matches_the_unsharded_port(sharded, case, tmp_path):
+    """On the 2x2 gloo mesh, within 2e-5 of the port's unsharded run:
+    two train steps of reduced xlstm-125m (the sLSTM's and the mLSTM's
+    loops on each rank's shards), of reduced qwen2-moe-a2p7b with 3
+    experts (the tensor axis of 2 does not divide them: TP on their FFN
+    width) and no qkv bias (the k bias's gradient is zero but for rounding,
+    a bias every key shares cancelling in the softmax, and AdamW scales
+    that rounding to steps of the learning rate's size) and of reduced recurrentgemma-9b (the RG-LRU's row-parallel
+    gates, its conv and scan on local shards); recurrentgemma's 40-token
+    prefill (the attention ring of 32 slots written in two slices, the one
+    KV head's caches sharded on head_dim) and a decode step under the
+    decode rules (the scores' head_dim partial sums reduced before the
+    softmax); and the padded-head TP prefill of a reduced config with 3
+    heads on the tensor axis of 2 (a 16-token prompt past a lowered
+    BLOCKWISE_THRESHOLD, blockwise_context_parallel=False: the heads padded
+    to 4, sharded, and the padding dropped before wo)."""
+    res, tmp, _ = sharded
+    if case.endswith("_train"):
+        arch = {"xlstm_train": "xlstm-125m", "moe_ffn_width_train": "qwen2-moe-a2p7b",
+                "rglru_train": "recurrentgemma-9b", "whisper_train": "whisper-medium"}[case]
+        cfg = configs(arch)[1]
+        if case == "moe_ffn_width_train":
+            cfg = dataclasses.replace(cfg, qkv_bias=False,
+                                      moe=dataclasses.replace(cfg.moe, n_experts=3))
+        _, t = _tcfgs()
+        plain = train.train(cfg, t, steps=STEPS, batch=B, seq=S, device="cpu",
+                            ckpt_dir=str(tmp_path))
+        got = res[case]
+        for a, b in zip(got["losses"] + got["grad_norms"], plain["losses"] + plain["grad_norms"]):
+            assert abs(a - b) <= REL * abs(b), (got, plain["losses"], plain["grad_norms"])
+        sharded_params = torch.load(tmp / f"{case}.pt")
+        for name, p in plain["state"].params.named_parameters():
+            assert rel(sharded_params[name], p.detach()) <= REL, name
+        return
+    if case == "rglru_serve":
+        got = res["rglru_serve"]
+        assert got["prefill_rules"]["kv_hd"] == got["decode_rules"]["kv_hd"] == "model"
+        cfg = configs("recurrentgemma-9b")[1]
+        m = model.init_params(cfg, 0, "cpu")
+        toks = torch.randint(0, cfg.vocab_size, (4, 41),
+                             generator=torch.Generator().manual_seed(2))
+        with torch.no_grad():
+            logits, caches = m.prefill(toks[:, :40], model.init_caches(cfg, 4, 48, "cpu"),
+                                       mode="reference")
+            assert rel(torch.tensor(got["prefill"]["logits"]), logits) <= REL
+            for c_got, c in zip(got["prefill"]["caches"], caches):
+                for a, b in zip(c_got, c):
+                    assert rel(torch.tensor(a), b) <= REL
+            logits, caches = m.decode_step(toks[:, 40], 40, caches)
+        assert rel(torch.tensor(got["decode"]["logits"]), logits) <= REL
+        for c_got, c in zip(got["decode"]["caches"], caches):
+            for a, b in zip(c_got, c):
+                assert rel(torch.tensor(a), b) <= REL
+        return
+    got = res["padded"]
+    assert got["pads"] == [3, 3, 3, 3, 3, 3]  # q, k and v of each of the 2 layers
+    cfg = dataclasses.replace(configs("qwen1p5-32b")[1], n_heads=3, n_kv_heads=3, head_dim=16,
+                              blockwise_context_parallel=False)
+    m = model.init_params(cfg, 0, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (4, 16), generator=torch.Generator().manual_seed(1))
+    logits, caches = m.prefill(toks, model.init_caches(cfg, 4, 24, "cpu"), mode="reference")
+    assert rel(torch.tensor(got["logits"]), logits) <= REL
+    assert rel(torch.tensor(got["k"]), caches[0].k) <= REL
 
 
 def test_torchrun_drives_the_sharded_driver(tmp_path):

@@ -2,10 +2,13 @@
 counterpart of tests/test_launch.py's HLO-analysis cases: a Python loop of
 L matmuls counts 2 M K K L FLOPs; a one-row cache write counts the row, not
 the cache; the reduced configs' train-step FLOPs against the JAX package's
-`hlo_analysis.analyze` of its compiled step; a 256-way sharded matmul
+`hlo_analysis.analyze` of its compiled step; a loop over time folded to
+one trip on meta tensors (the dry run's) counted as the loop on real
+ones; a 256-way sharded matmul
 counted at one rank's shard (the local op, not the global one a mode
 around the DTensor op would see); collectives scored intra- or inter-node
 by the ranks of their group."""
+import dataclasses
 import json
 import os
 import pathlib
@@ -18,7 +21,9 @@ import torch
 
 from repro.launch import hlo_analysis as ha
 from repro.train import train_step as jtrain_step
+from repro_torch.configs import get_config
 from repro_torch.launch.step_analysis import StepCounter, crosses_nodes
+from repro_torch.models import xlstm
 from repro_torch.train.train_step import TrainConfig, init_state, make_train_step
 from test_torch_train_common import FAMILIES, batches, configs
 
@@ -71,6 +76,48 @@ def test_train_step_flops_match_jax_hlo(arch, router):
     recompute = 2 * B * S * cfg.d_model * cfg.vocab_size
     gap = c.summary().flops / (jflops + recompute) - 1
     assert abs(gap) <= 0.05, (c.summary().flops, jflops, recompute, gap)
+
+
+class _EveryTrip(StepCounter):
+    fold_scans = False  # the loop itself, every trip run and counted
+
+
+def _recurrence_counts(kind, device, fold, train, S=16):
+    """StepCounter's FLOPs and bytes of reduced xlstm-125m's sLSTM scan or
+    mLSTM chunk loop (4 chunks of 4) over S steps, forward or forward and
+    backward."""
+    cfg = dataclasses.replace(get_config("xlstm-125m", reduced=True), mlstm_chunk=4)
+    with torch.device(device):
+        mod = (xlstm.slstm_init if kind == "slstm" else xlstm.mlstm_init)(
+            torch.Generator().manual_seed(0), cfg, torch.float32)
+    x = torch.randn(2, S, cfg.d_model, generator=torch.Generator().manual_seed(1)).to(device)
+    x.requires_grad_(train)
+    with (StepCounter() if fold else _EveryTrip()) as c:
+        if kind == "slstm":
+            h, _ = xlstm.slstm_scan(mod, x, cfg)
+        else:
+            h, _ = xlstm.mlstm_chunkwise(mod, mod.w_up_a(x), cfg.n_heads, cfg.mlstm_chunk)
+        if train:
+            h.sum().backward()
+    s = c.summary()
+    return s.flops, s.hbm_bytes
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["forward", "train"])
+@pytest.mark.parametrize("kind,trips", [("slstm", 16), ("mlstm", 4)])
+def test_folded_scan_counts_as_its_loop(kind, trips, train):
+    """The dry run's form of a loop over time (`layers.scan` under
+    StepCounter: one trip on meta tensors, counted `trips` times) against
+    the loop itself on real tensors: the same FLOPs and bytes forward; with
+    the backward pass at most one trip more, since the loop's first trip
+    has no carry gradient to compute and the fold counts one trip for all."""
+    loop = _recurrence_counts(kind, "cpu", fold=False, train=train)
+    folded = _recurrence_counts(kind, "meta", fold=True, train=train)
+    for got, want in zip(folded, loop):
+        if train:
+            assert want <= got <= want * (1 + 1 / trips), (kind, folded, loop)
+        else:
+            assert got == want, (kind, folded, loop)
 
 
 def test_crosses_nodes():
