@@ -32,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import sampler_api
 from repro_torch.core.ising import (KING_OFFSETS, LatticeIsing, quantize_lattice, resolve_device,
                                     shift2d)
@@ -135,25 +136,31 @@ def _model_samples(problem: LatticeIsing, chains: torch.Tensor, generator, cfg: 
 def cd_step(state: CDState, batch: torch.Tensor, generator, cfg: CDConfig) -> CDState:
     """One contrastive-divergence update on a (B, H, W) ±1 batch; the model
     phase draws from `generator`, a torch.Generator on the problem's
-    device."""
-    H, W = state.problem.shape
-    model_s = _model_samples(state.problem, state.chains, generator, cfg)
+    device. Its phases are spans (`repro_torch.tracing`): `boltzmann.cd_step`
+    around `boltzmann.model`, `.correlations`, `.update` and `.quantize`."""
+    with tracing.span("boltzmann.cd_step"):
+        H, W = state.problem.shape
+        with tracing.span("boltzmann.model"):
+            model_s = _model_samples(state.problem, state.chains, generator, cfg)
 
-    corr_data = pair_correlations(batch, H, W)
-    corr_model = pair_correlations(model_s, H, W)
-    mean_data = batch_mean(batch)
-    mean_model = batch_mean(model_s)
+        with tracing.span("boltzmann.correlations"):
+            corr_data = pair_correlations(batch, H, W)
+            corr_model = pair_correlations(model_s, H, W)
+            mean_data = batch_mean(batch)
+            mean_model = batch_mean(model_s)
 
-    # E = +J s s convention => descend: J moves against the data correlation.
-    new_w = state.problem.w - cfg.lr * (corr_data - corr_model)
-    new_b = state.problem.b - cfg.lr * (mean_data - mean_model)
-    new_w = torch.clamp(new_w, -cfg.weight_clip, cfg.weight_clip)
-    new_b = torch.clamp(new_b, -cfg.weight_clip, cfg.weight_clip)
+        with tracing.span("boltzmann.update"):
+            # E = +J s s convention => descend: J moves against the data correlation.
+            new_w = state.problem.w - cfg.lr * (corr_data - corr_model)
+            new_b = state.problem.b - cfg.lr * (mean_data - mean_model)
+            new_w = torch.clamp(new_w, -cfg.weight_clip, cfg.weight_clip)
+            new_b = torch.clamp(new_b, -cfg.weight_clip, cfg.weight_clip)
+            problem = dataclasses.replace(state.problem, w=new_w, b=new_b)
 
-    problem = dataclasses.replace(state.problem, w=new_w, b=new_b)
-    if cfg.quantize_bits:
-        problem = quantize_lattice(problem, cfg.quantize_bits)
-    return CDState(problem=problem, chains=model_s, step=state.step + 1)
+        if cfg.quantize_bits:
+            with tracing.span("boltzmann.quantize"):
+                problem = quantize_lattice(problem, cfg.quantize_bits)
+        return CDState(problem=problem, chains=model_s, step=state.step + 1)
 
 
 def reconstruct(

@@ -38,6 +38,11 @@ The wrappers' `launches` counters tick where a kernel is launched from
 Python, which under capture is once per capture, not per execution. The
 loop takes the counts a capture made back and adds them at every replay
 (`ops.add_launch_counts`), so the counters count the launches that run.
+
+Each eager block and each capture is a span (`sampler.eager`,
+`sampler.capture`) and a count (`sampler.eager_blocks`, `sampler.captures`),
+each replay a count (`sampler.replays`): see `repro_torch.tracing`. Nothing
+is traced inside a block, whose body is captured.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import ops
 
 # The most steps one captured graph holds.
@@ -138,20 +144,27 @@ class StepLoop:
     def run(self, steps: int, records: tuple) -> None:
         """Execute one block of `steps` steps, recording after `records`."""
         if not self.graph:
-            self.carry = self.block(self.carry, steps, records)
+            tracing.count("sampler.eager_blocks")
+            with tracing.span("sampler.eager"):
+                self.carry = self.block(self.carry, steps, records)
             return
         with torch.cuda.device(self.device):  # streams and graphs of the problem's card
             kind = bool(records)
             if self.static is None or kind not in self.warmed:
-                self._eager(steps, records)
+                tracing.count("sampler.eager_blocks")
+                with tracing.span("sampler.eager"):
+                    self._eager(steps, records)
                 self.warmed.add(kind)
                 return
             key = (steps, records)
             if key not in self.graphs:
-                self.graphs[key] = self._capture(steps, records)
+                tracing.count("sampler.captures")
+                with tracing.span("sampler.capture"):
+                    self.graphs[key] = self._capture(steps, records)
             graph, delta = self.graphs[key]
             graph.replay()
             ops.add_launch_counts(delta)
+            tracing.count("sampler.replays")
 
     def result(self):
         """The final carry; under graphs a copy, which later passes of the

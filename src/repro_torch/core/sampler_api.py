@@ -106,6 +106,7 @@ from typing import Any, NamedTuple, Optional, Protocol, Union, runtime_checkable
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import diagnostics as diag
 from repro_torch.core import event_tree, glauber
 from repro_torch.core.diagnostics import RunDiagnostics  # noqa: F401  (re-export)
@@ -1206,50 +1207,53 @@ class _Run:
 
     def __call__(self) -> RunResult:
         """One full pass from the generator's starting state (every pass
-        draws the same numbers)."""
+        draws the same numbers): spans `sampler.init`, the loop's blocks,
+        `sampler.results`."""
         problem, kernel = self.problem, self.kernel
-        self.generator.set_state(self.gen_start)
-        state = kernel.init(problem, self.generator, self.s0, self.n_chains, **self.init_kw)
-        e0 = state.e if state.e is not None else problem.energy(state.s)
-        hit = (e0 <= self.e_target) & self.track_hit
-        t_hit = torch.where(hit, 0.0, math.inf)
-        acc = None
-        if self.diagnostics:
-            acc = diag.acc_init(e0, hit if self.track_hit else None)
-        s, dev = state.s, state.s.device
-        if self.samples is None:
-            B, shape = self.n_chains, tuple(s.shape[1:])
-            self.samples = torch.empty((B, self.n_samples) + shape, dtype=s.dtype, device=dev)
-            self.times = torch.empty((B, self.n_samples), dtype=torch.float32, device=dev)
-            if state.e is not None:  # kernels that keep e record it, as in JAX
-                self.energies = torch.empty((B, self.n_samples), dtype=e0.dtype, device=dev)
-        pos = torch.zeros((), dtype=torch.int64, device=dev)
-        k = torch.zeros((1,), dtype=torch.int64, device=dev)
-        self.loop.start(_Carry(state, t_hit, hit, acc, pos, k))
+        with tracing.span("sampler.init"):
+            self.generator.set_state(self.gen_start)
+            state = kernel.init(problem, self.generator, self.s0, self.n_chains, **self.init_kw)
+            e0 = state.e if state.e is not None else problem.energy(state.s)
+            hit = (e0 <= self.e_target) & self.track_hit
+            t_hit = torch.where(hit, 0.0, math.inf)
+            acc = None
+            if self.diagnostics:
+                acc = diag.acc_init(e0, hit if self.track_hit else None)
+            s, dev = state.s, state.s.device
+            if self.samples is None:
+                B, shape = self.n_chains, tuple(s.shape[1:])
+                self.samples = torch.empty((B, self.n_samples) + shape, dtype=s.dtype, device=dev)
+                self.times = torch.empty((B, self.n_samples), dtype=torch.float32, device=dev)
+                if state.e is not None:  # kernels that keep e record it, as in JAX
+                    self.energies = torch.empty((B, self.n_samples), dtype=e0.dtype, device=dev)
+            pos = torch.zeros((), dtype=torch.int64, device=dev)
+            k = torch.zeros((1,), dtype=torch.int64, device=dev)
+            self.loop.start(_Carry(state, t_hit, hit, acc, pos, k))
         for steps, records in self.blocks:
             self.loop.run(steps, records)
-        state, t_hit, hit, acc, _, _ = self.loop.result()
-        self.final_state = state
-        # the buffers serve every pass (and the graphs): hand out copies
-        samples, times = self.samples.clone(), self.times.clone()
-        if self.energies is not None:
-            energies = self.energies.clone()
-        elif self.n_samples:
-            energies = problem.energy(samples)
-        else:
-            # e0 has the energy dtype both recording branches produce, not
-            # the state dtype, so empty and sampled results concatenate
-            energies = torch.zeros((self.n_chains, 0), dtype=e0.dtype, device=dev)
-        return RunResult(
-            s=state.s,
-            t=state.t,
-            samples=samples,
-            times=times,
-            energies=energies,
-            t_hit=t_hit if self.track_hit else None,
-            hit=hit if self.track_hit else None,
-            diagnostics=None if acc is None else diag.acc_finalize(acc, math.prod(s.shape[1:])),
-        )
+        with tracing.span("sampler.results"):
+            state, t_hit, hit, acc, _, _ = self.loop.result()
+            self.final_state = state
+            # the buffers serve every pass (and the graphs): hand out copies
+            samples, times = self.samples.clone(), self.times.clone()
+            if self.energies is not None:
+                energies = self.energies.clone()
+            elif self.n_samples:
+                energies = problem.energy(samples)
+            else:
+                # e0 has the energy dtype both recording branches produce, not
+                # the state dtype, so empty and sampled results concatenate
+                energies = torch.zeros((self.n_chains, 0), dtype=e0.dtype, device=dev)
+            return RunResult(
+                s=state.s,
+                t=state.t,
+                samples=samples,
+                times=times,
+                energies=energies,
+                t_hit=t_hit if self.track_hit else None,
+                hit=hit if self.track_hit else None,
+                diagnostics=None if acc is None else diag.acc_finalize(acc, math.prod(s.shape[1:])),
+            )
 
 
 def _generator(seed_or_generator, device: torch.device) -> torch.Generator:
@@ -1368,7 +1372,9 @@ def run(
     """Run `n_steps` of `kernel` on `problem` — the single sampling driver.
 
     Runs on the device the problem's tensors live on; on a CUDA device the
-    step loop runs as replays of captured CUDA graphs (`_Run`).
+    step loop runs as replays of captured CUDA graphs (`_Run`). While a torch
+    profiler records, the call is a `sampler.run` span with the driver's
+    phases inside it (`repro_torch.tracing`).
 
     Args:
       problem: DenseIsing, LatticeIsing or SparseIsing (the port's; any
@@ -1414,34 +1420,34 @@ def run(
         fault variants). None, or a model with every fault off, runs the
         exact fault-free program.
     """
-    one_run = _make_run(
-        problem, kernel, seed, n_steps=n_steps, s0=s0, schedule=schedule, n_chains=n_chains,
-        sample_every=sample_every, first_hit=first_hit, backend=backend, unroll=unroll,
-        diagnostics=diagnostics, faults=faults,
-    )
-
-    def call() -> RunResult:
-        """One full driver pass from the generator's starting state."""
-        res = one_run()
-        return _first_chain(res) if n_chains == 1 else res
-
-    if not timeit:
-        return call()
-
-    dev = problem.device
-    _sync(dev)
-    t0 = time.perf_counter()
-    call()
-    _sync(dev)
-    first_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res = call()
-    _sync(dev)
-    wall_s = max(time.perf_counter() - t0, 1e-9)
-    timing = RunTiming(
-        compile_s=max(0.0, first_s - wall_s),
-        wall_s=wall_s,
-        steps_per_s=n_steps / wall_s,
-        chain_steps_per_s=n_steps * n_chains / wall_s,
-    )
-    return res._replace(timing=timing)
+    with tracing.span("sampler.run"):
+        tracing.count("sampler.calls")
+        with tracing.span("sampler.validate"):
+            one_run = _make_run(
+                problem, kernel, seed, n_steps=n_steps, s0=s0, schedule=schedule,
+                n_chains=n_chains, sample_every=sample_every, first_hit=first_hit,
+                backend=backend, unroll=unroll, diagnostics=diagnostics, faults=faults,
+            )
+        if timeit:
+            dev = problem.device
+            _sync(dev)
+            t0 = time.perf_counter()
+            one_run()
+            _sync(dev)
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = one_run()
+            _sync(dev)
+            wall_s = max(time.perf_counter() - t0, 1e-9)
+            res = res._replace(timing=RunTiming(
+                compile_s=max(0.0, first_s - wall_s),
+                wall_s=wall_s,
+                steps_per_s=n_steps / wall_s,
+                chain_steps_per_s=n_steps * n_chains / wall_s,
+            ))
+        else:
+            res = one_run()
+        # the call's graphs and their memory pools go here, not as the frame ends
+        with tracing.span("sampler.release"):
+            del one_run
+    return _first_chain(res) if n_chains == 1 else res

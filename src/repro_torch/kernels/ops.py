@@ -35,6 +35,8 @@ _COUNTERS = (
     *((m, attr, k) for m in (_lg, _sg) for attr in ("launches", "launches_faults")
       for k in getattr(m, attr)),
 )
+# Each counter's name: the wrapper's module, the attribute and the key.
+LAUNCH_NAMES = tuple(".".join((c[0].__name__.rsplit(".", 1)[-1], *c[1:])) for c in _COUNTERS)
 
 
 def launch_counts() -> tuple[int, ...]:

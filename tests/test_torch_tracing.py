@@ -1,0 +1,161 @@
+"""`repro_torch.tracing`: spans and counters at the driver's layer boundaries,
+on only while a torch profiler records, and never changing a result."""
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch import tracing
+from repro_torch.core import boltzmann, ising, problems, sampler_api
+from repro_torch.core.graph_loop import GRAPH_STEPS, plan_blocks
+from repro_torch.data import digits
+from repro_torch.kernels import ops
+
+CPU = "cpu"
+
+
+def _dense():
+    rng = np.random.default_rng(0)
+    J = np.triu(rng.normal(0, 0.6, (12, 12)), 1)
+    return ising.DenseIsing.from_numpy(J + J.T, rng.normal(0, 0.3, 12), device=CPU)
+
+
+# (problem, kernel, run keywords): a dense tau-leap run that records samples,
+# and a lattice chromatic Gibbs run that tracks first hit
+RUNS = {
+    "dense": (_dense, sampler_api.TauLeap(dt=0.1),
+              dict(n_steps=70, n_chains=4, sample_every=20, schedule=sampler_api.geometric(0.3, 3.0))),
+    "lattice": (lambda: problems.cal_problem(coupling=0.5, device=CPU), sampler_api.ChromaticGibbs(),
+                dict(n_steps=40, n_chains=3, sample_every=0, first_hit=-100.0)),
+}
+
+
+def _run(name, seed=3):
+    make, kernel, kw = RUNS[name]
+    return sampler_api.run(make(), kernel, seed, **kw)
+
+
+def _profiled(fn):
+    """fn() under a CPU torch profiler: (its result, the call records it
+    added, the names of the trace's user annotations in order)."""
+    last = max((r["id"] for r in tracing.calls()), default=-1)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    records = [r for r in tracing.calls() if r["id"] > last]
+    events = sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.activity_type() == "user_annotation"), key=lambda e: e.start_ns())
+    return out, records, [e.name() for e in events]
+
+
+def _cd_setup():
+    cfg = boltzmann.CDConfig(lr=0.08, n_model_steps=24, n_chains=8, quantize_bits=8)
+    gen = torch.Generator().manual_seed(2)
+    state = boltzmann.init_cd(gen, 16, 16, cfg, device=CPU)
+    batch = digits.digit_batch(3, n=16, generator=torch.Generator().manual_seed(1),
+                               flip_prob=0.05, device=CPU)
+    return state, batch, cfg
+
+
+def _cd_step():
+    state, batch, cfg = _cd_setup()
+    return boltzmann.cd_step(state, batch, torch.Generator().manual_seed(0), cfg)
+
+
+def test_span_without_a_profiler_is_the_shared_null_context():
+    assert not tracing.recording()
+    a, b = tracing.span("sampler.run"), tracing.span("boltzmann.model")
+    assert a is b
+    before = tracing.calls()
+    with a:
+        _run("dense")
+    assert tracing.calls() == before
+
+
+@pytest.mark.parametrize("name", sorted(RUNS))
+def test_run_spans_are_user_annotations_nested_as_documented(name):
+    _, (record,), annotations = _profiled(lambda: _run(name))
+    assert record["name"] == "sampler.run"
+    spans = record["spans"]
+    assert all(s["parent"] == record["id"] and s["root"] == record["id"] for s in spans)
+    assert [s["start_ns"] for s in spans] == sorted(s["start_ns"] for s in spans)
+    assert all(record["start_ns"] <= s["start_ns"] <= s["end_ns"] <= record["end_ns"] for s in spans)
+    blocks = len(plan_blocks(RUNS[name][2]["n_steps"], RUNS[name][2]["sample_every"], GRAPH_STEPS))
+    order = [s["name"] for s in spans]
+    assert order == ["sampler.validate", "sampler.init"] + ["sampler.eager"] * blocks + [
+        "sampler.results", "sampler.release"]
+    # on a torch whose kineto events say their activity the spans are in the
+    # profiler's trace too
+    assert annotations == (["sampler.run"] + order if tracing.MIRRORED else [])
+
+
+def test_one_call_record_per_outermost_call_counts_its_blocks():
+    _, records, _ = _profiled(lambda: [_run("dense", seed) for seed in (1, 2)])
+    kw = RUNS["dense"][2]
+    blocks = len(plan_blocks(kw["n_steps"], kw["sample_every"], GRAPH_STEPS))
+    assert [r["name"] for r in records] == ["sampler.run", "sampler.run"]
+    for r in records:
+        c = r["counts"]
+        assert c["sampler.calls"] == 1 and c["sampler.eager_blocks"] == blocks == 4
+        assert c.get("sampler.captures", 0) == 0 and c.get("sampler.replays", 0) == 0
+        assert not any(k.startswith("cuda.") for k in c)  # no allocator counters on the CPU
+    # timeit's two passes are one call: twice the blocks, one validation, one release
+    _, (r,), _ = _profiled(lambda: sampler_api.run(_dense(), RUNS["dense"][1], 1, timeit=True,
+                                                   **kw))
+    names = [s["name"] for s in r["spans"]]
+    assert r["counts"]["sampler.eager_blocks"] == 2 * blocks and names.count("sampler.init") == 2
+    assert names.count("sampler.validate") == 1 and names[-1] == "sampler.release"
+
+
+def test_cd_step_nests_the_sampler_run_in_its_model_phase():
+    _, (record,), annotations = _profiled(_cd_step)
+    assert record["name"] == "boltzmann.cd_step"
+    by_name = {s["name"]: s for s in record["spans"]}
+    model, run = by_name["boltzmann.model"], by_name["sampler.run"]
+    assert model["parent"] == record["id"] and run["parent"] == model["id"]
+    assert by_name["sampler.eager"]["parent"] == run["id"]
+    assert all(s["root"] == record["id"] for s in record["spans"])
+    top = [s["name"] for s in record["spans"] if s["parent"] == record["id"]]
+    assert top == ["boltzmann.model", "boltzmann.correlations", "boltzmann.update",
+                   "boltzmann.quantize"]
+    assert record["counts"]["sampler.calls"] == 1
+    assert annotations[:3] == (["boltzmann.cd_step", "boltzmann.model", "sampler.run"]
+                               if tracing.MIRRORED else [])
+
+
+def test_where_spans_stay_out_of_the_profiler_the_records_are_kept(monkeypatch):
+    """The route of a torch whose kineto events do not say their activity."""
+    monkeypatch.setattr(tracing, "MIRRORED", False)
+    _, (record,), annotations = _profiled(lambda: _run("lattice"))
+    assert annotations == []
+    assert [s["name"] for s in record["spans"]] == [
+        "sampler.validate", "sampler.init", "sampler.eager", "sampler.eager", "sampler.results",
+        "sampler.release"]
+
+
+@pytest.mark.parametrize("name", sorted(RUNS))
+def test_run_is_bit_identical_with_the_profiler_on_and_off(name):
+    off = _run(name)
+    on, _, _ = _profiled(lambda: _run(name))
+    for a, b in zip(off, on):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+        else:
+            assert a is None and b is None
+
+
+def test_cd_step_is_bit_identical_with_the_profiler_on_and_off():
+    off = _cd_step()
+    on, _, _ = _profiled(_cd_step)
+    assert torch.equal(off.chains, on.chains) and off.step == on.step
+    assert torch.equal(off.problem.w, on.problem.w) and torch.equal(off.problem.b, on.problem.b)
+
+
+def test_counts_hold_the_launch_counters_and_the_driver_counters():
+    c = tracing.counts()
+    assert dict(zip(ops.LAUNCH_NAMES, ops.launch_counts())).items() <= c.items()
+    assert len(set(ops.LAUNCH_NAMES)) == len(ops.LAUNCH_NAMES) == len(ops.launch_counts())
+    assert "tau_leap.launches" in c and "lattice_gibbs.launches.lattice_gibbs_sweep" in c
+    calls, blocks = c.get("sampler.calls", 0), c.get("sampler.eager_blocks", 0)
+    _run("lattice")  # counters are on with no profiler
+    after = tracing.counts()
+    assert after["sampler.calls"] == calls + 1 and after["sampler.eager_blocks"] == blocks + 2
