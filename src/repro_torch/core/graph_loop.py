@@ -34,6 +34,14 @@ replay draws the numbers the same eager steps would have drawn, in the
 same order: with deterministic kernels a graphed run equals the eager run
 bit for bit.
 
+The graphs live as long as the loop, and the loop as long as its run:
+`sampler_api.run()` keeps a call's run for a later call of the same shape,
+which replays every block (`start` loads its initial carry), so the
+captures and the eager blocks are paid once per kept run, not once per
+call. Leaves that no block changes are the run's constants: the initial
+carry's values of the first pass, which a later call of the kept run's key
+would make the same wherever a block reads them.
+
 The wrappers' `launches` counters tick where a kernel is launched from
 Python, which under capture is once per capture, not per execution. The
 loop takes the counts a capture made back and adds them at every replay
@@ -114,8 +122,9 @@ class StepLoop:
 
     On CPU (`graph=False`) every block runs eagerly. On a CUDA device the
     blocks run as replays of CUDA graphs (module docstring). One loop
-    serves every pass of one `run()` call: `start` loads a pass's initial
-    carry, `run` executes one block, `result` returns the final carry."""
+    serves every pass of its run, in one `run()` call or in the later calls
+    that take the kept run: `start` loads a pass's initial carry, `run`
+    executes one block, `result` returns the final carry."""
 
     def __init__(self, block: Callable, generator: torch.Generator, device: torch.device,
                  graph: bool):

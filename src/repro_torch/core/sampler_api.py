@@ -88,18 +88,23 @@ a kernel without a CUDA path raises ValueError.
 The step loop never waits on the device: the model time, the first-hit
 time, the hit flags, the diagnostics and the step and sample counters stay
 device tensors. The host synchronises only before the loop: the
-finite-energy probe and, for a kernel that can carry state across steps of
-one beta (the sparse tree CTMC), whether each chain's schedule is constant.
-On a CUDA problem the loop runs as replays of captured CUDA graphs of
-blocks of steps (`repro_torch.core.graph_loop`), the port's counterpart of
-the JAX driver's compiled `lax.scan`; on CPU tensors it runs eagerly.
+finite-energy probe of a new run and, for a kernel that can carry state
+across steps of one beta (the sparse tree CTMC), whether each chain's
+schedule is constant. On a CUDA problem the loop runs as replays of
+captured CUDA graphs of blocks of steps (`repro_torch.core.graph_loop`),
+the port's counterpart of the JAX driver's compiled `lax.scan`; on CPU
+tensors it runs eagerly. `run()` keeps the run of a call, graphs and all,
+for a later call of the same shape on the same problem (`run`'s
+docstring), as `jax.jit` keeps a compiled program for its next call.
 `unroll` is validated as in the JAX package and changes nothing here: the
 graph's blocks do not depend on it, nor do the results.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
+import threading
 import time
 import weakref
 from typing import Any, NamedTuple, Optional, Protocol, Union, runtime_checkable
@@ -1148,34 +1153,51 @@ class _Run:
     problem the blocks are replays of captured CUDA graphs
     (`graph_loop.StepLoop`); on CPU tensors they run eagerly. Both run the
     same operations in the same order. `timeit`'s two passes share the
-    loop: the second replays the graphs the first captured. `init_beta`,
-    when given, is passed to the kernel's `init` (each chain's constant
-    beta). `faults`, a residual FaultModel or None, is passed to the
-    kernel's `init` and `step` only when it is not None. `eager=True` runs a
-    CUDA problem's blocks eagerly too (no graph): for comparing the two."""
+    loop: the second replays the graphs the first captured; so does a later
+    `run()` call that takes this run from the store of kept runs, after
+    `renew` has taken its inputs. `init_beta`, when given, is passed to the
+    kernel's `init` (each chain's constant beta). `faults`, a residual
+    FaultModel or None, is passed to the kernel's `init` and `step` only
+    when it is not None. `eager=True` runs a CUDA problem's blocks eagerly
+    too (no graph): for comparing the two."""
 
-    def __init__(self, problem, kernel, generator, s0, betas, e_target, *, n_steps,
-                 sample_every, track_hit, n_chains, diagnostics, init_beta=None, faults=None,
-                 eager=False):
-        self.problem, self.kernel, self.generator, self.s0 = problem, kernel, generator, s0
+    def __init__(self, call: "_Call", generator: torch.Generator, eager: bool = False):
+        dev = call.problem.device
+        self.problem, self.kernel, self.generator, self.s0 = (
+            call.problem, call.kernel, generator, call.s0)
         self.gen_start = generator.get_state()
-        self.betas, self.e_target = betas, e_target
-        self.n_steps, self.sample_every, self.n_chains = n_steps, sample_every, n_chains
-        self.track_hit, self.diagnostics = track_hit, diagnostics
-        self.init_kw = {} if init_beta is None else {"beta": init_beta}
-        self.step_kw = {} if faults is None else {"faults": faults}
+        self.betas, self.e_target = call.betas, call.e_target
+        self.n_steps, self.sample_every, self.n_chains = call.n_steps, call.sample_every, call.n_chains
+        self.track_hit, self.diagnostics = call.track_hit, call.diagnostics
+        self.init_kw = {} if call.init_beta is None else {"beta": call.init_beta}
+        self.step_kw = {} if call.faults is None else {"faults": call.faults}
         self.init_kw.update(self.step_kw)
-        self.blocks = plan_blocks(n_steps, sample_every, GRAPH_STEPS)
-        self.n_samples = n_steps // sample_every if sample_every > 0 else 0
-        self.offsets = torch.arange(GRAPH_STEPS, device=problem.device)
+        self.blocks = plan_blocks(self.n_steps, self.sample_every, GRAPH_STEPS)
+        self.n_samples = self.n_steps // self.sample_every if self.sample_every > 0 else 0
+        self.offsets = torch.arange(GRAPH_STEPS, device=dev)
         # the loop holds the run weakly: a finished run, its graphs and their
         # memory go when the run does, not at a cyclic collection (which
         # could fall inside another run's capture)
         this = weakref.ref(self)
-        self.loop = StepLoop(lambda *args: this().block(*args), generator, problem.device,
-                             problem.device.type == "cuda" and not eager)
+        self.loop = StepLoop(lambda *args: this().block(*args), generator, dev,
+                             dev.type == "cuda" and not eager)
         self.samples = self.times = self.energies = None  # made at the first pass
         self.final_state: Optional[KernelState] = None  # the last pass's, for checks
+
+    def renew(self, call: "_Call", seed) -> None:
+        """Take the inputs of a later call of this run's key (`_kept_key`):
+        its seed (the run's own generator reseeded from an int; a caller's
+        generator, the one the graphs registered, read where it stands),
+        its s0, and its betas and first-hit target, copied into the tensors
+        the captured blocks index."""
+        if not isinstance(seed, torch.Generator):
+            self.generator.manual_seed(seed)
+        self.gen_start = self.generator.get_state()
+        self.s0 = call.s0
+        self.betas.copy_(call.betas)
+        self.e_target.copy_(call.e_target)
+        if call.init_beta is not None:
+            self.init_kw["beta"] = call.init_beta
 
     def block(self, carry: _Carry, steps: int, records: tuple) -> _Carry:
         """`steps` steps of every chain, recording the state after the
@@ -1285,14 +1307,31 @@ def _first_chain(res: RunResult) -> RunResult:
     return RunResult(*fields)
 
 
-def _make_run(
-    problem, kernel, seed, *, n_steps, s0=None, schedule=None, n_chains=1, sample_every=0,
-    first_hit=None, backend=None, unroll="auto", diagnostics=False, faults=None, eager=False,
-) -> _Run:
-    """Validate `run()`'s arguments and build its `_Run`: each call of the
-    result is one pass, batched over chains; its `final_state` is the last
-    pass's final KernelState (for checks of a kernel's private state).
-    `eager=True` turns the CUDA graph off (`_Run`): run() never does."""
+class _Call(NamedTuple):
+    """`run()`'s arguments, validated: the problem (bound to the fault
+    model), the kernel (its backend resolved), the residual faults, the
+    inputs of one pass and the call's shape."""
+
+    problem: Any
+    kernel: Any
+    faults: Optional[FaultModel]
+    s0: Optional[torch.Tensor]
+    betas: torch.Tensor  # (n_steps, n_chains): row i holds step i's betas
+    e_target: torch.Tensor
+    init_beta: Optional[torch.Tensor]
+    n_steps: int
+    n_chains: int
+    sample_every: int
+    track_hit: bool
+    diagnostics: bool
+
+
+def _prepare(
+    problem, kernel, *, n_steps, s0=None, schedule=None, n_chains=1, sample_every=0,
+    first_hit=None, backend=None, unroll="auto", diagnostics=False, faults=None,
+) -> _Call:
+    """Validate `run()`'s arguments and make one pass's inputs; the
+    finite-energy probe is `_check_finite`'s."""
     if isinstance(kernel, str):
         kernel = get_kernel(kernel)
     check_problem_kind(kernel, problem)
@@ -1311,15 +1350,6 @@ def _make_run(
         faults.validate(problem)
         problem, faults = faults.bind(problem)
     dev = problem.device
-    # The one host synchronisation: fail loudly on couplings/biases (or a
-    # fault model) that cannot produce finite energies before any sampling.
-    e_probe = problem.energy(torch.ones(state_shape(problem), device=dev))
-    if not bool(torch.isfinite(e_probe)):
-        raise NonFiniteEnergyError(
-            f"problem energy is non-finite (probe energy {float(e_probe)}); "
-            "check the couplings/biases (and any FaultModel) for NaN/Inf"
-        )
-
     betas = resolve_schedule(schedule, n_steps, n_chains, device=dev)
     betas = betas.expand(n_chains, n_steps).T.contiguous()  # row i: step i's per-chain betas
     # A kernel that can carry state across steps of one beta (the sparse
@@ -1344,12 +1374,96 @@ def _make_run(
                 f"s0 has shape {tuple(s0.shape)}; expected "
                 f"{(n_chains,) + state_shape(problem)} for n_chains={n_chains}"
             )
+    return _Call(problem, kernel, faults, s0, betas, e_target, init_beta, n_steps, n_chains,
+                 sample_every, track_hit, diagnostics)
 
-    return _Run(
-        problem, kernel, _generator(seed, dev), s0, betas, e_target, n_steps=n_steps,
-        sample_every=sample_every, track_hit=track_hit, n_chains=n_chains,
-        diagnostics=diagnostics, init_beta=init_beta, faults=faults, eager=eager,
-    )
+
+def _check_finite(problem) -> None:
+    """The one host synchronisation of a new run: fail loudly on
+    couplings/biases (or a fault model) that cannot produce finite energies
+    before any sampling."""
+    e_probe = problem.energy(torch.ones(state_shape(problem), device=problem.device))
+    if not bool(torch.isfinite(e_probe)):
+        raise NonFiniteEnergyError(
+            f"problem energy is non-finite (probe energy {float(e_probe)}); "
+            "check the couplings/biases (and any FaultModel) for NaN/Inf"
+        )
+
+
+def _build(call: _Call, seed, eager: bool = False) -> _Run:
+    """A new `_Run` of a validated call, after the finite-energy probe."""
+    _check_finite(call.problem)
+    return _Run(call, _generator(seed, call.problem.device), eager)
+
+
+def _make_run(problem, kernel, seed, *, eager=False, **kw) -> _Run:
+    """Validate `run()`'s arguments (`_prepare`'s keywords) and build a new
+    `_Run`: each call of the result is one pass, batched over chains; its
+    `final_state` is the last pass's final KernelState (for checks of a
+    kernel's private state). `eager=True` turns the CUDA graph off
+    (`_Run`): run() never does."""
+    return _build(_prepare(problem, kernel, **kw), seed, eager)
+
+
+# The most runs `run()` keeps for later calls of the same key (`_kept_key`).
+KEPT_RUNS = 4
+_kept: collections.OrderedDict = collections.OrderedDict()  # key -> _Run, least recent first
+_kept_lock = threading.Lock()
+
+
+def drop_kept_runs() -> None:
+    """Free every run `run()` keeps: their CUDA graphs, the graphs' memory
+    pools, and their carries and sample buffers."""
+    with _kept_lock:
+        _kept.clear()
+
+
+def _kept_key(call: _Call, seed, faults) -> Optional[tuple]:
+    """What a kept run must share with a call to serve it: everything its
+    captured blocks read by address that `_Run.renew` does not copy in, and
+    everything that decides the blocks. The problem is held by its run, so
+    its id is not reused while the run is kept; each of its tensors'
+    version says it was not changed in place since the run's probe. None
+    where the call keeps no run: with a fault model (bound anew every
+    call), a kernel that is not a frozen dataclass, a seed neither an int
+    nor a torch.Generator (`_generator` refuses it), or a problem tensor
+    made under inference mode (it has no version)."""
+    kernel, problem = call.kernel, call.problem
+    if faults is not None or not (dataclasses.is_dataclass(kernel)
+                                  and type(kernel).__dataclass_params__.frozen):
+        return None
+    if isinstance(seed, torch.Generator):
+        stream = id(seed)  # the caller's: the generator the graphs registered
+    elif isinstance(seed, int) and not isinstance(seed, bool):
+        stream = None  # the run's own, reseeded every call
+    else:
+        return None
+    tensors = [x for x in (getattr(problem, f.name) for f in dataclasses.fields(problem))
+               if isinstance(x, torch.Tensor)]
+    if any(x.is_inference() for x in tensors):
+        return None
+    return (id(problem), tuple(x._version for x in tensors), problem.device, kernel, stream,
+            call.n_steps, call.n_chains, call.sample_every, call.track_hit, call.diagnostics,
+            None if call.s0 is None else call.s0.dtype, call.init_beta is not None)
+
+
+def _take_kept(key) -> Optional[_Run]:
+    """The kept run of `key`, out of the store for the call (None: none)."""
+    if key is None:
+        return None
+    with _kept_lock:
+        return _kept.pop(key, None)
+
+
+def _keep(key, one_run: _Run) -> None:
+    """Keep `one_run` as the most recently used, and free the least
+    recently used beyond KEPT_RUNS: outside any capture, so no graph is
+    freed inside one."""
+    with _kept_lock:
+        _kept[key] = one_run
+        _kept.move_to_end(key)
+        while len(_kept) > KEPT_RUNS:
+            _kept.popitem(last=False)
 
 
 def run(
@@ -1375,6 +1489,22 @@ def run(
     step loop runs as replays of captured CUDA graphs (`_Run`). While a torch
     profiler records, the call is a `sampler.run` span with the driver's
     phases inside it (`repro_torch.tracing`).
+
+    Kept runs: after the call its run (its static carry, sample buffers and
+    captured graphs) is kept, the KEPT_RUNS most recently used of them. A
+    later call that matches one in everything its graphs read by address
+    or that decides its blocks (`_kept_key`: the same problem object, none
+    of its tensors changed in place since; the same device, resolved
+    kernel, n_steps, n_chains, sample_every, first-hit on or off,
+    diagnostics, s0 given or not (and its dtype), and an int seed, or the
+    same torch.Generator) takes that run: its seed, s0, betas and target
+    are renewed, and it runs without the finite-energy probe (the problem
+    is the one probed before), without eager warm-up blocks and without a
+    capture, every block a replay; results are bit-identical to a new
+    run's. A call with `faults` keeps no run (the model is bound to the
+    problem anew every call). Kept runs hold their device memory (the
+    graphs' pools, the carry, the sample buffers, the problem) until
+    evicted or `drop_kept_runs()`.
 
     Args:
       problem: DenseIsing, LatticeIsing or SparseIsing (the port's; any
@@ -1403,7 +1533,8 @@ def run(
         unroll is. Results are bit-identical for every unroll.
       timeit: run twice (first-use pass, then a steady-state pass with the
         same random stream, identical results) and attach a RunTiming. The
-        second pass replays the graphs the first captured.
+        second pass replays the graphs the first captured; on a kept run
+        both passes replay, and `compile_s` reads about 0.
       diagnostics: collect in-loop run diagnostics (per-chain flip
         counters, Welford energy mean/variance, first-hit step index) into
         `RunResult.diagnostics` as a `RunDiagnostics` (see
@@ -1423,11 +1554,18 @@ def run(
     with tracing.span("sampler.run"):
         tracing.count("sampler.calls")
         with tracing.span("sampler.validate"):
-            one_run = _make_run(
-                problem, kernel, seed, n_steps=n_steps, s0=s0, schedule=schedule,
-                n_chains=n_chains, sample_every=sample_every, first_hit=first_hit,
-                backend=backend, unroll=unroll, diagnostics=diagnostics, faults=faults,
+            call = _prepare(
+                problem, kernel, n_steps=n_steps, s0=s0, schedule=schedule, n_chains=n_chains,
+                sample_every=sample_every, first_hit=first_hit, backend=backend, unroll=unroll,
+                diagnostics=diagnostics, faults=faults,
             )
+            key = _kept_key(call, seed, faults)
+            one_run = _take_kept(key)
+            if one_run is None:
+                one_run = _build(call, seed)
+            else:
+                tracing.count("sampler.reuses")
+                one_run.renew(call, seed)
         if timeit:
             dev = problem.device
             _sync(dev)
@@ -1447,7 +1585,10 @@ def run(
             ))
         else:
             res = one_run()
-        # the call's graphs and their memory pools go here, not as the frame ends
+        # the run goes back to the store, or, not kept, its graphs and their
+        # memory pools go here, not as the frame ends
         with tracing.span("sampler.release"):
+            if key is not None:
+                _keep(key, one_run)
             del one_run
     return _first_chain(res) if n_chains == 1 else res

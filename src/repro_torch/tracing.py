@@ -26,13 +26,17 @@ and `counts()` afterwards.
                     calls: `cuda.segment.all.allocated`, `.freed`)}.
 
 The driver's spans: `sampler.run` (one `sampler_api.run()` call) holds
-`sampler.validate`, `sampler.init`, `sampler.eager` (an eager block),
-`sampler.capture` (a block captured into a CUDA graph, torch's device sync
-and cache emptying on entering the capture included), `sampler.results` and
-`sampler.release`; `boltzmann.cd_step` holds `boltzmann.model` (with its
+`sampler.validate` (the arguments checked, then a new run's finite-energy
+probe or a kept run taken and renewed), `sampler.init`, `sampler.eager` (an
+eager block), `sampler.capture` (a block captured into a CUDA graph, torch's
+device sync and cache emptying on entering the capture included),
+`sampler.results` and `sampler.release` (the run kept, and the least
+recently used beyond the store's bound freed); `boltzmann.cd_step` holds `boltzmann.model` (with its
 `sampler.run`), `boltzmann.correlations`, `boltzmann.update` and
-`boltzmann.quantize`. Its counters: `sampler.calls`, `sampler.eager_blocks`,
-`sampler.captures` and `sampler.replays`.
+`boltzmann.quantize`. Its counters, each 0 before its first count:
+`sampler.calls`, `sampler.eager_blocks`, `sampler.captures`,
+`sampler.replays` and `sampler.reuses` (calls that took a kept run, which
+validate without the finite-energy probe and replay every block).
 """
 from __future__ import annotations
 
@@ -56,7 +60,9 @@ MIRRORED = hasattr(torch._C._autograd._KinetoEvent, "activity_type")
 MAX_CALLS = 1024
 
 _NULL = contextlib.nullcontext()
-_counters: dict[str, int] = {}
+_counters: dict[str, int] = dict.fromkeys(
+    ("sampler.calls", "sampler.eager_blocks", "sampler.captures", "sampler.replays",
+     "sampler.reuses"), 0)
 _calls: collections.deque = collections.deque(maxlen=MAX_CALLS)
 _ids = itertools.count()
 _local = threading.local()  # each thread's open spans

@@ -14,6 +14,7 @@ import torch
 
 from repro.core import problems as jproblems
 from repro.core import sampler_api as jsa
+from repro_torch import tracing
 from repro_torch.core import ising, problems, sampler_api
 from repro_torch.core.faults import FaultModel
 from repro_torch.core.sampler_api import (
@@ -325,3 +326,193 @@ def test_registry_and_error_paths():
         run(ising.DenseIsing.from_numpy(J, np.zeros(4), device=CPU), TauLeap(), 0, n_steps=2)
     assert sampler_api._resolve_backend("cuda") == "cuda"
     assert sampler_api._resolve_backend("auto", TauLeap(), prob) == "ref"
+
+
+# ---------------------------------------------------------------------------
+# Kept runs: a later call of the same key takes the run an earlier call kept
+# ---------------------------------------------------------------------------
+
+# (problem maker, kernel, the problem's coupling field): each sweep or step
+# through its kernel's plain version (the cuda backend on CPU tensors), so
+# the int8 codes and the lattice and colour plans are part of the kept run
+KEPT = {
+    "tau_leap": (lambda: _dense_problem(12), TauLeap(dt=0.2, backend="cuda"), "J"),
+    "chromatic_gibbs": (lambda: problems.cal_problem(coupling=0.5, device=CPU),
+                        sampler_api.ChromaticGibbs(backend="cuda"), "w"),
+    "colored_gibbs": (lambda: problems.random_3regular_maxcut(16, 1, device=CPU),
+                      sampler_api.ColoredGibbs(backend="cuda"), "nbr_w"),
+}
+KEPT_CHAINS, KEPT_STEPS = 3, 40
+
+
+@pytest.fixture
+def kept():
+    """An empty store of kept runs, emptied again after the test."""
+    sampler_api.drop_kept_runs()
+    yield sampler_api._kept
+    sampler_api.drop_kept_runs()
+
+
+def _reuses(fn):
+    """(fn(), the calls that took a kept run while it ran)."""
+    before = tracing.counts()["sampler.reuses"]
+    out = fn()
+    return out, tracing.counts()["sampler.reuses"] - before
+
+
+def _assert_same(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if isinstance(x, tuple):  # diagnostics
+            _assert_same(x, y)
+        elif isinstance(x, torch.Tensor):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+        else:
+            assert x == y
+
+
+def _calls(prob, variant, seed):
+    """run()'s keywords of one call of `variant`: every call of a variant
+    has the same key, and seeds that differ give other inputs."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (KEPT_CHAINS,) + sampler_api.state_shape(prob)
+    e_mid = float(prob.energy(torch.ones(sampler_api.state_shape(prob))))
+    if variant == "samples_hit_diagnostics":
+        return dict(n_steps=KEPT_STEPS, n_chains=KEPT_CHAINS, sample_every=4, diagnostics=True,
+                    first_hit=-abs(e_mid) * (0.2 + 0.1 * seed),
+                    schedule=0.2 + 2.0 * torch.rand((KEPT_CHAINS, KEPT_STEPS), generator=g))
+    assert variant == "s0_no_hit"
+    return dict(n_steps=KEPT_STEPS, n_chains=KEPT_CHAINS, sample_every=0,
+                schedule=geometric(0.3, 1.0 + seed),
+                s0=torch.where(torch.rand(shape, generator=g) < 0.5, 1.0, -1.0))
+
+
+@pytest.mark.parametrize("variant", ["samples_hit_diagnostics", "s0_no_hit"])
+@pytest.mark.parametrize("name", sorted(KEPT))
+def test_a_repeated_call_takes_the_kept_run_and_equals_a_new_one(name, variant, kept):
+    make, kernel, _ = KEPT[name]
+    prob = make()
+    first, n_first = _reuses(lambda: run(prob, kernel, 1, **_calls(prob, variant, 1)))
+    assert n_first == 0 and len(kept) == 1
+    _assert_same(first, sampler_api._make_run(prob, kernel, 1, **_calls(prob, variant, 1))())
+    for seed in (2, 3):  # a new int seed, betas, target and s0 each call
+        got, n = _reuses(lambda: run(prob, kernel, seed, **_calls(prob, variant, seed)))
+        assert n == 1 and len(kept) == 1
+        _assert_same(got, sampler_api._make_run(prob, kernel, seed, **_calls(prob, variant, seed))())
+    # a caller's generator: kept under its identity, read where it stands
+    g = torch.Generator().manual_seed(9)
+    _, n = _reuses(lambda: run(prob, kernel, g, **_calls(prob, variant, 4)))
+    assert n == 0 and len(kept) == 2
+    state = g.get_state()
+    got, n = _reuses(lambda: run(prob, kernel, g, **_calls(prob, variant, 5)))
+    assert n == 1
+    twin = torch.Generator()
+    twin.set_state(state)
+    _assert_same(got, sampler_api._make_run(prob, kernel, twin, **_calls(prob, variant, 5))())
+    assert torch.equal(g.get_state(), twin.get_state())  # the stream left where a new run leaves it
+    # timeit on a kept run: both passes as the new run's second
+    timed = run(prob, kernel, 6, timeit=True, **_calls(prob, variant, 6))
+    _assert_same(timed._replace(timing=None),
+                 sampler_api._make_run(prob, kernel, 6, **_calls(prob, variant, 6))())
+
+
+# each changes one thing of the call a run was kept for
+MISSES = ("n_chains", "n_steps", "sample_every", "first_hit", "kernel", "problem", "generator",
+          "faults", "edited", "s0_dtype")
+
+
+@pytest.mark.parametrize("change", MISSES)
+@pytest.mark.parametrize("name", sorted(KEPT))
+def test_a_call_of_another_key_misses_and_is_still_right(name, change, kept):
+    make, kernel, field = KEPT[name]
+    prob = make()
+    g = torch.Generator().manual_seed(4)
+    base = dict(n_steps=KEPT_STEPS, n_chains=KEPT_CHAINS, sample_every=5,
+                schedule=geometric(0.3, 2.0))
+    seed = g if change == "generator" else 1
+    run(prob, kernel, seed, **base)
+    kw = dict(base)
+    if change == "n_chains":
+        kw["n_chains"] = KEPT_CHAINS + 1
+    elif change == "n_steps":
+        kw["n_steps"] = KEPT_STEPS + 1
+    elif change == "sample_every":
+        kw["sample_every"] = 4
+    elif change == "first_hit":
+        kw["first_hit"] = -1.0
+    elif change == "kernel":
+        kernel = dataclasses.replace(kernel, lambda0=2.0)
+    elif change == "problem":
+        prob = make()  # equal values, another object
+    elif change == "generator":
+        seed = torch.Generator().manual_seed(4)
+    elif change == "faults":
+        kw["faults"] = FaultModel(dropout=0.2)
+    elif change == "edited":
+        getattr(prob, field).mul_(0.5)
+    elif change == "s0_dtype":
+        run(prob, kernel, 1, s0=torch.ones((KEPT_CHAINS,) + sampler_api.state_shape(prob)), **base)
+        kw["s0"] = torch.ones((KEPT_CHAINS,) + sampler_api.state_shape(prob), dtype=torch.float64)
+    twin = seed
+    if isinstance(seed, torch.Generator):
+        twin = torch.Generator()
+        twin.set_state(seed.get_state())
+    got, n = _reuses(lambda: run(prob, kernel, seed, **kw))
+    assert n == 0
+    _assert_same(got, sampler_api._make_run(prob, kernel, twin, **kw)())
+    if change == "faults":  # the fault model is bound anew every call: nothing kept
+        assert _reuses(lambda: run(prob, kernel, 1, **kw))[1] == 0
+    if change == "edited":  # an edit to a non-finite value is probed again
+        getattr(prob, field).view(-1)[1] = float("nan")
+        with pytest.raises(sampler_api.NonFiniteEnergyError):
+            run(prob, kernel, 1, **kw)
+
+
+def test_the_store_keeps_the_most_recently_used_runs_up_to_its_bound(kept):
+    make, kernel, _ = KEPT["tau_leap"]
+    probs = [make() for _ in range(sampler_api.KEPT_RUNS + 3)]
+    kw = dict(n_steps=8, n_chains=2)
+    for i, prob in enumerate(probs):
+        run(prob, kernel, i, **kw)
+        assert len(kept) == min(i + 1, sampler_api.KEPT_RUNS)
+        if i == sampler_api.KEPT_RUNS - 1:  # the first, used again when full, outlives the rest
+            assert _reuses(lambda: run(probs[0], kernel, 0, **kw))[1] == 1
+    ids = {key[0] for key in kept}
+    assert ids == {id(p) for p in [probs[0]] + probs[-(sampler_api.KEPT_RUNS - 1):]}
+    assert _reuses(lambda: run(probs[1], kernel, 0, **kw))[1] == 0  # evicted: a new run
+
+
+def test_a_call_that_raises_leaves_no_run_behind(kept, monkeypatch):
+    make, kernel, field = KEPT["tau_leap"]
+    prob = make()
+    kw = dict(n_steps=8, n_chains=2)
+    run(prob, kernel, 0, **kw)
+    assert len(kept) == 1
+
+    def fail(*args, **kwargs):
+        raise RuntimeError("a step failed")
+
+    with monkeypatch.context() as m:
+        m.setattr(TauLeap, "update", fail)
+        with pytest.raises(RuntimeError, match="a step failed"):
+            run(prob, kernel, 1, **kw)  # took the kept run, and does not put it back
+    assert len(kept) == 0
+    got, n = _reuses(lambda: run(prob, kernel, 1, **kw))
+    assert n == 0 and len(kept) == 1
+    _assert_same(got, sampler_api._make_run(prob, kernel, 1, **kw)())
+    bad = make()
+    getattr(bad, field)[0, 1] = float("inf")
+    with pytest.raises(sampler_api.NonFiniteEnergyError):
+        run(bad, kernel, 0, **kw)
+    assert len(kept) == 1
+
+
+def test_drop_kept_runs_empties_the_store(kept):
+    make, kernel, _ = KEPT["tau_leap"]
+    prob = make()
+    for n_steps in (4, 8):
+        run(prob, kernel, 0, n_steps=n_steps)
+    assert len(kept) == 2
+    sampler_api.drop_kept_runs()
+    assert len(kept) == 0
+    assert _reuses(lambda: run(prob, kernel, 0, n_steps=4))[1] == 0

@@ -106,6 +106,64 @@ def test_one_call_record_per_outermost_call_counts_its_blocks():
     assert names.count("sampler.validate") == 1 and names[-1] == "sampler.release"
 
 
+@pytest.mark.parametrize("name", sorted(RUNS))
+def test_a_repeated_call_takes_the_kept_run_without_the_probe(name, monkeypatch):
+    """A call of a kept run's key: `sampler.validate` without the
+    finite-energy probe, no capture, one `sampler.reuses`."""
+    make, kernel, kw = RUNS[name]
+    prob = make()
+    probes = []
+    probe = sampler_api._check_finite
+    monkeypatch.setattr(sampler_api, "_check_finite", lambda p: probes.append(p) or probe(p))
+    sampler_api.drop_kept_runs()
+    try:
+        _, records, _ = _profiled(lambda: [sampler_api.run(prob, kernel, seed, **kw)
+                                           for seed in (1, 2)])
+    finally:
+        sampler_api.drop_kept_runs()
+    assert probes == [prob]  # the first call's
+    blocks = len(plan_blocks(kw["n_steps"], kw["sample_every"], GRAPH_STEPS))
+    for record, reuses in zip(records, (0, 1)):
+        assert record["counts"]["sampler.reuses"] == reuses
+        assert record["counts"]["sampler.captures"] == 0  # the CPU runs every block eagerly
+        assert [s["name"] for s in record["spans"]] == [
+            "sampler.validate", "sampler.init"] + ["sampler.eager"] * blocks + [
+            "sampler.results", "sampler.release"]
+
+
+@pytest.mark.cuda
+def test_a_repeated_call_on_the_card_replays_every_block():
+    """On the card the second call of a key (SK at n = 2000, the CAL
+    letters) captures nothing and runs no eager block, and equals the eager
+    loop of a new run bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (an sm_90 card); chip_smoke.py checks the driver there")
+    cases = [
+        (problems.sk_instance(2000, 3, device="cuda"), sampler_api.TauLeap(dt=0.1, backend="cuda"),
+         dict(n_steps=200, n_chains=256, sample_every=50, schedule=sampler_api.geometric(0.3, 3.0))),
+        (problems.cal_problem(device="cuda"), sampler_api.ChromaticGibbs(backend="cuda"),
+         dict(n_steps=100, n_chains=512, sample_every=50, first_hit=-930.0,
+              schedule=sampler_api.geometric(0.3, 3.0))),
+    ]
+    for prob, kernel, kw in cases:
+        sampler_api.drop_kept_runs()
+        try:
+            first = tracing.counts()
+            sampler_api.run(prob, kernel, 1, **kw)
+            before = tracing.counts()
+            got = sampler_api.run(prob, kernel, 2, **kw)
+            after = tracing.counts()
+        finally:
+            sampler_api.drop_kept_runs()
+        assert before["sampler.captures"] > first["sampler.captures"]
+        assert after["sampler.captures"] == before["sampler.captures"]
+        assert after["sampler.eager_blocks"] == before["sampler.eager_blocks"]
+        assert after["sampler.reuses"] == before["sampler.reuses"] + 1
+        want = sampler_api._make_run(prob, kernel, 2, eager=True, **kw)()
+        for a, b in zip(got[:7], want[:7]):
+            assert (a is None and b is None) or torch.equal(a, b)
+
+
 def test_cd_step_nests_the_sampler_run_in_its_model_phase():
     _, (record,), annotations = _profiled(_cd_step)
     assert record["name"] == "boltzmann.cd_step"
