@@ -2,9 +2,9 @@
 call, the way a user anneals or solves: a fresh seed, all chains as the rows
 of one call, the results read back on the host.
 
-Traffic keys: `kernel` ({"name": "tau_leap", "dt": ...} or {"name":
-"chromatic_gibbs"}), `backend`, `n_chains`, `n_steps`, `schedule`
-({"kind": "geometric", "beta0", "beta1"}), `sample_every`,
+Traffic keys: `kernel` (the name of a kernel the program registers and its
+parameters, e.g. {"name": "tau_leap", "dt": 0.1}), `backend`, `n_chains`,
+`n_steps`, `schedule` ({"kind": "geometric", "beta0", "beta1"}), `sample_every`,
 `first_hit_per_site` (the first-hit target over the sites), `instance` (what the
 configuration's reference builds the couplings from, where the traffic
 gives them), `check_jobs`, `trace_jobs`, `step_kernel`, `step_work`.
@@ -37,13 +37,12 @@ HIT_BAND = 1e-6
 
 
 def _kernel(spec: dict):
+    """The program's kernel registered under `spec["name"]`, built with the
+    spec's other keys as its parameters."""
     from repro_torch.core import sampler_api
 
-    if spec["name"] == "tau_leap":
-        return sampler_api.TauLeap(dt=spec["dt"])
-    if spec["name"] == "chromatic_gibbs":
-        return sampler_api.ChromaticGibbs()
-    raise ValueError(f"unknown sampler kernel {spec['name']!r}")
+    params = {k: v for k, v in spec.items() if k != "name"}
+    return sampler_api.get_kernel(spec["name"], **params)
 
 
 def _schedule(spec: dict):
@@ -62,7 +61,7 @@ class Cell:
         self.ref_schedules = load_module("reference", "schedules", root)
         self.inst_seed = derive_seed(seed, "instance")
         inst = self.ref.instance(config, traffic.get("instance"), self.inst_seed, device)
-        self.problem = problem(config["reference"], inst)
+        self.problem = problem(self.ref.KIND, inst)
         self.kernel = _kernel(traffic["kernel"])
         self.schedule = _schedule(traffic["schedule"])
         self.chains, self.steps = traffic["n_chains"], traffic["n_steps"]
@@ -72,6 +71,8 @@ class Cell:
         self.steps_per_job = self.steps
         self.updates_per_job = self.chains * sites * self.steps
         self.shape = {"chains": self.chains, "sites": sites}  # what the rooflines read
+        if "nbr_idx" in inst:  # a sparse graph: its neighbour slots and colour classes
+            self.shape.update(degree=inst["nbr_idx"].shape[1], colours=inst["color_masks"].shape[0])
 
     def job(self, j):
         """One run() call with job j's seed; its results on the host."""

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+KIND = "dense"  # the program's problem kind an instance of this reference makes
+
 
 def codes(J: torch.Tensor, bits: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(float64 integer codes, f32 scale) of J on a signed `bits`-bit grid,

@@ -1,6 +1,8 @@
 """A checkout of the benchmark cut to sizes the CPU runs in seconds: every
-cell of `BENCHMARK.json` with its own configuration, traffic and limits,
-fewer chains, steps and sites (the names of the cells stay)."""
+configuration and traffic file with its own `tiny` object (the top-level
+keys it overrides) written over it, so every cell keeps its name and its
+limits and runs fewer chains, steps and sites. A cell brings its CPU test
+sizes in its own files; nothing here names one."""
 from __future__ import annotations
 
 import json
@@ -11,28 +13,19 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 BENCH = REPO / "bench"
 
-# what each tiny cell changes in the real configuration and traffic
-SHRINK_CONFIG = {"sk2000": {"n": 64}}
-SHRINK_TRAFFIC = {
-    "anneal": {"n_chains": 8, "n_steps": 60, "sample_every": 20, "check_jobs": 3},
-    "solve": {"n_chains": 8, "n_steps": 60, "first_hit_per_site": -0.55, "check_jobs": 3},
-    "cal_solve": {"n_chains": 16, "n_steps": 40, "sample_every": 10, "check_jobs": 2},
-    "cd": {"check_jobs": 3},
-}
 
-
-def tiny_root(tmp: Path) -> Path:
-    """A checkout under `tmp`: bench/ copied with tiny sizes written over its
-    configurations and traffic, BENCHMARK.json, and the program's source
-    linked in."""
+def tiny_root(tmp: Path, source: Path = REPO) -> Path:
+    """A checkout under `tmp`: `source`'s bench/ and BENCHMARK.json with each
+    configuration's and traffic mix's `tiny` sizes written over it, and the
+    program's source linked in."""
     root = tmp / "checkout"
-    shutil.copytree(BENCH, root / "bench", ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    shutil.copy(REPO / "BENCHMARK.json", root / "BENCHMARK.json")
+    shutil.copytree(source / "bench", root / "bench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    shutil.copy(source / "BENCHMARK.json", root / "BENCHMARK.json")
     os.symlink(REPO / "src", root / "src")
-    for name, change in SHRINK_CONFIG.items():
-        path = root / "bench" / "configs" / f"{name}.json"
-        path.write_text(json.dumps({**json.loads(path.read_text()), **change}))
-    for name, change in SHRINK_TRAFFIC.items():
-        path = root / "bench" / "traffic" / f"{name}.json"
-        path.write_text(json.dumps({**json.loads(path.read_text()), **change}))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    configs = [root / c["file"] for c in bench["configs"]]
+    for path in configs + sorted((root / "bench" / "traffic").glob("*.json")):
+        data = json.loads(path.read_text())
+        path.write_text(json.dumps({**data, **data["tiny"]}))
     return root

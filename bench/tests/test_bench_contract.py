@@ -107,3 +107,15 @@ def test_every_cell_reports_setup_another_end_to_end_and_a_layer():
         for m in layers:  # each per-layer metric moves a metric its cells report
             assert m["moves"] in {x["name"] for x in mine}
 
+
+
+def test_every_cell_brings_its_cpu_test_sizes():
+    """A cell's configuration and traffic files each hold a `tiny` object of
+    the top-level keys they override on the CPU (bench/tests/bench_tiny.py
+    reads nothing else)."""
+    configs = {c["name"]: c["file"] for c in B["configs"]}
+    for w in B["workloads"]:
+        for path in (REPO / configs[w["config"]], REPO / "bench" / "traffic" / f"{w['traffic']}.json"):
+            data = json.loads(path.read_text())
+            assert isinstance(data.get("tiny"), dict), f"{path} has no tiny sizes"
+            assert set(data["tiny"]) <= set(data) - {"tiny"}, path

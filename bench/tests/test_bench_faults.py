@@ -1,10 +1,11 @@
 """A run whose timed path is broken underneath comes out not correct: the
 harness runs a whole cell on the CPU (no look for a card) with each fault a
 cell can have planted in the program, and `correct` is false. Faults: a step
-that returns its state unchanged; half of the batch left out (the step's
-second half of the chains untouched; CD's means over half the batch); an
-answer altered where it is produced. (No cell spans chips, so none can
-leave out an exchange between them.)"""
+that returns its state unchanged; half of the batch left out (the step of
+every kernel the program registers leaves the second half of the chains as
+they were; CD's means over half the batch); an answer altered where it is
+produced. (No cell spans chips, so none can leave out an exchange between
+them.)"""
 import json
 import time
 
@@ -14,13 +15,12 @@ import torch
 from bench import harness
 from bench_tiny import REPO, tiny_root
 from repro_torch.core import boltzmann, sampler_api
-from repro_torch.kernels import ops
 
 CELLS = [w["name"] for w in json.loads((REPO / "BENCHMARK.json").read_text())["workloads"]]
 
 
 def _unchanged(monkeypatch, cell):
-    for kernel in (sampler_api.TauLeap, sampler_api.ChromaticGibbs):
+    for kernel in sampler_api.KERNELS.values():  # every kernel the program registers
         monkeypatch.setattr(kernel, "update", lambda self, problem, state, *a, **k: state)
 
 
@@ -29,14 +29,15 @@ def _half_batch(monkeypatch, cell):
         monkeypatch.setattr(boltzmann, "batch_mean",
                             lambda x: torch.sum(x[: x.shape[0] // 2], 0) * (1.0 / (x.shape[0] // 2)))
         return
-    for name in ("tau_leap_step", "lattice_gibbs_sweep"):
-        real = getattr(ops, name)
+    for kernel in sampler_api.KERNELS.values():
+        real = kernel.update
 
-        def half(s, *a, real=real, **k):
-            out = real(s, *a, **k)
-            return torch.cat([out[: s.shape[0] // 2], s[s.shape[0] // 2:]])
+        def half(self, problem, state, *a, real=real, **k):
+            out = real(self, problem, state, *a, **k)
+            keep = state.s.shape[0] // 2
+            return out._replace(s=torch.cat([out.s[:keep], state.s[keep:]]))
 
-        monkeypatch.setattr(ops, name, half)
+        monkeypatch.setattr(kernel, "update", half)
 
 
 def _answer_altered(monkeypatch, cell):

@@ -2,6 +2,7 @@
 metric readers are found by the names BENCHMARK.json gives; a cell brought
 as new files and entries runs with no file that was there edited."""
 import json
+import shutil
 import time
 
 import pytest
@@ -51,6 +52,56 @@ def test_a_new_mix_is_found_without_an_edit(tmp_path):
     assert after == before
 
 
+# a reference of its own for a new configuration: a periodic L x L square
+# lattice with +-J couplings, its graph as the sparse reference's tables and
+# its dynamics the sparse reference's
+SQUARE_REFERENCE = """
+import torch
+
+from bench.common import load_module
+
+sparse = load_module("reference", "sparse")
+KIND = sparse.KIND
+Model = sparse.Model
+
+
+def instance(config, spec, seed, device):
+    L = config["L"]
+    site = torch.arange(L * L, device=device).reshape(L, L)
+    i = torch.cat([site.flatten(), site.flatten()])
+    j = torch.cat([site.roll(-1, 1).flatten(), site.roll(-1, 0).flatten()])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.where(torch.rand(i.shape, generator=gen, device=device) < 0.5, 1.0, -1.0)
+    return sparse.tables(L * L, i, j, w)
+"""
+
+
+def test_a_new_configuration_with_its_own_reference_is_found_without_an_edit(tmp_path):
+    src = tmp_path / "src"
+    src.mkdir()
+    shutil.copytree(REPO / "bench", src / "bench", ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(REPO / "BENCHMARK.json", src / "BENCHMARK.json")
+    before = {p.relative_to(src): p.read_bytes() for p in (src / "bench").rglob("*") if p.is_file()}
+    (src / "bench" / "reference" / "square_pm_j.py").write_text(SQUARE_REFERENCE)
+    (src / "bench" / "configs" / "square32.json").write_text(json.dumps(
+        {"name": "square32", "reference": "square_pm_j", "L": 32, "tiny": {"L": 6}}))
+    (src / "bench" / "limits" / "square32.solve.json").write_text(json.dumps({"chains_differ": 0.0}))
+    bench = json.loads((src / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "square32", "source": "a test", "file": "bench/configs/square32.json",
+                             "reduced": [], "why": "a new configuration"})
+    bench["workloads"].append({"name": "square32.solve", "config": "square32",
+                               "traffic": "colored_solve", "chips": 1, "why": "a new sparse cell"})
+    (src / "BENCHMARK.json").write_text(json.dumps(bench))
+    root = tiny_root(tmp_path, source=src)
+    line, checks, run = harness.run_cell(root, "square32.solve", 2**31 + 99, 0.3, False,
+                                         t0=time.perf_counter(), device="cpu", card=False)
+    assert line["correct"] and run.jobs >= 1, checks
+    assert run.cell.shape == {"chains": 8, "sites": 36, "degree": 4, "colours": 2}
+    # no file that was there changed: BENCHMARK.json took two entries, the rest is new files
+    assert {p: (src / p).read_bytes() for p in before} == before
+    assert before == {p: (REPO / p).read_bytes() for p in before}
+
+
 def test_derived_seeds_differ_and_repeat():
     big = 2**31 + 12345
     assert derive_seed(big, "job", 0) == derive_seed(big, "job", 0)
@@ -60,3 +111,23 @@ def test_derived_seeds_differ_and_repeat():
 
 def test_the_bench_folder_is_where_the_files_are():
     assert BENCH == REPO / "bench"
+
+
+def test_an_unknown_problem_kind_raises():
+    from bench.program import problem
+
+    with pytest.raises(ValueError, match="'lattice'"):
+        problem("lattice", {"w": None, "b": None})
+    for name in ("dense", "king", "sparse"):
+        assert load_module("reference", name).KIND in ("dense", "king", "sparse")
+
+
+def test_a_kernel_of_the_traffic_is_the_programs_registered_one():
+    from repro_torch.core import sampler_api
+
+    entry = load_module("entries", "sampler_run")
+    assert entry._kernel({"name": "tau_leap", "dt": 0.1}) == sampler_api.TauLeap(dt=0.1)
+    assert entry._kernel({"name": "chromatic_gibbs"}) == sampler_api.ChromaticGibbs()
+    assert entry._kernel({"name": "colored_gibbs"}) == sampler_api.ColoredGibbs()
+    with pytest.raises(KeyError, match="no_such_kernel"):
+        entry._kernel({"name": "no_such_kernel"})

@@ -86,3 +86,52 @@ def test_the_digit_batch_follows_its_segments():
     noisy = king.digit_batch(spec, 1, "cpu")
     share = float((noisy != clean[0]).float().mean())
     assert 0.03 < share < 0.09  # flip 0.06
+
+
+@pytest.mark.parametrize("n", [4, 64, 1000])
+def test_the_3regular_graph_is_simple_and_3_regular(n):
+    sparse = load_module("reference", "sparse")
+    inst = sparse.instance({"graph": "random_3regular_maxcut", "n": n}, None, 2**31 + n, "cpu")
+    idx, w = inst["nbr_idx"].tolist(), inst["nbr_w"]
+    assert inst["deg"].tolist() == [3] * n and torch.equal(w, torch.ones(n, 3))
+    assert float(inst["b"].abs().max()) == 0.0
+    for i, row in enumerate(idx):
+        assert row == sorted(set(row)) and len(row) == 3 and i not in row
+        assert all(i in idx[j] for j in row)  # every edge in both rows
+
+
+@pytest.mark.parametrize("seed", [1, 2**31 + 9])
+def test_the_sparse_colouring_is_proper_and_the_programs(seed):
+    from repro_torch.core import sparse as program_sparse
+
+    sparse = load_module("reference", "sparse")
+    inst = sparse.instance({"graph": "random_3regular_maxcut", "n": 512}, None, seed, "cpu")
+    masks = inst["color_masks"]
+    assert torch.equal(masks.sum(0), torch.ones(512, dtype=torch.long))
+    colour = masks.to(torch.int64).argmax(0)
+    assert not bool((colour[inst["nbr_idx"].long()] == colour[:, None]).any())
+    want = program_sparse.colors_to_masks(program_sparse.color_graph(
+        inst["nbr_idx"].numpy(), inst["deg"].numpy()))
+    assert np.array_equal(masks.numpy(), want)
+
+
+def test_the_sparse_energy_is_the_sum_over_edges():
+    sparse = load_module("reference", "sparse")
+    gen = torch.Generator().manual_seed(4)
+    i, j = sparse.random_3regular(40, gen)
+    w = torch.randn(i.shape, generator=gen)
+    inst = sparse.tables(40, i, j, w)
+    inst["b"] = torch.randn(40, generator=gen)
+    s = torch.where(torch.rand(5, 40, generator=gen) < 0.5, 1.0, -1.0)
+    want = [sum(float(w[e]) * float(x[i[e]]) * float(x[j[e]]) for e in range(60))
+            + float(inst["b"].double() @ x.double()) for x in s]
+    np.testing.assert_allclose(sparse.energy64(s, inst).numpy(), want, rtol=1e-12, atol=1e-9)
+
+
+def test_the_maxcut_target_is_a_cut_of_085_of_the_edges():
+    mix = json.loads((REPO / "bench" / "traffic" / "colored_solve.json").read_text())
+    n = json.loads((REPO / "bench" / "configs" / "maxcut3r16k.json").read_text())["n"]
+    edges = 3 * n // 2
+    # E = edges - 2 cut with J = +1 on every edge: a cut of 0.85 edges is E = -0.7 edges
+    assert mix["first_hit_per_site"] * n == pytest.approx(edges - 2 * 0.85 * edges, rel=1e-12)
+    assert mix["first_hit_per_site"] * n == pytest.approx(-0.7 * edges, rel=1e-12)
