@@ -15,7 +15,8 @@ exits nonzero without printing the final result line:
                 together), with ptxas's registers and spills.
      sass     — the toolkit's cuobjdump -sass of libflash_attention.so,
                 libtau_leap.so, libdense_field.so, libsparse_fields.so,
-                libcolored_gibbs.so and liblattice_gibbs.so: the count of
+                libcolored_gibbs.so, libcolored_gibbs_long.so and
+                liblattice_gibbs.so: the count of
                 HGMMA, UTMALDG, LDGSTS, IMMA, LDG and LDS instructions in
                 each kernel, and ptxas's registers and spills of the two
                 sparse libraries, the lattice library and the tau-leap
@@ -206,6 +207,22 @@ exits nonzero without printing the final result line:
      timing_faults — each variant at its base kernel's timing shape with a
                 bias on every row and dropout 0.1, beside its plain version
                 and its bound.
+  The long-row colour sweep (rows of n > 116224 sites, csrc/
+  colored_gibbs_long.cu):
+     check_long_sweep — three chained sweeps against the plain version bit
+                for bit, per-row beta, at (64, 512000) on the 3D +-J EA
+                lattice at L = 80 (two parity classes, degree 6), at
+                (16, 131072) on random_3regular_maxcut's greedy colouring,
+                and ragged at (5, 116230) on such a graph with its tables
+                padded to 8 slots, each call counted as
+                colored_gibbs_sweep_long;
+     long_sweep_run — run(ColoredGibbs(), backend="cuda") at L = 80, 64
+                chains, 60 sweeps at beta 1.4285714, 3 samples, graphed,
+                equal to the plain backend on the card (s, samples,
+                energies), 60 long-row launches;
+     timing_long_sweep — its CUDA-event median at (64, 512000) beside its
+                bound, its sector floor, its plain version and the
+                uniforms' draw.
 
   8. serve    — the serving stack at full width, random weights from seed 0:
                 phi4-mini-3p8b (8 requests), gemma-2b, olmoe-1b-7b (4 each),
@@ -325,6 +342,7 @@ script's elapsed seconds, the build included) and
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -447,13 +465,15 @@ FLASH_KV_LEN_CASES = [(16, 1536, 1536, 64, 1500), (16, 128, 1536, 64, 1500),
 
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "IMMA", "LDG", "LDS")
 SASS_LIBS = ("flash_attention", "tau_leap", "dense_field", "sparse_fields", "colored_gibbs",
-             "lattice_gibbs")
+             "colored_gibbs_long", "lattice_gibbs")
 # each kernel's name in the libraries' SASS, and the instructions it must hold
 SASS_KERNELS = {"flash_bf16_kernel": ("HGMMA", "UTMALDG"), "flash_f32_kernel": (),
                 "tau_leap_kernel": ("LDGSTS", "IMMA"), "pack_spins_kernel": (),
                 "dense_field_kernel": ("LDGSTS", "IMMA"),
                 "sparse_fields_staged": ("LDS",), "sparse_fields_global": (),
-                "colored_gibbs_kernel": ("LDS",), "lattice_gibbs_plan": ("LDS",),
+                "colored_gibbs_kernel": ("LDS",), "colored_gibbs_long_pack": (),
+                "colored_gibbs_long_phase": (), "colored_gibbs_long_unpack": (),
+                "lattice_gibbs_plan": ("LDS",),
                 "lattice_gibbs_generic": ("LDS",)}
 # the 64 x 65536-site rows sparse_fields_global is timed on: as many
 # outputs as the main path's (256, 16384)
@@ -2115,6 +2135,153 @@ def sparse_target(prob) -> float:
     return n_edges * (1.0 - 2.0 * CUT_MIN)
 
 
+# The long-row colour sweep (rows of n > 116224 sites): the 3D +-J EA glass
+# at Janus's L = 80 under its two parity classes, 64 chains (the benchmark's
+# ea3d80.aging), and a random 3-regular graph past the shared-memory kernel's
+# rows under its greedy colouring; run()'s graphed sweeps at L = 80.
+LONG_EA = dict(L=80, n_chains=64)
+LONG_3REGULAR = dict(n=131072, n_chains=16)
+# ragged: n % 4 = 2 (no 16-byte rows), 5 chains (padded to 16), the tables
+# padded to 8 slots (plan rows of 12 columns, read through the cache)
+LONG_RAGGED = dict(n=116230, n_chains=5, slots=8)
+LONG_RUN = dict(n_chains=64, n_steps=60, sample_every=20, beta=1.4285714)
+
+
+def ea3d_problem(torch, L: int, seed: int, dev):
+    """The periodic L^3 cubic lattice with +-1 couplings from `seed` (one a
+    +x, +y, +z edge of each site, the same both ways), each site's six
+    neighbours in ascending slots, and its two parity classes."""
+    from repro_torch.core.sparse import SparseIsing
+
+    n = L**3
+    z, y, x = (a.flatten() for a in torch.meshgrid(*(torch.arange(L, device=dev),) * 3,
+                                                    indexing="ij"))
+
+    def site(x, y, z):
+        return x % L + L * ((y % L) + L * (z % L))
+
+    up = torch.stack([site(x + 1, y, z), site(x, y + 1, z), site(x, y, z + 1)], 1)
+    down = torch.stack([site(x - 1, y, z), site(x, y - 1, z), site(x, y, z - 1)], 1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    j_up = torch.where(torch.rand((n, 3), generator=gen, device=dev) < 0.5, 1.0, -1.0)
+    j_down = j_up[down, torch.arange(3, device=dev)]
+    idx = torch.cat([up, down], 1)
+    order = idx.argsort(1)
+    parity = (x + y + z) % 2
+    return SparseIsing(nbr_idx=idx.gather(1, order).to(torch.int32),
+                       nbr_w=torch.cat([j_up, j_down], 1).gather(1, order).contiguous(),
+                       deg=torch.full((n,), 6, dtype=torch.int32, device=dev),
+                       b=torch.zeros(n, device=dev), color_masks=torch.stack([parity == 0,
+                                                                              parity == 1]))
+
+
+def long_sweep_phase(torch, np, dev, reset, read, smi) -> dict:
+    """The long-row sweep against its plain version bit for bit (three
+    chained sweeps at each graph, per-row beta), the graphed
+    ColoredGibbs run at L = 80 against its plain backend on the card, then
+    the kernel's time at (64, 512000) beside its bound, its sector floor
+    and its plain version. Returns the kernels line's entry."""
+    from repro_torch.core import problems
+    from repro_torch.core.sampler_api import ColoredGibbs, constant, run
+    from repro_torch.kernels import ops, sparse_gather
+
+    ragged = problems.random_3regular_maxcut(LONG_RAGGED["n"], 4, device=dev)
+    pads = LONG_RAGGED["slots"] - ragged.max_deg
+    own = torch.arange(ragged.n, dtype=torch.int32, device=dev)[:, None].repeat(1, pads)
+    ragged = dataclasses.replace(
+        ragged, nbr_idx=torch.cat([ragged.nbr_idx, own], 1).contiguous(),
+        nbr_w=torch.cat([ragged.nbr_w, torch.zeros(own.shape, device=dev)], 1).contiguous())
+    cases = [("ea3d", ea3d_problem(torch, LONG_EA["L"], 1, dev), LONG_EA["n_chains"]),
+             ("3regular", problems.random_3regular_maxcut(LONG_3REGULAR["n"], 3, device=dev),
+              LONG_3REGULAR["n_chains"]),
+             ("3regular_ragged", ragged, LONG_RAGGED["n_chains"])]
+    mism, max_err = 0, 0.0
+    for graph, prob, B in cases:
+        n = prob.n
+        if sparse_gather.sweep_kernel(n) != "colored_gibbs_sweep_long":
+            raise AssertionError(f"long_sweep: n = {n} does not take the long-row kernel")
+        masks = prob.color_masks.float()
+        plan = sparse_gather.colour_plan(prob.nbr_idx, prob.nbr_w, prob.b, masks)
+        if not plan.independent:
+            raise AssertionError(f"long_sweep: the {graph} colouring is not independent sets")
+        gen = torch.Generator(device=dev).manual_seed(n)
+        s = torch.where(torch.rand((B, n), generator=gen, device=dev) < 0.5, 1.0, -1.0)
+        beta = 0.3 + 2.7 * torch.rand((B,), generator=gen, device=dev)
+        got = want = s
+        reset()
+        for _ in range(3):
+            u = torch.rand((masks.shape[0], B, n), generator=gen, device=dev)
+            got = sparse_gather.colored_gibbs_sweep(got, prob.nbr_idx, prob.nbr_w, prob.b, u,
+                                                    masks, beta, plan=plan)
+            want = ops.colored_gibbs_sweep(want, prob.nbr_idx, prob.nbr_w, prob.b, u, masks,
+                                           beta, mode="reference")
+        torch.cuda.synchronize()
+        launches = read()
+        differ = int((got != want).sum())
+        case_err = float((got - want).abs().max())
+        if differ or launches["colored_gibbs_sweep_long"] != 3 or launches["colored_gibbs_sweep"]:
+            raise AssertionError(f"long_sweep ({B},{n},{graph}): {differ} spins differ from the "
+                                 f"plain version, launches {launches}")
+        mism += differ
+        max_err = max(max_err, case_err)
+        emit({"phase": "check_long_sweep", "B": B, "n": n, "graph": graph,
+              "max_deg": prob.max_deg, "colors": len(plan.counts), "counts": list(plan.counts),
+              "sweeps": 3, "mismatches": differ, "max_abs_err": case_err})
+
+    # the main path: run() graphs the sweep's C + 2 launches and its
+    # scratch; the same run on the plain backend, on the card, bit for bit
+    ea = cases[0][1]
+    kw = dict(n_steps=LONG_RUN["n_steps"], n_chains=LONG_RUN["n_chains"],
+              sample_every=LONG_RUN["sample_every"], schedule=constant(LONG_RUN["beta"]))
+    reset()
+    res_k = run(ea, ColoredGibbs(), 2147483907, backend="cuda", **kw)
+    run_launches = read()
+    res_r = run(ea, ColoredGibbs(), 2147483907, backend="ref", **kw)
+    run_differ = {k: int((getattr(res_k, k) != getattr(res_r, k)).sum())
+                  for k in ("s", "samples", "energies")}
+    run_err = max(float((getattr(res_k, k) - getattr(res_r, k)).abs().max())
+                  for k in ("s", "samples"))
+    max_err = max(max_err, run_err)
+    if any(run_differ.values()) or run_launches["colored_gibbs_sweep_long"] != kw["n_steps"]:
+        raise AssertionError(f"long_sweep run(): {run_differ} differ between the cuda and the "
+                             f"plain backend, launches {run_launches}")
+    emit({"phase": "long_sweep_run", "problem": f"ea3d L={LONG_EA['L']}", **LONG_RUN,
+          "mismatches": run_differ, "max_abs_err": run_err,
+          "launches": run_launches["colored_gibbs_sweep_long"]})
+
+    B, n, D = LONG_EA["n_chains"], ea.n, ea.max_deg
+    masks = ea.color_masks.float()
+    C = masks.shape[0]
+    plan = sparse_gather.colour_plan(ea.nbr_idx, ea.nbr_w, ea.b, masks)
+    s = torch.where(torch.rand((B, n), device=dev) < 0.5, 1.0, -1.0)
+    u = torch.rand((C, B, n), device=dev)
+    beta = torch.full((B,), LONG_RUN["beta"], dtype=torch.float32, device=dev)
+    tables = (ea.nbr_idx, ea.nbr_w, ea.b)
+    ms = {"colored_gibbs_sweep_long": time_ms(torch, lambda: sparse_gather.colored_gibbs_sweep(
+              s, *tables, u, masks, beta, plan=plan)),
+          "colored_gibbs_sweep_long_plain": time_ms(torch, lambda: ops.colored_gibbs_sweep(
+              s, *tables, u, masks, beta, mode="reference"), n=10, warmup=2),
+          "uniforms": time_ms(torch, lambda: torch.rand((C, B, n), device=dev))}
+    updated = float(masks.sum())
+    bound_ms, bound_by = bound(4 * (2 * B * n + B * updated + 2 * n * D + n + C * n + B),
+                               B * updated * (2 * D + 6), FP32_OPS_PER_S)
+    u_sectors = sum(int(torch.unique(plan.sites[a:z] // 8).numel())
+                    for a, z in zip(plan.offsets[:-1].tolist(), plan.offsets[1:].tolist()))
+    plan_bytes = sum(x.numel() * x.element_size() for x in (plan.offsets, plan.idx, plan.w))
+    floor_ms = (4 * 2 * B * n + 32 * B * u_sectors + plan_bytes + 4 * B) / HBM_BYTES_PER_S * 1e3
+    emit({"phase": "timing_long_sweep", "shape": [B, n], "max_deg": D, "colors": C,
+          "ms": ms, "bound_ms": bound_ms,
+          "bound_by": bound_by, "sector_floor_ms": floor_ms, "nvidia_smi": smi})
+    return {"name": "colored_gibbs_sweep_long", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/colored_gibbs_long.cu",
+            "replaces": "src/repro/kernels/sparse_gather.py:126",
+            "launches": run_launches["colored_gibbs_sweep_long"], "max_abs_err": max_err,
+            "mismatches": mism, "ms": ms["colored_gibbs_sweep_long"],
+            "plain_ms": ms["colored_gibbs_sweep_long_plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "shape": [B, n],
+            "sector_floor_ms": floor_ms}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch").is_dir():
@@ -2188,7 +2355,8 @@ def main() -> int:
     missing += [f"no {k} in the libraries" for k in SASS_KERNELS if k not in found]
     emit({"phase": "sass", "counts": sass, "ptxas": {
         lib: ptxas_by_kernel((build_dir / f"{lib}.log").read_text())
-        for lib in ("tau_leap", "sparse_fields", "colored_gibbs", "lattice_gibbs")}})
+        for lib in ("tau_leap", "sparse_fields", "colored_gibbs", "colored_gibbs_long",
+                    "lattice_gibbs")}})
     if missing:
         raise AssertionError("SASS: " + "; ".join(missing))
 
@@ -2701,6 +2869,7 @@ def main() -> int:
           "base_ms": {k: ms[k.removesuffix("_faults")] for k in FAULT_VARIANTS
                       if k.removesuffix("_faults") in ms},
           "nvidia_smi": smi})
+    long_entry = long_sweep_phase(torch, np, dev, *counters(), smi)
 
     # flash_attention at the main_attention shapes, causal bf16, beside its
     # plain version and scaled_dot_product_attention (timed only). Bound:
@@ -3222,6 +3391,7 @@ def main() -> int:
                    "src/repro/kernels/sparse_gather.py:126",
                    sp["cuda_first_hit"]["launches"]["colored_gibbs_sweep"], None),
              sector_floor_ms=sector_floor_ms),
+        long_entry,
         dict(entry("flash_attention", csrc + "flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:85",
                    sum(a["launches"]["flash_attention"] for a in attention.values())

@@ -502,12 +502,16 @@ class ColoredGibbs:
     one sweep over the color classes = one update per site (model time
     1/lambda0 per sweep).
 
-    `backend="cuda"` runs the whole sweep of all chains as ONE launch of
+    `backend="cuda"` runs the whole sweep of all chains as ONE call of
     `ops.colored_gibbs_sweep`, each row with its own beta, over the colour
     plan that `init` builds once (its one wait for the device is there, not
-    in the step loop). The ref path recomputes the gathered fields once per
-    color phase. Both draw the sweep's (C, n_chains, n) uniforms in one call
-    and sum the fields in the same slot order.
+    in the step loop; span `sampler.colour_plan`, counter
+    `sampler.colour_plans`). Rows of more than 116224 sites take the
+    long-row kernel (`sparse_gather.sweep_kernel`), which needs the classes
+    to be independent sets and takes no field noise or dropout. The ref
+    path recomputes the gathered fields once per color phase. Both draw the
+    sweep's (C, n_chains, n) uniforms in one call and sum the fields in the
+    same slot order.
 
     Faults: stuck sites leave every colour class for the run (`init`
     builds the masks, and the plan, from masks & ~stuck); field noise is
@@ -544,7 +548,9 @@ class ColoredGibbs:
         aux = masks
         if self.backend == "cuda":  # the plan of the very masks step() passes the kernel
             fmasks = masks.float()
-            aux = (fmasks, colour_plan(problem.nbr_idx, problem.nbr_w, problem.b, fmasks))
+            with tracing.span("sampler.colour_plan"):
+                aux = (fmasks, colour_plan(problem.nbr_idx, problem.nbr_w, problem.b, fmasks))
+            tracing.count("sampler.colour_plans")
         t0 = torch.zeros((s0.shape[0],), dtype=torch.float32, device=dev)
         return KernelState(s=s0, t=t0, e=None, aux=aux)
 

@@ -217,7 +217,8 @@ class SparseIsing:
         return cls.from_numpy(nbr_idx, nbr_w, deg, b, color_masks, device=device)
 
     def validate(self) -> None:
-        """Raise ValueError on a malformed instance (host-side)."""
+        """Raise ValueError on a malformed instance (host-side, in memory of
+        the order of the tables: the couplings are never densified)."""
         idx = self.nbr_idx.cpu().numpy()
         w = self.nbr_w.cpu().numpy()
         deg = self.deg.cpu().numpy()
@@ -241,8 +242,7 @@ class SparseIsing:
             raise ValueError("padded neighbor slots must carry zero weight")
         if np.any(idx[~pad] == np.arange(n)[:, None].repeat(md, 1)[~pad]):
             raise ValueError("self-coupling in a live neighbor slot (zero-diagonal convention)")
-        J = self.to_dense().J.cpu().numpy()
-        if not np.allclose(J, J.T, atol=1e-6):
+        if not _symmetric(idx, w):
             raise ValueError(
                 "couplings are not symmetric: every edge (i, j, w) must be "
                 "stored in BOTH row i and row j"
@@ -257,6 +257,24 @@ class SparseIsing:
             live = ~pad
             if np.any(colors[idx][live] == colors[:, None].repeat(md, 1)[live]):
                 raise ValueError("color_masks is not a proper coloring (edge within a color)")
+
+
+def _symmetric(idx: np.ndarray, w: np.ndarray, rtol: float = 1e-5, atol: float = 1e-6) -> bool:
+    """Whether the (n, n) couplings the tables stand for, J[i, j] the sum of
+    row i's slots that name j (pads add 0 on the diagonal), equal their
+    transpose as `np.allclose(J, J.T, rtol, atol)` would find: checked at
+    every (i, j) where J or J.T has a slot, in both orders, without forming
+    J (elsewhere both are 0)."""
+    n, md = idx.shape
+    key = np.repeat(np.arange(n, dtype=np.int64), md) * n + idx.reshape(-1).astype(np.int64)
+    keys, inv = np.unique(key, return_inverse=True)
+    a = np.bincount(inv.reshape(-1), weights=w.reshape(-1).astype(np.float64),
+                    minlength=keys.size)
+    tkeys = (keys % n) * n + keys // n
+    pos = np.minimum(np.searchsorted(keys, tkeys), max(keys.size - 1, 0))
+    b = np.where(keys[pos] == tkeys, a[pos], 0.0) if keys.size else a  # J.T at each key
+    gap = np.abs(a - b)
+    return bool(np.all(gap <= atol + rtol * np.abs(b)) and np.all(gap <= atol + rtol * np.abs(a)))
 
 
 def color_graph(nbr_idx: np.ndarray, deg: np.ndarray) -> np.ndarray:

@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)  # a host array of ints
 # C signature of each launcher: (symbol, argtypes). Pointers and the stream
 # are c_void_p, so ctypes passes them as 64-bit values.
 LAUNCHERS = {
@@ -47,6 +48,7 @@ LAUNCHERS = {
     "sparse_fields": ("sparse_fields_launch", [_P] * 5 + [_I] * 5 + [_P]),
     "colored_gibbs": ("colored_gibbs_launch", [_P] * 7 + [_I] * 6 + [_P]),
     "colored_gibbs_faults": ("colored_gibbs_faults_launch", [_P] * 9 + [_I] * 6 + [_P]),
+    "colored_gibbs_long": ("colored_gibbs_long_launch", [_P] * 7 + [_IP] + [_I] * 5 + [_P]),
     "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 8 + [_P]),
 }
 # The library of a launcher that does not live in csrc/<its name>.cu

@@ -6,8 +6,12 @@ Two kernels over the padded `SparseIsing` layout (`repro_torch.core.sparse`):
                          Source `csrc/sparse_fields.cu`, two kernels chosen
                          by n (below), counted apart in `launches`.
   colored_gibbs_sweep  — one chromatic Gibbs sweep over all colour classes,
-                         one chain a block, driven by a colour plan (below).
-                         Source `csrc/colored_gibbs.cu`.
+                         driven by a colour plan (below); two kernels chosen
+                         by n (`sweep_kernel`), counted apart in `launches`:
+                         one chain a block in shared memory while 2n bytes
+                         fit one (n <= 116224, `csrc/colored_gibbs.cu`),
+                         the long-row sweep beyond
+                         (`csrc/colored_gibbs_long.cu`).
 
 Both sum a site's slots in order through `csrc/sparse_gather.cuh`, as
 `ref.sparse_fields_ref` does, so each equals its plain version bit for bit.
@@ -50,6 +54,26 @@ What the designs do about it:
   sees the state before it for any masks. The plan records the tables and
   masks it was built from, and the kernel takes it only with those.
 
+Rows of n > 116224 sites (2n bytes no longer fit a block) take the
+long-row sweep, `colored_gibbs_sweep_long`; the choice is by n, never a
+fallback. At (B, n) = (64, 512000), D = 6, C = 2 (the 3D EA glass at
+L = 80, its two parity classes) the work its inputs need is
+4 (3 B n + 2 n D + n + C n + B) = 423.9 MB, 126.5 µs at 3.35 TB/s (its
+0.59 GFLOP take 8.8 µs); with parity classes every sector of a phase's
+uniform plane is touched, so about 555 MB, 165.7 µs, is the floor in the
+JAX layout. Neither the plan (32 MB) nor a chain (1 MB of int8, 131 MB of
+f32 state) fits a block, so the chains live in an int8 scratch in device
+memory, site major (row i: site i of every chain, 32.8 MB, within L2): a
+pack launch (a transpose), one launch per colour that updates the scratch
+in place (one thread per plan entry and 16 chains, so a plan row is read
+once for many chains and a neighbour's 16 chains come in one 16-byte load),
+and an unpack launch, all on the caller's stream, so a CUDA graph captures
+the sweep with no host sync. In place is exact only where the classes are
+independent sets (each site in at most one, no edge inside one): every
+plan records whether its classes are (`ColourPlan.independent`), and at
+these rows the wrapper refuses any other plan, and fault operands, with the
+reason.
+
 The sweep's fault variant, chosen by its operands and counted apart in
 `launches_faults`: a (B, n) per-row bias, the whole b + eta of
 field noise, read with the uniforms in place of the plan's b_i, and a
@@ -60,7 +84,9 @@ of bias and 4.2 MB of keep more: about 72 MB, bound 21.5 µs.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+import itertools
 from typing import NamedTuple
 
 import torch
@@ -71,7 +97,8 @@ from repro_torch.kernels._checks import (MAX_SMEM_BYTES, check_cuda, check_fault
 
 # chip_smoke.py resets and reads these; "sparse_fields" counts the staged
 # kernel, "sparse_fields_global" the one for rows too long to stage
-launches = {"sparse_fields": 0, "sparse_fields_global": 0, "colored_gibbs_sweep": 0}
+launches = {"sparse_fields": 0, "sparse_fields_global": 0, "colored_gibbs_sweep": 0,
+            "colored_gibbs_sweep_long": 0}
 launches_faults = {"colored_gibbs_sweep_faults": 0}  # the sweep's fault variant
 
 # Rows a fields block stages, at most, and the threads of a block of
@@ -99,6 +126,13 @@ def fields_rows(B: int, n: int, sms: int) -> int:
     return min(FIELDS_MAX_ROWS, fit, max(1, -(-B // sms)))
 
 
+def sweep_kernel(n: int) -> str:
+    """The sweep kernel that takes rows of n sites: the shared-memory
+    "colored_gibbs_sweep" while two int8 copies of a chain fit one block
+    (2n <= MAX_SMEM_BYTES: n <= 116224), else "colored_gibbs_sweep_long"."""
+    return "colored_gibbs_sweep" if 2 * n <= MAX_SMEM_BYTES else "colored_gibbs_sweep_long"
+
+
 class ColourPlan(NamedTuple):
     """The colour classes of a sparse problem as the sweep kernel walks them.
 
@@ -108,6 +142,11 @@ class ColourPlan(NamedTuple):
     w:       (L, P) f32   — the D couplings, zero pads, and b_site last.
     counts:  the C list lengths, on the host.
     n, D:    the problem's sites and neighbour slots.
+    independent: whether the classes are independent sets
+             (`independent_classes`): the long-row kernel (`sweep_kernel`)
+             updates a phase in place and takes only such a plan; the
+             shared-memory kernel reads each phase's state from a second
+             buffer and takes any.
     source:  (tensor, version) of each of nbr_idx, nbr_w, b and masks as
              the plan read them: the kernel takes the plan only with these
              very tensors, unchanged since (`check_plan`).
@@ -122,6 +161,7 @@ class ColourPlan(NamedTuple):
     counts: tuple
     n: int
     D: int
+    independent: bool
     source: tuple
 
     @property
@@ -134,8 +174,9 @@ def colour_plan(nbr_idx: torch.Tensor, nbr_w: torch.Tensor, b: torch.Tensor,
                 masks: torch.Tensor) -> ColourPlan:
     """The colour plan of (C, n) masks (bool, or f32 with a site in colour c
     where masks[c] > 0.5) over the (n, D) tables, on the tables' device.
-    Waits for the device once (the lists' lengths): build it once per
-    problem, not per sweep, and pass the kernel these same tensors."""
+    Waits for the device once (the lists' lengths and whether the classes
+    are independent sets): build it once per problem, not per sweep, and
+    pass the kernel these same tensors."""
     n, D = nbr_idx.shape
     sel = masks.to(torch.float32) > 0.5
     counts = sel.sum(1)
@@ -149,7 +190,24 @@ def colour_plan(nbr_idx: torch.Tensor, nbr_w: torch.Tensor, b: torch.Tensor,
     w[:, :D] = nbr_w[sites]
     w[:, -1] = b[sites]
     source = tuple((x, x._version) for x in (nbr_idx, nbr_w, b, masks))
-    return ColourPlan(offsets, idx, w, tuple(counts.tolist()), n, D, source)
+    independent = independent_classes(nbr_idx, sel)
+    *counts, independent = torch.cat([counts, independent[None].to(counts.dtype)]).tolist()
+    return ColourPlan(offsets, idx, w, tuple(counts), n, D, bool(independent), source)
+
+
+def independent_classes(nbr_idx: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """Whether the (C, n) bool classes `sel` over the (n, D) tables are
+    independent sets, as a bool scalar on their device: each site in at
+    most one class, and no slot in range names another site of the site's
+    own class (a pad names the site itself)."""
+    n = nbr_idx.shape[0]
+    if sel.shape[0] == 0:
+        return torch.ones((), dtype=torch.bool, device=nbr_idx.device)
+    cls = torch.where(sel.any(0), sel.to(torch.int32).argmax(0), -1)  # -1: in no class
+    j = nbr_idx.long()
+    slot = (j != torch.arange(n, device=j.device)[:, None]) & (j >= 0) & (j < n)
+    inside = slot & (cls[j.clamp(0, max(n - 1, 0))] == cls[:, None]) & (cls[:, None] >= 0)
+    return ~((sel.sum(0) > 1).any() | inside.any())
 
 
 def _check_tables(s, nbr_idx, nbr_w, b):
@@ -220,6 +278,21 @@ def _launch_sweep(s, plan: ColourPlan, uniforms, beta, out, threads: int, device
     _build.check("colored_gibbs_sweep", code)
 
 
+def _launch_sweep_long(s, plan: ColourPlan, uniforms, beta, out, device) -> None:
+    """The long-row sweep: pack, a launch per colour, unpack, over an int8
+    scratch copy of the chains, site major with the chains padded to 16."""
+    B, n = s.shape
+    C = len(plan.counts)
+    st = torch.empty((n, -(-B // 16) * 16), dtype=torch.int8, device=device)
+    offsets = (ctypes.c_int * (C + 1))(*itertools.accumulate(plan.counts, initial=0))
+    code = _build.launcher("colored_gibbs_long")(
+        s.data_ptr(), st.data_ptr(), out.data_ptr(), plan.idx.data_ptr(), plan.w.data_ptr(),
+        uniforms.data_ptr(), beta.data_ptr(), offsets, B, n, plan.D, plan.idx.shape[1], C,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check("colored_gibbs_sweep_long", code)
+
+
 def sparse_fields(
     s: torch.Tensor, nbr_idx: torch.Tensor, nbr_w: torch.Tensor, b: torch.Tensor
 ) -> torch.Tensor:
@@ -255,23 +328,38 @@ def colored_gibbs_sweep(
     these very tables and masks (`check_plan`); without one the call
     builds it (and waits for the device once). `bias_rows` ((B,n) f32)
     and `keep` ((B,n) bool or uint8), either optional, take the fault
-    variant (module docstring)."""
+    variant (module docstring). Rows of n > 116224 sites go to the
+    long-row kernel (`sweep_kernel`), which takes no fault operands and
+    only a plan of independent classes."""
     dev, B, n, D = _check_tables(s, nbr_idx, nbr_w, b)
     C = masks.shape[0] if masks.ndim == 2 else -1
     check_tensor("masks", masks, torch.float32, (C, n), dev)
     check_tensor("uniforms", uniforms, torch.float32, (C, B, n), dev)
     check_tensor("beta", beta, torch.float32, (B,), dev)
     faults = check_fault_operands(s, bias_rows, keep, dev)
-    if 2 * n > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"n = {n} sites need {2 * n} bytes of shared memory per block (two "
-            f"int8 copies of a chain); the card allows {MAX_SMEM_BYTES}"
+    long_rows = sweep_kernel(n) == "colored_gibbs_sweep_long"
+    if long_rows and faults is not None:
+        raise NotImplementedError(
+            f"n = {n} sites take the long-row sweep (two int8 copies of a chain, {2 * n} "
+            f"bytes, exceed a block's {MAX_SMEM_BYTES} of shared memory), which has no "
+            "fault variant: no field noise (bias_rows) or update dropout (keep) at this n"
         )
     if plan is None:
         plan = colour_plan(nbr_idx, nbr_w, b, masks)
     check_plan(plan, nbr_idx, nbr_w, b, masks)
+    if long_rows and not plan.independent:
+        raise ValueError(
+            f"n = {n} sites take the long-row sweep (two int8 copies of a chain, {2 * n} "
+            f"bytes, exceed a block's {MAX_SMEM_BYTES} of shared memory), which updates "
+            "each phase in place: its colour classes must be independent sets (each "
+            "site in at most one, no edge inside one), and these masks are not"
+        )
     out = torch.empty((B, n), dtype=torch.float32, device=dev)
     if B == 0 or n == 0:
+        return out
+    if long_rows:
+        _launch_sweep_long(s, plan, uniforms, beta, out, dev)
+        launches["colored_gibbs_sweep_long"] += 1
         return out
     variant = () if faults is None else (faults,)  # the base kernel's launch call unchanged
     _launch_sweep(s, plan, uniforms, beta, out, _block_threads(n), dev, *variant)

@@ -31,12 +31,16 @@ probe or a kept run taken and renewed), `sampler.init`, `sampler.eager` (an
 eager block), `sampler.capture` (a block captured into a CUDA graph, torch's
 device sync and cache emptying on entering the capture included),
 `sampler.results` and `sampler.release` (the run kept, and the least
-recently used beyond the store's bound freed); `boltzmann.cd_step` holds `boltzmann.model` (with its
+recently used beyond the store's bound freed); `sampler.init` holds
+`sampler.colour_plan` where `ColoredGibbs` on the cuda backend builds its
+colour plan (`sparse_gather.colour_plan`, with its waits for the device);
+`boltzmann.cd_step` holds `boltzmann.model` (with its
 `sampler.run`), `boltzmann.correlations`, `boltzmann.update` and
 `boltzmann.quantize`. Its counters, each 0 before its first count:
 `sampler.calls`, `sampler.eager_blocks`, `sampler.captures`,
-`sampler.replays` and `sampler.reuses` (calls that took a kept run, which
-validate without the finite-energy probe and replay every block).
+`sampler.replays`, `sampler.reuses` (calls that took a kept run, which
+validate without the finite-energy probe and replay every block) and
+`sampler.colour_plans` (the colour plans built).
 """
 from __future__ import annotations
 
@@ -62,7 +66,7 @@ MAX_CALLS = 1024
 _NULL = contextlib.nullcontext()
 _counters: dict[str, int] = dict.fromkeys(
     ("sampler.calls", "sampler.eager_blocks", "sampler.captures", "sampler.replays",
-     "sampler.reuses"), 0)
+     "sampler.reuses", "sampler.colour_plans"), 0)
 _calls: collections.deque = collections.deque(maxlen=MAX_CALLS)
 _ids = itertools.count()
 _local = threading.local()  # each thread's open spans

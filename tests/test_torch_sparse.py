@@ -296,7 +296,7 @@ def test_ops_modes_on_cpu_and_the_kernel_wrapper_checks():
     with pytest.raises(ValueError, match="mode"):
         ops.sparse_fields(ts, *tables, mode="pallas")
     assert sparse_gather.launches == {"sparse_fields": 0, "sparse_fields_global": 0,
-                                      "colored_gibbs_sweep": 0}
+                                      "colored_gibbs_sweep": 0, "colored_gibbs_sweep_long": 0}
 
 
 @pytest.mark.cuda

@@ -7,9 +7,10 @@ card, so here its phase loop is emulated in plain torch over the plan (new
 spins scattered to a second buffer at the colour's sites, then copied back)
 and held bit for bit against the plain version, and within the band of
 tests/test_torch_sparse.py against the JAX oracle and the Pallas kernel in
-interpret mode. The wrappers' choices (the fields kernel by n, the rows and
-threads of a block, the plan and the operands it was built from) are
-checked with the launch replaced.
+interpret mode; so is the long-row kernel's in-place phase loop, emulated
+in tests/test_torch_sparse_long.py. The wrappers' choices (the fields
+kernel by n, the rows and threads of a block, the plan and the operands it
+was built from) are checked with the launch replaced.
 
 Inputs are made with numpy from a seed and go through both packages."""
 import numpy as np
@@ -27,6 +28,7 @@ from repro_torch.core.sampler_api import ColoredGibbs, run
 from repro_torch.core.sparse import SparseIsing
 from repro_torch.kernels import ops, ref, sparse_gather
 from repro_torch.kernels._checks import MAX_SMEM_BYTES
+from test_torch_sparse_long import _emulate_long_sweep, _lattice
 
 torch.set_num_threads(1)
 
@@ -201,6 +203,40 @@ def test_plan_sweep_emulation_matches_jax_oracle_and_pallas(name):
         assert not np.any(differ & ~band), np.argwhere(differ & ~band)[:5]
 
 
+@pytest.mark.parametrize("name", ["ea6", "maxcut4096", "dense40"])
+def test_long_sweep_emulation_matches_jax_oracle_and_pallas(name):
+    """The long-row kernel's in-place phases, emulated over the plan
+    (tests/test_torch_sparse_long.py), against the JAX oracle and the Pallas
+    sweep, on classes that are independent sets: the periodic 6^3 +-J
+    lattice under its parity classes, and two greedy colourings."""
+    if name == "ea6":
+        tp = _lattice(6)
+        jp = jsparse.SparseIsing(*(jnp.asarray(x.numpy()) for x in (
+            tp.nbr_idx, tp.nbr_w, tp.deg, tp.b, tp.color_masks)))
+        masks = tp.color_masks.numpy()
+    else:
+        jp, tp, masks = _case(name)
+    B = 2 if name == "maxcut4096" else 4
+    rng = np.random.default_rng(23 + len(name))
+    s = rng.choice([-1.0, 1.0], (B, tp.n)).astype(np.float32)
+    u = rng.random((masks.shape[0], B, tp.n)).astype(np.float32)
+    beta = 1.3
+    tm = torch.as_tensor(masks)
+    ts, tu, tbeta = torch.as_tensor(s), torch.as_tensor(u), torch.full((B,), beta)
+    plan = sparse_gather.colour_plan(tp.nbr_idx, tp.nbr_w, tp.b, tm)
+    assert plan.independent
+    got = _emulate_long_sweep(ts, plan, tu, tbeta).numpy()
+    band = _band(tp, ts, tu, tm, tbeta).numpy()
+    want = jref.colored_gibbs_sweep_ref(_f32(s), jp.nbr_idx, jp.nbr_w, jp.b, _f32(u),
+                                        jnp.asarray(masks), jnp.float32(beta))
+    pallas = jsg.colored_gibbs_sweep(_f32(s), jp.nbr_idx, jp.nbr_w, jp.b, _f32(u),
+                                     _f32(masks), jnp.float32(beta), block_batch=B,
+                                     interpret=True)
+    for other in (want, pallas):
+        differ = got != np.asarray(other)
+        assert not np.any(differ & ~band), np.argwhere(differ & ~band)[:5]
+
+
 # ---------------------------------------------------------------------------
 # ColoredGibbs keeps the plan
 # ---------------------------------------------------------------------------
@@ -348,12 +384,15 @@ def test_colored_gibbs_sweep_wrapper_builds_or_checks_the_plan(no_card):
     bad = plan._replace(idx=plan.idx[:, :3].contiguous())
     with pytest.raises(ValueError, match="plan.idx"):
         sparse_gather.colored_gibbs_sweep(s, *tables, u, masks, beta, plan=bad)
-    n = MAX_SMEM_BYTES // 2 + 2  # two int8 copies of one chain no longer fit a block
+    # two int8 copies of one chain no longer fit a block: the long-row kernel
+    # takes the call, and it refuses one class holding every edge
+    n = MAX_SMEM_BYTES // 2 + 2
     idx, w, b = _ring(n)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="shared memory.*independent sets"):
         sparse_gather.colored_gibbs_sweep(torch.ones((1, n)), idx, w, b, torch.rand((1, 1, n)),
                                           torch.ones((1, n)), torch.ones(1))
     assert sparse_gather.launches["colored_gibbs_sweep"] == 2
+    assert sparse_gather.launches["colored_gibbs_sweep_long"] == 0
 
 
 @pytest.mark.cuda

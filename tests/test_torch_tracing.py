@@ -131,6 +131,32 @@ def test_a_repeated_call_takes_the_kept_run_without_the_probe(name, monkeypatch)
             "sampler.results", "sampler.release"]
 
 
+@pytest.mark.parametrize("backend", ["cuda", "ref"])
+def test_the_colour_plan_is_a_span_inside_init_and_counted(backend):
+    """`ColoredGibbs` on the cuda backend builds its colour plan in
+    `sampler.init`, inside a `sampler.colour_plan` span, once a call (a kept
+    run builds it again); the plain backend builds none."""
+    prob = problems.random_3regular_maxcut(40, 3, device=CPU)
+    kw = dict(n_steps=30, n_chains=3, sample_every=10, backend=backend)
+    sampler_api.drop_kept_runs()
+    try:
+        _, records, _ = _profiled(lambda: [sampler_api.run(prob, sampler_api.ColoredGibbs(), seed,
+                                                           **kw) for seed in (1, 2)])
+    finally:
+        sampler_api.drop_kept_runs()
+    blocks = len(plan_blocks(kw["n_steps"], kw["sample_every"], GRAPH_STEPS))
+    plan = ["sampler.colour_plan"] if backend == "cuda" else []
+    for record in records:
+        spans = record["spans"]
+        assert [s["name"] for s in spans] == ["sampler.validate", "sampler.init", *plan] + [
+            "sampler.eager"] * blocks + ["sampler.results", "sampler.release"]
+        assert record["counts"]["sampler.colour_plans"] == len(plan)
+        if plan:
+            init, inner = spans[1], spans[2]
+            assert inner["parent"] == init["id"] and inner["root"] == record["id"]
+            assert init["start_ns"] <= inner["start_ns"] <= inner["end_ns"] <= init["end_ns"]
+
+
 @pytest.mark.cuda
 def test_a_repeated_call_on_the_card_replays_every_block():
     """On the card the second call of a key (SK at n = 2000, the CAL
