@@ -15,8 +15,8 @@ exits nonzero without printing the final result line:
                 together), with ptxas's registers and spills.
      sass     — the toolkit's cuobjdump -sass of libflash_attention.so,
                 libtau_leap.so, libdense_field.so, libsparse_fields.so,
-                libcolored_gibbs.so, libcolored_gibbs_long.so and
-                liblattice_gibbs.so: the count of
+                libcolored_gibbs.so, libcolored_gibbs_long.so,
+                libsparse_energy.so and liblattice_gibbs.so: the count of
                 HGMMA, UTMALDG, LDGSTS, IMMA, LDG and LDS instructions in
                 each kernel, and ptxas's registers and spills of the two
                 sparse libraries, the lattice library and the tau-leap
@@ -126,7 +126,8 @@ exits nonzero without printing the final result line:
                 template): clamped half exact, free half agreement > 0.9.
      main_sparse — ColoredGibbs on random_3regular_maxcut(16384, 0), 256
                 chains x 1000 sweeps, the same three runs: cut fraction of
-                the edges >= 0.85, cuda and ref within 1%; then the fields
+                the edges >= 0.85, cuda and ref within 1%, the cuda runs'
+                energies through the sparse energy kernel; then the fields
                 of the final states through ops.sparse_fields (1 launch):
                 0.5 s.h + b.s equals SparseIsing.energy exactly.
      main_attention — ops.flash_attention at the prefill attention of two
@@ -223,6 +224,27 @@ exits nonzero without printing the final result line:
      timing_long_sweep — its CUDA-event median at (64, 512000) beside its
                 bound, its sector floor, its plain version and the
                 uniforms' draw.
+  The sparse energy (csrc/sparse_energy.cu: run()'s first-hit and recorded
+  energy under ColoredGibbs(backend="cuda")):
+     check_sparse_energy — both routes, each call counted as its route:
+                the staged kernel (n <= 58112) on the 3-regular graphs of
+                check_sparse, (4, 3, 4096) samples and a ring at
+                n = 58112, the long-row pair on the EA lattice at
+                (320, 512000) and (64, 5, 125000), a ring at n = 58113 and
+                the ragged (5, 116230) graph with 8 slots: on every case,
+                Gaussian couplings, biases and states included, bit for bit
+                against its order of summation emulated in plain torch
+                (sparse_gather.energy_in_kernel_order); against
+                ref.sparse_energy_ref bit for bit on +-1 states with +-1
+                couplings, and otherwise within ENERGY_EPS * n *
+                (0.5 sum|s h| + sum|b s|) + ENERGY_EPS |E|;
+     sparse_energy_run — graphed run(ColoredGibbs(), backend="cuda") with
+                first_hit on maxcut3r n = 16384 and on the L = 50 lattice
+                against the plain backend on the card (s, samples,
+                energies, hit, t_hit), the energy launches counted;
+     timing_sparse_energy — both routes' CUDA-event medians at (256,
+                16384), D = 3 and (320, 512000), D = 6, beside their bounds
+                and the plain version.
 
   8. serve    — the serving stack at full width, random weights from seed 0:
                 phi4-mini-3p8b (8 requests), gemma-2b, olmoe-1b-7b (4 each),
@@ -465,7 +487,7 @@ FLASH_KV_LEN_CASES = [(16, 1536, 1536, 64, 1500), (16, 128, 1536, 64, 1500),
 
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "IMMA", "LDG", "LDS")
 SASS_LIBS = ("flash_attention", "tau_leap", "dense_field", "sparse_fields", "colored_gibbs",
-             "colored_gibbs_long", "lattice_gibbs")
+             "colored_gibbs_long", "sparse_energy", "lattice_gibbs")
 # each kernel's name in the libraries' SASS, and the instructions it must hold
 SASS_KERNELS = {"flash_bf16_kernel": ("HGMMA", "UTMALDG"), "flash_f32_kernel": (),
                 "tau_leap_kernel": ("LDGSTS", "IMMA"), "pack_spins_kernel": (),
@@ -473,6 +495,8 @@ SASS_KERNELS = {"flash_bf16_kernel": ("HGMMA", "UTMALDG"), "flash_f32_kernel": (
                 "sparse_fields_staged": ("LDS",), "sparse_fields_global": (),
                 "colored_gibbs_kernel": ("LDS",), "colored_gibbs_long_pack": (),
                 "colored_gibbs_long_phase": (), "colored_gibbs_long_unpack": (),
+                "sparse_energy_rows": ("LDS",), "sparse_energy_tile": ("LDS",),
+                "sparse_energy_sum": (),
                 "lattice_gibbs_plan": ("LDS",),
                 "lattice_gibbs_generic": ("LDS",)}
 # the 64 x 65536-site rows sparse_fields_global is timed on: as many
@@ -1029,8 +1053,11 @@ def fault_paths(torch, dev, sk, cal, mc, targets, reset, read, smi) -> dict:
                 raise AssertionError(f"faults {name}, {label}: {differ} differ, launches "
                                      f"{la} / {lb}")
         if kname is not None:
-            want_f = dict(zero, **{kname + "_faults": 2 * FAULT_STEPS})
-            want_c = dict(zero, **{kname: 2 * FAULT_STEPS})
+            energy = ({"sparse_energy": energy_launches(FAULT_STEPS, FAULT_SAMPLE_EVERY,
+                                                        targets[name])}
+                      if kname == "colored_gibbs_sweep" else {})
+            want_f = dict(zero, **{kname + "_faults": 2 * FAULT_STEPS}, **energy)
+            want_c = dict(zero, **{kname: 2 * FAULT_STEPS}, **energy)
         else:
             want_f = want_c = zero
         if f_l != want_f or c_l != want_c:
@@ -2036,6 +2063,14 @@ def cut_fraction(prob, s):
     return (n_edges - prob.energy(s)) / (2 * n_edges)
 
 
+def energy_launches(steps: int, sample_every: int, first_hit, passes: int = 2) -> int:
+    """The sparse energy's launches in `passes` passes of a ColoredGibbs
+    run() on the cuda backend: the first state's, one a step with
+    first_hit, and one over the recorded samples."""
+    samples = bool(sample_every) and steps // sample_every > 0
+    return passes * (1 + (steps if first_hit is not None else 0) + samples)
+
+
 def gibbs_runs(prob, kernel, runs, reset, read, *, n_chains, n_sweeps, sample_every,
                timeit=True):
     """Drive run() once per (label, backend, first_hit) of `runs` with
@@ -2282,6 +2317,172 @@ def long_sweep_phase(torch, np, dev, reset, read, smi) -> dict:
             "sector_floor_ms": floor_ms}
 
 
+# The sparse energy (csrc/sparse_energy.cu). Its terms are SparseIsing.energy's
+# bit for bit and only the order of the sum over the sites differs, so on +-1
+# states with +-1 couplings it is exact, and otherwise within the bound of any
+# two orders of n - 1 rounded adds: ENERGY_EPS * n * (0.5 sum|s h| + sum|b s|)
+# + ENERGY_EPS |E| (the halving is exact; the last add rounds once more).
+ENERGY_EPS = 2.0**-23
+ENERGY_TIMING = ((256, 16384), (320, 512000))  # (rows, n): maxcut3r16k's sweep, ea3d80's
+ENERGY_RUN = dict(n_chains=64, n_steps=200, sample_every=50)
+
+
+def energy_band(torch, s, idx, w, b):
+    """The widest |E_kernel - E_plain| two sum orders allow (ENERGY_EPS)."""
+    s64 = s.double()
+    h = torch.zeros_like(s64)
+    for k in range(idx.shape[1]):
+        h = h + w[:, k].double() * s64.index_select(-1, idx[:, k])
+    n = s.shape[-1]
+    terms = 0.5 * (s64 * h).abs().sum(-1) + (b.double() * s64).abs().sum(-1)
+    e = (0.5 * (s64 * h).sum(-1) + (b.double() * s64).sum(-1)).abs()
+    return ENERGY_EPS * (n * terms + e)
+
+
+def ring(torch, n: int, dev):
+    """A ring of n sites with +-1 couplings from n (each edge's the same
+    both ways) and a pad slot."""
+    i = torch.arange(n, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    j = torch.where(torch.rand((n,), generator=gen, device=dev) < 0.5, 1.0, -1.0)  # edge (i, i+1)
+    idx = torch.stack([(i - 1) % n, (i + 1) % n, i], 1).to(torch.int32)
+    w = torch.stack([j[(i - 1) % n], j, torch.zeros(n, device=dev)], 1).contiguous()
+    return idx, w, torch.zeros(n, device=dev)
+
+
+def sparse_energy_phase(torch, np, dev, reset, read, smi) -> list:
+    """The sparse energy's two routes against the plain version, graphed
+    run()s with first_hit against the plain backend, and the kernels'
+    times beside their bounds and the plain version. Returns the kernels
+    line's two entries."""
+    from repro_torch.core import problems
+    from repro_torch.core.sampler_api import ColoredGibbs, constant, geometric, run
+    from repro_torch.kernels import ops, sparse_gather
+
+    rng = np.random.default_rng(31)
+    ea80 = ea3d_problem(torch, 80, 1, dev)
+    ea50 = ea3d_problem(torch, 50, 2, dev)
+    ragged = problems.random_3regular_maxcut(LONG_RAGGED["n"], 4, device=dev)
+    pads = LONG_RAGGED["slots"] - ragged.max_deg
+    own = torch.arange(ragged.n, dtype=torch.int32, device=dev)[:, None].repeat(1, pads)
+    ragged_tables = (torch.cat([ragged.nbr_idx, own], 1).contiguous(),
+                     torch.cat([ragged.nbr_w, torch.zeros(own.shape, device=dev)], 1).contiguous(),
+                     ragged.b)
+
+    def tables(p):
+        return p.nbr_idx, p.nbr_w, p.b
+
+    def pm1(shape):
+        return torch.where(torch.rand(shape, device=dev) < 0.5, 1.0, -1.0)
+
+    def gaussian(idx, n_rows_shape, scale=0.7):
+        """Gaussian couplings on idx's slots (pads kept at 0), a Gaussian
+        bias and Gaussian states."""
+        n, D = idx.shape
+        w = torch.randn((n, D), device=dev) * scale * (idx != torch.arange(
+            n, device=dev, dtype=torch.int32)[:, None])
+        return torch.randn(n_rows_shape, device=dev), (idx, w.contiguous(),
+                                                      0.3 * torch.randn(n, device=dev))
+
+    mc = {n: problems.random_3regular_maxcut(n, seed, device=dev)
+          for n, seed in ((16384, 0), (40000, 1), (4096, 3))}
+    cases = [  # (label, s, tables, exact)
+        ("3regular", pm1((256, 16384)), tables(mc[16384]), True),
+        ("3regular", pm1((298, 4096)), tables(mc[4096]), True),
+        ("3regular", pm1((2, 40000)), tables(mc[40000]), True),
+        ("3regular_samples", pm1((4, 3, 4096)), tables(mc[4096]), True),
+        ("ring", pm1((2, 58112)), ring(torch, 58112, dev), True),
+        ("ea3d", pm1((320, ea80.n)), tables(ea80), True),
+        ("ea3d_samples", pm1((64, 5, ea50.n)), tables(ea50), True),
+        ("ring", pm1((3, 58113)), ring(torch, 58113, dev), True),
+        ("3regular_ragged", pm1((5, ragged.n)), ragged_tables, True),
+        ("3regular_gaussian", *gaussian(mc[16384].nbr_idx, (256, 16384)), False),
+        ("ea3d_gaussian", *gaussian(ea50.nbr_idx, (3, ea50.n)), False),
+        ("dense_gaussian", *gaussian(torch.as_tensor(rng.integers(0, 5, (5, 4)).astype(np.int32),
+                                                     device=dev), (1, 5)), False),
+    ]
+    err = {"sparse_energy": 0.0, "sparse_energy_long": 0.0}
+    mism = dict.fromkeys(err, 0)
+    for label, s, tabs, exact in cases:
+        n = s.shape[-1]
+        route = sparse_gather.energy_kernel(n)
+        reset()
+        got = sparse_gather.sparse_energy(s, *tabs)
+        launches = read()
+        want = ops.sparse_energy(s, *tabs, mode="reference")
+        torch.cuda.synchronize()
+        if launches != dict(dict.fromkeys(launches, 0), **{route: 1}):
+            raise AssertionError(f"sparse_energy {label} {tuple(s.shape)}: launched {launches}, "
+                                 f"expected one {route}")
+        order = sparse_gather.energy_in_kernel_order(s, *tabs)
+        differ = int((got != want).sum())
+        off_order = int((got != order).sum())
+        case_err = float((got - want).abs().max())
+        band = energy_band(torch, s, *tabs)
+        outside = int(((got.double() - want.double()).abs() > band).sum())
+        if (exact and differ) or off_order or outside or got.shape != want.shape:
+            raise AssertionError(f"sparse_energy {label} {tuple(s.shape)}: {differ} energies "
+                                 f"differ from the plain version, {off_order} from the "
+                                 f"kernel's order, {outside} outside the band, max |dE| "
+                                 f"{case_err}")
+        err[route] = max(err[route], case_err)
+        mism[route] += differ
+        emit({"phase": "check_sparse_energy", "graph": label, "shape": list(s.shape),
+              "max_deg": tabs[0].shape[1], "route": route, "exact": exact, "mismatches": differ,
+              "order_mismatches": off_order, "max_abs_err": case_err,
+              "band_max": float(band.max())})
+        del order
+    del cases
+
+    # run() on both routes, graphed, against the plain backend on the card
+    runs, run_launches = {}, {}
+    for label, prob, schedule, target in (
+            ("maxcut3r", mc[16384], geometric(0.3, 3.0), sparse_target(mc[16384])),
+            ("ea3d_l50", ea50, constant(LONG_RUN["beta"]), -1.5 * ea50.n)):
+        reset()
+        res_k = run(prob, ColoredGibbs(), 2147483931, backend="cuda", schedule=schedule,
+                    first_hit=target, **ENERGY_RUN)
+        torch.cuda.synchronize()
+        launches = read()
+        res_r = run(prob, ColoredGibbs(), 2147483931, backend="ref", schedule=schedule,
+                    first_hit=target, **ENERGY_RUN)
+        differ = {k: int((getattr(res_k, k) != getattr(res_r, k)).sum())
+                  for k in ("s", "samples", "energies", "hit", "t_hit")}
+        route = sparse_gather.energy_kernel(prob.n)
+        want_energy = 1 + ENERGY_RUN["n_steps"] + 1  # e0, a step each, the samples
+        if any(differ.values()) or launches[route] != want_energy:
+            raise AssertionError(f"sparse_energy run() {label}: {differ} differ between the "
+                                 f"cuda and the plain backend, launches {launches}")
+        run_launches[route] = launches[route]
+        runs[label] = {"n": prob.n, "route": route, "mismatches": differ,
+                       "energy_launches": launches[route],
+                       "hit_fraction": float(res_k.hit.float().mean())}
+    emit({"phase": "sparse_energy_run", **ENERGY_RUN, "first_hit": True, "runs": runs})
+
+    ms, bounds, shapes = {}, {}, {}
+    for (B, n), prob in zip(ENERGY_TIMING, (mc[16384], ea80)):
+        route = sparse_gather.energy_kernel(n)
+        D = prob.max_deg
+        s = pm1((B, n))
+        ms[route] = time_ms(torch, lambda: sparse_gather.sparse_energy(s, *tables(prob)))
+        ms[route + "_plain"] = time_ms(torch, lambda: ops.sparse_energy(
+            s, *tables(prob), mode="reference"), n=20 if n < 100000 else 10, warmup=2)
+        bounds[route] = bound(4 * (B * n + n * (2 * D + 1) + B), B * n * (2 * D + 4),
+                              FP32_OPS_PER_S)
+        shapes[route] = [B, n, D]
+    emit({"phase": "timing_sparse_energy", "shapes": shapes, "ms": ms,
+          "bound_ms": {k: v[0] for k, v in bounds.items()},
+          "bound_by": {k: v[1] for k, v in bounds.items()},
+          "rows_per_block": sparse_gather.fields_rows(*ENERGY_TIMING[0],
+                                                      sparse_gather._sm_count(dev)),
+          "nvidia_smi": smi})
+    source = "src/repro_torch/kernels/csrc/sparse_energy.cu"
+    return [{"name": route, "route": "cuda", "source": source, "replaces": None,
+             "launches": run_launches[route], "max_abs_err": err[route], "mismatches": mism[route],
+             "ms": ms[route], "plain_ms": ms[route + "_plain"], "bound_ms": bounds[route][0], "bound_by": bounds[route][1], "library_ms": None,
+             "shape": shapes[route]} for route in ("sparse_energy", "sparse_energy_long")]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch").is_dir():
@@ -2356,7 +2557,7 @@ def main() -> int:
     emit({"phase": "sass", "counts": sass, "ptxas": {
         lib: ptxas_by_kernel((build_dir / f"{lib}.log").read_text())
         for lib in ("tau_leap", "sparse_fields", "colored_gibbs", "colored_gibbs_long",
-                    "lattice_gibbs")}})
+                    "sparse_energy", "lattice_gibbs")}})
     if missing:
         raise AssertionError("SASS: " + "; ".join(missing))
 
@@ -2870,6 +3071,7 @@ def main() -> int:
                       if k.removesuffix("_faults") in ms},
           "nvidia_smi": smi})
     long_entry = long_sweep_phase(torch, np, dev, *counters(), smi)
+    energy_entries = sparse_energy_phase(torch, np, dev, *counters(), smi)
 
     # flash_attention at the main_attention shapes, causal bf16, beside its
     # plain version and scaled_dot_product_attention (timed only). Bound:
@@ -3046,8 +3248,9 @@ def main() -> int:
                     reset, read, **kw)
     n_sweeps = SPARSE_MAIN["n_sweeps"]
     for label, m in sp.items():
-        expect(label, m["launches"],
-               **({"colored_gibbs_sweep": 2 * n_sweeps} if m["backend"] == "cuda" else {}))
+        energy = {"sparse_energy": energy_launches(n_sweeps, kw["sample_every"], m["first_hit"])}
+        expect(label, m["launches"], **({"colored_gibbs_sweep": 2 * n_sweeps, **energy}
+                                        if m["backend"] == "cuda" else {}))
         m["cut_fraction"] = float(cut_fraction(mc, m["final_state"]).mean())
     cuts = (sp["cuda_first_hit"]["cut_fraction"], sp["ref_first_hit"]["cut_fraction"])
     if min(cuts) < CUT_MIN or abs(cuts[0] - cuts[1]) > CUT_REL_GAP * cuts[1]:
@@ -3150,7 +3353,8 @@ def main() -> int:
     res8 = run(sp8, ColoredGibbs(), 3, n_steps=sp_sweeps, n_chains=sp_chains, sample_every=2,
                backend="cuda")
     sp_launches = read()
-    expect("sparse stats", sp_launches, colored_gibbs_sweep=sp_sweeps)
+    expect("sparse stats", sp_launches, colored_gibbs_sweep=sp_sweeps,
+           sparse_energy=energy_launches(sp_sweeps, 2, None, passes=1))
     tv_sp = tv_to(p8, res8.samples[:, 5:], 8)
     if not (tv_lat < TV_GIBBS_MAX and tv_sp < TV_GIBBS_MAX):
         raise AssertionError(f"TV distances {tv_lat} (lattice), {tv_sp} (sparse) are not "
@@ -3224,7 +3428,9 @@ def main() -> int:
                                      f"graphed, {e_launch} eager")
             kname = {"sk_tau_leap": "tau_leap_step", "cal_chromatic": "lattice_gibbs_sweep",
                      "maxcut3r_colored": "colored_gibbs_sweep"}.get(name)
-            expect(f"graph {label}", g_launch, **({kname: 2 * steps} if kname else {}))
+            energy = ({"sparse_energy": energy_launches(steps, every, first_hit)}
+                      if name == "maxcut3r_colored" else {})
+            expect(f"graph {label}", g_launch, **({kname: 2 * steps} if kname else {}), **energy)
             graph_eager[label] = {
                 "n_chains": chains, "n_steps": steps, "identical": list(fields),
                 "graph_us_per_step": g_wall / steps * 1e6,
@@ -3392,6 +3598,7 @@ def main() -> int:
                    sp["cuda_first_hit"]["launches"]["colored_gibbs_sweep"], None),
              sector_floor_ms=sector_floor_ms),
         long_entry,
+        *energy_entries,
         dict(entry("flash_attention", csrc + "flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:85",
                    sum(a["launches"]["flash_attention"] for a in attention.values())

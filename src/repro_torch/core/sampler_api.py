@@ -587,6 +587,17 @@ class ColoredGibbs:
         """One sweep over the graph's color classes for every chain."""
         return self.update(problem, state, beta, *self.draw(problem, state, generator, beta, faults))
 
+    def energy_fn(self, problem: SparseIsing):
+        """The energy `run()` takes of the states and samples: on the cuda
+        backend one call of `ops.sparse_energy` over the problem's tables
+        (the hand-written kernel on a CUDA problem), else None (`run()`
+        takes `problem.energy`). Both give `SparseIsing.energy`'s terms; the
+        kernel sums them over the sites in its own fixed order."""
+        if self.backend != "cuda":
+            return None
+        nbr_idx, nbr_w, b = problem.nbr_idx, problem.nbr_w, problem.b
+        return lambda s: ops.sparse_energy(s, nbr_idx, nbr_w, b)
+
 
 @register_kernel("tau_leap")
 @dataclasses.dataclass(frozen=True)
@@ -1161,10 +1172,13 @@ class _Run:
     same operations in the same order. `timeit`'s two passes share the
     loop: the second replays the graphs the first captured; so does a later
     `run()` call that takes this run from the store of kept runs, after
-    `renew` has taken its inputs. `init_beta`, when given, is passed to the
-    kernel's `init` (each chain's constant beta). `faults`, a residual
-    FaultModel or None, is passed to the kernel's `init` and `step` only
-    when it is not None. `eager=True` runs a CUDA problem's blocks eagerly
+    `renew` has taken its inputs. The energy of the first-hit check, the
+    diagnostics and the recorded samples is what the kernel's `energy_fn`
+    offers (`ColoredGibbs`'s cuda backend: the sparse energy kernel), else
+    `problem.energy`, chosen once here. `init_beta`, when given, is
+    passed to the kernel's `init` (each chain's constant beta). `faults`, a
+    residual FaultModel or None, is passed to the kernel's `init` and `step`
+    only when it is not None. `eager=True` runs a CUDA problem's blocks eagerly
     too (no graph): for comparing the two."""
 
     def __init__(self, call: "_Call", generator: torch.Generator, eager: bool = False):
@@ -1178,6 +1192,9 @@ class _Run:
         self.init_kw = {} if call.init_beta is None else {"beta": call.init_beta}
         self.step_kw = {} if call.faults is None else {"faults": call.faults}
         self.init_kw.update(self.step_kw)
+        energy_fn = getattr(call.kernel, "energy_fn", None)
+        offered = None if energy_fn is None else energy_fn(call.problem)
+        self.energy = call.problem.energy if offered is None else offered
         self.blocks = plan_blocks(self.n_steps, self.sample_every, GRAPH_STEPS)
         self.n_samples = self.n_steps // self.sample_every if self.sample_every > 0 else 0
         self.offsets = torch.arange(GRAPH_STEPS, device=dev)
@@ -1215,7 +1232,7 @@ class _Run:
             new = kernel.step(problem, state, self.generator, betas[j], **self.step_kw)
             e = new_hit = None
             if self.track_hit or self.diagnostics:
-                e = new.e if new.e is not None else problem.energy(new.s)
+                e = new.e if new.e is not None else self.energy(new.s)
             if self.track_hit:
                 new_hit = (e <= self.e_target) & ~hit
                 t_hit = torch.where(new_hit, new.t, t_hit)
@@ -1241,7 +1258,7 @@ class _Run:
         with tracing.span("sampler.init"):
             self.generator.set_state(self.gen_start)
             state = kernel.init(problem, self.generator, self.s0, self.n_chains, **self.init_kw)
-            e0 = state.e if state.e is not None else problem.energy(state.s)
+            e0 = state.e if state.e is not None else self.energy(state.s)
             hit = (e0 <= self.e_target) & self.track_hit
             t_hit = torch.where(hit, 0.0, math.inf)
             acc = None
@@ -1267,7 +1284,7 @@ class _Run:
             if self.energies is not None:
                 energies = self.energies.clone()
             elif self.n_samples:
-                energies = problem.energy(samples)
+                energies = self.energy(samples)
             else:
                 # e0 has the energy dtype both recording branches produce, not
                 # the state dtype, so empty and sampled results concatenate
@@ -1546,7 +1563,8 @@ def run(
         `RunResult.diagnostics` as a `RunDiagnostics` (see
         `repro_torch.core.diagnostics`). Sampled values are identical with
         or without it; kernels without an incremental energy pay one
-        `problem.energy` per step while it is on.
+        energy (`problem.energy`, or the kernel's `energy_fn`) per step
+        while it is on.
       faults: optional `repro_torch.core.faults.FaultModel` — device
         non-idealities (stuck spins, b-bit coupling quantization, field
         noise, update dropout; per-kernel semantics in that module).

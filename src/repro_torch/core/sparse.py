@@ -52,6 +52,16 @@ def gather_sum(s: torch.Tensor, nbr_idx: torch.Tensor, nbr_w: torch.Tensor) -> t
     return acc
 
 
+def padded_energy(s: torch.Tensor, nbr_idx: torch.Tensor, nbr_w: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """E(s) = 0.5 * sum_i s_i h_i + b.s of (..., n) states over the padded
+    neighbour tables, h_i the in-order slot sum (`gather_sum`) without b:
+    each undirected edge is stored twice, so the pair sum is halved."""
+    s = s.to(nbr_w.dtype)
+    pair = 0.5 * torch.sum(s * gather_sum(s, nbr_idx, nbr_w), dim=-1)
+    return pair + torch.sum(b * s, dim=-1)
+
+
 @dataclasses.dataclass(frozen=True)
 class SparseIsing:
     """Ising problem over a sparse graph in padded neighbor-list layout.
@@ -120,10 +130,7 @@ class SparseIsing:
 
     def energy(self, s: torch.Tensor) -> torch.Tensor:
         """E(s); each undirected edge is stored twice, so halve the pair sum."""
-        s = s.to(self.nbr_w.dtype)
-        pair = 0.5 * torch.sum(s * self.neighbor_sum(s), dim=-1)
-        field = torch.sum(self.b * s, dim=-1)
-        return pair + field
+        return padded_energy(s, self.nbr_idx, self.nbr_w, self.b)
 
     def delta_fields(self, s: torch.Tensor, i: int) -> tuple[torch.Tensor, torch.Tensor]:
         """Field updates caused by flipping site i: O(max_deg).

@@ -46,6 +46,7 @@ LAUNCHERS = {
     "lattice_gibbs_generic_faults": ("lattice_gibbs_generic_faults_launch",
                                      [_P] * 11 + [_I] * 4 + [_P]),
     "sparse_fields": ("sparse_fields_launch", [_P] * 5 + [_I] * 5 + [_P]),
+    "sparse_energy": ("sparse_energy_launch", [_P] * 6 + [_I] * 6 + [_P]),
     "colored_gibbs": ("colored_gibbs_launch", [_P] * 7 + [_I] * 6 + [_P]),
     "colored_gibbs_faults": ("colored_gibbs_faults_launch", [_P] * 9 + [_I] * 6 + [_P]),
     "colored_gibbs_long": ("colored_gibbs_long_launch", [_P] * 7 + [_IP] + [_I] * 5 + [_P]),

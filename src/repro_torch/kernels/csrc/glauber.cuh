@@ -1,6 +1,6 @@
 // Shared pieces of the chromatic Gibbs sweeps (lattice_gibbs.cu,
 // colored_gibbs.cu): the Glauber conditional and the launch-time set-up of
-// a block's dynamic shared memory.
+// a block's dynamic shared memory (sparse_energy.cu's too).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -107,6 +107,15 @@ def sparse_fields(s, nbr_idx, nbr_w, b, mode: str = "auto") -> torch.Tensor:
     return _ref.sparse_fields_ref(s, nbr_idx, nbr_w, b)
 
 
+def sparse_energy(s, nbr_idx, nbr_w, b, mode: str = "auto") -> torch.Tensor:
+    """(...) energies 0.5 s.h + b.s of (..., n) states over the padded
+    neighbour list (`SparseIsing.energy`): one launch of the energy kernel
+    (two on rows of more than 58112 sites), or the plain version."""
+    if _use_kernel(s, mode):
+        return _sg.sparse_energy(s, nbr_idx, nbr_w, b)
+    return _ref.sparse_energy_ref(s, nbr_idx, nbr_w, b)
+
+
 def colored_gibbs_sweep(
     s, nbr_idx, nbr_w, b, uniforms, masks, beta=None, mode: str = "auto", plan=None,
     bias_rows=None, keep=None,

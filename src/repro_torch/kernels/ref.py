@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.ising import KING_OFFSETS, shift2d
-from repro_torch.core.sparse import gather_sum
+from repro_torch.core.sparse import gather_sum, padded_energy
 
 
 def broadcast_rows(beta: Optional[torch.Tensor], s: torch.Tensor) -> torch.Tensor:
@@ -78,6 +78,13 @@ def sparse_fields_ref(
     `jnp.sum` reduces them in its own order, so the two agree to about one
     float32 eps of sum_k |w_ik| + |b_i| (exactly for integer weights)."""
     return gather_sum(s, nbr_idx, nbr_w) + b
+
+
+# E(s) = 0.5 * sum_i s_i h_i + b.s of (..., n) states over the padded
+# neighbour list: `SparseIsing.energy`'s own arithmetic. No TPU kernel
+# computes it; the CUDA kernel sums the same terms over the sites in its own
+# fixed order (`sparse_gather.energy_in_kernel_order`).
+sparse_energy_ref = padded_energy
 
 
 def colored_gibbs_sweep_ref(

@@ -1,6 +1,6 @@
 """CUDA kernels for sparse (neighbor-list) Ising problems.
 
-Two kernels over the padded `SparseIsing` layout (`repro_torch.core.sparse`):
+Three kernels over the padded `SparseIsing` layout (`repro_torch.core.sparse`):
 
   sparse_fields        — local fields h = gather(s, nbr_idx) . nbr_w + b.
                          Source `csrc/sparse_fields.cu`, two kernels chosen
@@ -12,9 +12,19 @@ Two kernels over the padded `SparseIsing` layout (`repro_torch.core.sparse`):
                          fit one (n <= 116224, `csrc/colored_gibbs.cu`),
                          the long-row sweep beyond
                          (`csrc/colored_gibbs_long.cu`).
+  sparse_energy        — the energy 0.5 s.h + b.s of every row, h the
+                         fields without b (`csrc/sparse_energy.cu`); two
+                         routes chosen by n (`energy_kernel`), counted
+                         apart in `launches`. It replaces no TPU kernel
+                         (the JAX `SparseIsing.energy` is plain jnp): it is
+                         `run()`'s first-hit and recorded energy under
+                         `ColoredGibbs(backend="cuda")`.
 
-Both sum a site's slots in order through `csrc/sparse_gather.cuh`, as
-`ref.sparse_fields_ref` does, so each equals its plain version bit for bit.
+All sum a site's slots in order through `csrc/sparse_gather.cuh`, as
+`ref.sparse_fields_ref` does, so the fields and sweeps equal their plain
+versions bit for bit, and so does every term of the energy; the energy's
+sum over the sites runs in a fixed order of its own (no atomics), which on
++-1 states with integer couplings gives the plain number exactly.
 
 Replaces the TPU kernels `repro/kernels/sparse_gather.py::sparse_fields`
 (`_fields_kernel`, the `pl.pallas_call` at line 90) and
@@ -74,6 +84,16 @@ plan records whether its classes are (`ColourPlan.independent`), and at
 these rows the wrapper refuses any other plan, and fault operands, with the
 reason.
 
+The energy reads s once and the tables once: at (256, 16384), D = 3,
+17.2 MB, 5.1 µs at 3.35 TB/s; at (320, 512000), D = 6, 682 MB, 203.6 µs.
+Rows of n <= 58112 sites take `sparse_energy`: a block stages R whole rows
+in shared memory (`fields_rows`, as `sparse_fields` does), gathers from
+there and sums its rows itself, one launch. Longer rows take
+`sparse_energy_long`: a block stages a tile of ENERGY_TILE sites of 16
+rows, gathers a neighbour from the tile or else through the cache, and
+writes each row's sums over the tile to a (B, tiles, 2) scratch that a
+second launch sums in tile order.
+
 The sweep's fault variant, chosen by its operands and counted apart in
 `launches_faults`: a (B, n) per-row bias, the whole b + eta of
 field noise, read with the uniforms in place of the plan's b_i, and a
@@ -87,18 +107,21 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
+import math
 from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.sparse import gather_sum
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (MAX_SMEM_BYTES, check_cuda, check_fault_operands,
                                          check_tensor, fault_ptr as _ptr)
 
 # chip_smoke.py resets and reads these; "sparse_fields" counts the staged
-# kernel, "sparse_fields_global" the one for rows too long to stage
+# kernel, "sparse_fields_global" the one for rows too long to stage, and
+# "sparse_energy" / "sparse_energy_long" the energy's two routes
 launches = {"sparse_fields": 0, "sparse_fields_global": 0, "colored_gibbs_sweep": 0,
-            "colored_gibbs_sweep_long": 0}
+            "colored_gibbs_sweep_long": 0, "sparse_energy": 0, "sparse_energy_long": 0}
 launches_faults = {"colored_gibbs_sweep_faults": 0}  # the sweep's fault variant
 
 # Rows a fields block stages, at most, and the threads of a block of
@@ -106,6 +129,13 @@ launches_faults = {"colored_gibbs_sweep_faults": 0}  # the sweep's fault variant
 # 1024 threads).
 FIELDS_MAX_ROWS = 3
 BLOCK_THREADS = 1024
+# Sites of a tile of the long-row energy, and the threads of its block
+# (kTile, kTileThreads in csrc/sparse_energy.cu).
+ENERGY_TILE = 1024
+ENERGY_TILE_THREADS = 256
+# The kernels index s with int32 within a launch: the energy launches over
+# chunks of fewer than INDEX_LIMIT elements, the other kernels refuse more.
+INDEX_LIMIT = 2**31
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,6 +161,71 @@ def sweep_kernel(n: int) -> str:
     "colored_gibbs_sweep" while two int8 copies of a chain fit one block
     (2n <= MAX_SMEM_BYTES: n <= 116224), else "colored_gibbs_sweep_long"."""
     return "colored_gibbs_sweep" if 2 * n <= MAX_SMEM_BYTES else "colored_gibbs_sweep_long"
+
+
+def energy_kernel(n: int) -> str:
+    """The energy kernel that takes rows of n sites: "sparse_energy" while a
+    row of f32 fits one block's shared memory (4n <= MAX_SMEM_BYTES:
+    n <= 58112), else "sparse_energy_long"."""
+    return "sparse_energy" if 4 * n <= MAX_SMEM_BYTES else "sparse_energy_long"
+
+
+def _in_turn(x: torch.Tensor) -> torch.Tensor:
+    """Sum (..., m, k) over m in turn, from 0: a thread's running sum."""
+    acc = torch.zeros(x.shape[:-2] + x.shape[-1:], dtype=x.dtype, device=x.device)
+    for j in range(x.shape[-2]):
+        acc = acc + x[..., j, :]
+    return acc
+
+
+def _warp_tree(v: torch.Tensor) -> torch.Tensor:
+    """Lane 0 of a warp's shuffle-down tree over (..., 32): lane l adds lane
+    l + 16, then l + 8, 4, 2, 1."""
+    for off in (16, 8, 4, 2, 1):
+        v = v[..., :off] + v[..., off:2 * off]
+    return v[..., 0]
+
+
+def _block_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum (..., threads) as a block does: each warp's tree, then the warps in turn."""
+    warps = _warp_tree(x.reshape(x.shape[:-1] + (x.shape[-1] // 32, 32)))
+    return _in_turn(warps[..., None, :].transpose(-1, -2))[..., 0]
+
+
+def _threads_in_turn(p: torch.Tensor, threads: int) -> torch.Tensor:
+    """(rows, n) -> (rows, threads): thread t adds sites t, t + threads, ... in turn."""
+    m = -(-p.shape[-1] // threads)
+    p = torch.nn.functional.pad(p, (0, m * threads - p.shape[-1]))
+    return _in_turn(p.reshape(p.shape[0], m, threads))
+
+
+def energy_in_kernel_order(s, nbr_idx, nbr_w, b, kernel: str | None = None) -> torch.Tensor:
+    """What the energy kernel returns, bit for bit on any values, in plain
+    torch on any device: `SparseIsing.energy`'s terms s_i h_i and b_i s_i,
+    summed over the sites in the order of `kernel` (default
+    `energy_kernel(n)`). "sparse_energy": thread t of a block of
+    `_block_threads(n)` adds sites t, t + T, ... in turn, then the block
+    (each warp's shuffle tree, the warps in turn). "sparse_energy_long": the
+    same over each tile of ENERGY_TILE sites with ENERGY_TILE_THREADS
+    threads, then lane l of a row's warp adds tiles l, l + 32, ... in turn,
+    then its tree. Both halve the pair sum and add the bias sum last. The
+    tests and chip_smoke.py hold the kernels against it."""
+    n = s.shape[-1]
+    kernel = energy_kernel(n) if kernel is None else kernel
+    rows = s.reshape(-1, n).to(torch.float32)
+    terms = (rows * gather_sum(rows, nbr_idx, nbr_w), b * rows)
+    if kernel == "sparse_energy":
+        sums = [_block_sum(_threads_in_turn(p, _block_threads(n))) for p in terms]
+    elif kernel == "sparse_energy_long":
+        tiles = -(-n // ENERGY_TILE)
+        sums = []
+        for p in terms:
+            p = torch.nn.functional.pad(p, (0, tiles * ENERGY_TILE - n))
+            part = _block_sum(_threads_in_turn(p.reshape(-1, ENERGY_TILE), ENERGY_TILE_THREADS))
+            sums.append(_warp_tree(_threads_in_turn(part.reshape(rows.shape[0], tiles), 32)))
+    else:
+        raise ValueError(f"no energy kernel {kernel!r}")
+    return (0.5 * sums[0] + sums[1]).reshape(s.shape[:-1])
 
 
 class ColourPlan(NamedTuple):
@@ -224,7 +319,7 @@ def _check_tables(s, nbr_idx, nbr_w, b):
     check_tensor("nbr_idx", nbr_idx, torch.int32, (n, D), dev)
     check_tensor("nbr_w", nbr_w, torch.float32, (n, D), dev)
     check_tensor("b", b, torch.float32, (n,), dev)
-    if B * n >= 2**31 or n * D >= 2**31:
+    if B * n >= INDEX_LIMIT or n * D >= INDEX_LIMIT:
         raise ValueError(f"(B, n, D) = ({B}, {n}, {D}) overflows the kernels' int32 indexing")
     return dev, B, n, D
 
@@ -291,6 +386,59 @@ def _launch_sweep_long(s, plan: ColourPlan, uniforms, beta, out, device) -> None
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check("colored_gibbs_sweep_long", code)
+
+
+def _launch_energy(s, nbr_idx, nbr_w, b, part, out, rows: int, threads: int, device) -> None:
+    """The energy kernels: `rows` > 0 the staged one, 0 the long-row pair
+    over the (B, tiles, 2) scratch `part`."""
+    B, n = s.shape
+    code = _build.launcher("sparse_energy")(
+        s.data_ptr(), nbr_idx.data_ptr(), nbr_w.data_ptr(), b.data_ptr(),
+        None if part is None else part.data_ptr(), out.data_ptr(), B, n, nbr_idx.shape[1], rows,
+        threads, 0 if part is None else part.shape[1],
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check("sparse_energy", code)
+
+
+def sparse_energy(
+    s: torch.Tensor, nbr_idx: torch.Tensor, nbr_w: torch.Tensor, b: torch.Tensor
+) -> torch.Tensor:
+    """Launch the CUDA kernel: (..., n) f32 values (contiguous; any values,
+    not only +-1) and the tables of `sparse_fields` -> (...) f32 energies
+    0.5 * sum_i s_i h_i + sum_i b_i s_i, h_i the in-order slot sum without
+    b: `SparseIsing.energy`'s terms, summed over the sites in a fixed order.
+    Rows of n <= 58112 sites go to the staged kernel, longer ones to the
+    long-row pair (`energy_kernel`); each launch takes fewer than
+    INDEX_LIMIT elements of s, so a larger block of rows (a whole run's
+    samples) is launched in chunks of rows, each counted. Launched on the
+    current stream with no host sync; its scratch comes from `torch.empty`,
+    so a CUDA graph captures it."""
+    if s.ndim < 1:
+        raise ValueError("s must be (..., n), got a 0-d tensor")
+    if not s.is_contiguous():
+        raise ValueError("s must be contiguous")
+    lead = tuple(s.shape[:-1])
+    flat = s.view(math.prod(lead), s.shape[-1])
+    chunk = max(1, (INDEX_LIMIT - 1) // max(1, flat.shape[1]))
+    dev, _, n, _ = _check_tables(flat[:chunk], nbr_idx, nbr_w, b)  # every chunk is as the first
+    B = flat.shape[0]
+    out = torch.empty((B,), dtype=torch.float32, device=dev)
+    if B == 0 or n == 0:
+        return out.zero_().view(lead)
+    kernel = energy_kernel(n)
+    part = (None if kernel == "sparse_energy" else
+            torch.empty((min(B, chunk), -(-n // ENERGY_TILE), 2), dtype=torch.float32, device=dev))
+    for r0 in range(0, B, chunk):
+        rows = flat[r0:r0 + chunk]
+        if kernel == "sparse_energy":
+            _launch_energy(rows, nbr_idx, nbr_w, b, None, out[r0:r0 + chunk],
+                           fields_rows(rows.shape[0], n, _sm_count(dev)), _block_threads(n), dev)
+        else:
+            _launch_energy(rows, nbr_idx, nbr_w, b, part[:rows.shape[0]], out[r0:r0 + chunk], 0,
+                           0, dev)
+        launches[kernel] += 1
+    return out.view(lead)
 
 
 def sparse_fields(

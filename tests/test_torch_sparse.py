@@ -27,6 +27,7 @@ from repro_torch.core import ising, problems, sampler_api, sparse
 from repro_torch.core.sampler_api import ColoredGibbs, TauLeap, run
 from repro_torch.core.sparse import SparseIsing
 from repro_torch.kernels import ops, ref, sparse_gather
+from test_torch_sparse_long import _lattice
 
 torch.set_num_threads(1)
 
@@ -296,7 +297,8 @@ def test_ops_modes_on_cpu_and_the_kernel_wrapper_checks():
     with pytest.raises(ValueError, match="mode"):
         ops.sparse_fields(ts, *tables, mode="pallas")
     assert sparse_gather.launches == {"sparse_fields": 0, "sparse_fields_global": 0,
-                                      "colored_gibbs_sweep": 0, "colored_gibbs_sweep_long": 0}
+                                      "colored_gibbs_sweep": 0, "colored_gibbs_sweep_long": 0,
+                                      "sparse_energy": 0, "sparse_energy_long": 0}
 
 
 @pytest.mark.cuda
@@ -319,6 +321,97 @@ def test_kernels_match_plain_versions_on_the_card():
     band = _phase_band(lambda x: ref.sparse_fields_ref(x, *tables), s, u, tp.color_masks, beta,
                        P_BAND)
     assert not bool(((got != plain) & ~band).any())
+
+
+# ---------------------------------------------------------------------------
+# The energy kernel's order of summation against the JAX energy
+# ---------------------------------------------------------------------------
+
+ENERGY_ROUTES = ("sparse_energy", "sparse_energy_long")
+U = 2.0**-24  # float32 unit roundoff
+
+
+def _energy_case(name, gaussian):
+    """(torch, JAX) problems: the 3-regular MaxCut graph at n = 4096, each
+    side built by its own package, or the periodic 6^3 +-J lattice; with
+    Gaussian couplings on the live slots and a Gaussian bias when asked."""
+    if name == "maxcut4096":
+        tp = problems.random_3regular_maxcut(4096, 0, device=CPU)
+        jp = jproblems.random_3regular_maxcut(4096, 0)
+        _assert_same_layout(tp, jp)
+    else:
+        tp = _lattice(6)
+    if gaussian or name != "maxcut4096":
+        if gaussian:
+            g = torch.Generator().manual_seed(17)
+            live = tp.nbr_idx != torch.arange(tp.n, dtype=torch.int32)[:, None]
+            w = (torch.randn(tp.nbr_w.shape, generator=g) * live).contiguous()
+            tp = SparseIsing(tp.nbr_idx, w, tp.deg, 0.3 * torch.randn((tp.n,), generator=g))
+        jp = jsparse.SparseIsing(*(jnp.asarray(x.numpy())
+                                   for x in (tp.nbr_idx, tp.nbr_w, tp.deg, tp.b)))
+    return tp, jp
+
+
+def _energy_orders_band(tp, s):
+    """The widest gap between two f32 energies whose fields are summed over
+    the D slots and whose terms over the n sites, each in any order. With
+    gamma_m = m u / (1 - m u): a field is within gamma_D a_i of exact, a_i =
+    sum_k |w_ik s_j|; its product with s_i within gamma_{D+1} |s_i| a_i; the
+    sum of n such terms (and of the n bias terms) within gamma_{n+D} of
+    A = 0.5 sum_i |s_i| a_i + sum_i |b_i s_i|; the halving is exact and the
+    last add rounds once more, within u (|E| + gamma_{n+D} A). Each of the
+    two is so far from the exact E, so the band is twice that."""
+    s64, w64, b64 = s.double(), tp.nbr_w.double(), tp.b.double()
+    h, a = torch.zeros_like(s64), torch.zeros_like(s64)
+    for k in range(tp.max_deg):
+        sj = s64.index_select(-1, tp.nbr_idx[:, k])
+        h, a = h + w64[:, k] * sj, a + (w64[:, k] * sj).abs()
+    m = tp.n + tp.max_deg
+    gamma = m * U / (1 - m * U)
+    A = 0.5 * (s64.abs() * a).sum(-1) + (b64 * s64).abs().sum(-1)
+    exact = 0.5 * (s64 * h).sum(-1) + (b64 * s64).sum(-1)
+    return 2 * (gamma * A + U * (exact.abs() + gamma * A))
+
+
+@pytest.mark.parametrize("lead", [(5,), (3, 4)])
+@pytest.mark.parametrize("name", ["maxcut4096", "ea6"])
+def test_the_energy_kernels_order_and_ops_equal_the_jax_energy_on_pm1_states(name, lead):
+    """The energy kernel's two orders of summation
+    (`sparse_gather.energy_in_kernel_order`, which the card holds the kernel
+    to bit for bit) and `ops.sparse_energy` on the CPU give the JAX
+    `SparseIsing.energy` exactly on +-1 states with +-1 couplings: every
+    partial sum is then an integer below 2^24."""
+    tp, jp = _energy_case(name, gaussian=False)
+    s = np.random.default_rng(len(name) + len(lead)).choice([-1.0, 1.0], lead + (tp.n,))
+    ts, want = torch.as_tensor(s.astype(np.float32)), np.asarray(jp.energy(_f32(s)))
+    assert want.shape == lead
+    tables = (tp.nbr_idx, tp.nbr_w, tp.b)
+    for route in ENERGY_ROUTES:
+        got = sparse_gather.energy_in_kernel_order(ts, *tables, route)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=route)
+    np.testing.assert_array_equal(ops.sparse_energy(ts, *tables).numpy(), want)
+
+
+@pytest.mark.parametrize("states", ["pm1", "gaussian"])
+@pytest.mark.parametrize("name", ["maxcut4096", "ea6"])
+def test_the_energy_kernels_order_and_ops_stay_within_the_band_of_jax(name, states):
+    """On Gaussian couplings the JAX energy sums each field's slots and the
+    sites in its own order: the two orders, and ops on the CPU, stay within
+    the band of any two such orders, and the gaps are real."""
+    tp, jp = _energy_case(name, gaussian=True)
+    rng = np.random.default_rng(29)
+    shape = (2, 3, tp.n)
+    s = (rng.choice([-1.0, 1.0], shape) if states == "pm1" else rng.normal(0, 1, shape))
+    ts = torch.as_tensor(s.astype(np.float32))
+    want = torch.as_tensor(np.array(jp.energy(_f32(s)))).double()
+    band = _energy_orders_band(tp, ts)
+    tables = (tp.nbr_idx, tp.nbr_w, tp.b)
+    gaps = [(got.double() - want).abs() for got in (
+        *(sparse_gather.energy_in_kernel_order(ts, *tables, r) for r in ENERGY_ROUTES),
+        ops.sparse_energy(ts, *tables))]
+    for gap in gaps:
+        assert bool((gap <= band).all()), (gap, band)
+    assert any(bool((gap > 0).any()) for gap in gaps)
 
 
 # ---------------------------------------------------------------------------
