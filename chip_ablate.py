@@ -728,9 +728,10 @@ def ablate_lattice(torch, np, chip_smoke, dev) -> None:
         beta = torch.full((B,), 1.7, dtype=torch.float32, device=dev)
         plan = lattice_gibbs.lattice_plan(w, b, colors, frozen, clampv)
         args = (s, w, b, u, colors, frozen, clampv, beta)
-        before = dict(lattice_gibbs.launches)
+        read = chip_smoke.counters()[1]
         got = lattice_gibbs.lattice_gibbs_sweep(*args, plan=plan)
-        taken = {k: n - before[k] for k, n in lattice_gibbs.launches.items()}
+        taken = {k: n for k, n in read().items() if k in ("lattice_gibbs_sweep",
+                                                          "lattice_gibbs_generic")}
         want = ops.lattice_gibbs_sweep(*args, mode="reference")
         band = chip_smoke.phase_band(torch, lambda x: ref.lattice_fields_ref(x, w, b), s, u,
                                      colors_b, frozen_b, beta, chip_smoke.P_BAND)

@@ -115,9 +115,10 @@ exits nonzero without printing the final result line:
                 n=2048 seed 0, 256 chains x 2000 steps, geometric(0.3, 3.0)
                 annealing, with and without first_hit, and the same run on
                 backend="ref"; then the int8 fields of the final states
-                through ops.dense_field. Launch counters are zeroed before
-                and read after each path; under the CUDA graph of run()'s
-                step loop they count the launches the replays ran.
+                through ops.dense_field. Each path's launches are read
+                as the change of tracing.counts()'s launch.* counts over
+                it; under the CUDA graph of run()'s step loop they count
+                the launches the replays ran.
      main_lattice — ChromaticGibbs on cal_problem() (the chip's 16x16 core),
                 4096 chains x 500 sweeps, geometric(0.3, 3.0), the same
                 three runs with first_hit = the template energy: hit
@@ -504,31 +505,30 @@ SASS_KERNELS = {"flash_bf16_kernel": ("HGMMA", "UTMALDG"), "flash_f32_kernel": (
 GLOBAL_FIELDS_SHAPE = (64, 65536)
 
 
+# every kernel route the wrappers count, `launch.<name>` in tracing.counts()
+LAUNCHED = ("tau_leap_step", "dense_field", "tau_leap_step_faults",
+            "lattice_gibbs_sweep", "lattice_gibbs_generic", "sparse_fields",
+            "sparse_fields_global", "colored_gibbs_sweep", "colored_gibbs_sweep_long",
+            "sparse_energy", "sparse_energy_long", "lattice_gibbs_sweep_faults",
+            "lattice_gibbs_generic_faults", "colored_gibbs_sweep_faults", "flash_attention",
+            "flash_attention_window", "flash_attention_kv_len", "flash_attention_bf16",
+            "flash_attention_f32")
+
+
 def counters():
-    """(reset, read) over the launch counters of every ported kernel."""
-    from repro_torch.kernels import (dense_field, flash_attention, lattice_gibbs, sparse_gather,
-                                     tau_leap)
+    """(reset, read): `reset` takes a snapshot of `tracing.counts()`, `read`
+    returns each kernel's launches since, by the names of LAUNCHED."""
+    from repro_torch import tracing
+
+    since = tracing.counts()
 
     def reset():
-        tau_leap.launches = tau_leap.launches_faults = dense_field.launches = 0
-        flash_attention.launches = flash_attention.launches_window = 0
-        flash_attention.launches_kv_len = 0
-        for counts in (lattice_gibbs.launches, sparse_gather.launches,
-                       lattice_gibbs.launches_faults, sparse_gather.launches_faults,
-                       flash_attention.launches_by_dtype):
-            for k in counts:
-                counts[k] = 0
+        nonlocal since
+        since = tracing.counts()
 
     def read():
-        return {"tau_leap_step": tau_leap.launches, "dense_field": dense_field.launches,
-                "tau_leap_step_faults": tau_leap.launches_faults,
-                **lattice_gibbs.launches, **sparse_gather.launches,
-                **lattice_gibbs.launches_faults, **sparse_gather.launches_faults,
-                "flash_attention": flash_attention.launches,
-                "flash_attention_window": flash_attention.launches_window,
-                "flash_attention_kv_len": flash_attention.launches_kv_len,
-                "flash_attention_bf16": flash_attention.launches_by_dtype["bfloat16"],
-                "flash_attention_f32": flash_attention.launches_by_dtype["float32"]}
+        now = tracing.counts()
+        return {k: now[f"launch.{k}"] - since[f"launch.{k}"] for k in LAUNCHED}
 
     return reset, read
 
@@ -700,13 +700,16 @@ def lattice_host_us(lattice_gibbs, args, plan, n: int = 1000, rounds: int = 5) -
             walls.append((time.perf_counter() - t0) / n * 1e6)
         return statistics.median(walls)
 
-    count, real = dict(lattice_gibbs.launches), lattice_gibbs._launch_plan
+    from repro_torch import tracing
+
+    name, real = "launch.lattice_gibbs_sweep", lattice_gibbs._launch_plan
+    count = tracing.counts()[name]
     lattice_gibbs._launch_plan = lambda *a: None
     try:
         wrapper = per_call(lambda: lattice_gibbs.lattice_gibbs_sweep(*args, plan=plan))
     finally:
         lattice_gibbs._launch_plan = real
-        lattice_gibbs.launches.update(count)
+        tracing.count(name, count - tracing.counts()[name])
     w, b, _, colors, frozen, clampv, _ = args[1:]
     return {"wrapper_without_launch": wrapper,
             "check_plan": per_call(lambda: lattice_gibbs.check_plan(plan, w, b, colors, frozen,
@@ -2625,10 +2628,10 @@ def main() -> int:
             plan = lattice_gibbs.lattice_plan(w, b, colors, frozen, clampv)
             if route == "lattice_gibbs_generic":
                 plan = plan._replace(independent=False)
-            before = dict(lattice_gibbs.launches)
+            read = counters()[1]
             out = lattice_gibbs.lattice_gibbs_sweep(s, w, b, u, colors, frozen, clampv, beta,
                                                     plan=plan)
-            taken = {k: n - before[k] for k, n in lattice_gibbs.launches.items()}
+            taken = read()
             if taken != dict(dict.fromkeys(taken, 0), **{route: 1}):
                 raise AssertionError(f"{route} at {tuple(s.shape)}: launched {taken}")
             return out
@@ -2780,9 +2783,9 @@ def main() -> int:
         variant = "sparse_fields" if n <= MAX_SMEM_BYTES // 4 else "sparse_fields_global"
         rows = sparse_gather.fields_rows(B, n, sparse_gather._sm_count(dev))
         rows_seen.add(rows)
-        before = dict(sparse_gather.launches)
+        before = read()
         h_k = sparse_gather.sparse_fields(s, idx, w, b)
-        taken = {k: sparse_gather.launches[k] - before[k] for k in before}
+        taken = {k: n - before[k] for k, n in read().items()}
         if taken != dict({k: 0 for k in before}, **{variant: 1}):
             raise AssertionError(f"sparse_fields ({B},{n}) launched {taken}, expected one {variant}")
         h_r = ref.sparse_fields_ref(s, idx, w, b)
@@ -2858,12 +2861,12 @@ def main() -> int:
             err["flash_attention_kv_len"] = max(err["flash_attention_kv_len"], e)
             full = bool(torch.equal(flash_attention.flash_attention(q, k, v, False, kv_len=Sk),
                                     flash_attention.flash_attention(q, k, v, False)))
-            before = flash_attention.launches
+            before = read()
             try:
                 flash_attention.flash_attention(q, k, v, True, kv_len=kv_len)
                 refused = False
             except ValueError:
-                refused = flash_attention.launches == before
+                refused = read() == before
             if not (full and refused):
                 raise AssertionError(f"flash_attention ({BH}, {Sq}, {Sk}, {d}, {dtype}): kv_len "
                                      f"= Sk equal to the unbounded launch {full}, causal with "
@@ -3036,9 +3039,9 @@ def main() -> int:
     sg = pm1((Bg, ng))
     zg = torch.zeros(ng, dtype=torch.float32, device=dev)
     csr_g, sg_t = sparse_csr(torch, mg), sg.t().contiguous()
-    before = dict(sparse_gather.launches)
+    before = read()
     sparse_gather.sparse_fields(sg, mg.nbr_idx, mg.nbr_w, zg)
-    if sparse_gather.launches["sparse_fields_global"] != before["sparse_fields_global"] + 1:
+    if read()["sparse_fields_global"] != before["sparse_fields_global"] + 1:
         raise AssertionError(f"sparse_fields at {GLOBAL_FIELDS_SHAPE} did not take the global kernel")
     ms["sparse_fields_global"] = time_ms(torch, lambda: sparse_gather.sparse_fields(
         sg, mg.nbr_idx, mg.nbr_w, zg))
@@ -3161,9 +3164,9 @@ def main() -> int:
     for label, backend, first_hit in (("cuda_first_hit", "cuda", -0.70 * n),
                                       ("cuda", "cuda", None),
                                       ("ref_first_hit", "ref", -0.70 * n)):
-        tau_leap.launches = dense_field.launches = 0
+        reset()
         res = run(prob, TauLeap(dt=0.1), 0, first_hit=first_hit, backend=backend, **kw)
-        counts = {"tau_leap_step": tau_leap.launches, "dense_field": dense_field.launches}
+        counts = {k: read()[k] for k in ("tau_leap_step", "dense_field")}
         e_final = prob.energy(res.s)
         if not bool(torch.isfinite(res.energies).all()) or not bool(torch.isfinite(e_final).all()):
             raise AssertionError(f"{label}: non-finite energies")
@@ -3190,9 +3193,9 @@ def main() -> int:
     # quantized energy 0.5 s.h + b.s must agree with the float energy.
     s_fin = main["cuda_first_hit"]["final_state"]
     j_i8, j_scale = ops.quantize_dense(prob.J)
-    tau_leap.launches = dense_field.launches = 0
+    reset()
     h = ops.dense_field(s_fin.to(torch.int8), j_i8, torch.zeros_like(prob.b), j_scale)
-    fields_launches = dense_field.launches
+    fields_launches = read()["dense_field"]
     if fields_launches != 1:
         raise AssertionError(f"ops.dense_field launched {fields_launches} kernels, expected 1")
     e_q = 0.5 * (s_fin * h).sum(-1) + (prob.b * s_fin).sum(-1)
@@ -3304,12 +3307,12 @@ def main() -> int:
     codes = codes + codes.T
     codes[0, 1] = codes[1, 0] = 127  # pin max-abs: quantization is lossless
     small = ising.DenseIsing.from_numpy(codes / 127.0, srng.normal(0, 0.2, n5))
-    tau_leap.launches = 0
+    reset()
     # |J| reaches 1 and chains relax slowly: 4000 steps do not reliably
     # reach the bound (TV 0.016-0.070 over 4 seeds on CPU), 16000 do
     res5 = run(small, TauLeap(dt=0.05), 1, n_steps=16000, n_chains=64, sample_every=4,
                backend="cuda")
-    stats_launches = tau_leap.launches
+    stats_launches = read()["tau_leap_step"]
     _, p_exact = ising.enumerate_boltzmann(small)
     bits = (res5.samples.reshape(-1, n5).cpu().numpy() > 0).astype(np.int64)
     hist = np.bincount(bits @ (1 << np.arange(n5)), minlength=2**n5)

@@ -42,10 +42,11 @@ call. Leaves that no block changes are the run's constants: the initial
 carry's values of the first pass, which a later call of the kept run's key
 would make the same wherever a block reads them.
 
-The wrappers' `launches` counters tick where a kernel is launched from
-Python, which under capture is once per capture, not per execution. The
-loop takes the counts a capture made back and adds them at every replay
-(`ops.add_launch_counts`), so the counters count the launches that run.
+The kernel wrappers count their launches (`launch.<kernel>` in
+`repro_torch.tracing`) where a kernel is launched from Python, which under
+capture is once per capture, not per execution. The loop takes the counts
+a capture made back and adds them at every replay, so the counters count
+the launches that run.
 
 Each eager block and each capture is a span (`sampler.eager`,
 `sampler.capture`) and a count (`sampler.eager_blocks`, `sampler.captures`),
@@ -60,7 +61,6 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch import tracing
-from repro_torch.kernels import ops
 
 # The most steps one captured graph holds.
 GRAPH_STEPS = 32
@@ -132,7 +132,7 @@ class StepLoop:
         self.generator = generator
         self.device = device
         self.graph = graph
-        self.graphs: dict = {}  # (steps, records) -> (CUDAGraph, launch deltas)
+        self.graphs: dict = {}  # (steps, records) -> (CUDAGraph, {counter: delta})
         self.static: Any = None  # the carry the graphs read and write
         self.changing: Optional[list[bool]] = None  # which leaves a block rewrites
         self.warmed: set = set()  # block kinds (with/without records) run eagerly
@@ -172,7 +172,8 @@ class StepLoop:
                     self.graphs[key] = self._capture(steps, records)
             graph, delta = self.graphs[key]
             graph.replay()
-            ops.add_launch_counts(delta)
+            for name, n in delta.items():
+                tracing.count(name, n)
             tracing.count("sampler.replays")
 
     def result(self):
@@ -212,11 +213,11 @@ class StepLoop:
 
     def _capture(self, steps: int, records: tuple):
         """Capture one block over the static carry, the outputs copied back
-        into it; returns (graph, the launch counts the capture made)."""
+        into it; returns (graph, the counts the capture made, by name)."""
         graph = torch.cuda.CUDAGraph()
         if self.generator is not torch.cuda.default_generators[torch.cuda.current_device()]:
             graph.register_generator_state(self.generator)  # the default one is registered always
-        before = ops.launch_counts()
+        before = tracing.counts()
         # no cyclic collection inside the capture: freeing another graph
         # there is a call capture forbids, and it would void this one
         collecting = gc.isenabled()
@@ -230,7 +231,8 @@ class StepLoop:
         finally:
             if collecting:
                 gc.enable()
-        after = ops.launch_counts()
-        delta = tuple(a - b for a, b in zip(after, before))
-        ops.add_launch_counts(delta, times=-1)  # nothing ran yet: the replays count
+        after = tracing.counts()
+        delta = {name: n - before[name] for name, n in after.items() if n != before[name]}
+        for name, n in delta.items():  # nothing ran yet: the replays count
+            tracing.count(name, -n)
         return graph, delta

@@ -27,10 +27,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import check_cuda, check_spins, check_tensor
-
-launches = 0  # kernel launches in this process; chip_smoke.py resets and reads it
 
 
 def dense_field(
@@ -38,7 +37,6 @@ def dense_field(
 ) -> torch.Tensor:
     """Launch the CUDA kernel: (B,N) int8 spins, (N,N) int8 codes, (N,) f32
     bias and () f32 scale, all contiguous on one sm_90 device -> (B,N) f32."""
-    global launches
     dev = check_cuda(s_i8)
     B, N = check_spins("s_i8", s_i8)
     check_tensor("s_i8", s_i8, torch.int8, (B, N), dev)
@@ -53,5 +51,5 @@ def dense_field(
         out.data_ptr(), B, N, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("dense_field", code)
-    launches += 1
+    tracing.count("launch.dense_field")
     return out

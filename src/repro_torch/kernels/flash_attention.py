@@ -29,8 +29,11 @@ What bounds it on the H100: at the phi4-mini prefill shape (24 heads,
 S = 4096, d = 128, causal, bf16) 101 MB of q, k, v and out (30 µs at
 3.35 TB/s) against 103 GFLOP (104 µs at 989 bf16 TFLOP/s): operations.
 
-Two kernels in one library, chosen by dtype and counted in
-`launches_by_dtype`; no call of one dtype reaches the other's kernel:
+Two kernels in one library, chosen by dtype; no call of one dtype reaches
+the other's kernel. Each launch counts in `repro_torch.tracing` as
+`launch.flash_attention` and as `launch.flash_attention_bf16` or
+`launch.flash_attention_f32`, and also as `launch.flash_attention_window`
+with a band and `launch.flash_attention_kv_len` with a key-length bound:
   bf16 — on the tensor cores: wgmma for q kᵀ and for p v, TMA loads of the
          k and v tiles into a two-stage ring fed by a producer warpgroup,
          128 query rows a block. p is split into three bf16 parts for the
@@ -45,16 +48,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import check_cuda, check_tensor
 from repro_torch.kernels.ref import check_kv_len, check_window
-
-launches = 0  # kernel launches in this process; chip_smoke.py resets and reads it
-launches_window = 0  # the launches among them with a band (window > 0)
-launches_kv_len = 0  # the launches among them with a key-length bound (kv_len < Sk)
-# the same launches by dtype: "bfloat16" went to the wgmma kernel, "float32"
-# to the CUDA-core kernel
-launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 DTYPES = (torch.float32, torch.bfloat16)
 SEQ_MULTIPLE = 128  # the TPU kernel's default block; it asserts the same
@@ -74,7 +71,6 @@ def flash_attention(
     Sq <= Sk (a query past Sk - 1 + window would see no key). With `kv_len`
     (None: Sk) every query sees only keys j < kv_len, 1 <= kv_len <= Sk,
     below Sk only without `causal`."""
-    global launches, launches_window, launches_kv_len
     check_no_autograd(q, k, v)
     check_window(causal, window)
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -108,10 +104,12 @@ def flash_attention(
         return out
     bf16 = q.dtype == torch.bfloat16
     _launch(q, k, v, out, causal, window, kv_len, bf16, dev)
-    launches += 1
-    launches_window += window > 0
-    launches_kv_len += kv_len < Sk
-    launches_by_dtype["bfloat16" if bf16 else "float32"] += 1
+    tracing.count("launch.flash_attention")
+    tracing.count("launch.flash_attention_bf16" if bf16 else "launch.flash_attention_f32")
+    if window > 0:
+        tracing.count("launch.flash_attention_window")
+    if kv_len < Sk:
+        tracing.count("launch.flash_attention_kv_len")
     return out
 
 

@@ -5,7 +5,8 @@ of one launch: per colour, the 8-neighbour stencil fields at that colour's
 sites, sigma(-2*(beta*h)), the proposal from the colour's uniforms, the
 update where colour and not frozen; then the clamp. Source
 `csrc/lattice_gibbs.cu`, two kernels chosen by the lattice plan (below) and
-counted apart in `launches`.
+counted apart in `repro_torch.tracing`: `launch.lattice_gibbs_sweep` and
+`launch.lattice_gibbs_generic`.
 
 Replaces the TPU kernel `repro/kernels/lattice_gibbs.py::lattice_gibbs_sweep`
 (`_sweep_kernel`, the `pl.pallas_call` at line 102). The TPU kernel grids
@@ -50,9 +51,8 @@ The plan is built once per problem (`lattice_plan`, one wait for the
 device) and records the tensors it was built from; the kernels take it
 only with those (`check_plan`).
 
-The fault variants (f32), chosen by their operands and counted apart in
-`launches_faults` (`lattice_gibbs_sweep_faults`,
-`lattice_gibbs_generic_faults`): a
+The fault variants (f32), chosen by their operands and counted apart
+(`launch.lattice_gibbs_sweep_faults`, `launch.lattice_gibbs_generic_faults`): a
 (B, H, W) per-row bias, the whole b + eta of field noise, read in place of
 b and added last as b is, and a (B, H, W) keep mask (update dropout): a
 site whose keep byte is 0 keeps its spin in every phase. Row r is then the
@@ -69,16 +69,11 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.ising import KING_OFFSETS, shift2d
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (MAX_SMEM_BYTES, check_cuda, check_fault_operands,
                                          check_tensor, fault_ptr as _ptr)
-
-# chip_smoke.py resets and reads these: the plan kernel, and the two-buffer
-# kernel for masks that are not independent sets
-launches = {"lattice_gibbs_sweep": 0, "lattice_gibbs_generic": 0}
-# the launches of their fault variants (per-row bias, keep mask)
-launches_faults = {"lattice_gibbs_sweep_faults": 0, "lattice_gibbs_generic_faults": 0}
 
 DTYPES = (torch.float32, torch.bfloat16)  # as the TPU kernel, generic in its dtype
 
@@ -331,8 +326,5 @@ def lattice_gibbs_sweep(
     else:
         _launch_generic(s, w, b, uniforms, colors, frozen, clamp_value, beta, out, dev, *variant)
         name = "lattice_gibbs_generic"
-    if variant:
-        launches_faults[name + "_faults"] += 1
-    else:
-        launches[name] += 1
+    tracing.count(f"launch.{name}_faults" if variant else f"launch.{name}")
     return out

@@ -10,6 +10,9 @@
 A CUDA tensor never reaches the plain version under 'auto' or 'kernel': a
 card the kernels were not built for (compute capability other than 9.0)
 raises, and so does a failed build or launch.
+
+Each kernel wrapper counts its launches in `repro_torch.tracing`, as
+`launch.<kernel>` (the kernel's name; `tracing.counts()` reads them).
 """
 from __future__ import annotations
 
@@ -25,37 +28,6 @@ from repro_torch.kernels import sparse_gather as _sg
 from repro_torch.kernels import tau_leap as _tl
 
 MODES = ("auto", "kernel", "reference")
-
-# Every wrapper's launch counter: (module, attribute) for an int counter,
-# (module, attribute, key) for an entry of a dict of counters.
-_COUNTERS = (
-    (_tl, "launches"), (_tl, "launches_faults"), (_df, "launches"), (_fa, "launches"),
-    (_fa, "launches_window"),
-    *((_fa, "launches_by_dtype", k) for k in _fa.launches_by_dtype),
-    *((m, attr, k) for m in (_lg, _sg) for attr in ("launches", "launches_faults")
-      for k in getattr(m, attr)),
-)
-# Each counter's name: the wrapper's module, the attribute and the key.
-LAUNCH_NAMES = tuple(".".join((c[0].__name__.rsplit(".", 1)[-1], *c[1:])) for c in _COUNTERS)
-
-
-def launch_counts() -> tuple[int, ...]:
-    """The value of every kernel wrapper's launch counter, in one order."""
-    return tuple(getattr(c[0], c[1]) if len(c) == 2 else getattr(c[0], c[1])[c[2]]
-                 for c in _COUNTERS)
-
-
-def add_launch_counts(delta, times: int = 1) -> None:
-    """Add `times` x `delta` (a difference of two `launch_counts()`) to the
-    counters. A captured CUDA graph launches its kernels at each replay,
-    not where their wrappers counted them: the graph driver takes the
-    wrappers' counts back after a capture and adds them at every replay."""
-    for c, d in zip(_COUNTERS, delta):
-        if len(c) == 2:
-            setattr(c[0], c[1], getattr(c[0], c[1]) + times * d)
-        else:
-            getattr(c[0], c[1])[c[2]] += times * d
-
 
 def _use_kernel(t: torch.Tensor, mode: str) -> bool:
     if mode not in MODES:

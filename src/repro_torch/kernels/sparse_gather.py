@@ -1,22 +1,25 @@
 """CUDA kernels for sparse (neighbor-list) Ising problems.
 
-Three kernels over the padded `SparseIsing` layout (`repro_torch.core.sparse`):
+Three kernels over the padded `SparseIsing` layout (`repro_torch.core.sparse`),
+each route's launches counted apart in `repro_torch.tracing` under the
+names below (`launch.<name>`):
 
   sparse_fields        — local fields h = gather(s, nbr_idx) . nbr_w + b.
                          Source `csrc/sparse_fields.cu`, two kernels chosen
-                         by n (below), counted apart in `launches`.
+                         by n (below): `sparse_fields`, `sparse_fields_global`.
   colored_gibbs_sweep  — one chromatic Gibbs sweep over all colour classes,
                          driven by a colour plan (below); two kernels chosen
-                         by n (`sweep_kernel`), counted apart in `launches`:
+                         by n (`sweep_kernel`): `colored_gibbs_sweep`,
                          one chain a block in shared memory while 2n bytes
                          fit one (n <= 116224, `csrc/colored_gibbs.cu`),
-                         the long-row sweep beyond
-                         (`csrc/colored_gibbs_long.cu`).
+                         and `colored_gibbs_sweep_long`, the long-row sweep
+                         beyond (`csrc/colored_gibbs_long.cu`).
   sparse_energy        — the energy 0.5 s.h + b.s of every row, h the
                          fields without b (`csrc/sparse_energy.cu`); two
-                         routes chosen by n (`energy_kernel`), counted
-                         apart in `launches`. It replaces no TPU kernel
-                         (the JAX `SparseIsing.energy` is plain jnp): it is
+                         routes chosen by n (`energy_kernel`):
+                         `sparse_energy`, `sparse_energy_long`. It
+                         replaces no TPU kernel (the JAX
+                         `SparseIsing.energy` is plain jnp): it is
                          `run()`'s first-hit and recorded energy under
                          `ColoredGibbs(backend="cuda")`.
 
@@ -94,8 +97,8 @@ rows, gathers a neighbour from the tile or else through the cache, and
 writes each row's sums over the tile to a (B, tiles, 2) scratch that a
 second launch sums in tile order.
 
-The sweep's fault variant, chosen by its operands and counted apart in
-`launches_faults`: a (B, n) per-row bias, the whole b + eta of
+The sweep's fault variant, chosen by its operands and counted apart as
+`launch.colored_gibbs_sweep_faults`: a (B, n) per-row bias, the whole b + eta of
 field noise, read with the uniforms in place of the plan's b_i, and a
 (B, n) keep mask (update dropout): where 0 a phase writes the old spin, so
 the site keeps it. Row r is the JAX call with b + eta_r and masks & keep_r;
@@ -112,17 +115,11 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.sparse import gather_sum
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (MAX_SMEM_BYTES, check_cuda, check_fault_operands,
                                          check_tensor, fault_ptr as _ptr)
-
-# chip_smoke.py resets and reads these; "sparse_fields" counts the staged
-# kernel, "sparse_fields_global" the one for rows too long to stage, and
-# "sparse_energy" / "sparse_energy_long" the energy's two routes
-launches = {"sparse_fields": 0, "sparse_fields_global": 0, "colored_gibbs_sweep": 0,
-            "colored_gibbs_sweep_long": 0, "sparse_energy": 0, "sparse_energy_long": 0}
-launches_faults = {"colored_gibbs_sweep_faults": 0}  # the sweep's fault variant
 
 # Rows a fields block stages, at most, and the threads of a block of
 # either kernel (chip_ablate.py times 1, 2 and 3 rows and 256, 512 and
@@ -437,7 +434,7 @@ def sparse_energy(
         else:
             _launch_energy(rows, nbr_idx, nbr_w, b, part[:rows.shape[0]], out[r0:r0 + chunk], 0,
                            0, dev)
-        launches[kernel] += 1
+        tracing.count(f"launch.{kernel}")
     return out.view(lead)
 
 
@@ -454,7 +451,7 @@ def sparse_fields(
         return out
     rows = fields_rows(B, n, _sm_count(dev))
     _launch_fields(s, nbr_idx, nbr_w, b, out, rows, _block_threads(n), dev)
-    launches["sparse_fields" if rows else "sparse_fields_global"] += 1
+    tracing.count("launch.sparse_fields" if rows else "launch.sparse_fields_global")
     return out
 
 
@@ -507,12 +504,9 @@ def colored_gibbs_sweep(
         return out
     if long_rows:
         _launch_sweep_long(s, plan, uniforms, beta, out, dev)
-        launches["colored_gibbs_sweep_long"] += 1
+        tracing.count("launch.colored_gibbs_sweep_long")
         return out
     variant = () if faults is None else (faults,)  # the base kernel's launch call unchanged
     _launch_sweep(s, plan, uniforms, beta, out, _block_threads(n), dev, *variant)
-    if variant:
-        launches_faults["colored_gibbs_sweep_faults"] += 1
-    else:
-        launches["colored_gibbs_sweep"] += 1
+    tracing.count("launch.colored_gibbs_sweep_faults" if variant else "launch.colored_gibbs_sweep")
     return out

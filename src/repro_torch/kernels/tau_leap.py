@@ -28,15 +28,15 @@ warps, k split between the two blocks of a thread-block cluster, so
 (256, 2048) runs 256 blocks; the epilogue (dequantize, sigmoid, exp,
 compare, flip) runs on the summed int32 tile with coalesced reads of s and
 u, issued before the mainloop, and coalesced writes of the new s. One C
-launcher issues both launches on the current stream; `launches` counts
-one per call.
+launcher issues both launches on the current stream; a call counts one
+`launch.tau_leap_step` in `repro_torch.tracing`.
 
 The fault variant (field noise): given a (B,N) bias, the whole per-row
 b + eta, the epilogue reads bias[r][c] in place of b[c], each with the
 coalesced loads of s and u before the mainloop, and forms f32(beta_r *
 bias[r][c]) as the base kernel forms f32(beta_r * b_c): row r rounds as
 the JAX B = 1 call with b = beta_r * (b + eta_r). It is the same kernel
-with a template flag, its own C entry point, counted in `launches_faults`.
+with a template flag, its own C entry point, counted as `launch.tau_leap_step_faults`.
 It moves 2.1 MB more at (256, 2048): about 12.6 MB, bound 3.8 µs. Stuck
 and dropped sites need no variant: the caller warps their uniforms to 1.0
 (a flip needs u < p <= 1).
@@ -45,11 +45,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import check_cuda, check_spins, check_tensor
-
-launches = 0  # kernel launches in this process; chip_smoke.py resets and reads it
-launches_faults = 0  # launches of the per-row bias variant
 
 SPIN_ROW_ALIGN = 16  # bytes: the packed int8 spins' row stride is a multiple of this
 
@@ -85,8 +83,7 @@ def tau_leap_step(
     f32 bias, () f32 scale, (B,N) f32 uniforms, () f32 dt and (B,) f32
     per-row beta, all contiguous on one sm_90 device -> new (B,N) f32 spins
     in a fresh tensor (never aliasing `s`). A (B,N) bias, one row per chain,
-    takes the fault variant (`launches_faults`)."""
-    global launches, launches_faults
+    takes the fault variant (`launch.tau_leap_step_faults`)."""
     dev = check_cuda(s)
     B, N = check_spins("s", s)
     check_tensor("s", s, torch.float32, (B, N), dev)
@@ -102,8 +99,5 @@ def tau_leap_step(
     # the kernel writes every byte, padding included (torch.empty is 16-byte aligned)
     s8 = torch.empty((B, padded_cols(N)), dtype=torch.int8, device=dev)
     _launch(s, s8, j_i8, b, scale, beta, uniforms, dt, out, dev)
-    if b.ndim == 2:
-        launches_faults += 1
-    else:
-        launches += 1
+    tracing.count("launch.tau_leap_step_faults" if b.ndim == 2 else "launch.tau_leap_step")
     return out

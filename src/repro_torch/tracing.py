@@ -14,9 +14,9 @@ and `counts()` afterwards.
                     (name)` too, in the same trace as the device's
                     operations and the CUDA runtime calls.
     count(name, n)  adds to a process-wide counter; always on (the driver
-                    counts once per block, never per step).
-    counts()        every counter by name, the kernel wrappers' launch
-                    counters (`ops.launch_counts()`) included.
+                    counts once per block, a kernel wrapper once per launch).
+    counts()        every counter by name, a `collections.Counter`: a name
+                    never counted reads 0.
     calls()         one record per outermost span closed while a profiler
                     recorded, the newest MAX_CALLS: {"name", "start_ns",
                     "end_ns", "spans" (its descendants' records, by start),
@@ -41,6 +41,11 @@ colour plan (`sparse_gather.colour_plan`, with its waits for the device);
 `sampler.replays`, `sampler.reuses` (calls that took a kept run, which
 validate without the finite-energy probe and replay every block) and
 `sampler.colour_plans` (the colour plans built).
+
+The kernel wrappers count each launch as `launch.<kernel>`, each kernel
+module's docstring naming its own kernels. Under a CUDA graph a wrapper
+counts once per capture; the graph loop moves those counts to the
+replays (`core/graph_loop.py`).
 """
 from __future__ import annotations
 
@@ -52,8 +57,6 @@ import time
 
 import torch
 
-from repro_torch.kernels import ops
-
 # Whether spans reach the profiler's trace: where this torch's kineto
 # events declare their activity, the device-side event of a range around
 # device work reads as a user annotation. Where they do not (torch 2.11), a
@@ -64,9 +67,9 @@ MIRRORED = hasattr(torch._C._autograd._KinetoEvent, "activity_type")
 MAX_CALLS = 1024
 
 _NULL = contextlib.nullcontext()
-_counters: dict[str, int] = dict.fromkeys(
+_counters = collections.Counter(dict.fromkeys(
     ("sampler.calls", "sampler.eager_blocks", "sampler.captures", "sampler.replays",
-     "sampler.reuses", "sampler.colour_plans"), 0)
+     "sampler.reuses", "sampler.colour_plans"), 0))
 _calls: collections.deque = collections.deque(maxlen=MAX_CALLS)
 _ids = itertools.count()
 _local = threading.local()  # each thread's open spans
@@ -86,14 +89,13 @@ def span(name: str):
 
 def count(name: str, n: int = 1) -> None:
     """Add `n` to the counter `name`."""
-    _counters[name] = _counters.get(name, 0) + n
+    _counters[name] += n
 
 
-def counts() -> dict[str, int]:
-    """Every counter by name, the kernel launch counters included."""
-    out = dict(zip(ops.LAUNCH_NAMES, ops.launch_counts()))
-    out.update(_counters)
-    return out
+def counts() -> collections.Counter:
+    """A copy of every counter by name (module docstring); a name never
+    counted reads 0."""
+    return _counters.copy()
 
 
 def calls() -> list[dict]:

@@ -570,7 +570,7 @@ def test_colored_variant_plain_version_equals_jax_kernel_per_row():
 # ---------------------------------------------------------------------------
 
 
-def test_wrappers_route_the_fault_variants_and_count_them_apart(monkeypatch):
+def test_wrappers_route_the_fault_variants_and_count_them_apart(monkeypatch, launched):
     calls = []
     for mod in (tau_leap, lattice_gibbs, sparse_gather):
         monkeypatch.setattr(mod, "check_cuda", lambda t: t.device)
@@ -579,11 +579,6 @@ def test_wrappers_route_the_fault_variants_and_count_them_apart(monkeypatch):
                         lambda *a: calls.append(("plan", len(a) == 7)))
     monkeypatch.setattr(sparse_gather, "_launch_sweep",
                         lambda *a: calls.append(("colored", len(a) == 8)))
-    monkeypatch.setattr(tau_leap, "launches", 0)
-    monkeypatch.setattr(tau_leap, "launches_faults", 0)
-    for mod in (lattice_gibbs, sparse_gather):
-        monkeypatch.setattr(mod, "launches", dict.fromkeys(mod.launches, 0))
-        monkeypatch.setattr(mod, "launches_faults", dict.fromkeys(mod.launches_faults, 0))
     B, N = 3, 8
     s = torch.ones(B, N)
     J = torch.zeros(N, N, dtype=torch.int8)
@@ -592,7 +587,7 @@ def test_wrappers_route_the_fault_variants_and_count_them_apart(monkeypatch):
     tau_leap.tau_leap_step(s, J, torch.zeros(B, N), *args[2:])
     with pytest.raises(ValueError, match="b must have shape"):
         tau_leap.tau_leap_step(s, J, torch.zeros(B + 1, N), *args[2:])
-    assert (tau_leap.launches, tau_leap.launches_faults) == (1, 1)
+    assert (launched()["tau_leap_step"], launched()["tau_leap_step_faults"]) == (1, 1)
 
     H, W = 4, 4
     w, b = torch.zeros(8, H, W), torch.zeros(H, W)
@@ -613,8 +608,8 @@ def test_wrappers_route_the_fault_variants_and_count_them_apart(monkeypatch):
         lattice_gibbs.lattice_gibbs_sweep(sl.to(bf), w.to(bf), b.to(bf), u.to(bf), colors.to(bf),
                                           fz.to(bf), cl.to(bf), torch.ones(B),
                                           bias_rows=torch.zeros(B, H, W))
-    assert lattice_gibbs.launches["lattice_gibbs_sweep"] == 1
-    assert lattice_gibbs.launches_faults["lattice_gibbs_sweep_faults"] == 2
+    assert launched()["lattice_gibbs_sweep"] == 1
+    assert launched()["lattice_gibbs_sweep_faults"] == 2
 
     sp = _problem("sparse")
     us = torch.rand(sp.n_colors, B, sp.n)
@@ -627,8 +622,8 @@ def test_wrappers_route_the_fault_variants_and_count_them_apart(monkeypatch):
     with pytest.raises(ValueError, match="bias_rows must have shape"):
         sparse_gather.colored_gibbs_sweep(ss, sp.nbr_idx, sp.nbr_w, sp.b, us, masks,
                                           torch.ones(B), bias_rows=torch.zeros(sp.n))
-    assert sparse_gather.launches["colored_gibbs_sweep"] == 1
-    assert sparse_gather.launches_faults["colored_gibbs_sweep_faults"] == 1
+    assert launched()["colored_gibbs_sweep"] == 1
+    assert launched()["colored_gibbs_sweep_faults"] == 1
     assert calls == [("tau", 1), ("tau", 2), ("plan", False), ("plan", True), ("plan", True),
                      ("colored", False), ("colored", True)]
 

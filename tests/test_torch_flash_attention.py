@@ -115,10 +115,11 @@ def test_a_window_as_wide_as_the_keys_is_the_causal_call(dtype):
     assert not torch.equal(ops.flash_attention(tq, tk, tv, causal=True, window=255), causal)
 
 
-def test_window_checks_and_the_windowed_launch_count(monkeypatch):
+def test_window_checks_and_the_windowed_launch_count(monkeypatch, launched):
     """A window needs causal (ops, the plain version and the wrapper raise)
-    and, on the kernel, Sq <= Sk; a banded launch counts in launches and in
-    launches_window, with the window passed to the launcher."""
+    and, on the kernel, Sq <= Sk; a banded launch counts as
+    launch.flash_attention and launch.flash_attention_window, with the
+    window passed to the launcher."""
     tq, tk, tv = _torch(_qkv(2, 128, 256, 64, seed=3), "float32")
     for fn in (ops.flash_attention, ref.flash_attention_ref, flash_attention.flash_attention):
         with pytest.raises(ValueError, match="needs causal"):
@@ -130,14 +131,12 @@ def test_window_checks_and_the_windowed_launch_count(monkeypatch):
     monkeypatch.setattr(flash_attention, "_launch",
                         lambda q, k, v, out, causal, window, kv_len, bf16, device:
                         calls.append(window))
-    monkeypatch.setattr(flash_attention, "launches", 0)
-    monkeypatch.setattr(flash_attention, "launches_window", 0)
     with pytest.raises(ValueError, match="Sq <= Sk"):
         flash_attention.flash_attention(tk, tq, tq, True, window=64)
     flash_attention.flash_attention(tq, tk, tv, True, window=64)
     flash_attention.flash_attention(tq, tk, tv, True)
     assert calls == [64, 0]
-    assert flash_attention.launches == 2 and flash_attention.launches_window == 1
+    assert launched()["flash_attention"] == 2 and launched()["flash_attention_window"] == 1
 
 
 # (BH, Sq, Sk, d, kv_len): whisper's 1500 frames padded to 1536 keys (the
@@ -169,37 +168,35 @@ def test_kv_len_plain_version_matches_jax_key_masked_attention(BH, Sq, Sk, d, kv
         assert torch.equal(ops.flash_attention(tq, *moved, causal=False, kv_len=kv_len), got)
 
 
-def test_kv_len_checks_and_the_bounded_launch_count(monkeypatch):
+def test_kv_len_checks_and_the_bounded_launch_count(monkeypatch, launched):
     """kv_len must lie in [1, Sk], and below Sk it needs causal=False (ops,
-    the plain version and the wrapper raise); a bounded launch counts in
-    launches and launches_kv_len, kv_len = Sk (or None) in launches alone,
-    and the bound reaches the launcher; nothing launches for a refusal."""
+    the plain version and the wrapper raise); a bounded launch counts as
+    launch.flash_attention and launch.flash_attention_kv_len, kv_len = Sk
+    (or None) as launch.flash_attention alone, and the bound reaches the
+    launcher; nothing launches for a refusal."""
     tq, tk, tv = _torch(_qkv(2, 128, 256, 64, seed=3), "float32")
     calls = []
     monkeypatch.setattr(flash_attention, "check_cuda", lambda t: t.device)
     monkeypatch.setattr(flash_attention, "_launch",
                         lambda q, k, v, out, causal, window, kv_len, bf16, device:
                         calls.append((causal, kv_len)))
-    monkeypatch.setattr(flash_attention, "launches", 0)
-    monkeypatch.setattr(flash_attention, "launches_kv_len", 0)
     for fn in (ops.flash_attention, ref.flash_attention_ref, flash_attention.flash_attention):
         for kv_len in (0, -3, 257):
             with pytest.raises(ValueError, match="must lie in"):
                 fn(tq, tk, tv, False, kv_len=kv_len)
         with pytest.raises(ValueError, match="needs causal=False"):
             fn(tq, tk, tv, True, kv_len=200)
-    assert calls == [] and flash_attention.launches == 0
+    assert calls == [] and launched()["flash_attention"] == 0
     flash_attention.flash_attention(tq, tk, tv, False, kv_len=200)
     flash_attention.flash_attention(tq, tk, tv, False, kv_len=256)
     flash_attention.flash_attention(tq, tk, tv, True, kv_len=256)
     flash_attention.flash_attention(tq, tk, tv, False)
     assert calls == [(False, 200), (False, 256), (True, 256), (False, 256)]
-    assert flash_attention.launches == 4 and flash_attention.launches_kv_len == 1
+    assert launched()["flash_attention"] == 4 and launched()["flash_attention_kv_len"] == 1
 
 
-def test_ops_modes_on_cpu_and_the_kernel_wrapper_checks():
+def test_ops_modes_on_cpu_and_the_kernel_wrapper_checks(launched):
     tq, tk, tv = _torch(_qkv(2, 128, 256, 64, seed=3), "float32")
-    flash_attention.launches = 0
     np.testing.assert_array_equal(
         ops.flash_attention(tq, tk, tv).numpy(),
         ops.flash_attention(tq, tk, tv, mode="reference").numpy())
@@ -222,7 +219,7 @@ def test_ops_modes_on_cpu_and_the_kernel_wrapper_checks():
         flash_attention.flash_attention(tq, tk.bfloat16(), tv)
     with pytest.raises(ValueError, match="all float32 or all bfloat16"):
         flash_attention.flash_attention(tq.half(), tk.half(), tv.half())
-    assert flash_attention.launches == 0
+    assert launched()["flash_attention"] == 0
 
 
 def _chip_smoke():
@@ -295,25 +292,24 @@ def test_two_bf16_parts_of_p_fail_the_chip_check_at_the_first_rows():
     assert ulps <= 0.5 + 1e-3
 
 
-def test_the_wrapper_routes_by_dtype_and_counts_each(monkeypatch):
+def test_the_wrapper_routes_by_dtype_and_counts_each(monkeypatch, launched):
     """bf16 goes to the wgmma kernel and f32 to the CUDA-core one (the
-    launcher's bf16 flag), counted in launches_by_dtype beside launches; no
-    card: the device check and the launch are replaced."""
+    launcher's bf16 flag), counted as launch.flash_attention_bf16 and
+    launch.flash_attention_f32 beside launch.flash_attention; no card: the
+    device check and the launch are replaced."""
     calls = []
     monkeypatch.setattr(flash_attention, "check_cuda", lambda t: t.device)
     monkeypatch.setattr(flash_attention, "_launch",
                         lambda q, k, v, out, causal, window, kv_len, bf16, device:
                         calls.append(bf16))
-    monkeypatch.setattr(flash_attention, "launches", 0)
-    monkeypatch.setattr(flash_attention, "launches_by_dtype", {"float32": 0, "bfloat16": 0})
     for dtype, n in (("bfloat16", 2), ("float32", 1)):
         q, k, v = _torch(_qkv(2, 128, 256, 64, seed=3), dtype)
         for _ in range(n):
             out = flash_attention.flash_attention(q, k, v, True)
             assert out.dtype == q.dtype and out.shape == q.shape
     assert calls == [True, True, False]
-    assert flash_attention.launches_by_dtype == {"float32": 1, "bfloat16": 2}
-    assert flash_attention.launches == 3
+    assert launched() == {"flash_attention_f32": 1, "flash_attention_bf16": 2,
+                          "flash_attention": 3}
 
 
 def test_chip_check_catches_a_dropped_key_tile():
@@ -341,18 +337,16 @@ def test_chip_check_catches_a_dropped_key_tile():
 @pytest.mark.parametrize("BH,Sq,Sk,d,causal,dtype", CASES + [
     (1, 256, 256, 256, True, "float32"), (2, 256, 256, 8, False, "bfloat16"),
     (4, 128, 384, 32, False, "bfloat16"), (3, 128, 256, 8, True, "bfloat16")])
-def test_kernel_matches_plain_version_on_the_card(BH, Sq, Sk, d, causal, dtype):
+def test_kernel_matches_plain_version_on_the_card(BH, Sq, Sk, d, causal, dtype, launched):
     """The CUDA kernel against its plain version at chip_smoke.py's check
     shapes, one launch each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (an sm_90 card); chip_smoke.py checks it there")
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = _torch(_qkv(BH, Sq, Sk, d, seed=BH * Sq + Sk + d), dtype, device="cuda")
-    flash_attention.launches = 0
-    flash_attention.launches_by_dtype.update(float32=0, bfloat16=0)
     got = ops.flash_attention(q, k, v, causal=causal)
-    assert flash_attention.launches == 1 and got.dtype == q.dtype
-    assert flash_attention.launches_by_dtype[dtype] == 1
+    assert launched()["flash_attention"] == 1 and got.dtype == q.dtype
+    assert launched()["flash_attention_" + {"float32": "f32", "bfloat16": "bf16"}[dtype]] == 1
     plain = ops.flash_attention(q, k, v, causal=causal, mode="reference")
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), plain.float(), atol=tol, rtol=tol)

@@ -17,7 +17,7 @@ from repro.kernels import dense_field as jdf
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import tau_leap as jtl
-from repro_torch.kernels import dense_field, ops, ref, tau_leap
+from repro_torch.kernels import ops, ref, tau_leap
 
 torch.set_num_threads(1)
 
@@ -137,11 +137,10 @@ def test_per_row_beta_folds_like_one_jax_call_per_row():
     np.testing.assert_array_equal(ones.numpy(), plain.numpy())
 
 
-def test_kernel_mode_on_cpu_raises_and_counts_nothing():
+def test_kernel_mode_on_cpu_raises_and_counts_nothing(launched):
     s, J, b, u = _inputs(4, 16, seed=5)
     ts, tJ, tb, tu = _t(s, J, b, u)
     scale, dt = torch.tensor(0.01), torch.tensor(0.3)
-    tau_leap.launches = dense_field.launches = 0
     ops.dense_field(ts.to(torch.int8), tJ, tb, scale)
     ops.dense_field(ts.to(torch.int8), tJ, tb, scale, mode="reference")
     ops.tau_leap_step(ts, tJ, tb, scale, tu, dt)
@@ -153,7 +152,7 @@ def test_kernel_mode_on_cpu_raises_and_counts_nothing():
         tau_leap.tau_leap_step(ts, tJ, tb, scale, tu, dt, torch.ones(4))
     with pytest.raises(ValueError, match="mode"):
         ops.dense_field(ts.to(torch.int8), tJ, tb, scale, mode="pallas")
-    assert tau_leap.launches == 0 and dense_field.launches == 0
+    assert launched()["tau_leap_step"] == 0 and launched()["dense_field"] == 0
 
 
 @pytest.mark.parametrize("B,N", _check_shapes())
@@ -173,14 +172,13 @@ def test_packed_spins_are_int8_spins_in_16_byte_rows_zero_padded(B, N):
     np.testing.assert_array_equal(ref.pack_spins_ref(odd, 16)[0, :4].numpy(), [0, 0, 1, -1])
 
 
-def test_tau_leap_wrapper_passes_a_padded_int8_scratch(monkeypatch):
+def test_tau_leap_wrapper_passes_a_padded_int8_scratch(monkeypatch, launched):
     """The wrapper allocates the packed spins as a (B, padded_cols(N)) int8
     tensor on s's device and launches once per call; no card: the device
     check and the launch are replaced."""
     seen = []
     monkeypatch.setattr(tau_leap, "check_cuda", lambda t: t.device)
     monkeypatch.setattr(tau_leap, "_launch", lambda *args: seen.append(args))
-    monkeypatch.setattr(tau_leap, "launches", 0)
     B, N = 3, 130
     s, J, b, u = _t(*_inputs(B, N, seed=1))
     out = tau_leap.tau_leap_step(s, J, b, torch.tensor(0.01), u, torch.tensor(0.3), torch.ones(B))
@@ -188,4 +186,4 @@ def test_tau_leap_wrapper_passes_a_padded_int8_scratch(monkeypatch):
     (args,) = seen
     s8 = args[1]
     assert s8.dtype == torch.int8 and s8.shape == (B, 144) and s8.is_contiguous()
-    assert s8.data_ptr() % 16 == 0 and tau_leap.launches == 1
+    assert s8.data_ptr() % 16 == 0 and launched()["tau_leap_step"] == 1

@@ -303,11 +303,10 @@ def test_bf16_per_row_beta_equals_one_jax_call_per_row():
         np.testing.assert_array_equal(got[r].float().numpy(), np.asarray(want, np.float32)[0])
 
 
-def test_kernel_wrapper_names_mixed_dtypes():
+def test_kernel_wrapper_names_mixed_dtypes(launched):
     B, H, W = 2, 4, 4
     t = [torch.as_tensor(x) for x in _sweep_inputs(B, H, W, seed=8)]
     t[4], t[5] = t[4].float(), t[5].float()
-    lattice_gibbs.launches = dict.fromkeys(lattice_gibbs.launches, 0)
     mixed = list(t)
     mixed[1] = t[1].to(torch.bfloat16)
     with pytest.raises(ValueError, match="w torch.bfloat16"):
@@ -316,16 +315,15 @@ def test_kernel_wrapper_names_mixed_dtypes():
         lattice_gibbs.lattice_gibbs_sweep(*[x.half() for x in t], torch.ones(B))
     with pytest.raises(ValueError, match="CUDA tensors"):  # bf16 throughout is taken
         lattice_gibbs.lattice_gibbs_sweep(*[x.to(torch.bfloat16) for x in t], torch.ones(B))
-    assert not any(lattice_gibbs.launches.values())
+    assert not launched()
 
 
-def test_ops_modes_on_cpu_and_the_kernel_wrapper_checks():
+def test_ops_modes_on_cpu_and_the_kernel_wrapper_checks(launched):
     B, H, W = 2, 4, 4
     s, w, b, u, colors, frozen, clampv = _sweep_inputs(B, H, W, seed=7)
     t = [torch.as_tensor(x) for x in (s, w, b, u)]
     masks = [torch.as_tensor(colors).float(), torch.as_tensor(frozen).float(),
              torch.as_tensor(clampv)]
-    lattice_gibbs.launches = dict.fromkeys(lattice_gibbs.launches, 0)
     auto = ops.lattice_gibbs_sweep(*t, *masks)
     np.testing.assert_array_equal(
         auto.numpy(), ops.lattice_gibbs_sweep(*t, *masks, mode="reference").numpy())
@@ -335,7 +333,7 @@ def test_ops_modes_on_cpu_and_the_kernel_wrapper_checks():
         lattice_gibbs.lattice_gibbs_sweep(*t, *masks, torch.ones(B))
     with pytest.raises(ValueError, match="mode"):
         ops.lattice_gibbs_sweep(*t, *masks, mode="pallas")
-    assert not any(lattice_gibbs.launches.values())
+    assert not launched()
 
 
 @pytest.mark.cuda

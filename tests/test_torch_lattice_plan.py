@@ -24,6 +24,7 @@ import torch
 from repro.core import ising as jising
 from repro.kernels import lattice_gibbs as jlg
 from repro.kernels import ref as jref
+from repro_torch import tracing
 from repro_torch.core import ising, problems, sampler_api
 from repro_torch.core.ising import KING_OFFSETS
 from repro_torch.core.sampler_api import ChromaticGibbs, run
@@ -193,7 +194,7 @@ def test_masks_that_are_not_independent_sets_are_marked(masks):
     (16, 128, 128, (0, "lattice_gibbs_generic")),  # lists of 4096: the two-buffer kernel
     (1, 200, 200, (0, "lattice_gibbs_generic")),
 ])
-def test_plan_launch_shape(no_card, B, H, W, launch):
+def test_plan_launch_shape(no_card, launched, B, H, W, launch):
     """The plan kernel's threads a block, computed once in the plan, and
     the route of chip_smoke.py's lattice shapes."""
     plan = lattice_gibbs.lattice_plan(*_plan_operands(*_lattice(H, W, 3, frozen=False)))
@@ -201,7 +202,7 @@ def test_plan_launch_shape(no_card, B, H, W, launch):
     assert plan.threads == lattice_gibbs.plan_threads(plan.counts) == threads
     args = _sweep_args(H, W, "king", B=B, seed=3, frozen=False)
     lattice_gibbs.lattice_gibbs_sweep(*args)
-    assert lattice_gibbs.launches == dict.fromkeys(lattice_gibbs.launches, 0) | {route: 1}
+    assert launched() == {route: 1}
     assert no_card == ([("plan", threads)] if threads else [("generic",)])
 
 
@@ -332,7 +333,6 @@ def no_card(monkeypatch):
                         lambda s, plan, u, beta, out, dev: calls.append(("plan", plan.threads)))
     monkeypatch.setattr(lattice_gibbs, "_launch_generic",
                         lambda *a: calls.append(("generic",)))
-    monkeypatch.setattr(lattice_gibbs, "launches", dict.fromkeys(lattice_gibbs.launches, 0))
     return calls
 
 
@@ -348,13 +348,14 @@ def _sweep_args(H, W, masks, B=3, seed=4, frozen=True):
     (8, 8, "random", "lattice_gibbs_generic"), (16, 16, "all_sites", "lattice_gibbs_generic"),
     (200, 200, "king", "lattice_gibbs_generic"),  # lists longer than a block's threads
 ])
-def test_the_plan_chooses_the_route_and_each_route_is_counted(no_card, H, W, masks, route):
+def test_the_plan_chooses_the_route_and_each_route_is_counted(no_card, launched, H, W, masks,
+                                                              route):
     args = _sweep_args(H, W, masks)
     out = lattice_gibbs.lattice_gibbs_sweep(*args)  # builds its own plan
     plan = lattice_gibbs.lattice_plan(*args[1:3], *args[4:7])
     lattice_gibbs.lattice_gibbs_sweep(*args, plan=plan)
     assert out.shape == args[0].shape and out.dtype == args[0].dtype
-    assert lattice_gibbs.launches == dict.fromkeys(lattice_gibbs.launches, 0) | {route: 2}
+    assert launched() == {route: 2}
     if route == "lattice_gibbs_generic":
         assert no_card == [("generic",)] * 2
         return
@@ -391,7 +392,7 @@ def _other_operands(name, args):
 
 @pytest.mark.parametrize("name", ["same", "another_lattice", "other_masks", "equal_copy",
                                   "weights_changed", "clamp_changed", "frozen_changed"])
-def test_sweep_takes_a_plan_only_with_its_own_operands(no_card, name):
+def test_sweep_takes_a_plan_only_with_its_own_operands(no_card, launched, name):
     """The plan kernel reads the plan's weights, lists and clamp values, not
     the operands: a plan of another lattice of the same size, or of tensors
     changed since, would sweep another problem, so the wrapper refuses it."""
@@ -407,10 +408,10 @@ def test_sweep_takes_a_plan_only_with_its_own_operands(no_card, name):
         lattice_gibbs.check_plan(plan, *args[1:3], *args[4:7])
     with pytest.raises(ValueError, match=error):
         lattice_gibbs.lattice_gibbs_sweep(*args, plan=plan)
-    assert no_card == [] and not any(lattice_gibbs.launches.values())
+    assert no_card == [] and not launched()
 
 
-def test_wrapper_refuses_malformed_plans_and_lattices_too_large(no_card):
+def test_wrapper_refuses_malformed_plans_and_lattices_too_large(no_card, launched):
     args = _sweep_args(16, 16, "king")
     plan = lattice_gibbs.lattice_plan(*args[1:3], *args[4:7])
     with pytest.raises(TypeError, match="LatticePlan"):
@@ -437,11 +438,11 @@ def test_wrapper_refuses_malformed_plans_and_lattices_too_large(no_card):
         lattice_gibbs.lattice_gibbs_sweep(*_sweep_args(H, W, "king", B=1))
     with pytest.raises(ValueError, match="an int8 copy of a chain between two halos"):
         lattice_gibbs.lattice_gibbs_sweep(*_sweep_args(483, 483, "corner", B=1))
-    assert lattice_gibbs.launches == {"lattice_gibbs_sweep": 1, "lattice_gibbs_generic": 0}
+    assert launched() == {"lattice_gibbs_sweep": 1}
 
 
 @pytest.mark.parametrize("masks", ["random", "all_sites"])
-def test_a_plan_may_be_marked_not_independent_but_never_independent(no_card, masks):
+def test_a_plan_may_be_marked_not_independent_but_never_independent(no_card, launched, masks):
     """Lowering `independent` only sends the sweep to the two-buffer kernel,
     which is exact for any masks; raising it would update in place where a
     phase reads its own sites, so check_plan refuses it."""
@@ -454,7 +455,7 @@ def test_a_plan_may_be_marked_not_independent_but_never_independent(no_card, mas
     plan_k = lattice_gibbs.lattice_plan(*king[1:3], *king[4:7])
     lattice_gibbs.lattice_gibbs_sweep(*king, plan=plan_k._replace(independent=False))
     assert no_card == [("generic",)]
-    assert lattice_gibbs.launches == {"lattice_gibbs_sweep": 0, "lattice_gibbs_generic": 1}
+    assert launched() == {"lattice_gibbs_generic": 1}
 
 
 @pytest.mark.cuda
@@ -467,9 +468,9 @@ def test_both_routes_match_the_plain_version_on_the_card():
     for masks, route in (("king", "lattice_gibbs_sweep"), ("random", "lattice_gibbs_generic")):
         _, t, ts, tu, tbeta = _sweep_case(5, 17, 23, 11, torch.float32, masks=masks)
         t, ts, tu, tbeta = [x.cuda() for x in t], ts.cuda(), tu.cuda(), tbeta.cuda()
-        before = dict(lattice_gibbs.launches)
+        before = tracing.counts()
         got = ops.lattice_gibbs_sweep(ts, t[0], t[1], tu, *t[2:], tbeta)
-        assert lattice_gibbs.launches[route] == before[route] + 1
+        assert tracing.counts()[f"launch.{route}"] == before[f"launch.{route}"] + 1
         plain = ops.lattice_gibbs_sweep(ts, t[0], t[1], tu, *t[2:], tbeta, mode="reference")
         band = _phase_band(lambda x: ref.lattice_fields_ref(x, t[0], t[1]), ts.cpu(), tu.cpu(),
                            t[2].cpu() > 0.5, t[3].cpu() > 0.5, tbeta.cpu(), P_BAND)

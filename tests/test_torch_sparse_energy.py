@@ -194,7 +194,6 @@ def no_card(monkeypatch):
     monkeypatch.setattr(sparse_gather, "check_cuda", lambda t: t.device)
     monkeypatch.setattr(sparse_gather, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(sparse_gather, "_launch_energy", launch)
-    monkeypatch.setattr(sparse_gather, "launches", dict.fromkeys(sparse_gather.launches, 0))
     return calls
 
 
@@ -217,12 +216,12 @@ def test_the_energy_kernel_is_chosen_by_n(n, kernel):
 
 
 @pytest.mark.parametrize("n", [LONGEST_STAGED, LONGEST_STAGED + 1])
-def test_the_wrapper_takes_the_route_of_n_and_counts_it(no_card, n):
+def test_the_wrapper_takes_the_route_of_n_and_counts_it(no_card, launched, n):
     idx, w, b = _ring(n)
     s = _pm1((4, n), 1)
     out = sparse_gather.sparse_energy(s, idx, w, b)
     kernel = sparse_gather.energy_kernel(n)
-    assert sparse_gather.launches == dict.fromkeys(sparse_gather.launches, 0) | {kernel: 1}
+    assert launched() == {kernel: 1}
     (call,) = no_card
     if kernel == "sparse_energy":
         assert call["rows"] == 1 and call["threads"] == 1024 and call["part"] is None
@@ -234,7 +233,7 @@ def test_the_wrapper_takes_the_route_of_n_and_counts_it(no_card, n):
 @pytest.mark.parametrize("n, chunk, lead", [(64, 15, (5, 8)), (64, 15, (15,)),
                                              (LONGEST_STAGED + 1, 4, (10,)),
                                              (LONGEST_STAGED + 1, 4, (3, 3))])
-def test_rows_past_the_index_limit_go_in_chunks(no_card, monkeypatch, n, chunk, lead):
+def test_rows_past_the_index_limit_go_in_chunks(no_card, launched, monkeypatch, n, chunk, lead):
     """A block of rows whose elements reach INDEX_LIMIT (2^31 on the card: a
     run's samples at L = 80 from 4195 rows) is launched in chunks of
     (INDEX_LIMIT - 1) // n rows into slices of one output, each launch
@@ -249,7 +248,7 @@ def test_rows_past_the_index_limit_go_in_chunks(no_card, monkeypatch, n, chunk, 
     assert {c["route"] for c in no_card} == {kernel}
     if kernel == "sparse_energy_long":
         assert [c["part"] for c in no_card] == [(m, -(-n // 1024), 2) for m in sizes]
-    assert sparse_gather.launches[kernel] == len(sizes)
+    assert launched()[kernel] == len(sizes)
     assert out.shape == lead
     assert torch.equal(out, ref.sparse_energy_ref(s, idx, w, b))
     with pytest.raises(ValueError, match="int32"):  # one row past the limit
@@ -273,15 +272,15 @@ def test_the_wrapper_takes_any_leading_dimensions(no_card, lead):
     assert torch.equal(out, prob.energy(s))
 
 
-def test_the_wrapper_launches_nothing_for_no_rows(no_card):
+def test_the_wrapper_launches_nothing_for_no_rows(no_card, launched):
     idx, w, b = _ring(16)
     out = sparse_gather.sparse_energy(torch.ones((0, 16)), idx, w, b)
-    assert out.shape == (0,) and no_card == [] and not any(sparse_gather.launches.values())
+    assert out.shape == (0,) and no_card == [] and not launched()
 
 
 @pytest.mark.parametrize("bad", ["f64", "idx64", "w_shape", "b_shape", "strided", "scalar",
                                  "idx_strided"])
-def test_the_wrapper_refuses_what_the_kernel_does_not_take(no_card, bad):
+def test_the_wrapper_refuses_what_the_kernel_does_not_take(no_card, launched, bad):
     idx, w, b = _ring(64)
     s = _pm1((4, 64), 4)
     if bad == "f64":
@@ -300,7 +299,7 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take(no_card, bad):
         idx = idx.t().contiguous().t()
     with pytest.raises(ValueError):
         sparse_gather.sparse_energy(s, idx, w, b)
-    assert no_card == [] and not any(sparse_gather.launches.values())
+    assert no_card == [] and not launched()
 
 
 def test_the_wrapper_refuses_cpu_tensors_without_a_card():
@@ -312,16 +311,15 @@ def test_the_wrapper_refuses_cpu_tensors_without_a_card():
 
 
 def test_both_counters_reach_the_launch_counts_and_tracing(no_card):
-    names = ("sparse_gather.launches.sparse_energy", "sparse_gather.launches.sparse_energy_long")
-    assert set(names) <= set(ops.LAUNCH_NAMES)
+    """Each launch of either route is one count of its own name in
+    `tracing.counts()`, and nothing else is counted."""
     before = tracing.counts()
     for n in (64, LONGEST_STAGED + 1, LONGEST_STAGED + 1):
         idx, w, b = _ring(n)
         sparse_gather.sparse_energy(_pm1((2, n), 6), idx, w, b)
     after = tracing.counts()
-    assert [after[k] - before[k] for k in names] == [1, 2]
-    launched = dict(zip(ops.LAUNCH_NAMES, ops.launch_counts()))
-    assert [launched[k] for k in names] == [1, 2]
+    assert {k: n - before[k] for k, n in after.items() if n != before[k]} == {
+        "launch.sparse_energy": 1, "launch.sparse_energy_long": 2}
 
 
 @pytest.mark.parametrize("lead", [(3,), (2, 5)])
@@ -418,10 +416,11 @@ def _card():
 
 def _on_card(s, tabs):
     """The kernel's energies and the launches it counted."""
-    before = dict(sparse_gather.launches)
+    before = tracing.counts()
     got = sparse_gather.sparse_energy(s, *tabs)
     torch.cuda.synchronize()
-    return got, {k: v - before[k] for k, v in sparse_gather.launches.items() if v != before[k]}
+    return got, {k.removeprefix("launch."): n - before[k] for k, n in tracing.counts().items()
+                 if k.startswith("launch.") and n != before[k]}
 
 
 @pytest.mark.cuda
@@ -501,10 +500,10 @@ def test_a_graphed_first_hit_run_equals_the_plain_backend_on_the_card():
     target = float(prob.deg.sum()) / 2 * (1.0 - 2.0 * 0.85)
     kw = dict(n_steps=200, n_chains=64, first_hit=target, sample_every=50,
               schedule=sampler_api.geometric(0.3, 3.0))
-    before = dict(sparse_gather.launches)
+    before = tracing.counts()
     got = run(prob, ColoredGibbs(), 2147483931, backend="cuda", **kw)
     torch.cuda.synchronize()
-    assert sparse_gather.launches["sparse_energy"] - before["sparse_energy"] == 1 + 200 + 1
+    assert tracing.counts()["launch.sparse_energy"] - before["launch.sparse_energy"] == 1 + 200 + 1
     want = run(prob, ColoredGibbs(), 2147483931, backend="ref", **kw)
     for field in ("s", "samples", "energies", "t_hit", "hit"):
         assert torch.equal(getattr(got, field), getattr(want, field)), field

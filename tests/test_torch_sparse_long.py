@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import problems, sampler_api
 from repro_torch.core.sampler_api import ColoredGibbs, run
 from repro_torch.core.sparse import SparseIsing, _symmetric
@@ -74,7 +75,6 @@ def no_card(monkeypatch):
                         lambda *a, **k: calls.append("colored_gibbs_sweep"))
     monkeypatch.setattr(sparse_gather, "_launch_sweep_long",
                         lambda s, plan, u, beta, out, dev: calls.append(("long", plan)))
-    monkeypatch.setattr(sparse_gather, "launches", dict.fromkeys(sparse_gather.launches, 0))
     return calls
 
 
@@ -95,14 +95,14 @@ def test_the_sweep_kernel_is_chosen_by_n(n, kernel):
 
 
 @pytest.mark.parametrize("n", [LONGEST_SHORT, LONGEST_SHORT + 2])
-def test_the_wrapper_takes_the_kernel_of_n_and_counts_it(no_card, n):
+def test_the_wrapper_takes_the_kernel_of_n_and_counts_it(no_card, launched, n):
     idx, w, b, masks = _ring(n, C=2)
     B = 2
     out = sparse_gather.colored_gibbs_sweep(torch.ones((B, n)), idx, w, b,
                                             torch.rand((2, B, n)), masks, torch.ones(B))
     assert out.shape == (B, n) and out.dtype == torch.float32
     kernel = sparse_gather.sweep_kernel(n)
-    assert sparse_gather.launches == dict.fromkeys(sparse_gather.launches, 0) | {kernel: 1}
+    assert launched() == {kernel: 1}
     if kernel == "colored_gibbs_sweep_long":
         (tag, plan), = no_card
         assert tag == "long" and plan.independent and plan.counts == (n // 2, n // 2)
@@ -111,7 +111,7 @@ def test_the_wrapper_takes_the_kernel_of_n_and_counts_it(no_card, n):
 
 
 @pytest.mark.parametrize("faults", ["bias_rows", "keep", "both"])
-def test_a_long_row_call_with_fault_operands_raises(no_card, faults):
+def test_a_long_row_call_with_fault_operands_raises(no_card, launched, faults):
     n, B = LONGEST_SHORT + 2, 2
     idx, w, b, masks = _ring(n, C=2)
     kw = {"bias_rows": torch.zeros((B, n)), "keep": torch.ones((B, n), dtype=torch.bool)}
@@ -119,10 +119,10 @@ def test_a_long_row_call_with_fault_operands_raises(no_card, faults):
     with pytest.raises(NotImplementedError, match="no fault variant"):
         sparse_gather.colored_gibbs_sweep(torch.ones((B, n)), idx, w, b, torch.rand((2, B, n)),
                                           masks, torch.ones(B), **kw)
-    assert no_card == [] and not any(sparse_gather.launches.values())
+    assert no_card == [] and not launched()
 
 
-def test_a_long_row_call_refuses_classes_that_are_no_independent_sets(no_card):
+def test_a_long_row_call_refuses_classes_that_are_no_independent_sets(no_card, launched):
     n, B = LONGEST_SHORT + 2, 1
     idx, w, b, masks = _ring(n, C=1)  # every site in one class: each edge inside it
     plan = sparse_gather.colour_plan(idx, w, b, masks)
@@ -130,7 +130,7 @@ def test_a_long_row_call_refuses_classes_that_are_no_independent_sets(no_card):
     with pytest.raises(ValueError, match="independent sets"):
         sparse_gather.colored_gibbs_sweep(torch.ones((B, n)), idx, w, b, torch.rand((1, B, n)),
                                           masks, torch.ones(B), plan=plan)
-    assert no_card == [] and not any(sparse_gather.launches.values())
+    assert no_card == [] and not launched()
 
 
 # ---------------------------------------------------------------------------
@@ -257,15 +257,16 @@ def test_the_long_row_kernel_equals_the_plain_version_on_the_card():
     assert plan.independent and plan.counts == (n // 2, n // 2)
     tables = (prob.nbr_idx, prob.nbr_w, prob.b)
     got = own = want = s
-    before = dict(sparse_gather.launches)
+    before = tracing.counts()
     for _ in range(3):
         u = torch.rand((2, B, n), generator=gen, device=dev)
         got = sparse_gather.colored_gibbs_sweep(got, *tables, u, masks, beta, plan=plan)
         own = sparse_gather.colored_gibbs_sweep(own, *tables, u, masks, beta)
         want = ops.colored_gibbs_sweep(want, *tables, u, masks, beta, mode="reference")
     assert torch.equal(got, want) and torch.equal(own, want)
-    assert sparse_gather.launches == before | {
-        "colored_gibbs_sweep_long": before["colored_gibbs_sweep_long"] + 6}
+    after = tracing.counts()
+    assert {k: n - before[k] for k, n in after.items()
+            if k.startswith("launch.") and n != before[k]} == {"launch.colored_gibbs_sweep_long": 6}
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@ from repro.core import problems as jproblems
 from repro.core import sparse as jsparse
 from repro.kernels import ref as jref
 from repro.kernels import sparse_gather as jsg
+from repro_torch import tracing
 from repro_torch.core import ising, problems, sampler_api
 from repro_torch.core.sampler_api import ColoredGibbs, run
 from repro_torch.core.sparse import SparseIsing
@@ -285,7 +286,6 @@ def no_card(monkeypatch):
                         lambda s, i, w, b, out, rows, threads, dev: calls.append((rows, threads)))
     monkeypatch.setattr(sparse_gather, "_launch_sweep",
                         lambda s, plan, u, beta, out, threads, dev: calls.append((plan, threads)))
-    monkeypatch.setattr(sparse_gather, "launches", dict.fromkeys(sparse_gather.launches, 0))
     return calls
 
 
@@ -307,13 +307,14 @@ def _ring(n, D=3):
     (2, MAX_SMEM_BYTES // 4 + 1, 0, "sparse_fields_global"),  # one site more: the global kernel
     (1, 65536, 0, "sparse_fields_global"),
 ])
-def test_sparse_fields_chooses_its_kernel_by_n_and_counts_it(no_card, B, n, rows, kernel):
+def test_sparse_fields_chooses_its_kernel_by_n_and_counts_it(no_card, launched, B, n, rows,
+                                                             kernel):
     assert sparse_gather.fields_rows(B, n, H100_SMS) == rows
     idx, w, b = _ring(n)
     out = sparse_gather.sparse_fields(torch.ones((B, n)), idx, w, b)
     assert out.shape == (B, n) and out.dtype == torch.float32
     assert no_card == [(rows, min(1024, -(-n // 32) * 32))]
-    assert sparse_gather.launches == dict.fromkeys(sparse_gather.launches, 0) | {kernel: 1}
+    assert launched() == {kernel: 1}
 
 
 def _other_operands(name, mc, masks):
@@ -341,7 +342,7 @@ def _other_operands(name, mc, masks):
 
 @pytest.mark.parametrize("name", ["same", "another_problem", "other_masks", "equal_copy",
                                   "weights_changed", "masks_changed"])
-def test_colored_gibbs_sweep_takes_a_plan_only_with_its_own_operands(no_card, name):
+def test_colored_gibbs_sweep_takes_a_plan_only_with_its_own_operands(no_card, launched, name):
     """The kernel reads the plan's tables, not the operands: a plan of
     another problem of the same size, or of tables or masks changed since,
     would sweep another graph, so the wrapper refuses it."""
@@ -360,10 +361,10 @@ def test_colored_gibbs_sweep_takes_a_plan_only_with_its_own_operands(no_card, na
         sparse_gather.check_plan(plan, *operands)
     with pytest.raises(ValueError, match=error):
         sparse_gather.colored_gibbs_sweep(s, *operands[:3], u, operands[3], beta, plan=plan)
-    assert no_card == [] and sparse_gather.launches["colored_gibbs_sweep"] == 0
+    assert no_card == [] and launched()["colored_gibbs_sweep"] == 0
 
 
-def test_colored_gibbs_sweep_wrapper_builds_or_checks_the_plan(no_card):
+def test_colored_gibbs_sweep_wrapper_builds_or_checks_the_plan(no_card, launched):
     mc = problems.random_3regular_maxcut(64, 1, device=CPU)
     tables = (mc.nbr_idx, mc.nbr_w, mc.b)
     C, B = mc.n_colors, 5
@@ -375,7 +376,7 @@ def test_colored_gibbs_sweep_wrapper_builds_or_checks_the_plan(no_card):
     (built, threads), (given, _) = no_card
     assert given is plan and threads == 64
     _assert_same_plan(built, plan)
-    assert sparse_gather.launches["colored_gibbs_sweep"] == 2
+    assert launched()["colored_gibbs_sweep"] == 2
     other = sparse_gather.colour_plan(*tables, masks[:2])
     with pytest.raises(ValueError, match="the plan is of"):
         sparse_gather.colored_gibbs_sweep(s, *tables, u, masks, beta, plan=other)
@@ -391,8 +392,8 @@ def test_colored_gibbs_sweep_wrapper_builds_or_checks_the_plan(no_card):
     with pytest.raises(ValueError, match="shared memory.*independent sets"):
         sparse_gather.colored_gibbs_sweep(torch.ones((1, n)), idx, w, b, torch.rand((1, 1, n)),
                                           torch.ones((1, n)), torch.ones(1))
-    assert sparse_gather.launches["colored_gibbs_sweep"] == 2
-    assert sparse_gather.launches["colored_gibbs_sweep_long"] == 0
+    assert launched()["colored_gibbs_sweep"] == 2
+    assert launched()["colored_gibbs_sweep_long"] == 0
 
 
 @pytest.mark.cuda
@@ -405,9 +406,9 @@ def test_kernels_match_plain_versions_on_the_card_with_both_fields_kernels():
     for n, kernel in ((2048, "sparse_fields"), (60000, "sparse_fields_global")):
         mc = problems.random_3regular_maxcut(n, 4, device="cuda")
         s = torch.as_tensor(rng.normal(size=(3, n)).astype(np.float32), device="cuda")
-        before = dict(sparse_gather.launches)
+        before = tracing.counts()
         got = ops.sparse_fields(s, mc.nbr_idx, mc.nbr_w, mc.b)
-        assert sparse_gather.launches[kernel] == before[kernel] + 1
+        assert tracing.counts()[f"launch.{kernel}"] == before[f"launch.{kernel}"] + 1
         assert torch.equal(got, ops.sparse_fields(s, mc.nbr_idx, mc.nbr_w, mc.b,
                                                   mode="reference"))
     mc = problems.random_3regular_maxcut(2048, 5, device="cuda")

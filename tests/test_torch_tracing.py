@@ -1,5 +1,7 @@
 """`repro_torch.tracing`: spans and counters at the driver's layer boundaries,
 on only while a torch profiler records, and never changing a result."""
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -9,7 +11,8 @@ from repro_torch import tracing
 from repro_torch.core import boltzmann, ising, problems, sampler_api
 from repro_torch.core.graph_loop import GRAPH_STEPS, plan_blocks
 from repro_torch.data import digits
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, dense_field, flash_attention, lattice_gibbs, sparse_gather
+from repro_torch.kernels import tau_leap
 
 CPU = "cpu"
 
@@ -161,17 +164,20 @@ def test_the_colour_plan_is_a_span_inside_init_and_counted(backend):
 def test_a_repeated_call_on_the_card_replays_every_block():
     """On the card the second call of a key (SK at n = 2000, the CAL
     letters) captures nothing and runs no eager block, and equals the eager
-    loop of a new run bit for bit."""
+    loop of a new run bit for bit; either call counts its step kernel's
+    launches, one a step, the second from replays alone."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (an sm_90 card); chip_smoke.py checks the driver there")
     cases = [
         (problems.sk_instance(2000, 3, device="cuda"), sampler_api.TauLeap(dt=0.1, backend="cuda"),
-         dict(n_steps=200, n_chains=256, sample_every=50, schedule=sampler_api.geometric(0.3, 3.0))),
+         dict(n_steps=200, n_chains=256, sample_every=50, schedule=sampler_api.geometric(0.3, 3.0)),
+         "launch.tau_leap_step"),
         (problems.cal_problem(device="cuda"), sampler_api.ChromaticGibbs(backend="cuda"),
          dict(n_steps=100, n_chains=512, sample_every=50, first_hit=-930.0,
-              schedule=sampler_api.geometric(0.3, 3.0))),
+              schedule=sampler_api.geometric(0.3, 3.0)),
+         "launch.lattice_gibbs_sweep"),
     ]
-    for prob, kernel, kw in cases:
+    for prob, kernel, kw, step_launch in cases:
         sampler_api.drop_kept_runs()
         try:
             first = tracing.counts()
@@ -185,6 +191,9 @@ def test_a_repeated_call_on_the_card_replays_every_block():
         assert after["sampler.captures"] == before["sampler.captures"]
         assert after["sampler.eager_blocks"] == before["sampler.eager_blocks"]
         assert after["sampler.reuses"] == before["sampler.reuses"] + 1
+        # the new run's eager blocks and replays, its captures taken back
+        assert before[step_launch] - first[step_launch] == kw["n_steps"]
+        assert after[step_launch] - before[step_launch] == kw["n_steps"]
         want = sampler_api._make_run(prob, kernel, 2, eager=True, **kw)()
         for a, b in zip(got[:7], want[:7]):
             assert (a is None and b is None) or torch.equal(a, b)
@@ -234,12 +243,79 @@ def test_cd_step_is_bit_identical_with_the_profiler_on_and_off():
     assert torch.equal(off.problem.w, on.problem.w) and torch.equal(off.problem.b, on.problem.b)
 
 
-def test_counts_hold_the_launch_counters_and_the_driver_counters():
+def _ring(n):
+    """Tables of a ring of n sites (two neighbours and a padded slot) and
+    its two colour classes, n even."""
+    i = torch.arange(n)
+    idx = torch.stack([(i - 1) % n, (i + 1) % n, i], 1).to(torch.int32)
+    w = torch.tensor([1.0, 1.0, 0.0]).repeat(n, 1)
+    return idx, w, torch.zeros(n), torch.stack([(i % 2 == 0).float(), (i % 2 == 1).float()])
+
+
+def _launch_every_route():
+    """One call of each kernel route through its wrapper; two flash attention
+    calls, one f32 and banded, one bf16 and bounded to kv_len < Sk."""
+    B, N = 3, 8
+    s = torch.ones(B, N)
+    J = torch.zeros(N, N, dtype=torch.int8)
+    tail = (torch.tensor(1.0), torch.rand(B, N), torch.tensor(0.1), torch.ones(B))
+    tau_leap.tau_leap_step(s, J, torch.zeros(N), *tail)
+    tau_leap.tau_leap_step(s, J, torch.zeros(B, N), *tail)
+    dense_field.dense_field(s.to(torch.int8), J, torch.zeros(N), torch.tensor(1.0))
+
+    H = W = 4
+    w, b = torch.zeros(8, H, W), torch.zeros(H, W)
+    colors = ising.king_color_masks(H, W, device=CPU).float()
+    fz, cl = torch.zeros(H, W), torch.ones(H, W)
+    lat = (torch.ones(B, H, W), w, b, torch.rand(4, B, H, W), colors, fz, cl, torch.ones(B))
+    generic = lattice_gibbs.lattice_plan(w, b, colors, fz, cl)._replace(independent=False)
+    for plan in (None, generic):
+        lattice_gibbs.lattice_gibbs_sweep(*lat, plan=plan)
+        lattice_gibbs.lattice_gibbs_sweep(*lat, plan=plan, bias_rows=torch.zeros(B, H, W))
+
+    for n in (8, sparse_gather.MAX_SMEM_BYTES // 4 + 2):  # staged, then past a block's rows
+        idx, w, b, _ = _ring(n)
+        sparse_gather.sparse_fields(torch.ones(1, n), idx, w, b)
+        sparse_gather.sparse_energy(torch.ones(1, n), idx, w, b)
+    for n in (8, sparse_gather.MAX_SMEM_BYTES // 2 + 2):  # one chain a block, then long rows
+        idx, w, b, masks = _ring(n)
+        sparse_gather.colored_gibbs_sweep(torch.ones(1, n), idx, w, b, torch.rand(2, 1, n), masks,
+                                          torch.ones(1))
+    idx, w, b, masks = _ring(8)
+    sparse_gather.colored_gibbs_sweep(torch.ones(1, 8), idx, w, b, torch.rand(2, 1, 8), masks,
+                                      torch.ones(1), keep=torch.ones(1, 8, dtype=torch.uint8))
+
+    q = torch.zeros(2, 128, 64)
+    flash_attention.flash_attention(q, q, q, True, window=64)
+    q = q.bfloat16()
+    flash_attention.flash_attention(q, q, q, False, kv_len=100)
+
+
+def test_counts_hold_the_launch_counters_and_the_driver_counters(monkeypatch):
+    """Each launch is one count of `launch.<kernel>`, the kernel that ran,
+    in `tracing.counts()`; no card: the device checks pass and the CUDA
+    launchers are replaced by ones that do nothing."""
+    launchers = []
+    for mod in (tau_leap, dense_field, lattice_gibbs, sparse_gather, flash_attention):
+        monkeypatch.setattr(mod, "check_cuda", lambda t: t.device)
+    monkeypatch.setattr(sparse_gather, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(_build, "launcher", lambda name: launchers.append(name) or (lambda *a: 0))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    before = tracing.counts()
+    _launch_every_route()
     c = tracing.counts()
-    assert dict(zip(ops.LAUNCH_NAMES, ops.launch_counts())).items() <= c.items()
-    assert len(set(ops.LAUNCH_NAMES)) == len(ops.LAUNCH_NAMES) == len(ops.launch_counts())
-    assert "tau_leap.launches" in c and "lattice_gibbs.launches.lattice_gibbs_sweep" in c
-    calls, blocks = c.get("sampler.calls", 0), c.get("sampler.eager_blocks", 0)
+    assert {k: n - before[k] for k, n in c.items() if n != before[k]} == {f"launch.{k}": 1 for k in (
+        "tau_leap_step", "tau_leap_step_faults", "dense_field",
+        "lattice_gibbs_sweep", "lattice_gibbs_generic",
+        "lattice_gibbs_sweep_faults", "lattice_gibbs_generic_faults",
+        "sparse_fields", "sparse_fields_global", "colored_gibbs_sweep", "colored_gibbs_sweep_long",
+        "colored_gibbs_sweep_faults", "sparse_energy", "sparse_energy_long",
+        "flash_attention_window", "flash_attention_kv_len", "flash_attention_bf16",
+        "flash_attention_f32")} | {"launch.flash_attention": 2}
+    assert set(launchers) == set(_build.LAUNCHERS)  # every entry point was reached
+    assert tracing.counts()["launch.never_launched"] == 0
+    calls, blocks = c["sampler.calls"], c["sampler.eager_blocks"]
     _run("lattice")  # counters are on with no profiler
     after = tracing.counts()
     assert after["sampler.calls"] == calls + 1 and after["sampler.eager_blocks"] == blocks + 2
