@@ -39,8 +39,15 @@ The graphs live as long as the loop, and the loop as long as its run:
 which replays every block (`start` loads its initial carry), so the
 captures and the eager blocks are paid once per kept run, not once per
 call. Leaves that no block changes are the run's constants: the initial
-carry's values of the first pass, which a later call of the kept run's key
-would make the same wherever a block reads them.
+carry's values of the first pass. A later call on the same problem makes
+the same ones. A call that brings the run another problem's values, or an
+edited problem's, loads them as well (`start(..., renew=True)`): copied
+into the static carry's where a graph reads them, taken in their place
+where none does yet (`forget` drops the graphs of a run whose problem moved
+to other tensors). Only a carry whose every leaf is a tensor or None can be
+loaded so (`renewable`): a host value, such as a colour plan's list lengths
+or the versions of the tensors it read, is baked into the graphs. A carry
+of another layout than the static one's begins the loop anew.
 
 The kernel wrappers count their launches (`launch.<kernel>` in
 `repro_torch.tracing`) where a kernel is launched from Python, which under
@@ -107,6 +114,15 @@ def _leaves(tree) -> list:
     return [tree]
 
 
+def _fits(new, old) -> bool:
+    """Whether leaf `new` loads into leaf `old` of the static carry: None
+    for None, a tensor of the same shape, dtype and device for a tensor."""
+    if not isinstance(old, torch.Tensor):
+        return new is None and old is None
+    return isinstance(new, torch.Tensor) and (new.shape, new.dtype, new.device) == (
+        old.shape, old.dtype, old.device)
+
+
 def _rebuild(tree, leaves):
     """`tree`'s structure with `leaves` (an iterator) in place of its own."""
     if isinstance(tree, (tuple, list)):
@@ -137,18 +153,36 @@ class StepLoop:
         self.changing: Optional[list[bool]] = None  # which leaves a block rewrites
         self.warmed: set = set()  # block kinds (with/without records) run eagerly
         self.carry: Any = None
+        self.renewable: Optional[bool] = None  # every leaf a tensor or None: the first pass's
         self.stream = torch.cuda.Stream(device=device) if graph else None
 
-    def start(self, carry) -> None:
+    def start(self, carry, renew: bool = False) -> None:
         """Begin a pass from `carry`. Once graphs exist, the pass's initial
-        values are copied into the static carry the graphs read."""
+        values are copied into the static carry the graphs read; with
+        `renew`, its constants too (module docstring)."""
+        leaves = _leaves(carry)
+        if self.renewable is None:
+            self.renewable = all(x is None or isinstance(x, torch.Tensor) for x in leaves)
+        if renew and self.static is not None:
+            static = _leaves(self.static)
+            if len(leaves) != len(static) or not all(map(_fits, leaves, static)):
+                self.static, self.changing, self.graphs, self.warmed = None, None, {}, set()
+            elif not self.graphs:
+                self.static = _rebuild(self.static, iter(
+                    dst if keep else new for keep, new, dst in zip(self.changing, leaves, static)))
         if self.static is None:
             self.carry = carry
             return
-        for keep, new, dst in zip(self.changing, _leaves(carry), _leaves(self.static)):
-            if keep:
+        for keep, new, dst in zip(self.changing, leaves, _leaves(self.static)):
+            if keep or (renew and new is not dst and isinstance(new, torch.Tensor)):
                 dst.copy_(new)
         self.carry = self.static
+
+    def forget(self) -> None:
+        """Drop the graphs: the next blocks are captured anew over the
+        static carry, whose constants the next `start(..., renew=True)`
+        takes from its carry."""
+        self.graphs = {}
 
     def run(self, steps: int, records: tuple) -> None:
         """Execute one block of `steps` steps, recording after `records`."""

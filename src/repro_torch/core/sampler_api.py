@@ -94,8 +94,8 @@ schedule is constant. On a CUDA problem the loop runs as replays of
 captured CUDA graphs of blocks of steps (`repro_torch.core.graph_loop`),
 the port's counterpart of the JAX driver's compiled `lax.scan`; on CPU
 tensors it runs eagerly. `run()` keeps the run of a call, graphs and all,
-for a later call of the same shape on the same problem (`run`'s
-docstring), as `jax.jit` keeps a compiled program for its next call.
+for a later call of the same shape (`run`'s docstring), as `jax.jit` keeps
+a compiled program for its next call.
 `unroll` is validated as in the JAX package and changes nothing here: the
 graph's blocks do not depend on it, nor do the results.
 """
@@ -1175,26 +1175,34 @@ class _Run:
     `renew` has taken its inputs. The energy of the first-hit check, the
     diagnostics and the recorded samples is what the kernel's `energy_fn`
     offers (`ColoredGibbs`'s cuda backend: the sparse energy kernel), else
-    `problem.energy`, chosen once here. `init_beta`, when given, is
-    passed to the kernel's `init` (each chain's constant beta). `faults`, a
-    residual FaultModel or None, is passed to the kernel's `init` and `step`
-    only when it is not None. `eager=True` runs a CUDA problem's blocks eagerly
-    too (no graph): for comparing the two."""
+    `problem.energy`, chosen wherever the run takes a problem. `init_beta`,
+    when given, is passed to the kernel's `init` (each chain's constant
+    beta). `faults`, a residual FaultModel or None, is passed to the
+    kernel's `init` and `step` only when it is not None. `eager=True` runs a
+    CUDA problem's blocks eagerly too (no graph): for comparing the two.
 
-    def __init__(self, call: "_Call", generator: torch.Generator, eager: bool = False):
+    The run draws from a generator of its own, the one its graphs register:
+    an int seed seeds it; a caller's torch.Generator has its state copied
+    in when the run takes the seed, and each pass's final state copied back
+    to it, so the caller's stream advances as if the pass drew from it.
+
+    The blocks read the caller's problem (`source`) until a renewal brings
+    another problem object: the run then clones that one into tensors of
+    its own (`problem`), and copies every later call's values into them."""
+
+    def __init__(self, call: "_Call", seed, eager: bool = False):
         dev = call.problem.device
-        self.problem, self.kernel, self.generator, self.s0 = (
-            call.problem, call.kernel, generator, call.s0)
-        self.gen_start = generator.get_state()
+        self.kernel, self.s0 = call.kernel, call.s0
+        self._adopt(call.problem)
+        self.source, self.versions = call.problem, _versions(call.problem)
+        self.generator = torch.Generator(device=dev)
+        self.take_seed(seed)
         self.betas, self.e_target = call.betas, call.e_target
         self.n_steps, self.sample_every, self.n_chains = call.n_steps, call.sample_every, call.n_chains
         self.track_hit, self.diagnostics = call.track_hit, call.diagnostics
         self.init_kw = {} if call.init_beta is None else {"beta": call.init_beta}
         self.step_kw = {} if call.faults is None else {"faults": call.faults}
         self.init_kw.update(self.step_kw)
-        energy_fn = getattr(call.kernel, "energy_fn", None)
-        offered = None if energy_fn is None else energy_fn(call.problem)
-        self.energy = call.problem.energy if offered is None else offered
         self.blocks = plan_blocks(self.n_steps, self.sample_every, GRAPH_STEPS)
         self.n_samples = self.n_steps // self.sample_every if self.sample_every > 0 else 0
         self.offsets = torch.arange(GRAPH_STEPS, device=dev)
@@ -1202,25 +1210,59 @@ class _Run:
         # memory go when the run does, not at a cyclic collection (which
         # could fall inside another run's capture)
         this = weakref.ref(self)
-        self.loop = StepLoop(lambda *args: this().block(*args), generator, dev,
+        self.loop = StepLoop(lambda *args: this().block(*args), self.generator, dev,
                              dev.type == "cuda" and not eager)
+        self.reload = False  # the next pass loads the loop's constants (`StepLoop.start`)
         self.samples = self.times = self.energies = None  # made at the first pass
         self.final_state: Optional[KernelState] = None  # the last pass's, for checks
 
-    def renew(self, call: "_Call", seed) -> None:
-        """Take the inputs of a later call of this run's key (`_kept_key`):
-        its seed (the run's own generator reseeded from an int; a caller's
-        generator, the one the graphs registered, read where it stands),
-        its s0, and its betas and first-hit target, copied into the tensors
-        the captured blocks index."""
-        if not isinstance(seed, torch.Generator):
+    def _adopt(self, problem) -> None:
+        """Read `problem` from now on, and its energy (class docstring)."""
+        self.problem = problem
+        energy_fn = getattr(self.kernel, "energy_fn", None)
+        offered = None if energy_fn is None else energy_fn(problem)
+        self.energy = problem.energy if offered is None else offered
+
+    def take_seed(self, seed) -> None:
+        """Draw from `seed` from the next pass on (class docstring); a seed
+        `_check_seed` refuses changes nothing."""
+        _check_seed(seed, self.generator.device)
+        if isinstance(seed, torch.Generator):
+            self.caller = seed
+            self.generator.set_state(seed.get_state())
+        else:
+            self.caller = None
             self.generator.manual_seed(seed)
         self.gen_start = self.generator.get_state()
+
+    def renew(self, call: "_Call", seed) -> bool:
+        """Take the inputs of a later call of this run's key (`_kept_key`):
+        its seed, its s0, and its betas and first-hit target, copied into
+        the tensors the captured blocks index; and, where the call brings
+        another problem object or edited the one before, that problem's
+        values (class docstring) after the finite-energy probe, with the
+        constants the next pass loads. Returns whether it did the latter.
+        A seed or problem it refuses raises before anything changes."""
+        problem, versions = call.problem, _versions(call.problem)
+        renewed = problem is not self.source or versions != self.versions
+        if renewed:
+            _check_finite(problem)
+        self.take_seed(seed)
+        if renewed:
+            if self.problem is not self.source:
+                for name, x in _tensors(problem):
+                    getattr(self.problem, name).copy_(x)
+            elif problem is not self.source:
+                self._adopt(dataclasses.replace(
+                    problem, **{name: x.clone() for name, x in _tensors(problem)}))
+                self.loop.forget()
+            self.source, self.versions, self.reload = problem, versions, True
         self.s0 = call.s0
         self.betas.copy_(call.betas)
         self.e_target.copy_(call.e_target)
         if call.init_beta is not None:
             self.init_kw["beta"] = call.init_beta
+        return renewed
 
     def block(self, carry: _Carry, steps: int, records: tuple) -> _Carry:
         """`steps` steps of every chain, recording the state after the
@@ -1273,12 +1315,15 @@ class _Run:
                     self.energies = torch.empty((B, self.n_samples), dtype=e0.dtype, device=dev)
             pos = torch.zeros((), dtype=torch.int64, device=dev)
             k = torch.zeros((1,), dtype=torch.int64, device=dev)
-            self.loop.start(_Carry(state, t_hit, hit, acc, pos, k))
+            self.loop.start(_Carry(state, t_hit, hit, acc, pos, k), renew=self.reload)
+            self.reload = False
         for steps, records in self.blocks:
             self.loop.run(steps, records)
         with tracing.span("sampler.results"):
             state, t_hit, hit, acc, _, _ = self.loop.result()
             self.final_state = state
+            if self.caller is not None:
+                self.caller.set_state(self.generator.get_state())
             # the buffers serve every pass (and the graphs): hand out copies
             samples, times = self.samples.clone(), self.times.clone()
             if self.energies is not None:
@@ -1301,20 +1346,27 @@ class _Run:
             )
 
 
-def _generator(seed_or_generator, device: torch.device) -> torch.Generator:
-    """A torch.Generator on `device`: a fresh one seeded from an int, or the
-    caller's own, which must live on the problem's device."""
+def _check_seed(seed_or_generator, device: torch.device) -> None:
+    """Refuse a seed that is neither an int nor a torch.Generator on the
+    problem's device."""
     if isinstance(seed_or_generator, torch.Generator):
         if seed_or_generator.device.type != device.type:
             raise ValueError(
                 f"generator is on {seed_or_generator.device}, the problem on {device}"
             )
+    elif not isinstance(seed_or_generator, int) or isinstance(seed_or_generator, bool):
+        raise TypeError(
+            f"seed must be an int or a torch.Generator, got {type(seed_or_generator).__name__}"
+        )
+
+
+def _generator(seed_or_generator, device: torch.device) -> torch.Generator:
+    """A torch.Generator on `device`: a fresh one seeded from an int, or the
+    caller's own, which must live on the problem's device."""
+    _check_seed(seed_or_generator, device)
+    if isinstance(seed_or_generator, torch.Generator):
         return seed_or_generator
-    if isinstance(seed_or_generator, int) and not isinstance(seed_or_generator, bool):
-        return torch.Generator(device=device).manual_seed(seed_or_generator)
-    raise TypeError(
-        f"seed must be an int or a torch.Generator, got {type(seed_or_generator).__name__}"
-    )
+    return torch.Generator(device=device).manual_seed(seed_or_generator)
 
 
 def _sync(device: torch.device) -> None:
@@ -1416,7 +1468,18 @@ def _check_finite(problem) -> None:
 def _build(call: _Call, seed, eager: bool = False) -> _Run:
     """A new `_Run` of a validated call, after the finite-energy probe."""
     _check_finite(call.problem)
-    return _Run(call, _generator(seed, call.problem.device), eager)
+    return _Run(call, seed, eager)
+
+
+def _tensors(problem) -> list[tuple[str, torch.Tensor]]:
+    """(name, tensor) of each of a problem's tensor fields."""
+    return [(f.name, x) for f in dataclasses.fields(problem)
+            if isinstance(x := getattr(problem, f.name), torch.Tensor)]
+
+
+def _versions(problem) -> tuple:
+    """Each tensor field's version: it changes when the tensor is written."""
+    return tuple(x._version for _, x in _tensors(problem))
 
 
 def _make_run(problem, kernel, seed, *, eager=False, **kw) -> _Run:
@@ -1428,7 +1491,7 @@ def _make_run(problem, kernel, seed, *, eager=False, **kw) -> _Run:
     return _build(_prepare(problem, kernel, **kw), seed, eager)
 
 
-# The most runs `run()` keeps for later calls of the same key (`_kept_key`).
+# The most runs `run()` keeps for later calls of their key (`_kept_key`).
 KEPT_RUNS = 4
 _kept: collections.OrderedDict = collections.OrderedDict()  # key -> _Run, least recent first
 _kept_lock = threading.Lock()
@@ -1441,47 +1504,62 @@ def drop_kept_runs() -> None:
         _kept.clear()
 
 
-def _kept_key(call: _Call, seed, faults) -> Optional[tuple]:
-    """What a kept run must share with a call to serve it: everything its
-    captured blocks read by address that `_Run.renew` does not copy in, and
-    everything that decides the blocks. The problem is held by its run, so
-    its id is not reused while the run is kept; each of its tensors'
-    version says it was not changed in place since the run's probe. None
-    where the call keeps no run: with a fault model (bound anew every
-    call), a kernel that is not a frozen dataclass, a seed neither an int
-    nor a torch.Generator (`_generator` refuses it), or a problem tensor
-    made under inference mode (it has no version)."""
+def _kept_key(call: _Call, seed, faults) -> Optional[tuple[tuple, tuple]]:
+    """The two keys a kept run may serve a call under, (identity, shape):
+    what the run must share with the call beyond what `_Run.renew` takes
+    in, that is everything that decides the blocks, and the problem.
+
+    Both hold the device, the resolved kernel, n_steps, n_chains,
+    sample_every, first-hit and diagnostics on or off, s0's dtype (or
+    none), whether the kernel is told a constant beta, and whether the seed
+    is an int or a caller's generator (not which: the run copies its state
+    in). The identity key adds the problem object and its tensors'
+    versions: a run whose carry holds a host value (`StepLoop.renewable`)
+    serves only the problem it was built on, unchanged since. The shape key
+    adds the problem's type, each tensor field's shape and dtype and its
+    other fields: a run of a renewable carry takes in any such problem's
+    values. None where the call keeps no run: with a fault model (bound
+    anew every call), a kernel that is not a frozen dataclass, a seed
+    neither an int nor a torch.Generator (`_check_seed` refuses it), or a
+    problem tensor made under inference mode (it has no version)."""
     kernel, problem = call.kernel, call.problem
     if faults is not None or not (dataclasses.is_dataclass(kernel)
                                   and type(kernel).__dataclass_params__.frozen):
         return None
-    if isinstance(seed, torch.Generator):
-        stream = id(seed)  # the caller's: the generator the graphs registered
-    elif isinstance(seed, int) and not isinstance(seed, bool):
-        stream = None  # the run's own, reseeded every call
-    else:
+    if not isinstance(seed, (int, torch.Generator)) or isinstance(seed, bool):
         return None
-    tensors = [x for x in (getattr(problem, f.name) for f in dataclasses.fields(problem))
-               if isinstance(x, torch.Tensor)]
+    fields = [(f.name, getattr(problem, f.name)) for f in dataclasses.fields(problem)]
+    tensors = [x for _, x in fields if isinstance(x, torch.Tensor)]
     if any(x.is_inference() for x in tensors):
         return None
-    return (id(problem), tuple(x._version for x in tensors), problem.device, kernel, stream,
-            call.n_steps, call.n_chains, call.sample_every, call.track_hit, call.diagnostics,
+    rest = (problem.device, kernel, isinstance(seed, torch.Generator), call.n_steps,
+            call.n_chains, call.sample_every, call.track_hit, call.diagnostics,
             None if call.s0 is None else call.s0.dtype, call.init_beta is not None)
+    shapes = tuple((name, x.shape, x.dtype) if isinstance(x, torch.Tensor) else (name, x)
+                   for name, x in fields)
+    return ((id(problem), tuple(x._version for x in tensors)) + rest,
+            (type(problem), shapes) + rest)
 
 
-def _take_kept(key) -> Optional[_Run]:
-    """The kept run of `key`, out of the store for the call (None: none)."""
-    if key is None:
+def _take_kept(keys) -> Optional[_Run]:
+    """The kept run of the identity key, else of the shape key, out of the
+    store for the call (None: neither)."""
+    if keys is None:
         return None
     with _kept_lock:
-        return _kept.pop(key, None)
+        for key in keys:
+            one_run = _kept.pop(key, None)
+            if one_run is not None:
+                return one_run
+    return None
 
 
-def _keep(key, one_run: _Run) -> None:
-    """Keep `one_run` as the most recently used, and free the least
-    recently used beyond KEPT_RUNS: outside any capture, so no graph is
-    freed inside one."""
+def _keep(keys, one_run: _Run) -> None:
+    """Keep `one_run` as the most recently used, under the shape key where
+    its carry is renewable and the identity key where not, and free the
+    least recently used beyond KEPT_RUNS: outside any capture, so no graph
+    is freed inside one."""
+    key = keys[1] if one_run.loop.renewable else keys[0]
     with _kept_lock:
         _kept[key] = one_run
         _kept.move_to_end(key)
@@ -1515,19 +1593,24 @@ def run(
 
     Kept runs: after the call its run (its static carry, sample buffers and
     captured graphs) is kept, the KEPT_RUNS most recently used of them. A
-    later call that matches one in everything its graphs read by address
-    or that decides its blocks (`_kept_key`: the same problem object, none
-    of its tensors changed in place since; the same device, resolved
-    kernel, n_steps, n_chains, sample_every, first-hit on or off,
-    diagnostics, s0 given or not (and its dtype), and an int seed, or the
-    same torch.Generator) takes that run: its seed, s0, betas and target
-    are renewed, and it runs without the finite-energy probe (the problem
-    is the one probed before), without eager warm-up blocks and without a
-    capture, every block a replay; results are bit-identical to a new
-    run's. A call with `faults` keeps no run (the model is bound to the
-    problem anew every call). Kept runs hold their device memory (the
-    graphs' pools, the carry, the sample buffers, the problem) until
-    evicted or `drop_kept_runs()`.
+    later call that matches one in everything that decides its blocks
+    (`_kept_key`: the same device, resolved kernel, n_steps, n_chains,
+    sample_every, first-hit on or off, diagnostics, s0 given or not (and
+    its dtype), and an int seed or a torch.Generator, any one) and in its
+    problem takes that run: its seed, s0, betas and target are renewed,
+    and it runs without eager warm-up blocks and without a capture, every
+    block a replay. The same problem object, none of its tensors changed
+    in place since, runs without the finite-energy probe. Another problem
+    of the same type and tensor shapes, or an edited one, is probed and
+    its values copied into the run's own copy (`sampler.renewals`; the
+    first such call clones the problem and captures anew); a kernel whose
+    per-run data holds host values, such as the colour and lattice plans
+    of the cuda sweeps, takes no other problem. A caller's generator's
+    state is copied in, and the pass's final state back. Results are
+    bit-identical to a new run's. A call with `faults` keeps no run (the
+    model is bound to the problem anew every call). Kept runs hold their
+    device memory (the graphs' pools, the carry, the sample buffers, the
+    problem or its copy) until evicted or `drop_kept_runs()`.
 
     Args:
       problem: DenseIsing, LatticeIsing or SparseIsing (the port's; any
@@ -1583,13 +1666,19 @@ def run(
                 sample_every=sample_every, first_hit=first_hit, backend=backend, unroll=unroll,
                 diagnostics=diagnostics, faults=faults,
             )
-            key = _kept_key(call, seed, faults)
-            one_run = _take_kept(key)
+            keys = _kept_key(call, seed, faults)
+            one_run = _take_kept(keys)
             if one_run is None:
                 one_run = _build(call, seed)
             else:
+                try:
+                    renewed = one_run.renew(call, seed)
+                except (TypeError, ValueError):  # a seed or problem refused before any change
+                    _keep(keys, one_run)
+                    raise
                 tracing.count("sampler.reuses")
-                one_run.renew(call, seed)
+                if renewed:
+                    tracing.count("sampler.renewals")
         if timeit:
             dev = problem.device
             _sync(dev)
@@ -1612,7 +1701,7 @@ def run(
         # the run goes back to the store, or, not kept, its graphs and their
         # memory pools go here, not as the frame ends
         with tracing.span("sampler.release"):
-            if key is not None:
-                _keep(key, one_run)
+            if keys is not None:
+                _keep(keys, one_run)
             del one_run
     return _first_chain(res) if n_chains == 1 else res

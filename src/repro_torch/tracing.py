@@ -39,8 +39,10 @@ colour plan (`sparse_gather.colour_plan`, with its waits for the device);
 `boltzmann.quantize`. Its counters, each 0 before its first count:
 `sampler.calls`, `sampler.eager_blocks`, `sampler.captures`,
 `sampler.replays`, `sampler.reuses` (calls that took a kept run, which
-validate without the finite-energy probe and replay every block) and
-`sampler.colour_plans` (the colour plans built).
+replay every block), `sampler.renewals` (those of them whose kept run took
+another problem's values or an edited problem's, after the finite-energy
+probe; the others validate without it) and `sampler.colour_plans` (the
+colour plans built).
 
 The kernel wrappers count each launch as `launch.<kernel>`, each kernel
 module's docstring naming its own kernels. Under a CUDA graph a wrapper
@@ -69,7 +71,7 @@ MAX_CALLS = 1024
 _NULL = contextlib.nullcontext()
 _counters = collections.Counter(dict.fromkeys(
     ("sampler.calls", "sampler.eager_blocks", "sampler.captures", "sampler.replays",
-     "sampler.reuses", "sampler.colour_plans"), 0))
+     "sampler.reuses", "sampler.renewals", "sampler.colour_plans"), 0))
 _calls: collections.deque = collections.deque(maxlen=MAX_CALLS)
 _ids = itertools.count()
 _local = threading.local()  # each thread's open spans

@@ -399,7 +399,7 @@ def test_a_repeated_call_takes_the_kept_run_and_equals_a_new_one(name, variant, 
         got, n = _reuses(lambda: run(prob, kernel, seed, **_calls(prob, variant, seed)))
         assert n == 1 and len(kept) == 1
         _assert_same(got, sampler_api._make_run(prob, kernel, seed, **_calls(prob, variant, seed))())
-    # a caller's generator: kept under its identity, read where it stands
+    # a caller's generator: a key of its own, its state copied in and back
     g = torch.Generator().manual_seed(9)
     _, n = _reuses(lambda: run(prob, kernel, g, **_calls(prob, variant, 4)))
     assert n == 0 and len(kept) == 2
@@ -417,20 +417,17 @@ def test_a_repeated_call_takes_the_kept_run_and_equals_a_new_one(name, variant, 
 
 
 # each changes one thing of the call a run was kept for
-MISSES = ("n_chains", "n_steps", "sample_every", "first_hit", "kernel", "problem", "generator",
-          "faults", "edited", "s0_dtype")
+MISSES = ("n_chains", "n_steps", "sample_every", "first_hit", "kernel", "faults", "s0_dtype")
 
 
 @pytest.mark.parametrize("change", MISSES)
 @pytest.mark.parametrize("name", sorted(KEPT))
 def test_a_call_of_another_key_misses_and_is_still_right(name, change, kept):
-    make, kernel, field = KEPT[name]
+    make, kernel, _ = KEPT[name]
     prob = make()
-    g = torch.Generator().manual_seed(4)
     base = dict(n_steps=KEPT_STEPS, n_chains=KEPT_CHAINS, sample_every=5,
                 schedule=geometric(0.3, 2.0))
-    seed = g if change == "generator" else 1
-    run(prob, kernel, seed, **base)
+    run(prob, kernel, 1, **base)
     kw = dict(base)
     if change == "n_chains":
         kw["n_chains"] = KEPT_CHAINS + 1
@@ -442,43 +439,116 @@ def test_a_call_of_another_key_misses_and_is_still_right(name, change, kept):
         kw["first_hit"] = -1.0
     elif change == "kernel":
         kernel = dataclasses.replace(kernel, lambda0=2.0)
-    elif change == "problem":
-        prob = make()  # equal values, another object
-    elif change == "generator":
-        seed = torch.Generator().manual_seed(4)
     elif change == "faults":
         kw["faults"] = FaultModel(dropout=0.2)
-    elif change == "edited":
-        getattr(prob, field).mul_(0.5)
     elif change == "s0_dtype":
         run(prob, kernel, 1, s0=torch.ones((KEPT_CHAINS,) + sampler_api.state_shape(prob)), **base)
         kw["s0"] = torch.ones((KEPT_CHAINS,) + sampler_api.state_shape(prob), dtype=torch.float64)
-    twin = seed
-    if isinstance(seed, torch.Generator):
-        twin = torch.Generator()
-        twin.set_state(seed.get_state())
-    got, n = _reuses(lambda: run(prob, kernel, seed, **kw))
+    got, n = _reuses(lambda: run(prob, kernel, 1, **kw))
     assert n == 0
-    _assert_same(got, sampler_api._make_run(prob, kernel, twin, **kw)())
+    _assert_same(got, sampler_api._make_run(prob, kernel, 1, **kw)())
     if change == "faults":  # the fault model is bound anew every call: nothing kept
         assert _reuses(lambda: run(prob, kernel, 1, **kw))[1] == 0
+
+
+# each changes the generator or the problem, not the key's shape
+RENEWALS = ("generator", "problem", "other_values", "edited")
+
+
+@pytest.mark.parametrize("change", RENEWALS)
+@pytest.mark.parametrize("name", sorted(KEPT))
+def test_a_call_of_the_same_shape_takes_the_kept_run_and_is_still_right(name, change, kept):
+    """Another caller's generator takes the kept run of every kernel. So do
+    another problem object of the same shapes, with equal or other values,
+    and an edit in place, where the run's carry holds no host value
+    (tau-leap's int8 codes), but not where it holds a plan (the cuda
+    sweeps). Either way the result equals a new run's, the caller's
+    generator ends where a new run leaves it, and no caller's tensor is
+    written."""
+    make, kernel, field = KEPT[name]
+    first = make()
+    kw = dict(n_steps=KEPT_STEPS, n_chains=KEPT_CHAINS, sample_every=5,
+              schedule=geometric(0.3, 2.0))
+    run(first, kernel, torch.Generator().manual_seed(4), **kw)
+    prob = first
+    if change in ("problem", "other_values"):
+        prob = make()
+    if change in ("other_values", "edited"):
+        getattr(prob, field).mul_(0.5)
+    values = [(x, x.clone()) for p in {id(first): first, id(prob): prob}.values()
+              for _, x in sampler_api._tensors(p)]
+    seed, twin = torch.Generator().manual_seed(5), torch.Generator()
+    twin.set_state(seed.get_state())
+    before = tracing.counts()
+    got = run(prob, kernel, seed, **kw)
+    after = tracing.counts()
+    takes = change == "generator" or name == "tau_leap"
+    assert after["sampler.reuses"] - before["sampler.reuses"] == takes
+    assert after["sampler.renewals"] - before["sampler.renewals"] == (takes and change != "generator")
+    _assert_same(got, sampler_api._make_run(prob, kernel, twin, **kw)())
+    assert torch.equal(seed.get_state(), twin.get_state())
+    assert all(torch.equal(x, v) for x, v in values)
     if change == "edited":  # an edit to a non-finite value is probed again
         getattr(prob, field).view(-1)[1] = float("nan")
+        n_kept = len(kept)
         with pytest.raises(sampler_api.NonFiniteEnergyError):
-            run(prob, kernel, 1, **kw)
+            run(prob, kernel, torch.Generator().manual_seed(6), **kw)
+        assert len(kept) == n_kept  # a refused problem leaves the kept run kept
+
+
+def _cd_chain(batch, cfg, steps, keep):
+    """`steps` CD steps from a fixed start, each with a new generator, as a
+    training loop that seeds each step does (with `keep` False, every step
+    from a new run): the states, each with copies of its problem's
+    tensors as they were made, and the generators."""
+    from repro_torch.core import boltzmann
+
+    state = boltzmann.init_cd(torch.Generator().manual_seed(2), 16, 16, cfg, device=CPU)
+    states, gens = [], []
+    for step in range(steps + 1):
+        states.append((state, [x.clone() for _, x in sampler_api._tensors(state.problem)]))
+        if step == steps:
+            return states, gens
+        if not keep:
+            sampler_api.drop_kept_runs()
+        gens.append(torch.Generator().manual_seed(100 + step))
+        state = boltzmann.cd_step(state, batch, gens[-1], cfg)
+
+
+def test_cd_steps_renew_one_kept_run_and_equal_new_runs(kept):
+    from repro_torch.core import boltzmann
+    from repro_torch.data import digits
+
+    cfg = boltzmann.CDConfig(lr=0.08, n_model_steps=24, n_chains=8, quantize_bits=8)
+    batch = digits.digit_batch(3, n=16, generator=torch.Generator().manual_seed(1),
+                               flip_prob=0.05, device=CPU)
+    before = tracing.counts()
+    states, gens = _cd_chain(batch, cfg, 5, keep=True)
+    after = tracing.counts()
+    assert after["sampler.reuses"] - before["sampler.reuses"] == 4
+    assert after["sampler.renewals"] - before["sampler.renewals"] == 4
+    new_states, new_gens = _cd_chain(batch, cfg, 5, keep=False)
+    for (state, made), (new, _) in zip(states, new_states):
+        assert torch.equal(state.chains, new.chains)
+        for (_, x), y, (_, z) in zip(sampler_api._tensors(state.problem), made,
+                                     sampler_api._tensors(new.problem)):
+            assert torch.equal(x, y) and torch.equal(x, z)  # unchanged since made, as new runs'
+    for g, h in zip(gens, new_gens):
+        assert torch.equal(g.get_state(), h.get_state())
 
 
 def test_the_store_keeps_the_most_recently_used_runs_up_to_its_bound(kept):
-    make, kernel, _ = KEPT["tau_leap"]
-    probs = [make() for _ in range(sampler_api.KEPT_RUNS + 3)]
+    _, kernel, _ = KEPT["tau_leap"]
+    # one size each: runs of one shape would share one key
+    probs = [_dense_problem(6 + i) for i in range(sampler_api.KEPT_RUNS + 3)]
     kw = dict(n_steps=8, n_chains=2)
     for i, prob in enumerate(probs):
         run(prob, kernel, i, **kw)
         assert len(kept) == min(i + 1, sampler_api.KEPT_RUNS)
         if i == sampler_api.KEPT_RUNS - 1:  # the first, used again when full, outlives the rest
             assert _reuses(lambda: run(probs[0], kernel, 0, **kw))[1] == 1
-    ids = {key[0] for key in kept}
-    assert ids == {id(p) for p in [probs[0]] + probs[-(sampler_api.KEPT_RUNS - 1):]}
+    sizes = {one_run.problem.n for one_run in kept.values()}
+    assert sizes == {p.n for p in [probs[0]] + probs[-(sampler_api.KEPT_RUNS - 1):]}
     assert _reuses(lambda: run(probs[1], kernel, 0, **kw))[1] == 0  # evicted: a new run
 
 

@@ -199,6 +199,49 @@ def test_a_repeated_call_on_the_card_replays_every_block():
             assert (a is None and b is None) or torch.equal(a, b)
 
 
+@pytest.mark.cuda
+def test_cd_steps_on_the_card_replay_one_kept_run(monkeypatch):
+    """On the card 8 CD steps on the 16x16 king's lattice, each on a new
+    problem with a new generator, capture at most twice and replay the
+    rest, and equal 8 steps of eager runs bit for bit (chains, weights,
+    biases, the generators' final states)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (an sm_90 card); chip_smoke.py checks CD there")
+    cfg = boltzmann.CDConfig(lr=0.06, n_model_steps=32, n_chains=32, quantize_bits=8)
+    batch = digits.digit_batch(3, n=128, generator=torch.Generator("cuda").manual_seed(1),
+                               flip_prob=0.06, device="cuda")
+
+    def chain():
+        state = boltzmann.init_cd(torch.Generator("cuda").manual_seed(2), 16, 16, cfg,
+                                  device="cuda")
+        states, gens = [state], []
+        for step in range(8):
+            gens.append(torch.Generator("cuda").manual_seed(100 + step))
+            states.append(boltzmann.cd_step(states[-1], batch, gens[-1], cfg))
+        return states, gens
+
+    sampler_api.drop_kept_runs()
+    try:
+        before = tracing.counts()
+        states, gens = chain()
+        after = tracing.counts()
+    finally:
+        sampler_api.drop_kept_runs()
+    assert after["sampler.captures"] - before["sampler.captures"] <= 2
+    assert after["sampler.replays"] - before["sampler.replays"] >= 6
+    assert after["sampler.renewals"] - before["sampler.renewals"] == 7
+    with monkeypatch.context() as m:
+        m.setattr(sampler_api, "run", lambda problem, kernel, seed, **kw:
+                  sampler_api._make_run(problem, kernel, seed, eager=True, **kw)())
+        eager_states, eager_gens = chain()
+    for state, eager in zip(states, eager_states):
+        assert torch.equal(state.chains, eager.chains)
+        assert torch.equal(state.problem.w, eager.problem.w)
+        assert torch.equal(state.problem.b, eager.problem.b)
+    for g, h in zip(gens, eager_gens):
+        assert torch.equal(g.get_state(), h.get_state())
+
+
 def test_cd_step_nests_the_sampler_run_in_its_model_phase():
     _, (record,), annotations = _profiled(_cd_step)
     assert record["name"] == "boltzmann.cd_step"
