@@ -246,6 +246,29 @@ exits nonzero without printing the final result line:
      timing_sparse_energy — both routes' CUDA-event medians at (256,
                 16384), D = 3 and (320, 512000), D = 6, beside their bounds
                 and the plain version.
+  Disorder samples (per-sample couplings (S, n, D) over one neighbour
+  table, the rows sample-major):
+     check_samples_sweep — the per-sample sweep (colored_gibbs_samples_kernel)
+                against its plain version bit for bit, three chained sweeps
+                with per-row beta, at ea3d32.samples' (512, 32768), 128
+                samples of the L = 32 lattice (plan rows of 8), on a
+                3-regular graph of 4096 sites with 3 samples of Gaussian
+                couplings (packed rows of 4) and on a dense 40-site graph
+                with 2 (rows of more than 8), each call counted as the
+                per-sample route;
+     check_samples_energy — the per-sample energy (sparse_energy_samples)
+                on the swept states, on (B, 3, n) samples and on Gaussian
+                states: bit for bit against its order of summation in plain
+                torch; against the plain version bit for bit on +-1 states
+                with +-1 couplings, and otherwise within energy_band's
+                ENERGY_EPS bound, as check_sparse_energy;
+     samples_run — the graphed run() at L = 32, 128 samples x 4 replicas,
+                60 sweeps, 3 samples, against the plain backend on the card
+                and, with 128 identical samples, against the one-table
+                problem; 60 sweep and 2 energy launches;
+     timing_samples — both kernels' CUDA-event medians at (512, 32768),
+                S = 128, beside their bounds, their plain versions, the
+                one-table sweep at the same rows and the uniforms' draw.
 
   8. serve    — the serving stack at full width, random weights from seed 0:
                 phi4-mini-3p8b (8 requests), gemma-2b, olmoe-1b-7b (4 each),
@@ -494,10 +517,11 @@ SASS_KERNELS = {"flash_bf16_kernel": ("HGMMA", "UTMALDG"), "flash_f32_kernel": (
                 "tau_leap_kernel": ("LDGSTS", "IMMA"), "pack_spins_kernel": (),
                 "dense_field_kernel": ("LDGSTS", "IMMA"),
                 "sparse_fields_staged": ("LDS",), "sparse_fields_global": (),
-                "colored_gibbs_kernel": ("LDS",), "colored_gibbs_long_pack": (),
+                "colored_gibbs_kernel": ("LDS",), "colored_gibbs_samples_kernel": ("LDS",),
+                "colored_gibbs_long_pack": (),
                 "colored_gibbs_long_phase": (), "colored_gibbs_long_unpack": (),
                 "sparse_energy_rows": ("LDS",), "sparse_energy_tile": ("LDS",),
-                "sparse_energy_sum": (),
+                "sparse_energy_sum": (), "sparse_energy_samples": (),
                 "lattice_gibbs_plan": ("LDS",),
                 "lattice_gibbs_generic": ("LDS",)}
 # the 64 x 65536-site rows sparse_fields_global is timed on: as many
@@ -509,7 +533,8 @@ GLOBAL_FIELDS_SHAPE = (64, 65536)
 LAUNCHED = ("tau_leap_step", "dense_field", "tau_leap_step_faults",
             "lattice_gibbs_sweep", "lattice_gibbs_generic", "sparse_fields",
             "sparse_fields_global", "colored_gibbs_sweep", "colored_gibbs_sweep_long",
-            "sparse_energy", "sparse_energy_long", "lattice_gibbs_sweep_faults",
+            "sparse_energy", "sparse_energy_long", "colored_gibbs_sweep_samples",
+            "sparse_energy_samples", "lattice_gibbs_sweep_faults",
             "lattice_gibbs_generic_faults", "colored_gibbs_sweep_faults", "flash_attention",
             "flash_attention_window", "flash_attention_kv_len", "flash_attention_bf16",
             "flash_attention_f32")
@@ -2331,11 +2356,16 @@ ENERGY_RUN = dict(n_chains=64, n_steps=200, sample_every=50)
 
 
 def energy_band(torch, s, idx, w, b):
-    """The widest |E_kernel - E_plain| two sum orders allow (ENERGY_EPS)."""
+    """The widest |E_kernel - E_plain| two sum orders allow (ENERGY_EPS);
+    per-sample (S, n, D) couplings w give row r of s's leading axis sample
+    r // (B / S)'s."""
     s64 = s.double()
+    if w.ndim == 3:
+        w = w.double().repeat_interleave(s.shape[0] // w.shape[0], 0).view(
+            (s.shape[0],) + (1,) * (s.ndim - 2) + tuple(w.shape[1:]))
     h = torch.zeros_like(s64)
     for k in range(idx.shape[1]):
-        h = h + w[:, k].double() * s64.index_select(-1, idx[:, k])
+        h = h + w[..., k].double() * s64.index_select(-1, idx[:, k])
     n = s.shape[-1]
     terms = 0.5 * (s64 * h).abs().sum(-1) + (b.double() * s64).abs().sum(-1)
     e = (0.5 * (s64 * h).sum(-1) + (b.double() * s64).sum(-1)).abs()
@@ -2484,6 +2514,192 @@ def sparse_energy_phase(torch, np, dev, reset, read, smi) -> list:
              "launches": run_launches[route], "max_abs_err": err[route], "mismatches": mism[route],
              "ms": ms[route], "plain_ms": ms[route + "_plain"], "bound_ms": bounds[route][0], "bound_by": bounds[route][1], "library_ms": None,
              "shape": shapes[route]} for route in ("sparse_energy", "sparse_energy_long")]
+
+
+# Disorder samples (per-sample couplings over one neighbour table): the
+# per-sample sweep (csrc/colored_gibbs.cu, colored_gibbs_samples_kernel) and
+# energy (csrc/sparse_energy.cu, sparse_energy_samples) at ea3d32.samples'
+# shape, 128 samples x 4 replicas of the L = 32 lattice, and on graphs with
+# Gaussian per-sample couplings whose plan rows are of 4 and of more than 8.
+SAMPLES_EA = dict(L=32, samples=128, replicas=4)
+SAMPLES_RUN = dict(n_steps=60, sample_every=20, beta=1.4285714)
+
+
+def ea3d_samples_problem(torch, L: int, S: int, seed: int, dev):
+    """`ea3d_problem`'s lattice with S samples' +-1 couplings from `seed`,
+    (S, n, 6), each edge's the same both ways in every sample."""
+    one = ea3d_problem(torch, L, seed, dev)
+    n = one.n
+    z, y, x = (a.flatten() for a in torch.meshgrid(*(torch.arange(L, device=dev),) * 3,
+                                                    indexing="ij"))
+    down = torch.stack([(x - 1) % L + L * (y + L * z), x + L * ((y - 1) % L + L * z),
+                        x + L * (y + L * ((z - 1) % L))], 1)
+    up = torch.stack([(x + 1) % L + L * (y + L * z), x + L * ((y + 1) % L + L * z),
+                      x + L * (y + L * ((z + 1) % L))], 1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    j_up = torch.where(torch.rand((S, n, 3), generator=gen, device=dev) < 0.5, 1.0, -1.0)
+    j_down = j_up[:, down, torch.arange(3, device=dev)]
+    order = torch.cat([up, down], 1).argsort(1)
+    w = torch.cat([j_up, j_down], 2).gather(2, order.expand(S, n, 6)).contiguous()
+    return dataclasses.replace(one, nbr_w=w)
+
+
+def gaussian_samples(torch, prob, S: int):
+    """S samples of symmetric non-integer couplings on `prob`'s table: slot
+    (i, j) of sample k carries sin(0.001 key(i, j) + k), key the same both
+    ways; pads 0."""
+    idx = prob.nbr_idx.long()
+    i = torch.arange(prob.n, device=idx.device)[:, None].expand_as(idx)
+    key = ((i + idx) * 7919 + (i * idx) % 104729).float()
+    live = idx != i
+    k = torch.arange(S, device=idx.device, dtype=torch.float32)[:, None, None]
+    return dataclasses.replace(prob, nbr_w=(torch.sin(0.001 * key + k) * live).contiguous())
+
+
+def samples_phase(torch, np, dev, reset, read, smi) -> list:
+    """The per-sample sweep and energy against their plain versions (bit for
+    bit: three chained sweeps, per-row beta; the energy exactly on +-1
+    couplings and in its own order on Gaussian ones), the graphed run() at
+    the cell's shape against the plain backend and against one-table runs
+    of S identical samples, then both kernels' times beside their bounds,
+    the plain versions and the one-table sweep. Returns the kernels line's
+    two entries."""
+    from repro_torch.core import problems
+    from repro_torch.core.ising import DenseIsing
+    from repro_torch.core.sampler_api import ColoredGibbs, constant, run
+    from repro_torch.core.sparse import SparseIsing
+    from repro_torch.kernels import ops, sparse_gather
+
+    L, S, R = SAMPLES_EA["L"], SAMPLES_EA["samples"], SAMPLES_EA["replicas"]
+    ea = ea3d_samples_problem(torch, L, S, 34, dev)
+    ea.validate()
+    mc = gaussian_samples(torch, problems.random_3regular_maxcut(4096, 5, device=dev), 3)
+    rng = np.random.default_rng(34)  # a dense 40-site graph: D > 7, plan rows read as scalars
+    A = rng.normal(0, 0.6, (40, 40)) * (rng.random((40, 40)) < 0.4)
+    dense = gaussian_samples(torch, SparseIsing.from_dense(DenseIsing.from_numpy(
+        np.triu(A, 1) + np.triu(A, 1).T, rng.normal(0, 0.3, 40), device=dev)), 2)
+    mism = {"colored_gibbs_sweep_samples": 0, "sparse_energy_samples": 0}
+    err = dict.fromkeys(mism, 0.0)
+    for graph, prob, B in (("ea3d32", ea, S * R), ("3regular_gaussian", mc, 6),
+                           ("dense40_gaussian", dense, 4)):
+        n, masks = prob.n, prob.color_masks.float()
+        plan = sparse_gather.colour_plan(prob.nbr_idx, prob.nbr_w, prob.b, masks)
+        gen = torch.Generator(device=dev).manual_seed(n)
+        s = torch.where(torch.rand((B, n), generator=gen, device=dev) < 0.5, 1.0, -1.0)
+        beta = 0.3 + 2.7 * torch.rand((B,), generator=gen, device=dev)
+        got = want = s
+        tables = (prob.nbr_idx, prob.nbr_w, prob.b)
+        reset()
+        for _ in range(3):
+            u = torch.rand((masks.shape[0], B, n), generator=gen, device=dev)
+            got = sparse_gather.colored_gibbs_sweep(got, *tables, u, masks, beta, plan=plan)
+            want = ops.colored_gibbs_sweep(want, *tables, u, masks, beta, mode="reference")
+        torch.cuda.synchronize()
+        launches = read()
+        differ = int((got != want).sum())
+        if differ or launches != dict(dict.fromkeys(launches, 0), colored_gibbs_sweep_samples=3):
+            raise AssertionError(f"samples sweep ({B},{n},{graph}): {differ} spins differ from "
+                                 f"the plain version, launches {launches}")
+        mism["colored_gibbs_sweep_samples"] += differ
+        err["colored_gibbs_sweep_samples"] = max(err["colored_gibbs_sweep_samples"],
+                                                 float((got - want).abs().max()))
+        exact = graph == "ea3d32"
+        for states in (got, torch.stack([got, want, -got], 1), torch.randn((B, n), device=dev)):
+            reset()
+            e = sparse_gather.sparse_energy(states.contiguous(), *tables)
+            launches = read()
+            e_plain = ops.sparse_energy(states, *tables, mode="reference")
+            e_order = sparse_gather.energy_in_kernel_order(states, *tables)
+            off_plain = int((e != e_plain).sum())
+            off_order = int((e != e_order).sum())
+            gap = (e.double() - e_plain.double()).abs()
+            band = energy_band(torch, states, *tables)
+            outside = int((gap > band).sum())
+            pm1 = exact and bool((states.abs() == 1).all())  # +-1 states, +-1 couplings
+            if (off_order or (pm1 and off_plain) or outside
+                    or launches != dict(dict.fromkeys(launches, 0), sparse_energy_samples=1)):
+                raise AssertionError(f"samples energy {graph} {tuple(states.shape)}: {off_plain} "
+                                     f"differ from the plain version, {off_order} from the "
+                                     f"kernel's order, {outside} outside the band, launches "
+                                     f"{launches}")
+            mism["sparse_energy_samples"] += off_plain
+            err["sparse_energy_samples"] = max(err["sparse_energy_samples"], float(gap.max()))
+            emit({"phase": "check_samples_energy", "graph": graph, "shape": list(states.shape),
+                  "samples": prob.n_samples, "exact": pm1, "order_mismatches": off_order,
+                  "plain_mismatches": off_plain, "max_abs_err": float(gap.max()),
+                  "band_max": float(band.max())})
+            del band, gap
+        emit({"phase": "check_samples_sweep", "graph": graph, "B": B, "n": n,
+              "samples": prob.n_samples, "max_deg": prob.max_deg, "plan_cols": plan.idx.shape[1],
+              "colors": len(plan.counts), "sweeps": 3, "mismatches": differ,
+              "max_abs_err": float((got - want).abs().max())})
+
+    # run() at the cell's shape: graphed cuda against the plain backend, and
+    # S identical samples against the one-table problem
+    kw = dict(n_steps=SAMPLES_RUN["n_steps"], n_chains=S * R,
+              sample_every=SAMPLES_RUN["sample_every"], schedule=constant(SAMPLES_RUN["beta"]))
+    reset()
+    res_k = run(ea, ColoredGibbs(), 2147483934, backend="cuda", **kw)
+    torch.cuda.synchronize()
+    run_launches = read()
+    res_r = run(ea, ColoredGibbs(), 2147483934, backend="ref", **kw)
+    first = dataclasses.replace(ea, nbr_w=ea.nbr_w[0].contiguous())
+    same = dataclasses.replace(ea, nbr_w=first.nbr_w.expand(S, *first.nbr_w.shape).contiguous())
+    res_one = run(first, ColoredGibbs(), 2147483935, backend="cuda", **kw)
+    res_same = run(same, ColoredGibbs(), 2147483935, backend="cuda", **kw)
+    fields = ("s", "samples", "energies")
+    differ = {k: int((getattr(res_k, k) != getattr(res_r, k)).sum()) for k in fields}
+    differ_same = {k: int((getattr(res_one, k) != getattr(res_same, k)).sum()) for k in fields}
+    want_launches = dict(dict.fromkeys(run_launches, 0),
+                         colored_gibbs_sweep_samples=kw["n_steps"], sparse_energy_samples=2)
+    if any(differ.values()) or any(differ_same.values()) or run_launches != want_launches:
+        raise AssertionError(f"samples run(): {differ} differ from the plain backend, "
+                             f"{differ_same} identical samples from one table, launches "
+                             f"{run_launches}")
+    emit({"phase": "samples_run", "problem": f"ea3d L={L}", "samples": S, "replicas": R,
+          **SAMPLES_RUN, "mismatches": differ, "identical_samples_mismatches": differ_same,
+          "launches": {k: v for k, v in run_launches.items() if v}})
+    del res_k, res_r, res_one, res_same, same
+
+    B, n, D = S * R, ea.n, ea.max_deg
+    masks = ea.color_masks.float()
+    C = masks.shape[0]
+    plan = sparse_gather.colour_plan(ea.nbr_idx, ea.nbr_w, ea.b, masks)
+    plan_one = sparse_gather.colour_plan(first.nbr_idx, first.nbr_w, first.b, masks)
+    s = torch.where(torch.rand((B, n), device=dev) < 0.5, 1.0, -1.0)
+    u = torch.rand((C, B, n), device=dev)
+    beta = torch.full((B,), SAMPLES_RUN["beta"], dtype=torch.float32, device=dev)
+    tables = (ea.nbr_idx, ea.nbr_w, ea.b)
+    samples4 = torch.where(torch.rand((B, 4, n), device=dev) < 0.5, 1.0, -1.0)
+    ms = {"colored_gibbs_sweep_samples": time_ms(torch, lambda: sparse_gather.colored_gibbs_sweep(
+              s, *tables, u, masks, beta, plan=plan)),
+          "colored_gibbs_sweep_samples_plain": time_ms(torch, lambda: ops.colored_gibbs_sweep(
+              s, *tables, u, masks, beta, mode="reference"), n=10, warmup=2),
+          "colored_gibbs_sweep_one_table": time_ms(torch, lambda: sparse_gather.colored_gibbs_sweep(
+              s, first.nbr_idx, first.nbr_w, first.b, u, masks, beta, plan=plan_one)),
+          "uniforms": time_ms(torch, lambda: torch.rand((C, B, n), device=dev)),
+          "sparse_energy_samples": time_ms(torch, lambda: sparse_gather.sparse_energy(s, *tables)),
+          "sparse_energy_samples_4": time_ms(torch, lambda: sparse_gather.sparse_energy(
+              samples4, *tables)),
+          "sparse_energy_samples_plain": time_ms(torch, lambda: ops.sparse_energy(
+              s, *tables, mode="reference"), n=10, warmup=2)}
+    bounds = {"colored_gibbs_sweep_samples": bound(
+                  4 * (3 * B * n + n * D + S * n * D + n + C * n + B), B * n * (2 * D + 6),
+                  FP32_OPS_PER_S),
+              "sparse_energy_samples": bound(4 * (B * n + n * D + S * n * D + n + B),
+                                             B * n * (2 * D + 4), FP32_OPS_PER_S)}
+    emit({"phase": "timing_samples", "shape": [B, n, S, D, C], "ms": ms,
+          "bound_ms": {k: v[0] for k, v in bounds.items()},
+          "bound_by": {k: v[1] for k, v in bounds.items()}, "nvidia_smi": smi})
+    csrc = "src/repro_torch/kernels/csrc/"
+    return [{"name": name, "route": "cuda", "source": csrc + source,
+             "replaces": "src/repro/kernels/sparse_gather.py:126" if name.startswith("colored")
+             else None, "launches": run_launches[name], "max_abs_err": err[name],
+             "mismatches": mism[name], "ms": ms[name], "plain_ms": ms[name + "_plain"],
+             "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
+             "shape": [B, n, S, D]}
+            for name, source in (("colored_gibbs_sweep_samples", "colored_gibbs.cu"),
+                                 ("sparse_energy_samples", "sparse_energy.cu"))]
 
 
 def main() -> int:
@@ -3075,6 +3291,7 @@ def main() -> int:
           "nvidia_smi": smi})
     long_entry = long_sweep_phase(torch, np, dev, *counters(), smi)
     energy_entries = sparse_energy_phase(torch, np, dev, *counters(), smi)
+    samples_entries = samples_phase(torch, np, dev, *counters(), smi)
 
     # flash_attention at the main_attention shapes, causal bf16, beside its
     # plain version and scaled_dot_product_attention (timed only). Bound:
@@ -3602,6 +3819,7 @@ def main() -> int:
              sector_floor_ms=sector_floor_ms),
         long_entry,
         *energy_entries,
+        *samples_entries,
         dict(entry("flash_attention", csrc + "flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:85",
                    sum(a["launches"]["flash_attention"] for a in attention.values())

@@ -122,7 +122,7 @@ from repro_torch.core.sparse import SparseIsing
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import broadcast_rows
 from repro_torch.kernels.lattice_gibbs import lattice_plan
-from repro_torch.kernels.sparse_gather import colour_plan
+from repro_torch.kernels.sparse_gather import check_samples_route, colour_plan
 
 
 class NonFiniteEnergyError(ValueError):
@@ -517,7 +517,14 @@ class ColoredGibbs:
     builds the masks, and the plan, from masks & ~stuck); field noise is
     one (n_chains, n) draw a sweep added to b, and dropped sites keep
     their spin for the sweep, both operands of the cuda kernel's fault
-    variant (`ops.colored_gibbs_sweep(bias_rows=, keep=)`)."""
+    variant (`ops.colored_gibbs_sweep(bias_rows=, keep=)`).
+
+    Disorder samples: on a problem with per-sample couplings
+    (`SparseIsing.n_samples` S > 1 tables) the chains are sample-major, row
+    r of sample r // (n_chains / S), and `init` builds the per-sample plan;
+    under cuda every sweep is ONE launch of the per-sample kernel for all
+    rows, every energy one launch of the per-sample energy kernel. Rows of
+    more than 116224 sites and faults have no per-sample route."""
 
     backends = ("ref", "cuda")
     problem_kinds = ("sparse",)
@@ -538,6 +545,8 @@ class ColoredGibbs:
                 "color by default) or supply masks explicitly"
             )
         dev = problem.device
+        if self.backend == "cuda" and problem.per_sample:
+            check_samples_route(problem.n, problem.n_samples)
         if s0 is None:
             s0 = random_init(generator, (n_chains, problem.n), device=dev)
         masks = problem.color_masks
@@ -1401,6 +1410,26 @@ class _Call(NamedTuple):
     diagnostics: bool
 
 
+def _check_samples(problem, kernel, n_chains: int, faults) -> None:
+    """Raise unless a problem with per-sample couplings can run: under
+    colored_gibbs, without a fault model, with n_chains a multiple of its
+    samples (the rows sample-major)."""
+    S = problem.n_samples
+    if not isinstance(kernel, ColoredGibbs):
+        name = getattr(kernel, "name", type(kernel).__name__)
+        raise NotImplementedError(
+            f"kernel {name!r} reads one (n, D) table of couplings; per-sample couplings of {S} "
+            "disorder samples run under 'colored_gibbs' only")
+    if faults is not None:
+        raise NotImplementedError(
+            "a fault model binds to one table of couplings; per-sample couplings of "
+            f"{S} disorder samples run without one")
+    if S < 1 or n_chains % S:
+        raise ValueError(
+            f"n_chains = {n_chains} is no multiple of the problem's {S} disorder samples: "
+            f"the chains are sample-major, row r of sample r // (n_chains / {S})")
+
+
 def _prepare(
     problem, kernel, *, n_steps, s0=None, schedule=None, n_chains=1, sample_every=0,
     first_hit=None, backend=None, unroll="auto", diagnostics=False, faults=None,
@@ -1412,6 +1441,8 @@ def _prepare(
     check_problem_kind(kernel, problem)
     if n_chains < 1:
         raise ValueError(f"n_chains must be >= 1, got {n_chains}")
+    if isinstance(problem, SparseIsing) and problem.per_sample:
+        _check_samples(problem, kernel, n_chains, faults)
     resolved = _resolve_backend(backend, kernel, problem)
     if resolved is not None and hasattr(kernel, "backend") and kernel.backend != resolved:
         kernel = dataclasses.replace(kernel, backend=resolved)
@@ -1456,11 +1487,12 @@ def _prepare(
 def _check_finite(problem) -> None:
     """The one host synchronisation of a new run: fail loudly on
     couplings/biases (or a fault model) that cannot produce finite energies
-    before any sampling."""
-    e_probe = problem.energy(torch.ones(state_shape(problem), device=problem.device))
-    if not bool(torch.isfinite(e_probe)):
+    before any sampling (of every disorder sample's, where per sample)."""
+    rows = (problem.n_samples,) if getattr(problem, "per_sample", False) else ()
+    e_probe = problem.energy(torch.ones(rows + state_shape(problem), device=problem.device))
+    if not bool(torch.isfinite(e_probe).all()):
         raise NonFiniteEnergyError(
-            f"problem energy is non-finite (probe energy {float(e_probe)}); "
+            f"problem energy is non-finite (probe energy {e_probe.tolist()}); "
             "check the couplings/biases (and any FaultModel) for NaN/Inf"
         )
 

@@ -17,6 +17,13 @@ Each undirected edge (i, j, w) is stored twice — once in row i and once in
 row j — so `local_fields` is one gather and `energy` halves the pair sum,
 mirroring the dense symmetric-J convention.
 
+Disorder samples: `nbr_w` may be (S, n, max_deg), S samples' couplings over
+the one neighbour table and colouring, as a spin-glass study runs many
+samples of one lattice. A batch of states then holds its rows sample-major:
+the leading axis of s has B rows, B a multiple of S, and row r takes the
+couplings of sample r // (B / S). The fields, the energy and the sweeps are
+per row; each sample's couplings must be symmetric.
+
 `color_masks` (optional, (n_colors, n) bool) partitions the sites into
 independent sets via greedy graph coloring (`color_graph`): same-color
 sites share no edge, so their conditionals are independent — exact
@@ -45,11 +52,35 @@ from repro_torch.core.ising import DenseIsing, resolve_device
 def gather_sum(s: torch.Tensor, nbr_idx: torch.Tensor, nbr_w: torch.Tensor) -> torch.Tensor:
     """sum_k nbr_w[i,k] * s[..., nbr_idx[i,k]], summed over k in slot order.
 
-    s: (..., n); nbr_idx (n, D) int32; nbr_w (n, D). Returns (..., n)."""
-    acc = torch.zeros(s.shape, dtype=nbr_w.dtype, device=s.device)
+    s: (..., n); nbr_idx (n, D) int32; nbr_w (n, D), or (S, n, D) per
+    sample, s then (B, ..., n) with row r of sample r // (B / S) (module
+    docstring). Returns (..., n)."""
+    if nbr_w.ndim == 3:
+        S = check_sample_rows(s, nbr_w.shape[0])
+        rows = s.reshape((S, s.shape[0] // S) + tuple(s.shape[1:]))
+        w = nbr_w.reshape((S,) + (1,) * (s.ndim - 1) + tuple(nbr_w.shape[1:]))
+        return _slot_sum(rows, nbr_idx, w).reshape(s.shape)
+    return _slot_sum(s, nbr_idx, nbr_w)
+
+
+def _slot_sum(s: torch.Tensor, nbr_idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum_k w[..., i, k] * s[..., nbr_idx[i, k]] from a zero accumulator,
+    slot by slot; w broadcasts against s's leading axes."""
+    acc = torch.zeros(s.shape, dtype=w.dtype, device=s.device)
     for k in range(nbr_idx.shape[-1]):
-        acc = acc + nbr_w[:, k] * s.index_select(-1, nbr_idx[:, k])
+        acc = acc + w[..., k] * s.index_select(-1, nbr_idx[:, k])
     return acc
+
+
+def check_sample_rows(s: torch.Tensor, S: int) -> int:
+    """S, after raising unless s is (B, ..., n) with B a multiple of S > 0:
+    the rows of S disorder samples, sample-major."""
+    if S < 1 or s.ndim < 2 or s.shape[0] % S:
+        raise ValueError(
+            f"per-sample couplings of {S} samples take states (B, ..., n) whose B rows are a "
+            f"multiple of {S}, sample-major (row r of sample r // (B / {S})); got "
+            f"{tuple(s.shape)}")
+    return S
 
 
 def padded_energy(s: torch.Tensor, nbr_idx: torch.Tensor, nbr_w: torch.Tensor,
@@ -68,7 +99,8 @@ class SparseIsing:
 
     Attributes:
       nbr_idx: (n, max_deg) int32 neighbor indices; padded slots = own index.
-      nbr_w:   (n, max_deg) float32 couplings; padded slots = 0.
+      nbr_w:   (n, max_deg) float32 couplings, or (S, n, max_deg), S
+               disorder samples' (module docstring); padded slots = 0.
       deg:     (n,) int32 true degrees.
       b:       (n,) float32 biases.
       color_masks: optional (n_colors, n) bool independent-set partition.
@@ -112,6 +144,16 @@ class SparseIsing:
         return self.nbr_w.device
 
     @property
+    def per_sample(self) -> bool:
+        """Whether the couplings are per disorder sample, (S, n, max_deg)."""
+        return self.nbr_w.ndim == 3
+
+    @property
+    def n_samples(self) -> int:
+        """Disorder samples S: the leading axis of per-sample couplings, else 1."""
+        return self.nbr_w.shape[0] if self.per_sample else 1
+
+    @property
     def n_colors(self) -> int:
         """Number of color classes."""
         if self.color_masks is None:
@@ -119,7 +161,8 @@ class SparseIsing:
         return self.color_masks.shape[0]
 
     def neighbor_sum(self, s: torch.Tensor) -> torch.Tensor:
-        """sum_j J_ij s_j via the padded gather. s: (..., n) ±1 -> (..., n).
+        """sum_j J_ij s_j via the padded gather. s: (..., n) ±1 -> (..., n);
+        per sample, (B, ..., n) with row r of sample r // (B / S).
 
         Padded slots gather the site's own spin but multiply by weight 0."""
         return gather_sum(s.to(self.nbr_w.dtype), self.nbr_idx, self.nbr_w)
@@ -137,11 +180,22 @@ class SparseIsing:
 
         Returns (idx, dh), both (max_deg,): after s_i -> -s_i, apply
         `h.index_add_(-1, idx, dh)`. Padded slots contribute dh = 0 at
-        idx = i, so the scatter-add needs no degree mask."""
+        idx = i, so the scatter-add needs no degree mask. One table of
+        couplings only."""
+        self._one_table("delta_fields")
         return self.nbr_idx[i], self.nbr_w[i] * (-2.0 * s[i])
 
+    def _one_table(self, what: str) -> None:
+        if self.per_sample:
+            raise NotImplementedError(
+                f"{what} takes one table of couplings; this problem has {self.n_samples} "
+                "disorder samples' (S, n, max_deg): take one with dataclasses.replace(problem, "
+                "nbr_w=problem.nbr_w[k])")
+
     def to_dense(self) -> DenseIsing:
-        """Materialize the (n, n) symmetric coupling matrix (host-side)."""
+        """Materialize the (n, n) symmetric coupling matrix (host-side); one
+        table of couplings only."""
+        self._one_table("to_dense")
         n, md = self.n, self.max_deg
         J = np.zeros((n, n), np.float64)
         rows = np.repeat(np.arange(n), md)
@@ -225,13 +279,15 @@ class SparseIsing:
 
     def validate(self) -> None:
         """Raise ValueError on a malformed instance (host-side, in memory of
-        the order of the tables: the couplings are never densified)."""
+        the order of the tables: the couplings are never densified). Per
+        sample, every sample's couplings are checked."""
         idx = self.nbr_idx.cpu().numpy()
         w = self.nbr_w.cpu().numpy()
         deg = self.deg.cpu().numpy()
         b = self.b.cpu().numpy()
         n, md = idx.shape
-        if w.shape != (n, md) or deg.shape != (n,) or b.shape != (n,):
+        want = (max(1, w.shape[0]), n, md) if w.ndim == 3 else (n, md)
+        if w.shape != want or deg.shape != (n,) or b.shape != (n,):
             raise ValueError(
                 f"inconsistent shapes: nbr_idx {idx.shape}, nbr_w {w.shape}, "
                 f"deg {deg.shape}, b {b.shape}"
@@ -245,15 +301,17 @@ class SparseIsing:
             )
         slot = np.arange(md)[None, :]
         pad = slot >= deg[:, None]
-        if np.any(w[pad] != 0.0):
+        if np.any(w[..., pad] != 0.0):
             raise ValueError("padded neighbor slots must carry zero weight")
         if np.any(idx[~pad] == np.arange(n)[:, None].repeat(md, 1)[~pad]):
             raise ValueError("self-coupling in a live neighbor slot (zero-diagonal convention)")
-        if not _symmetric(idx, w):
-            raise ValueError(
-                "couplings are not symmetric: every edge (i, j, w) must be "
-                "stored in BOTH row i and row j"
-            )
+        for k, wk in enumerate(w.reshape((-1, n, md))):
+            if not _symmetric(idx, wk):
+                raise ValueError(
+                    "couplings are not symmetric: every edge (i, j, w) must be "
+                    "stored in BOTH row i and row j"
+                    + (f" (disorder sample {k})" if w.ndim == 3 else "")
+                )
         if self.color_masks is not None:
             masks = self.color_masks.cpu().numpy()
             if masks.shape[-1] != n:

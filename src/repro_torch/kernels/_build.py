@@ -47,8 +47,10 @@ LAUNCHERS = {
                                      [_P] * 11 + [_I] * 4 + [_P]),
     "sparse_fields": ("sparse_fields_launch", [_P] * 5 + [_I] * 5 + [_P]),
     "sparse_energy": ("sparse_energy_launch", [_P] * 6 + [_I] * 6 + [_P]),
+    "sparse_energy_samples": ("sparse_energy_samples_launch", [_P] * 5 + [_I] * 6 + [_P]),
     "colored_gibbs": ("colored_gibbs_launch", [_P] * 7 + [_I] * 6 + [_P]),
     "colored_gibbs_faults": ("colored_gibbs_faults_launch", [_P] * 9 + [_I] * 6 + [_P]),
+    "colored_gibbs_samples": ("colored_gibbs_samples_launch", [_P] * 7 + [_I] * 8 + [_P]),
     "colored_gibbs_long": ("colored_gibbs_long_launch", [_P] * 7 + [_IP] + [_I] * 5 + [_P]),
     "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 8 + [_P]),
 }
@@ -56,7 +58,8 @@ LAUNCHERS = {
 LIBRARY = {"lattice_gibbs_generic": "lattice_gibbs", "tau_leap_faults": "tau_leap",
            "lattice_gibbs_faults": "lattice_gibbs",
            "lattice_gibbs_generic_faults": "lattice_gibbs",
-           "colored_gibbs_faults": "colored_gibbs"}
+           "colored_gibbs_faults": "colored_gibbs", "colored_gibbs_samples": "colored_gibbs",
+           "sparse_energy_samples": "sparse_energy"}
 LIBRARIES = tuple(dict.fromkeys(LIBRARY.get(n, n) for n in LAUNCHERS))
 
 _lock = threading.Lock()

@@ -34,6 +34,18 @@
 // come from device memory while nothing else overlaps them, and the row's
 // load and store bracket the phases.
 //
+// The per-sample variant (colored_gibbs_samples_kernel; entry point
+// colored_gibbs_samples_launch): disorder samples' couplings over one
+// neighbour table, the plan's weights (S, L, P), one sample's after another.
+// The B rows are sample-major: block r sweeps row r with the weights of
+// sample r / rows_per_sample, and everything else as above. Consecutive
+// blocks, a sample's replicas, read the same 1 MB of weights (at L = 32,
+// P = 8) at about the same time, so they share it through L2. Plan rows of
+// P = 8 (the 3D lattice's D = 6) load as two 16-byte vectors each, an entry
+// a thread at once (Entry8): at (512, 32768), S = 128, 0.19 ms a sweep
+// against 0.39 ms with the one-table kernel's scalar loads of Entry<false>
+// (chip_smoke.py's timing_samples; PERF.md).
+//
 // The fault variant (kFaults; entry point colored_gibbs_faults_launch)
 // takes two more operands, each optional (a null pointer): bias, (B, n)
 // f32, the whole per-row b + eta, read with the uniforms in place of the
@@ -90,18 +102,51 @@ struct Entry<false> {
   }
 };
 
-constexpr int kUnroll = 2;  // entries a thread walks at once, their loads issued together
+// The entry of a plan of P = 8 columns (4 <= D <= 7), for the per-sample
+// kernel: two 16-byte loads of indices and two of weights, held in
+// registers. At kUnroll = 1 it keeps to the 32 registers without spills;
+// at ea3d32.samples' shape it halves the sweep against Entry<false>.
+struct Entry8 {
+  int4 i0, i1;
+  float4 w0, w1;
+  Entry8() = default;
+  __device__ __forceinline__ Entry8(const int* tidx, const float* tw, int j, int) {
+    i0 = __ldg(reinterpret_cast<const int4*>(tidx) + 2 * j);
+    i1 = __ldg(reinterpret_cast<const int4*>(tidx) + 2 * j + 1);
+    w0 = __ldg(reinterpret_cast<const float4*>(tw) + 2 * j);
+    w1 = __ldg(reinterpret_cast<const float4*>(tw) + 2 * j + 1);
+  }
+  __device__ __forceinline__ int site() const { return i1.w; }
+  __device__ __forceinline__ float bias() const { return w1.w; }
+  __device__ __forceinline__ float field(const int8_t* cur, int n, int D) const {
+    const int ix[7] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z};
+    const float wx[7] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z};
+    float acc[1] = {0.0f};
+#pragma unroll
+    for (int k = 0; k < 7; ++k)
+      if (k < D) sparse_gather::add_slot<1>(acc, cur, 0, ix[k], wx[k], n);
+    return acc[0];
+  }
+};
+
+// Entries a thread walks at once, their loads issued together (the
+// one-table kernel's; the per-sample kernel walks Entry8 one at a time).
+constexpr int kUnrollOneTable = 2;
 
 __device__ __forceinline__ int8_t spin(float v) { return v > 0.0f ? 1 : -1; }
 
-// Two 1024-thread blocks an SM: ptxas keeps the kernel to 32 registers.
-template <bool kPacked, bool kFaults>
-__global__ void __launch_bounds__(1024, 2)
-colored_gibbs_kernel(const float* __restrict__ s, const int* __restrict__ offsets,
-                     const int* __restrict__ tidx, const float* __restrict__ tw,
-                     const float* __restrict__ u, const float* __restrict__ beta,
-                     float* __restrict__ out, int B, int n, int D, int P, int C,
-                     const float* __restrict__ rbias, const uint8_t* __restrict__ keep) {
+// The sweep of row blockIdx.x, its plan's weights at `tw`: entries of type
+// E, kUnroll at once.
+template <class E, int kUnroll, bool kFaults>
+__device__ __forceinline__ void sweep_row(const float* __restrict__ s,
+                                          const int* __restrict__ offsets,
+                                          const int* __restrict__ tidx,
+                                          const float* __restrict__ tw,
+                                          const float* __restrict__ u,
+                                          const float* __restrict__ beta,
+                                          float* __restrict__ out, int B, int n, int D, int P,
+                                          int C, const float* __restrict__ rbias,
+                                          const uint8_t* __restrict__ keep) {
   extern __shared__ __align__(16) int8_t smem[];
   int8_t* cur = smem;      // [n]
   int8_t* nxt = smem + n;  // [n]
@@ -127,12 +172,12 @@ colored_gibbs_kernel(const float* __restrict__ s, const int* __restrict__ offset
     const int beg = __ldg(offsets + c), end = __ldg(offsets + c + 1);
     const float* uc = u + static_cast<size_t>(c) * B * n;
     for (int j0 = beg + t; j0 < end; j0 += kUnroll * T) {
-      Entry<kPacked> e[kUnroll];
+      E e[kUnroll];
       int site[kUnroll];
       float ur[kUnroll], h[kUnroll], bias[kUnroll];
 #pragma unroll
       for (int q = 0; q < kUnroll; ++q)  // a missing entry repeats j0: the same spin is written twice
-        e[q] = Entry<kPacked>(tidx, tw, j0 + q * T < end ? j0 + q * T : j0, P);
+        e[q] = E(tidx, tw, j0 + q * T < end ? j0 + q * T : j0, P);
       bool kept[kFaults ? kUnroll : 1];  // the update is dropped: the old spin stays
 #pragma unroll
       for (int q = 0; q < kUnroll; ++q) {
@@ -177,6 +222,46 @@ colored_gibbs_kernel(const float* __restrict__ s, const int* __restrict__ offset
   } else {
     for (int i = t; i < n; i += T) out[base + i] = static_cast<float>(cur[i]);
   }
+}
+
+// Two 1024-thread blocks an SM: ptxas keeps the kernel to 32 registers.
+template <bool kPacked, bool kFaults>
+__global__ void __launch_bounds__(1024, 2)
+colored_gibbs_kernel(const float* __restrict__ s, const int* __restrict__ offsets,
+                     const int* __restrict__ tidx, const float* __restrict__ tw,
+                     const float* __restrict__ u, const float* __restrict__ beta,
+                     float* __restrict__ out, int B, int n, int D, int P, int C,
+                     const float* __restrict__ rbias, const uint8_t* __restrict__ keep) {
+  sweep_row<Entry<kPacked>, kUnrollOneTable, kFaults>(s, offsets, tidx, tw, u, beta, out, B, n, D,
+                                                      P, C, rbias, keep);
+}
+
+// The per-sample sweep: row r takes sample r / rows_per_sample's weights,
+// `wstride` (= L P) floats apart.
+template <class E, int kUnroll>
+__global__ void __launch_bounds__(1024, 2)
+colored_gibbs_samples_kernel(const float* __restrict__ s, const int* __restrict__ offsets,
+                             const int* __restrict__ tidx, const float* __restrict__ tw,
+                             const float* __restrict__ u, const float* __restrict__ beta,
+                             float* __restrict__ out, int B, int n, int D, int P, int C,
+                             int rows_per_sample, size_t wstride) {
+  const size_t sample = static_cast<size_t>(blockIdx.x / rows_per_sample);
+  sweep_row<E, kUnroll, false>(s, offsets, tidx, tw + sample * wstride, u, beta, out, B, n, D, P,
+                               C, nullptr, nullptr);
+}
+
+template <class E, int kUnroll>
+cudaError_t launch_samples(const float* s, const int* offsets, const int* tidx, const float* tw,
+                           const float* u, const float* beta, float* out, int B, int n, int D,
+                           int P, int C, int threads, int rows_per_sample, int wstride,
+                           cudaStream_t stream) {
+  const size_t smem = 2 * static_cast<size_t>(n);
+  const cudaError_t err = glauber::allow_smem(colored_gibbs_samples_kernel<E, kUnroll>, smem);
+  if (err != cudaSuccess) return err;
+  colored_gibbs_samples_kernel<E, kUnroll><<<B, threads, smem, stream>>>(
+      s, offsets, tidx, tw, u, beta, out, B, n, D, P, C, rows_per_sample,
+      static_cast<size_t>(wstride));
+  return cudaGetLastError();
 }
 
 template <bool kPacked, bool kFaults>
@@ -237,4 +322,35 @@ extern "C" int colored_gibbs_faults_launch(const void* s, const void* offsets, c
                                            void* stream) {
   return launch_sweep<true>(s, offsets, tidx, tw, u, beta, out, bias, keep, B, n, D, P, C,
                             threads, stream);
+}
+
+// The per-sample sweep: as colored_gibbs_launch over a plan whose weights are
+// (S, L, P), `wstride` = L P floats a sample, block r taking sample
+// r / rows_per_sample's (rows_per_sample = B / S >= 1).
+extern "C" int colored_gibbs_samples_launch(const void* s, const void* offsets, const void* tidx,
+                                            const void* tw, const void* u, const void* beta,
+                                            void* out, int B, int n, int D, int P, int C,
+                                            int threads, int rows_per_sample, int wstride,
+                                            void* stream_) {
+  if (rows_per_sample < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* s_ = static_cast<const float*>(s);
+  const auto* off = static_cast<const int*>(offsets);
+  const auto* idx = static_cast<const int*>(tidx);
+  const auto* w = static_cast<const float*>(tw);
+  const auto* u_ = static_cast<const float*>(u);
+  const auto* beta_ = static_cast<const float*>(beta);
+  auto* out_ = static_cast<float*>(out);
+  const auto stream = static_cast<cudaStream_t>(stream_);
+  cudaError_t err;
+  if (P == 4)
+    err = launch_samples<Entry<true>, kUnrollOneTable>(s_, off, idx, w, u_, beta_, out_, B, n, D, P,
+                                                       C, threads, rows_per_sample, wstride, stream);
+  else if (P == 8)
+    err = launch_samples<Entry8, 1>(s_, off, idx, w, u_, beta_, out_, B, n, D, P, C, threads,
+                                    rows_per_sample, wstride, stream);
+  else
+    err = launch_samples<Entry<false>, kUnrollOneTable>(s_, off, idx, w, u_, beta_, out_, B, n, D,
+                                                        P, C, threads, rows_per_sample, wstride,
+                                                        stream);
+  return static_cast<int>(err);
 }

@@ -41,6 +41,15 @@
 //     bias sums of its tile; the second launch sums each row's tiles in
 //     order. The table entry of a site is read once for kTileRows rows.
 //
+//   sparse_energy_samples (per-sample couplings: nbr_w (S, n, D), the rows
+//     sample-major, row r of the whole batch taking sample r /
+//     rows_per_sample's): a block a row, each site's slots gathered from
+//     the row in device memory through the cache, at any n, and summed as
+//     sparse_energy_rows<1> sums a row (the same threads, the same order):
+//     one launch. It is run()'s energy of a batch of disorder samples, two
+//     launches a job on ea3d32.samples against 200 sweeps, so its loads are
+//     left plain.
+//
 // What holds them back (PERF.md): at (256, 16384) the staged kernel's
 // copy-in alone takes 8.5 us and its walk alone 17.9 us; bank-conflict-free
 // gathers take 3.5 us off the walk and earlier table loads nothing, which
@@ -180,6 +189,44 @@ sparse_energy_rows(const float* __restrict__ s, const int* __restrict__ idx,
   if (t < 2 * R) rows[t] = v;
   __syncthreads();
   if (t < nr) out[row0 + t] = __fadd_rn(__fmul_rn(0.5f, rows[t]), rows[R + t]);
+}
+
+// One row a block: row blockIdx.x of the launch, whose couplings are those
+// of sample (first + blockIdx.x) / rows_per_sample, n D floats apart.
+__global__ void __launch_bounds__(1024)
+sparse_energy_samples(const float* __restrict__ s, const int* __restrict__ idx,
+                      const float* __restrict__ w, const float* __restrict__ b,
+                      float* __restrict__ out, int n, int D, int rows_per_sample, int first) {
+  __shared__ float red[kMaxWarps * 2];
+  const int T = blockDim.x, t = threadIdx.x;
+  const float* row = s + static_cast<size_t>(blockIdx.x) * n;
+  const float* ws =
+      w + static_cast<size_t>((first + static_cast<int>(blockIdx.x)) / rows_per_sample) * n * D;
+  float pair[1] = {0.0f}, field[1] = {0.0f};
+  for (int i0 = t; i0 < n; i0 += kUnroll * T) {
+    int site[kUnroll];  // a missing site repeats i0 and is not added
+    float acc[kUnroll][1];
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      site[q] = i0 + q * T < n ? i0 + q * T : i0;
+      acc[q][0] = 0.0f;
+    }
+    for (int k = 0; k < D; ++k)
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) {
+        const size_t e = static_cast<size_t>(site[q]) * D + k;
+        sparse_gather::add_slot<1>(acc[q], row, 0, __ldg(idx + e), __ldg(ws + e), n);
+      }
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q)
+      if (i0 + q * T < n) add_site<1>(pair, field, acc[q], row, 0, site[q], __ldg(b + site[q]));
+  }
+  const float v = block_sums<1>(pair, field, red);
+  // thread 0 holds the pair sum, thread 1 the bias sum
+  __syncthreads();
+  if (t < 2) red[t] = v;
+  __syncthreads();
+  if (t == 0) out[blockIdx.x] = __fadd_rn(__fmul_rn(0.5f, red[0]), red[1]);
 }
 
 // part[r][tile] = (pair, field) sums of rows row0 .. row0 + nr - 1 over the
@@ -327,4 +374,19 @@ extern "C" int sparse_energy_launch(const void* s_, const void* idx_, const void
     case 3: return static_cast<int>(launch_rows<3>(s, idx, w, b, out, B, n, D, threads, stream));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The per-sample energy of the B rows of s: `threads` threads a block (a
+// multiple of 32, at most 1024), row r taking sample (first + r) /
+// rows_per_sample's couplings from w (S, n, D). Returns cudaGetLastError()
+// after the launch; 1 (cudaErrorInvalidValue) for rows_per_sample < 1.
+extern "C" int sparse_energy_samples_launch(const void* s, const void* idx, const void* w,
+                                            const void* b, void* out, int B, int n, int D,
+                                            int threads, int rows_per_sample, int first,
+                                            void* stream) {
+  if (rows_per_sample < 1) return static_cast<int>(cudaErrorInvalidValue);
+  sparse_energy_samples<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(s), static_cast<const int*>(idx), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<float*>(out), n, D, rows_per_sample, first);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -97,6 +97,22 @@ rows, gathers a neighbour from the tile or else through the cache, and
 writes each row's sums over the tile to a (B, tiles, 2) scratch that a
 second launch sums in tile order.
 
+Disorder samples (`SparseIsing` with (S, n, D) couplings over one (n, D)
+neighbour table, its B rows sample-major: row r of sample r // (B / S)) take
+routes of their own, counted apart: the sweep `colored_gibbs_sweep_samples`
+(`colored_gibbs.cu`: the shared-memory sweep, its block reading row r's
+sample's weights from a per-sample plan whose `w` is (S, L, P), plan rows
+of P = 8 as two 16-byte loads of each; one launch for all B rows) and the
+energy `sparse_energy_samples` (`sparse_energy.cu`: a row a block, gathered
+through the cache at any n, summed in the staged kernel's order at one row
+a block; one launch). At (512, 32768), D = 6,
+C = 2, S = 128 (the 3D EA glass at L = 32, 128 samples x 4 replicas) the
+sweep's inputs are 4 (3 B n + n D + S n D + n + C n + B) = 303.2 MB, 90.5
+us at 3.35 TB/s; the plan's per-sample weights are 134 MB, so a sample's 1
+MB is read by its replicas' neighbouring blocks, through L2. Rows of
+n > 116224 sites (the long-row sweep) and fault operands have no
+per-sample route: both raise NotImplementedError.
+
 The sweep's fault variant, chosen by its operands and counted apart as
 `launch.colored_gibbs_sweep_faults`: a (B, n) per-row bias, the whole b + eta of
 field noise, read with the uniforms in place of the plan's b_i, and a
@@ -116,7 +132,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import tracing
-from repro_torch.core.sparse import gather_sum
+from repro_torch.core.sparse import check_sample_rows, gather_sum
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (MAX_SMEM_BYTES, check_cuda, check_fault_operands,
                                          check_tensor, fault_ptr as _ptr)
@@ -160,10 +176,13 @@ def sweep_kernel(n: int) -> str:
     return "colored_gibbs_sweep" if 2 * n <= MAX_SMEM_BYTES else "colored_gibbs_sweep_long"
 
 
-def energy_kernel(n: int) -> str:
-    """The energy kernel that takes rows of n sites: "sparse_energy" while a
-    row of f32 fits one block's shared memory (4n <= MAX_SMEM_BYTES:
+def energy_kernel(n: int, samples: bool = False) -> str:
+    """The energy kernel that takes rows of n sites: with per-sample
+    couplings "sparse_energy_samples" at any n; else "sparse_energy" while
+    a row of f32 fits one block's shared memory (4n <= MAX_SMEM_BYTES:
     n <= 58112), else "sparse_energy_long"."""
+    if samples:
+        return "sparse_energy_samples"
     return "sparse_energy" if 4 * n <= MAX_SMEM_BYTES else "sparse_energy_long"
 
 
@@ -200,7 +219,8 @@ def energy_in_kernel_order(s, nbr_idx, nbr_w, b, kernel: str | None = None) -> t
     """What the energy kernel returns, bit for bit on any values, in plain
     torch on any device: `SparseIsing.energy`'s terms s_i h_i and b_i s_i,
     summed over the sites in the order of `kernel` (default
-    `energy_kernel(n)`). "sparse_energy": thread t of a block of
+    `energy_kernel(n, per-sample nbr_w)`). "sparse_energy", and
+    "sparse_energy_samples" on per-sample couplings: thread t of a block of
     `_block_threads(n)` adds sites t, t + T, ... in turn, then the block
     (each warp's shuffle tree, the warps in turn). "sparse_energy_long": the
     same over each tile of ENERGY_TILE sites with ENERGY_TILE_THREADS
@@ -208,10 +228,10 @@ def energy_in_kernel_order(s, nbr_idx, nbr_w, b, kernel: str | None = None) -> t
     then its tree. Both halve the pair sum and add the bias sum last. The
     tests and chip_smoke.py hold the kernels against it."""
     n = s.shape[-1]
-    kernel = energy_kernel(n) if kernel is None else kernel
+    kernel = energy_kernel(n, nbr_w.ndim == 3) if kernel is None else kernel
     rows = s.reshape(-1, n).to(torch.float32)
     terms = (rows * gather_sum(rows, nbr_idx, nbr_w), b * rows)
-    if kernel == "sparse_energy":
+    if kernel in ("sparse_energy", "sparse_energy_samples"):
         sums = [_block_sum(_threads_in_turn(p, _block_threads(n))) for p in terms]
     elif kernel == "sparse_energy_long":
         tiles = -(-n // ENERGY_TILE)
@@ -231,7 +251,8 @@ class ColourPlan(NamedTuple):
     offsets: (C+1,) int32 — colour c's entries are offsets[c]:offsets[c+1].
     idx:     (L, P) int32 — per entry the D neighbour indices, pads, and
              the entry's site in the last column.
-    w:       (L, P) f32   — the D couplings, zero pads, and b_site last.
+    w:       (L, P) f32   — the D couplings, zero pads, and b_site last;
+             (S, L, P) of per-sample couplings (S, n, D), each sample's.
     counts:  the C list lengths, on the host.
     n, D:    the problem's sites and neighbour slots.
     independent: whether the classes are independent sets
@@ -261,11 +282,22 @@ class ColourPlan(NamedTuple):
         """(L,) the site of every entry, colour by colour."""
         return self.idx[:, -1]
 
+    @property
+    def per_sample(self) -> bool:
+        """Whether the weights are per disorder sample, (S, L, P)."""
+        return self.w.ndim == 3
+
+    @property
+    def n_samples(self) -> int:
+        """Disorder samples S: the leading axis of per-sample weights, else 1."""
+        return self.w.shape[0] if self.per_sample else 1
+
 
 def colour_plan(nbr_idx: torch.Tensor, nbr_w: torch.Tensor, b: torch.Tensor,
                 masks: torch.Tensor) -> ColourPlan:
     """The colour plan of (C, n) masks (bool, or f32 with a site in colour c
-    where masks[c] > 0.5) over the (n, D) tables, on the tables' device.
+    where masks[c] > 0.5) over the (n, D) tables, on the tables' device;
+    over (S, n, D) per-sample couplings its `w` is each sample's, (S, L, P).
     Waits for the device once (the lists' lengths and whether the classes
     are independent sets): build it once per problem, not per sweep, and
     pass the kernel these same tensors."""
@@ -278,9 +310,10 @@ def colour_plan(nbr_idx: torch.Tensor, nbr_w: torch.Tensor, b: torch.Tensor,
     offsets[1:] = counts.cumsum(0)
     idx = sites.to(torch.int32)[:, None].repeat(1, P)  # pads and the last column: the site
     idx[:, :D] = nbr_idx[sites]
-    w = torch.zeros((sites.shape[0], P), dtype=torch.float32, device=nbr_idx.device)
-    w[:, :D] = nbr_w[sites]
-    w[:, -1] = b[sites]
+    lead = tuple(nbr_w.shape[:-2])  # (S,) per sample
+    w = torch.zeros(lead + (sites.shape[0], P), dtype=torch.float32, device=nbr_idx.device)
+    w[..., :D] = nbr_w[..., sites, :]
+    w[..., -1] = b[sites]
     source = tuple((x, x._version) for x in (nbr_idx, nbr_w, b, masks))
     independent = independent_classes(nbr_idx, sel)
     *counts, independent = torch.cat([counts, independent[None].to(counts.dtype)]).tolist()
@@ -303,7 +336,10 @@ def independent_classes(nbr_idx: torch.Tensor, sel: torch.Tensor) -> torch.Tenso
 
 
 def _check_tables(s, nbr_idx, nbr_w, b):
-    """(dev, B, n, D) of the shared operands; raise unless they fit the kernels."""
+    """(dev, B, n, D, per_sample) of the shared operands, per_sample
+    whether the couplings are (S, n, D), one table per disorder sample;
+    raise unless they fit the kernels. The caller checks that its rows are
+    whole samples."""
     dev = check_cuda(s)
     if s.ndim != 2 or nbr_idx.ndim != 2:
         raise ValueError(
@@ -312,13 +348,29 @@ def _check_tables(s, nbr_idx, nbr_w, b):
         )
     B, n = s.shape
     D = nbr_idx.shape[1]
+    per_sample = nbr_w.ndim == 3
     check_tensor("s", s, torch.float32, (B, n), dev)
     check_tensor("nbr_idx", nbr_idx, torch.int32, (n, D), dev)
-    check_tensor("nbr_w", nbr_w, torch.float32, (n, D), dev)
+    check_tensor("nbr_w", nbr_w, torch.float32, ((nbr_w.shape[0],) if per_sample else ()) + (n, D), dev)
     check_tensor("b", b, torch.float32, (n,), dev)
     if B * n >= INDEX_LIMIT or n * D >= INDEX_LIMIT:
         raise ValueError(f"(B, n, D) = ({B}, {n}, {D}) overflows the kernels' int32 indexing")
-    return dev, B, n, D
+    return dev, B, n, D, per_sample
+
+
+def check_samples_route(n: int, S: int, faults: bool = False) -> None:
+    """Raise NotImplementedError where per-sample couplings of S samples
+    have no sweep: rows of n > 116224 sites (the long-row sweep) or fault
+    operands."""
+    if sweep_kernel(n) == "colored_gibbs_sweep_long":
+        raise NotImplementedError(
+            f"n = {n} sites take the long-row sweep (two int8 copies of a chain, {2 * n} bytes, "
+            f"exceed a block's {MAX_SMEM_BYTES} of shared memory), which reads one (n, D) "
+            f"table of couplings: no per-sample route for {S} disorder samples at this n")
+    if faults:
+        raise NotImplementedError(
+            "the sweep's fault variant (field noise, update dropout) reads one (n, D) table of "
+            f"couplings: no per-sample route for {S} disorder samples")
 
 
 def check_plan(plan: ColourPlan, nbr_idx, nbr_w, b, masks) -> None:
@@ -340,9 +392,9 @@ def check_plan(plan: ColourPlan, nbr_idx, nbr_w, b, masks) -> None:
     L, P = sum(plan.counts), (D // 4 + 1) * 4
     check_tensor("plan.offsets", plan.offsets, torch.int32, (C + 1,), dev)
     check_tensor("plan.idx", plan.idx, torch.int32, (L, P), dev)
-    check_tensor("plan.w", plan.w, torch.float32, (L, P), dev)
-    if L >= 2**31:
-        raise ValueError(f"a plan of {L} entries overflows the kernel's int32 offsets")
+    check_tensor("plan.w", plan.w, torch.float32, tuple(nbr_w.shape[:-2]) + (L, P), dev)
+    if L >= 2**31 or plan.w.numel() >= INDEX_LIMIT:
+        raise ValueError(f"a plan of {L} entries of {P} overflows the kernel's int32 offsets")
 
 
 def _launch_fields(s, nbr_idx, nbr_w, b, out, rows: int, threads: int, device) -> None:
@@ -368,6 +420,20 @@ def _launch_sweep(s, plan: ColourPlan, uniforms, beta, out, threads: int, device
     else:
         code = _build.launcher("colored_gibbs_faults")(*args, *map(_ptr, faults), *dims)
     _build.check("colored_gibbs_sweep", code)
+
+
+def _launch_sweep_samples(s, plan: ColourPlan, uniforms, beta, out, threads: int,
+                          device) -> None:
+    """The per-sample sweep: the shared-memory kernel with row r's weights
+    those of sample r // (B / S) in the plan's (S, L, P) `w`."""
+    B, n = s.shape
+    code = _build.launcher("colored_gibbs_samples")(
+        s.data_ptr(), plan.offsets.data_ptr(), plan.idx.data_ptr(), plan.w.data_ptr(),
+        uniforms.data_ptr(), beta.data_ptr(), out.data_ptr(), B, n, plan.D, plan.idx.shape[1],
+        len(plan.counts), threads, B // plan.n_samples, plan.w[0].numel(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check("colored_gibbs_sweep_samples", code)
 
 
 def _launch_sweep_long(s, plan: ColourPlan, uniforms, beta, out, device) -> None:
@@ -398,6 +464,20 @@ def _launch_energy(s, nbr_idx, nbr_w, b, part, out, rows: int, threads: int, dev
     _build.check("sparse_energy", code)
 
 
+def _launch_energy_samples(s, nbr_idx, nbr_w, b, out, rows_per_sample: int, first: int,
+                           device) -> None:
+    """The per-sample energy: a row a block, row r (of the whole batch, the
+    launch's first being `first`) with sample (first + r) // rows_per_sample's
+    couplings."""
+    B, n = s.shape
+    code = _build.launcher("sparse_energy_samples")(
+        s.data_ptr(), nbr_idx.data_ptr(), nbr_w.data_ptr(), b.data_ptr(), out.data_ptr(), B, n,
+        nbr_idx.shape[1], _block_threads(n), rows_per_sample, first,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check("sparse_energy_samples", code)
+
+
 def sparse_energy(
     s: torch.Tensor, nbr_idx: torch.Tensor, nbr_w: torch.Tensor, b: torch.Tensor
 ) -> torch.Tensor:
@@ -406,7 +486,9 @@ def sparse_energy(
     0.5 * sum_i s_i h_i + sum_i b_i s_i, h_i the in-order slot sum without
     b: `SparseIsing.energy`'s terms, summed over the sites in a fixed order.
     Rows of n <= 58112 sites go to the staged kernel, longer ones to the
-    long-row pair (`energy_kernel`); each launch takes fewer than
+    long-row pair (`energy_kernel`); per-sample (S, n, D) couplings, the
+    flattened rows sample-major (s's leading axis a multiple of S), to
+    `sparse_energy_samples`. Each launch takes fewer than
     INDEX_LIMIT elements of s, so a larger block of rows (a whole run's
     samples) is launched in chunks of rows, each counted. Launched on the
     current stream with no host sync; its scratch comes from `torch.empty`,
@@ -417,18 +499,23 @@ def sparse_energy(
         raise ValueError("s must be contiguous")
     lead = tuple(s.shape[:-1])
     flat = s.view(math.prod(lead), s.shape[-1])
+    if nbr_w.ndim == 3:
+        check_sample_rows(s, nbr_w.shape[0])
     chunk = max(1, (INDEX_LIMIT - 1) // max(1, flat.shape[1]))
-    dev, _, n, _ = _check_tables(flat[:chunk], nbr_idx, nbr_w, b)  # every chunk is as the first
+    dev, _, n, _, _ = _check_tables(flat[:chunk], nbr_idx, nbr_w, b)  # every chunk is as the first
     B = flat.shape[0]
     out = torch.empty((B,), dtype=torch.float32, device=dev)
     if B == 0 or n == 0:
         return out.zero_().view(lead)
-    kernel = energy_kernel(n)
-    part = (None if kernel == "sparse_energy" else
+    kernel = energy_kernel(n, nbr_w.ndim == 3)
+    part = (None if kernel != "sparse_energy_long" else
             torch.empty((min(B, chunk), -(-n // ENERGY_TILE), 2), dtype=torch.float32, device=dev))
     for r0 in range(0, B, chunk):
         rows = flat[r0:r0 + chunk]
-        if kernel == "sparse_energy":
+        if kernel == "sparse_energy_samples":
+            _launch_energy_samples(rows, nbr_idx, nbr_w, b, out[r0:r0 + chunk],
+                                   B // nbr_w.shape[0], r0, dev)
+        elif kernel == "sparse_energy":
             _launch_energy(rows, nbr_idx, nbr_w, b, None, out[r0:r0 + chunk],
                            fields_rows(rows.shape[0], n, _sm_count(dev)), _block_threads(n), dev)
         else:
@@ -445,7 +532,11 @@ def sparse_fields(
     indices in [0, n), (n,D) f32 couplings and (n,) f32 bias, all contiguous
     on one sm_90 device -> (B,n) f32 fields. Rows of n <= 58112 sites go to
     the staged kernel, longer ones to the global one (`fields_rows`)."""
-    dev, B, n, D = _check_tables(s, nbr_idx, nbr_w, b)
+    dev, B, n, D, per_sample = _check_tables(s, nbr_idx, nbr_w, b)
+    if per_sample:
+        raise NotImplementedError(
+            "sparse_fields takes one (n, D) table of couplings: it has no per-sample route "
+            f"for {nbr_w.shape[0]} disorder samples' (S, n, D)")
     out = torch.empty((B, n), dtype=torch.float32, device=dev)
     if B == 0 or n == 0:
         return out
@@ -475,14 +566,19 @@ def colored_gibbs_sweep(
     and `keep` ((B,n) bool or uint8), either optional, take the fault
     variant (module docstring). Rows of n > 116224 sites go to the
     long-row kernel (`sweep_kernel`), which takes no fault operands and
-    only a plan of independent classes."""
-    dev, B, n, D = _check_tables(s, nbr_idx, nbr_w, b)
+    only a plan of independent classes. Per-sample (S, n, D) couplings,
+    B a multiple of S and the rows sample-major, take the per-sample
+    kernel, at n <= 116224 and without fault operands."""
+    dev, B, n, D, per_sample = _check_tables(s, nbr_idx, nbr_w, b)
     C = masks.shape[0] if masks.ndim == 2 else -1
     check_tensor("masks", masks, torch.float32, (C, n), dev)
     check_tensor("uniforms", uniforms, torch.float32, (C, B, n), dev)
     check_tensor("beta", beta, torch.float32, (B,), dev)
     faults = check_fault_operands(s, bias_rows, keep, dev)
     long_rows = sweep_kernel(n) == "colored_gibbs_sweep_long"
+    if per_sample:
+        check_sample_rows(s, nbr_w.shape[0])
+        check_samples_route(n, nbr_w.shape[0], faults is not None)
     if long_rows and faults is not None:
         raise NotImplementedError(
             f"n = {n} sites take the long-row sweep (two int8 copies of a chain, {2 * n} "
@@ -501,6 +597,10 @@ def colored_gibbs_sweep(
         )
     out = torch.empty((B, n), dtype=torch.float32, device=dev)
     if B == 0 or n == 0:
+        return out
+    if per_sample:
+        _launch_sweep_samples(s, plan, uniforms, beta, out, _block_threads(n), dev)
+        tracing.count("launch.colored_gibbs_sweep_samples")
         return out
     if long_rows:
         _launch_sweep_long(s, plan, uniforms, beta, out, dev)

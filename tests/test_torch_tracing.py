@@ -327,6 +327,10 @@ def _launch_every_route():
     idx, w, b, masks = _ring(8)
     sparse_gather.colored_gibbs_sweep(torch.ones(1, 8), idx, w, b, torch.rand(2, 1, 8), masks,
                                       torch.ones(1), keep=torch.ones(1, 8, dtype=torch.uint8))
+    w2 = w.expand(2, *w.shape).contiguous()  # two disorder samples' couplings
+    sparse_gather.colored_gibbs_sweep(torch.ones(2, 8), idx, w2, b, torch.rand(2, 2, 8), masks,
+                                      torch.ones(2))
+    sparse_gather.sparse_energy(torch.ones(2, 8), idx, w2, b)
 
     q = torch.zeros(2, 128, 64)
     flash_attention.flash_attention(q, q, q, True, window=64)
@@ -354,7 +358,7 @@ def test_counts_hold_the_launch_counters_and_the_driver_counters(monkeypatch):
         "lattice_gibbs_sweep_faults", "lattice_gibbs_generic_faults",
         "sparse_fields", "sparse_fields_global", "colored_gibbs_sweep", "colored_gibbs_sweep_long",
         "colored_gibbs_sweep_faults", "sparse_energy", "sparse_energy_long",
-        "flash_attention_window", "flash_attention_kv_len", "flash_attention_bf16",
+        "colored_gibbs_sweep_samples", "sparse_energy_samples", "flash_attention_window", "flash_attention_kv_len", "flash_attention_bf16",
         "flash_attention_f32")} | {"launch.flash_attention": 2}
     assert set(launchers) == set(_build.LAUNCHERS)  # every entry point was reached
     assert tracing.counts()["launch.never_launched"] == 0
