@@ -16,10 +16,11 @@ exits nonzero without printing the final result line:
      sass     — the toolkit's cuobjdump -sass of libflash_attention.so,
                 libtau_leap.so, libdense_field.so, libsparse_fields.so,
                 libcolored_gibbs.so, libcolored_gibbs_long.so,
-                libsparse_energy.so and liblattice_gibbs.so: the count of
+                libsparse_energy.so, liblattice_gibbs.so and
+                liblattice_energy.so: the count of
                 HGMMA, UTMALDG, LDGSTS, IMMA, LDG and LDS instructions in
                 each kernel, and ptxas's registers and spills of the two
-                sparse libraries, the lattice library and the tau-leap
+                sparse libraries, the two lattice libraries and the tau-leap
                 library (the fault variants' among them). Fails
                 unless every bf16 flash kernel has HGMMA (wgmma) and UTMALDG
                 (TMA loads), and the int8 kernels LDGSTS (cp.async) and IMMA.
@@ -269,6 +270,26 @@ exits nonzero without printing the final result line:
      timing_samples — both kernels' CUDA-event medians at (512, 32768),
                 S = 128, beside their bounds, their plain versions, the
                 one-table sweep at the same rows and the uniforms' draw.
+  The lattice energy (csrc/lattice_energy.cu: run()'s first-hit, start and
+  recorded energy under ChromaticGibbs(backend="cuda")):
+     check_lattice_energy — at (4096, 16, 16), (40960, 16, 16), (65, 8, 8)
+                (the quad route), (3, 7, 13) and (1, 200, 200) (a block a
+                chain), each call one launch: on +-1 states with CAL's
+                couplings (+-1 couplings off 16x16) bit for bit against
+                ref.lattice_energy_ref, and on Gaussian weights, biases and
+                states within lattice_energy_band's ENERGY_EPS bound; on
+                every case bit for bit against its order of summation
+                emulated in plain torch (lattice_gibbs.energy_in_kernel_order);
+     lattice_energy_run — graphed first-hit run(ChromaticGibbs(),
+                backend="cuda") on CAL, 512 chains x 200 sweeps, against the
+                plain backend on the card (s, samples, energies, hit, t_hit),
+                1 + 200 + 1 energy launches; the CAL main path, the
+                clamped conditional, the lattice stats, graph_vs_eager,
+                diagnostics, faults and CD's chromatic sampler assert the
+                energy's launches too (energy_launches);
+     timing_lattice_energy — its CUDA-event medians at (4096, 16, 16) and
+                the samples' (40960, 16, 16) beside their bounds and
+                LatticeIsing.energy's plain torch.
 
   8. serve    — the serving stack at full width, random weights from seed 0:
                 phi4-mini-3p8b (8 requests), gemma-2b, olmoe-1b-7b (4 each),
@@ -511,7 +532,7 @@ FLASH_KV_LEN_CASES = [(16, 1536, 1536, 64, 1500), (16, 128, 1536, 64, 1500),
 
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "IMMA", "LDG", "LDS")
 SASS_LIBS = ("flash_attention", "tau_leap", "dense_field", "sparse_fields", "colored_gibbs",
-             "colored_gibbs_long", "sparse_energy", "lattice_gibbs")
+             "colored_gibbs_long", "sparse_energy", "lattice_gibbs", "lattice_energy")
 # each kernel's name in the libraries' SASS, and the instructions it must hold
 SASS_KERNELS = {"flash_bf16_kernel": ("HGMMA", "UTMALDG"), "flash_f32_kernel": (),
                 "tau_leap_kernel": ("LDGSTS", "IMMA"), "pack_spins_kernel": (),
@@ -523,7 +544,8 @@ SASS_KERNELS = {"flash_bf16_kernel": ("HGMMA", "UTMALDG"), "flash_f32_kernel": (
                 "sparse_energy_rows": ("LDS",), "sparse_energy_tile": ("LDS",),
                 "sparse_energy_sum": (), "sparse_energy_samples": (),
                 "lattice_gibbs_plan": ("LDS",),
-                "lattice_gibbs_generic": ("LDS",)}
+                "lattice_gibbs_generic": ("LDS",),
+                "lattice_energy_quads": ("LDS",), "lattice_energy_block": ()}
 # the 64 x 65536-site rows sparse_fields_global is timed on: as many
 # outputs as the main path's (256, 16384)
 GLOBAL_FIELDS_SHAPE = (64, 65536)
@@ -531,7 +553,7 @@ GLOBAL_FIELDS_SHAPE = (64, 65536)
 
 # every kernel route the wrappers count, `launch.<name>` in tracing.counts()
 LAUNCHED = ("tau_leap_step", "dense_field", "tau_leap_step_faults",
-            "lattice_gibbs_sweep", "lattice_gibbs_generic", "sparse_fields",
+            "lattice_gibbs_sweep", "lattice_gibbs_generic", "lattice_energy", "sparse_fields",
             "sparse_fields_global", "colored_gibbs_sweep", "colored_gibbs_sweep_long",
             "sparse_energy", "sparse_energy_long", "colored_gibbs_sweep_samples",
             "sparse_energy_samples", "lattice_gibbs_sweep_faults",
@@ -1081,9 +1103,10 @@ def fault_paths(torch, dev, sk, cal, mc, targets, reset, read, smi) -> dict:
                 raise AssertionError(f"faults {name}, {label}: {differ} differ, launches "
                                      f"{la} / {lb}")
         if kname is not None:
-            energy = ({"sparse_energy": energy_launches(FAULT_STEPS, FAULT_SAMPLE_EVERY,
-                                                        targets[name])}
-                      if kname == "colored_gibbs_sweep" else {})
+            ekernel = {"colored_gibbs_sweep": "sparse_energy",
+                       "lattice_gibbs_sweep": "lattice_energy"}.get(kname)
+            energy = ({ekernel: energy_launches(FAULT_STEPS, FAULT_SAMPLE_EVERY, targets[name])}
+                      if ekernel else {})
             want_f = dict(zero, **{kname + "_faults": 2 * FAULT_STEPS}, **energy)
             want_c = dict(zero, **{kname: 2 * FAULT_STEPS}, **energy)
         else:
@@ -1157,8 +1180,8 @@ def apps_phase(torch, dev, sk, reset, read, smi) -> None:
 
         state, wall = walled(train)
         launches = read()
-        want = zero if cfg.sampler == "pass" else dict(
-            zero, lattice_gibbs_sweep=CD_STEPS * cfg.n_model_steps)
+        want = zero if cfg.sampler == "pass" else dict(  # and the start state's energy a step
+            zero, lattice_gibbs_sweep=CD_STEPS * cfg.n_model_steps, lattice_energy=CD_STEPS)
         e1 = float(boltzmann.free_energy_proxy(state.problem, batch))
         if launches != want or not abs(e1) < float("inf"):
             raise AssertionError(f"cd {label}: launches {launches} (expected {want}), "
@@ -2092,9 +2115,10 @@ def cut_fraction(prob, s):
 
 
 def energy_launches(steps: int, sample_every: int, first_hit, passes: int = 2) -> int:
-    """The sparse energy's launches in `passes` passes of a ColoredGibbs
-    run() on the cuda backend: the first state's, one a step with
-    first_hit, and one over the recorded samples."""
+    """The energy kernel's launches (the sparse energy's under ColoredGibbs,
+    the lattice energy's under ChromaticGibbs) in `passes` passes of a run()
+    on the cuda backend: the first state's, one a step with first_hit, and
+    one over the recorded samples."""
     samples = bool(sample_every) and steps // sample_every > 0
     return passes * (1 + (steps if first_hit is not None else 0) + samples)
 
@@ -2702,6 +2726,118 @@ def samples_phase(torch, np, dev, reset, read, smi) -> list:
                                  ("sparse_energy_samples", "sparse_energy.cu"))]
 
 
+# The lattice energy (csrc/lattice_energy.cu): run()'s first-hit, start and
+# recorded energy under ChromaticGibbs(backend="cuda"). Its terms are
+# LatticeIsing.energy's bit for bit and only the order of the sum over the
+# sites differs: exact on +-1 states with +-1 couplings (CAL), and otherwise
+# within the ENERGY_EPS bound of check_sparse_energy.
+LATTICE_ENERGY_SHAPES = ((4096, 16, 16), (40960, 16, 16), (65, 8, 8), (3, 7, 13), (1, 200, 200))
+LATTICE_ENERGY_TIMING = ((4096, 16, 16), (40960, 16, 16))  # a sweep's chains, a job's samples
+LATTICE_ENERGY_RUN = dict(n_chains=512, n_steps=200, sample_every=50)
+
+
+def lattice_energy_band(torch, s, w, b):
+    """The widest |E_kernel - E_plain| two sum orders allow (ENERGY_EPS)."""
+    from repro_torch.kernels import ref
+
+    s64 = s.double()
+    pair, field = s64 * ref.king_sum(s64, w.double()), b.double() * s64
+    n = s.shape[-2] * s.shape[-1]
+    terms = 0.5 * pair.abs().sum((-2, -1)) + field.abs().sum((-2, -1))
+    e = (0.5 * pair.sum((-2, -1)) + field.sum((-2, -1))).abs()
+    return ENERGY_EPS * (n * terms + e)
+
+
+def lattice_energy_phase(torch, dev, reset, read, smi) -> dict:
+    """The lattice energy against the plain version and its emulated order
+    at LATTICE_ENERGY_SHAPES, +-1 (CAL at 16x16) and Gaussian; a graphed
+    first-hit CAL run() against the plain backend; the kernel's times beside
+    its bound and the plain version. Returns the kernels line's entry, less
+    its launches, which main() takes from the CAL main path's run."""
+    from repro_torch.core import problems
+    from repro_torch.core.sampler_api import ChromaticGibbs, geometric, run
+    from repro_torch.kernels import lattice_gibbs, ops
+
+    cal = problems.cal_problem(device=dev)
+
+    def pm1(shape):
+        return torch.where(torch.rand(shape, device=dev) < 0.5, 1.0, -1.0)
+
+    err, mism = 0.0, 0
+    for shape in LATTICE_ENERGY_SHAPES:
+        H, W = shape[1:]
+        for label in ("pm1", "gaussian"):
+            if label == "pm1":
+                s = pm1(shape)
+                w, b = (cal.w, cal.b) if (H, W) == cal.shape else (
+                    pm1((8, H, W)), torch.zeros((H, W), device=dev))
+            else:
+                s = torch.randn(shape, device=dev)
+                w, b = torch.randn((8, H, W), device=dev), 0.3 * torch.randn((H, W), device=dev)
+            reset()
+            got = lattice_gibbs.lattice_energy(s, w, b)
+            launches = read()
+            want = ops.lattice_energy(s, w, b, mode="reference")
+            order = lattice_gibbs.energy_in_kernel_order(s, w, b)
+            torch.cuda.synchronize()
+            differ = int((got != want).sum())
+            off_order = int((got != order).sum())
+            case_err = float((got - want).abs().max())
+            band = lattice_energy_band(torch, s, w, b)
+            outside = int(((got.double() - want.double()).abs() > band).sum())
+            if (launches != dict(dict.fromkeys(launches, 0), lattice_energy=1)
+                    or (label == "pm1" and differ) or off_order or outside
+                    or got.shape != want.shape):
+                raise AssertionError(f"lattice_energy {label} {shape}: launched {launches}, "
+                                     f"{differ} energies differ from the plain version, "
+                                     f"{off_order} from the kernel's order, {outside} outside "
+                                     f"the band, max |dE| {case_err}")
+            err, mism = max(err, case_err), mism + differ
+            emit({"phase": "check_lattice_energy", "weights": label, "shape": list(shape),
+                  "route": lattice_gibbs.energy_route(s, H, W),
+                  "mismatches": differ, "order_mismatches": off_order, "max_abs_err": case_err,
+                  "band_max": float(band.max())})
+
+    # run() with first hit, graphed, against the plain backend on the card
+    target = float(cal.energy(torch.as_tensor(problems.cal_template(), device=dev)))
+    kw = dict(schedule=geometric(0.3, 3.0), first_hit=target, **LATTICE_ENERGY_RUN)
+    reset()
+    res_k = run(cal, ChromaticGibbs(), 2147483931, backend="cuda", **kw)
+    torch.cuda.synchronize()
+    launches = read()
+    res_r = run(cal, ChromaticGibbs(), 2147483931, backend="ref", **kw)
+    differ = {k: int((getattr(res_k, k) != getattr(res_r, k)).sum())
+              for k in ("s", "samples", "energies", "hit", "t_hit")}
+    want_energy = energy_launches(kw["n_steps"], kw["sample_every"], target, passes=1)
+    if any(differ.values()) or launches["lattice_energy"] != want_energy:
+        raise AssertionError(f"lattice_energy run(): {differ} differ between the cuda and the "
+                             f"plain backend, launches {launches} (expected {want_energy} "
+                             "lattice_energy)")
+    emit({"phase": "lattice_energy_run", **LATTICE_ENERGY_RUN, "first_hit": target,
+          "mismatches": differ, "energy_launches": launches["lattice_energy"],
+          "hit_fraction": float(res_k.hit.float().mean())})
+
+    ms, bounds = {}, {}
+    for B, H, W in LATTICE_ENERGY_TIMING:
+        s = pm1((B, H, W))
+        key = f"lattice_energy_{B}"
+        ms[key] = time_ms(torch, lambda: lattice_gibbs.lattice_energy(s, cal.w, cal.b))
+        ms[key + "_plain"] = time_ms(torch, lambda: cal.energy(s), n=20, warmup=2)
+        bounds[key] = bound(4 * (B * H * W + 9 * H * W + B), 20 * B * H * W, FP32_OPS_PER_S)
+    emit({"phase": "timing_lattice_energy", "shapes": [list(x) for x in LATTICE_ENERGY_TIMING],
+          "ms": ms, "bound_ms": {k: v[0] for k, v in bounds.items()},
+          "bound_by": {k: v[1] for k, v in bounds.items()}, "nvidia_smi": smi})
+    key = f"lattice_energy_{LATTICE_ENERGY_TIMING[0][0]}"
+    samples = f"lattice_energy_{LATTICE_ENERGY_TIMING[1][0]}"
+    return {"name": "lattice_energy", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/lattice_energy.cu", "replaces": None,
+            "max_abs_err": err, "mismatches": mism,
+            "ms": ms[key], "plain_ms": ms[key + "_plain"], "bound_ms": bounds[key][0],
+            "bound_by": bounds[key][1], "library_ms": None,
+            "shape": list(LATTICE_ENERGY_TIMING[0]), "samples_ms": ms[samples],
+            "samples_plain_ms": ms[samples + "_plain"], "samples_bound_ms": bounds[samples][0]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch").is_dir():
@@ -2776,7 +2912,7 @@ def main() -> int:
     emit({"phase": "sass", "counts": sass, "ptxas": {
         lib: ptxas_by_kernel((build_dir / f"{lib}.log").read_text())
         for lib in ("tau_leap", "sparse_fields", "colored_gibbs", "colored_gibbs_long",
-                    "sparse_energy", "lattice_gibbs")}})
+                    "sparse_energy", "lattice_gibbs", "lattice_energy")}})
     if missing:
         raise AssertionError("SASS: " + "; ".join(missing))
 
@@ -3292,6 +3428,7 @@ def main() -> int:
     long_entry = long_sweep_phase(torch, np, dev, *counters(), smi)
     energy_entries = sparse_energy_phase(torch, np, dev, *counters(), smi)
     samples_entries = samples_phase(torch, np, dev, *counters(), smi)
+    lattice_energy_entry = lattice_energy_phase(torch, dev, *counters(), smi)
 
     # flash_attention at the main_attention shapes, causal bf16, beside its
     # plain version and scaled_dot_product_attention (timed only). Bound:
@@ -3440,8 +3577,10 @@ def main() -> int:
                      reset, read, **LATTICE_MAIN)
     n_sweeps = LATTICE_MAIN["n_sweeps"]
     for label, m in lat.items():  # timeit runs two passes
-        expect(label, m["launches"],
-               **({"lattice_gibbs_sweep": 2 * n_sweeps} if m["backend"] == "cuda" else {}))
+        energy = {"lattice_energy": energy_launches(n_sweeps, LATTICE_MAIN["sample_every"],
+                                                    m["first_hit"])}
+        expect(label, m["launches"], **({"lattice_gibbs_sweep": 2 * n_sweeps, **energy}
+                                        if m["backend"] == "cuda" else {}))
         del m["final_state"]
     hits = (lat["cuda_first_hit"]["hit_fraction"], lat["ref_first_hit"]["hit_fraction"])
     if min(hits) < CAL_HIT_MIN or abs(hits[0] - hits[1]) > CAL_HIT_GAP:
@@ -3451,7 +3590,8 @@ def main() -> int:
     exact, agree = clamped_conditional(problems.cal_problem(coupling=0.6, device=dev), "cuda",
                                        LATTICE_MAIN["n_chains"], 400)
     clamped_launches = read()
-    expect("clamped conditional", clamped_launches, lattice_gibbs_sweep=400)
+    expect("clamped conditional", clamped_launches, lattice_gibbs_sweep=400,
+           lattice_energy=energy_launches(400, 0, None, passes=1))
     if not exact or not agree > 0.9:
         raise AssertionError(f"clamped conditional: clamped half exact {exact}, "
                              f"free-half agreement {agree} (need > 0.9)")
@@ -3561,7 +3701,8 @@ def main() -> int:
     res6 = run(lat6, ChromaticGibbs(), 2, n_steps=lat_sweeps, n_chains=lat_chains,
                sample_every=2, backend="cuda")
     lat_launches = read()
-    expect("lattice stats", lat_launches, lattice_gibbs_sweep=lat_sweeps)
+    expect("lattice stats", lat_launches, lattice_gibbs_sweep=lat_sweeps,
+           lattice_energy=energy_launches(lat_sweeps, 2, None, passes=1))
     tv_lat = tv_to(p6, res6.samples[:, 5:], 6)  # the first 5 samples are burn-in
     # An 8-site random weighted graph through the coloured kernel.
     A = srng.normal(0.0, 0.6, (8, 8)) * (srng.random((8, 8)) < 0.5)
@@ -3648,8 +3789,9 @@ def main() -> int:
                                      f"graphed, {e_launch} eager")
             kname = {"sk_tau_leap": "tau_leap_step", "cal_chromatic": "lattice_gibbs_sweep",
                      "maxcut3r_colored": "colored_gibbs_sweep"}.get(name)
-            energy = ({"sparse_energy": energy_launches(steps, every, first_hit)}
-                      if name == "maxcut3r_colored" else {})
+            energy = {"maxcut3r_colored": {"sparse_energy": energy_launches(steps, every, first_hit)},
+                      "cal_chromatic": {"lattice_energy": energy_launches(steps, every, first_hit)}
+                      }.get(name, {})
             expect(f"graph {label}", g_launch, **({kname: 2 * steps} if kname else {}), **energy)
             graph_eager[label] = {
                 "n_chains": chains, "n_steps": steps, "identical": list(fields),
@@ -3747,7 +3889,8 @@ def main() -> int:
     reset()
     with_diag = run(cal, ChromaticGibbs(), 4, diagnostics=True, **kw)
     diag_launches = read()
-    expect("diagnostics", diag_launches, lattice_gibbs_sweep=200)
+    expect("diagnostics", diag_launches, lattice_gibbs_sweep=200,
+           lattice_energy=energy_launches(200, 50, e_t, passes=1))
     differ = [f for f in ("s", "t", "samples", "times", "energies", "t_hit", "hit")
               if not torch.equal(getattr(plain, f), getattr(with_diag, f))]
     d = with_diag.diagnostics
@@ -3820,6 +3963,9 @@ def main() -> int:
         long_entry,
         *energy_entries,
         *samples_entries,
+        # launches on the CAL main path's first-hit run (two passes)
+        dict(lattice_energy_entry,
+             launches=lat["cuda_first_hit"]["launches"]["lattice_energy"]),
         dict(entry("flash_attention", csrc + "flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:85",
                    sum(a["launches"]["flash_attention"] for a in attention.values())

@@ -492,6 +492,18 @@ class ChromaticGibbs:
         """One sweep: all 4 king-coloring phases for every chain."""
         return self.update(problem, state, beta, *self.draw(problem, state, generator, beta, faults))
 
+    def energy_fn(self, problem: LatticeIsing):
+        """The energy `run()` takes of the states and samples: on the cuda
+        backend, for an f32 lattice, one call of `ops.lattice_energy` over
+        the problem's planes (the hand-written kernel on a CUDA problem),
+        else None (`run()` takes `problem.energy`). Both give
+        `LatticeIsing.energy`'s terms; the kernel sums them over the sites
+        in its own fixed order."""
+        if self.backend != "cuda" or problem.w.dtype != torch.float32:
+            return None  # the kernel takes f32 alone; a bf16 lattice keeps its own rounding
+        w, b = problem.w, problem.b
+        return lambda s: ops.lattice_energy(s, w, b)
+
 
 @register_kernel("colored_gibbs")
 @dataclasses.dataclass(frozen=True)

@@ -45,6 +45,7 @@ LAUNCHERS = {
     "lattice_gibbs_generic": ("lattice_gibbs_generic_launch", [_P] * 9 + [_I] * 5 + [_P]),
     "lattice_gibbs_generic_faults": ("lattice_gibbs_generic_faults_launch",
                                      [_P] * 11 + [_I] * 4 + [_P]),
+    "lattice_energy": ("lattice_energy_launch", [_P] * 4 + [_I] * 4 + [_P]),
     "sparse_fields": ("sparse_fields_launch", [_P] * 5 + [_I] * 5 + [_P]),
     "sparse_energy": ("sparse_energy_launch", [_P] * 6 + [_I] * 6 + [_P]),
     "sparse_energy_samples": ("sparse_energy_samples_launch", [_P] * 5 + [_I] * 6 + [_P]),

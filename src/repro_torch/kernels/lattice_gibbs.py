@@ -62,9 +62,26 @@ thread's bias and keep entries with its uniforms, before the chain, and
 does not write a kept site; the generic kernel copies a kept site's old
 spin to the other buffer. At (4096, 16, 16) they read 4.2 MB of bias and
 1 MB of keep more: about 17.8 MB, bound 5.3 µs.
+
+The energy (`lattice_energy`, source `csrc/lattice_energy.cu`, counted as
+`launch.lattice_energy`): 0.5 s.ns + b.s of every chain, `LatticeIsing.energy`'s
+terms, each site's ns summed over KING_OFFSETS in order and every product
+and add rounded on its own, so on finite values every term is the plain one
+bit for bit; the sum over the sites runs in a fixed order of the kernel's
+own (`energy_in_kernel_order`), which on +-1 states with integer couplings
+gives the plain number exactly. It replaces no TPU kernel (the JAX energy is
+plain jnp): it is `run()`'s first-hit, start and recorded energy under
+`ChromaticGibbs(backend="cuda")`. It reads s once, 4.2 MB at (4096, 16, 16),
+1.25 µs at 3.35 TB/s. Two routes (`energy_route`): lattices of up to
+ENERGY_QUAD_SITES sites whose rows hold 4 to 128 sites, a power of 2 (CAL's
+16x16), take the quad route: a warp sums a chain at a time, each lane holding
+quads of 4 sites of a row and their weights in registers for every chain,
+and taking the sites left and right of its quads from its neighbour lanes;
+any other lattice takes a block a chain.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -74,6 +91,8 @@ from repro_torch.core.ising import KING_OFFSETS, shift2d
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (MAX_SMEM_BYTES, check_cuda, check_fault_operands,
                                          check_tensor, fault_ptr as _ptr)
+from repro_torch.kernels._order import block_sum, block_threads, in_turn, threads_in_turn, warp_tree
+from repro_torch.kernels.ref import king_sum
 
 DTYPES = (torch.float32, torch.bfloat16)  # as the TPU kernel, generic in its dtype
 
@@ -82,6 +101,11 @@ DTYPES = (torch.float32, torch.bfloat16)  # as the TPU kernel, generic in its dt
 MAX_COLOURS = 4
 MAX_THREADS = 1024
 W_COLUMNS = 12  # a plan entry's f32 row: 8 weights, b, three zero pads
+# The energy's quad route takes lattices of at most this many sites, two
+# quads of 4 a lane (kQuadGroups in csrc/lattice_energy.cu), and rows of
+# ENERGY_QUAD_WIDTHS sites: a row's quads, W / 4, divide a warp's 32 lanes.
+ENERGY_QUAD_SITES = 256
+ENERGY_QUAD_WIDTHS = (4, 8, 16, 32, 64, 128)
 
 
 class LatticePlan(NamedTuple):
@@ -328,3 +352,74 @@ def lattice_gibbs_sweep(
         name = "lattice_gibbs_generic"
     tracing.count(f"launch.{name}_faults" if variant else f"launch.{name}")
     return out
+
+
+def energy_route(s: torch.Tensor, H: int, W: int) -> str:
+    """The energy kernel's route for (..., H, W) states `s`: "quads" where
+    rows of W sites split into quads that a warp's lanes hold (W in
+    ENERGY_QUAD_WIDTHS), the lattice has at most ENERGY_QUAD_SITES sites and
+    s starts on 16 bytes (its quads load as one 16-byte word), else "block"."""
+    quads = (W in ENERGY_QUAD_WIDTHS and H * W <= ENERGY_QUAD_SITES
+             and s.data_ptr() % 16 == 0)
+    return "quads" if quads else "block"
+
+
+def energy_in_kernel_order(s, w, b, route: str | None = None) -> torch.Tensor:
+    """What the energy kernel returns, bit for bit on finite values, in
+    plain torch on any device: `LatticeIsing.energy`'s terms s_p ns_p and
+    b_p s_p of (..., H, W) f32 states, summed over the sites in the order of
+    `route` (default `energy_route`). "quads": lane l of a warp adds its
+    quads' sites 4 l .. 4 l + 3, then 4 (l + 32) .. 4 (l + 32) + 3, in
+    turn (+0 past n), then the warp's shuffle tree. "block": thread t of a block of
+    `block_threads(n)` adds sites t, t + T, ... in turn, then each warp's
+    tree and the warps in turn. Both halve the pair sum and add the bias
+    sum last. The tests and chip_smoke.py hold the kernel against it."""
+    H, W = b.shape
+    n = H * W
+    route = energy_route(s, H, W) if route is None else route
+    rows = s.reshape(-1, H, W).to(torch.float32)
+    terms = ((rows * king_sum(rows, w)).reshape(-1, n), (b * rows).reshape(-1, n))
+    if route == "quads":
+        sums = []
+        for p in terms:  # (rows, lane's quad, lane, site of the quad) -> a lane's sites in turn
+            p = torch.nn.functional.pad(p, (0, ENERGY_QUAD_SITES - n)).reshape(-1, 2, 32, 4)
+            lanes = p.permute(0, 1, 3, 2).reshape(-1, 8, 32)
+            sums.append(warp_tree(in_turn(lanes)))
+    elif route == "block":
+        sums = [block_sum(threads_in_turn(p, block_threads(n))) for p in terms]
+    else:
+        raise ValueError(f"no energy route {route!r}")
+    return (0.5 * sums[0] + sums[1]).reshape(s.shape[:-2])
+
+
+def _launch_energy(s, w, b, out, route: str, device) -> None:
+    """The energy kernel over the (R, H, W) chains of s (R, H W >= 1)."""
+    H, W = b.shape
+    code = _build.launcher("lattice_energy")(
+        s.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), out.shape[0], H, W,
+        int(route == "quads"), torch.cuda.current_stream(device).cuda_stream)
+    _build.check("lattice_energy", code)
+
+
+def lattice_energy(s: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel: (..., H, W) f32 states (contiguous; any
+    finite values, not only +-1), (8, H, W) f32 weight planes and (H, W)
+    f32 bias, contiguous on one sm_90 device -> (...) f32 energies
+    0.5 * sum_p s_p ns_p + sum_p b_p s_p: `LatticeIsing.energy`'s terms,
+    summed over the sites in a fixed order (`energy_in_kernel_order`), on a
+    lattice of any size. One launch on the current stream, no host sync, so
+    a CUDA graph captures it."""
+    if s.ndim < 2:
+        raise ValueError(f"s must be (..., H, W), got shape {tuple(s.shape)}")
+    dev = check_cuda(s)
+    H, W = s.shape[-2:]
+    check_tensor("s", s, torch.float32, tuple(s.shape), dev)
+    check_tensor("w", w, torch.float32, (8, H, W), dev)
+    check_tensor("b", b, torch.float32, (H, W), dev)
+    lead = tuple(s.shape[:-2])
+    out = torch.empty((math.prod(lead),), dtype=torch.float32, device=dev)
+    if out.shape[0] == 0 or H * W == 0:
+        return out.zero_().view(lead)
+    _launch_energy(s, w, b, out, energy_route(s, H, W), dev)
+    tracing.count("launch.lattice_energy")
+    return out.view(lead)

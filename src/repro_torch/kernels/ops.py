@@ -72,6 +72,15 @@ def lattice_gibbs_sweep(
     )
 
 
+def lattice_energy(s, w, b, mode: str = "auto") -> torch.Tensor:
+    """(...) energies 0.5 s.ns + b.s of (..., H, W) states on the king's
+    lattice (`LatticeIsing.energy`): one launch of the energy kernel, or the
+    plain version."""
+    if _use_kernel(s, mode):
+        return _lg.lattice_energy(s, w, b)
+    return _ref.lattice_energy_ref(s, w, b)
+
+
 def sparse_fields(s, nbr_idx, nbr_w, b, mode: str = "auto") -> torch.Tensor:
     """Padded neighbour-list fields h = gather(s, nbr_idx) . nbr_w + b."""
     if _use_kernel(s, mode):

@@ -22,15 +22,34 @@ def broadcast_rows(beta: Optional[torch.Tensor], s: torch.Tensor) -> torch.Tenso
     return beta.reshape((-1,) + (1,) * (s.ndim - 1))
 
 
+def king_sum(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum_k w[k] * s(+KING_OFFSETS[k]) of (..., H, W) values, zero beyond
+    the edge: the eight shifted planes added to a zero accumulator in
+    KING_OFFSETS order (`LatticeIsing.neighbor_sum`'s arithmetic)."""
+    acc = torch.zeros_like(s)
+    for k, (dy, dx) in enumerate(KING_OFFSETS):
+        acc = acc + w[k] * shift2d(s, dy, dx)
+    return acc
+
+
 def lattice_fields_ref(s: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """King's-move local fields. s: (B,H,W) ±1; w: (8,H,W); b: (H,W).
 
     The eight shifted planes are added to a zero accumulator in
     KING_OFFSETS order, then b: the JAX order, bit for bit."""
-    acc = torch.zeros_like(s)
-    for k, (dy, dx) in enumerate(KING_OFFSETS):
-        acc = acc + w[k] * shift2d(s, dy, dx)
-    return acc + b
+    return king_sum(s, w) + b
+
+
+def lattice_energy_ref(s: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(...) energies 0.5 * sum s * ns + b.s of (..., H, W) states over (8,H,W)
+    weight planes and (H,W) bias, ns = `king_sum`: `LatticeIsing.energy`'s
+    own arithmetic. No TPU kernel computes it; the CUDA kernel forms the same
+    terms and sums them over the sites in its own fixed order
+    (`lattice_gibbs.energy_in_kernel_order`)."""
+    s = s.to(w.dtype)
+    pair = 0.5 * torch.sum(s * king_sum(s, w), dim=(-2, -1))
+    field = torch.sum(b * s, dim=(-2, -1))
+    return pair + field
 
 
 def lattice_gibbs_sweep_ref(

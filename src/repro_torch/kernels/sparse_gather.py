@@ -136,12 +136,12 @@ from repro_torch.core.sparse import check_sample_rows, gather_sum
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (MAX_SMEM_BYTES, check_cuda, check_fault_operands,
                                          check_tensor, fault_ptr as _ptr)
+from repro_torch.kernels._order import (BLOCK_THREADS,  # noqa: F401 (chip_ablate.py reads it here)
+                                        block_sum, block_threads, threads_in_turn, warp_tree)
 
-# Rows a fields block stages, at most, and the threads of a block of
-# either kernel (chip_ablate.py times 1, 2 and 3 rows and 256, 512 and
-# 1024 threads).
+# Rows a fields block stages, at most (chip_ablate.py times 1, 2 and 3 rows,
+# and 256, 512 and BLOCK_THREADS threads a block).
 FIELDS_MAX_ROWS = 3
-BLOCK_THREADS = 1024
 # Sites of a tile of the long-row energy, and the threads of its block
 # (kTile, kTileThreads in csrc/sparse_energy.cu).
 ENERGY_TILE = 1024
@@ -154,11 +154,6 @@ INDEX_LIMIT = 2**31
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _block_threads(n: int) -> int:
-    """Threads of a block that walks n sites: n rounded up to a warp, at most BLOCK_THREADS."""
-    return max(32, min(BLOCK_THREADS, (n + 31) // 32 * 32))
 
 
 def fields_rows(B: int, n: int, sms: int) -> int:
@@ -186,42 +181,13 @@ def energy_kernel(n: int, samples: bool = False) -> str:
     return "sparse_energy" if 4 * n <= MAX_SMEM_BYTES else "sparse_energy_long"
 
 
-def _in_turn(x: torch.Tensor) -> torch.Tensor:
-    """Sum (..., m, k) over m in turn, from 0: a thread's running sum."""
-    acc = torch.zeros(x.shape[:-2] + x.shape[-1:], dtype=x.dtype, device=x.device)
-    for j in range(x.shape[-2]):
-        acc = acc + x[..., j, :]
-    return acc
-
-
-def _warp_tree(v: torch.Tensor) -> torch.Tensor:
-    """Lane 0 of a warp's shuffle-down tree over (..., 32): lane l adds lane
-    l + 16, then l + 8, 4, 2, 1."""
-    for off in (16, 8, 4, 2, 1):
-        v = v[..., :off] + v[..., off:2 * off]
-    return v[..., 0]
-
-
-def _block_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum (..., threads) as a block does: each warp's tree, then the warps in turn."""
-    warps = _warp_tree(x.reshape(x.shape[:-1] + (x.shape[-1] // 32, 32)))
-    return _in_turn(warps[..., None, :].transpose(-1, -2))[..., 0]
-
-
-def _threads_in_turn(p: torch.Tensor, threads: int) -> torch.Tensor:
-    """(rows, n) -> (rows, threads): thread t adds sites t, t + threads, ... in turn."""
-    m = -(-p.shape[-1] // threads)
-    p = torch.nn.functional.pad(p, (0, m * threads - p.shape[-1]))
-    return _in_turn(p.reshape(p.shape[0], m, threads))
-
-
 def energy_in_kernel_order(s, nbr_idx, nbr_w, b, kernel: str | None = None) -> torch.Tensor:
     """What the energy kernel returns, bit for bit on any values, in plain
     torch on any device: `SparseIsing.energy`'s terms s_i h_i and b_i s_i,
     summed over the sites in the order of `kernel` (default
     `energy_kernel(n, per-sample nbr_w)`). "sparse_energy", and
     "sparse_energy_samples" on per-sample couplings: thread t of a block of
-    `_block_threads(n)` adds sites t, t + T, ... in turn, then the block
+    `block_threads(n)` adds sites t, t + T, ... in turn, then the block
     (each warp's shuffle tree, the warps in turn). "sparse_energy_long": the
     same over each tile of ENERGY_TILE sites with ENERGY_TILE_THREADS
     threads, then lane l of a row's warp adds tiles l, l + 32, ... in turn,
@@ -232,14 +198,14 @@ def energy_in_kernel_order(s, nbr_idx, nbr_w, b, kernel: str | None = None) -> t
     rows = s.reshape(-1, n).to(torch.float32)
     terms = (rows * gather_sum(rows, nbr_idx, nbr_w), b * rows)
     if kernel in ("sparse_energy", "sparse_energy_samples"):
-        sums = [_block_sum(_threads_in_turn(p, _block_threads(n))) for p in terms]
+        sums = [block_sum(threads_in_turn(p, block_threads(n))) for p in terms]
     elif kernel == "sparse_energy_long":
         tiles = -(-n // ENERGY_TILE)
         sums = []
         for p in terms:
             p = torch.nn.functional.pad(p, (0, tiles * ENERGY_TILE - n))
-            part = _block_sum(_threads_in_turn(p.reshape(-1, ENERGY_TILE), ENERGY_TILE_THREADS))
-            sums.append(_warp_tree(_threads_in_turn(part.reshape(rows.shape[0], tiles), 32)))
+            part = block_sum(threads_in_turn(p.reshape(-1, ENERGY_TILE), ENERGY_TILE_THREADS))
+            sums.append(warp_tree(threads_in_turn(part.reshape(rows.shape[0], tiles), 32)))
     else:
         raise ValueError(f"no energy kernel {kernel!r}")
     return (0.5 * sums[0] + sums[1]).reshape(s.shape[:-1])
@@ -472,7 +438,7 @@ def _launch_energy_samples(s, nbr_idx, nbr_w, b, out, rows_per_sample: int, firs
     B, n = s.shape
     code = _build.launcher("sparse_energy_samples")(
         s.data_ptr(), nbr_idx.data_ptr(), nbr_w.data_ptr(), b.data_ptr(), out.data_ptr(), B, n,
-        nbr_idx.shape[1], _block_threads(n), rows_per_sample, first,
+        nbr_idx.shape[1], block_threads(n), rows_per_sample, first,
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check("sparse_energy_samples", code)
@@ -517,7 +483,7 @@ def sparse_energy(
                                    B // nbr_w.shape[0], r0, dev)
         elif kernel == "sparse_energy":
             _launch_energy(rows, nbr_idx, nbr_w, b, None, out[r0:r0 + chunk],
-                           fields_rows(rows.shape[0], n, _sm_count(dev)), _block_threads(n), dev)
+                           fields_rows(rows.shape[0], n, _sm_count(dev)), block_threads(n), dev)
         else:
             _launch_energy(rows, nbr_idx, nbr_w, b, part[:rows.shape[0]], out[r0:r0 + chunk], 0,
                            0, dev)
@@ -541,7 +507,7 @@ def sparse_fields(
     if B == 0 or n == 0:
         return out
     rows = fields_rows(B, n, _sm_count(dev))
-    _launch_fields(s, nbr_idx, nbr_w, b, out, rows, _block_threads(n), dev)
+    _launch_fields(s, nbr_idx, nbr_w, b, out, rows, block_threads(n), dev)
     tracing.count("launch.sparse_fields" if rows else "launch.sparse_fields_global")
     return out
 
@@ -599,7 +565,7 @@ def colored_gibbs_sweep(
     if B == 0 or n == 0:
         return out
     if per_sample:
-        _launch_sweep_samples(s, plan, uniforms, beta, out, _block_threads(n), dev)
+        _launch_sweep_samples(s, plan, uniforms, beta, out, block_threads(n), dev)
         tracing.count("launch.colored_gibbs_sweep_samples")
         return out
     if long_rows:
@@ -607,6 +573,6 @@ def colored_gibbs_sweep(
         tracing.count("launch.colored_gibbs_sweep_long")
         return out
     variant = () if faults is None else (faults,)  # the base kernel's launch call unchanged
-    _launch_sweep(s, plan, uniforms, beta, out, _block_threads(n), dev, *variant)
+    _launch_sweep(s, plan, uniforms, beta, out, block_threads(n), dev, *variant)
     tracing.count("launch.colored_gibbs_sweep_faults" if variant else "launch.colored_gibbs_sweep")
     return out

@@ -315,6 +315,7 @@ def _launch_every_route():
     for plan in (None, generic):
         lattice_gibbs.lattice_gibbs_sweep(*lat, plan=plan)
         lattice_gibbs.lattice_gibbs_sweep(*lat, plan=plan, bias_rows=torch.zeros(B, H, W))
+    lattice_gibbs.lattice_energy(torch.ones(B, H, W), w, b)
 
     for n in (8, sparse_gather.MAX_SMEM_BYTES // 4 + 2):  # staged, then past a block's rows
         idx, w, b, _ = _ring(n)
@@ -355,7 +356,7 @@ def test_counts_hold_the_launch_counters_and_the_driver_counters(monkeypatch):
     assert {k: n - before[k] for k, n in c.items() if n != before[k]} == {f"launch.{k}": 1 for k in (
         "tau_leap_step", "tau_leap_step_faults", "dense_field",
         "lattice_gibbs_sweep", "lattice_gibbs_generic",
-        "lattice_gibbs_sweep_faults", "lattice_gibbs_generic_faults",
+        "lattice_gibbs_sweep_faults", "lattice_gibbs_generic_faults", "lattice_energy",
         "sparse_fields", "sparse_fields_global", "colored_gibbs_sweep", "colored_gibbs_sweep_long",
         "colored_gibbs_sweep_faults", "sparse_energy", "sparse_energy_long",
         "colored_gibbs_sweep_samples", "sparse_energy_samples", "flash_attention_window", "flash_attention_kv_len", "flash_attention_bf16",
