@@ -156,9 +156,18 @@ exits nonzero without printing the final result line:
                 the replays ran), per-step walls of both.
      ctmc_dense — CTMC (tree draw, unroll "auto" = 2) on SK n=2048, 256
                 chains x 20000 events, geometric(0.3, 3.0), first_hit =
-                -0.70 n: chain-events/s, hit fraction; the incremental
-                energy of the final states within 5e-3 + 1e-4 |E| of
-                problem.energy.
+                -0.70 n, 20 samples: chain-events/s, hit fraction; the
+                incremental energy of the final states within 5e-3 + 1e-4
+                |E| of problem.energy; then the same run on the event
+                kernel (backend="cuda", csrc/ctmc_event.cu): one
+                launch.ctmc_event an event, and s, t, samples, times,
+                energies, hit and t_hit equal to the plain backend's.
+     check_ctmc_event — the event kernel against its plain version
+                (ref.ctmc_event_ref) at (256, 2000) over 1000 events, per-row
+                betas, and at (7, 100) at lambda0 = 0.5 and (3, 2001) (rows
+                of no 16-byte quads): s, h, e and t bit for bit;
+     timing_ctmc_event — its CUDA-event median at (256, 2000) beside its
+                bound and the plain event's time.
      ctmc_sparse — CTMC on maxcut3r n=16384 at a constant beta = 3.0, so
                 run() carries the tree and repairs it in place (no O(n)
                 build an event; asserted from the final state), 256 x 20000
@@ -482,6 +491,11 @@ TV_GIBBS_MAX = 0.03  # the JAX bound, tests/test_core_samplers.py
 # The exact CTMC and the sync baseline at full width: SK n=2048 and maxcut3r
 # n=16384, 256 chains; the sparse run at a constant beta (the incremental tree).
 CTMC_MAIN = dict(n_chains=256, n_events=20000, sparse_beta=3.0)
+CTMC_SAMPLE_EVERY = 1000  # the dense runs' records: 20 samples
+# the event kernel's checks, (B, n, events, lambda0), and its timing shape
+# (sk2000.ctmc's: the K2000 size)
+CTMC_EVENT_CASES = [(256, 2000, 1000, 1.0), (7, 100, 1000, 0.5), (3, 2001, 200, 1.0)]
+CTMC_EVENT_SHAPE = (256, 2000)
 # |e - E(s)| <= ENERGY_ATOL + ENERGY_RTOL |E|: the JAX bound at n=16
 # (tests/test_sampler_api.py:276-283), plus f32 rounding of 20000 adds at |E| ~ 1400
 ENERGY_ATOL, ENERGY_RTOL = 5e-3, 1e-4
@@ -532,7 +546,8 @@ FLASH_KV_LEN_CASES = [(16, 1536, 1536, 64, 1500), (16, 128, 1536, 64, 1500),
 
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "IMMA", "LDG", "LDS")
 SASS_LIBS = ("flash_attention", "tau_leap", "dense_field", "sparse_fields", "colored_gibbs",
-             "colored_gibbs_long", "sparse_energy", "lattice_gibbs", "lattice_energy")
+             "colored_gibbs_long", "sparse_energy", "lattice_gibbs", "lattice_energy",
+             "ctmc_event")
 # each kernel's name in the libraries' SASS, and the instructions it must hold
 SASS_KERNELS = {"flash_bf16_kernel": ("HGMMA", "UTMALDG"), "flash_f32_kernel": (),
                 "tau_leap_kernel": ("LDGSTS", "IMMA"), "pack_spins_kernel": (),
@@ -543,6 +558,7 @@ SASS_KERNELS = {"flash_bf16_kernel": ("HGMMA", "UTMALDG"), "flash_f32_kernel": (
                 "colored_gibbs_long_phase": (), "colored_gibbs_long_unpack": (),
                 "sparse_energy_rows": ("LDS",), "sparse_energy_tile": ("LDS",),
                 "sparse_energy_sum": (), "sparse_energy_samples": (),
+                "ctmc_event_kernel": ("LDS",),
                 "lattice_gibbs_plan": ("LDS",),
                 "lattice_gibbs_generic": ("LDS",),
                 "lattice_energy_quads": ("LDS",), "lattice_energy_block": ()}
@@ -559,7 +575,7 @@ LAUNCHED = ("tau_leap_step", "dense_field", "tau_leap_step_faults",
             "sparse_energy_samples", "lattice_gibbs_sweep_faults",
             "lattice_gibbs_generic_faults", "colored_gibbs_sweep_faults", "flash_attention",
             "flash_attention_window", "flash_attention_kv_len", "flash_attention_bf16",
-            "flash_attention_f32")
+            "flash_attention_f32", "ctmc_event")
 
 
 def counters():
@@ -2748,6 +2764,58 @@ def lattice_energy_band(torch, s, w, b):
     return ENERGY_EPS * (n * terms + e)
 
 
+def ctmc_event_phase(torch, dev, smi, launches) -> dict:
+    """The CTMC's event kernel against its plain version at CTMC_EVENT_CASES,
+    bit for bit in s, h, e and t after every event, the draws torch's; its
+    CUDA-event median at CTMC_EVENT_SHAPE beside its bound and the plain
+    event. Returns the kernels line's entry (`launches`: the ctmc_dense
+    phase's)."""
+    from repro_torch.core import problems
+    from repro_torch.kernels import ctmc_event, ref
+
+    mism, worst = 0, 0.0
+    for B, n, events, lambda0 in CTMC_EVENT_CASES:
+        prob = problems.sk_instance(n, 1, device=dev)
+        g = torch.Generator(device=dev).manual_seed(n)
+        s = torch.where(torch.rand((B, n), generator=g, device=dev) < 0.5, 1.0, -1.0)
+        state = (s, prob.local_fields(s), prob.energy(s), torch.zeros(B, device=dev))
+        beta = 0.3 + 2.7 * torch.rand((B,), generator=g, device=dev)
+        differ, err = 0, 0.0
+        for _ in range(events):
+            expo = torch.empty((B,), device=dev).exponential_(generator=g)
+            u = torch.rand((B,), generator=g, device=dev)
+            got = ctmc_event.ctmc_event(*state, prob.J, beta, expo, u, lambda0)
+            want = ref.ctmc_event_ref(*state, prob.J, beta, expo, u, lambda0)
+            differ += sum(int((a != b).sum()) for a, b in zip(got, want))
+            err = max([err] + [float((a - b).abs().max()) for a, b in zip(got, want)])
+            state = got
+        torch.cuda.synchronize()
+        emit({"phase": "check_ctmc_event", "shape": [B, n], "events": events,
+              "lambda0": lambda0, "mismatches": differ, "max_abs_err": err})
+        if differ:
+            raise AssertionError(f"ctmc_event at ({B}, {n}): {differ} values of s, h, e, t "
+                                 "differ from the plain version")
+        mism += differ
+        worst = max(worst, err)
+
+    B, n = CTMC_EVENT_SHAPE
+    prob = problems.sk_instance(n, 2, device=dev)
+    s = torch.where(torch.rand((B, n), device=dev) < 0.5, 1.0, -1.0)
+    args = (s, prob.local_fields(s), prob.energy(s), torch.zeros(B, device=dev), prob.J,
+            torch.ones(B, device=dev), torch.ones(B, device=dev), torch.rand(B, device=dev))
+    ms = time_ms(torch, lambda: ctmc_event.ctmc_event(*args))
+    plain_ms = time_ms(torch, lambda: ref.ctmc_event_ref(*args), n=20, warmup=2)
+    m = 1 << (n - 1).bit_length()
+    bms, by = bound(16 * B * n + 7 * 4 * B, B * (8 * n + (m - 1) + 2 * n), FP32_OPS_PER_S)
+    emit({"phase": "timing_ctmc_event", "shape": [B, n], "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": bms, "bound_by": by, "nvidia_smi": smi})
+    return {"name": "ctmc_event", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ctmc_event.cu", "replaces": None,
+            "launches": launches, "max_abs_err": worst, "mismatches": mism, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": [B, n]}
+
+
 def lattice_energy_phase(torch, dev, reset, read, smi) -> dict:
     """The lattice energy against the plain version and its emulated order
     at LATTICE_ENERGY_SHAPES, +-1 (CAL at 16x16) and Gaussian; a graphed
@@ -2912,7 +2980,7 @@ def main() -> int:
     emit({"phase": "sass", "counts": sass, "ptxas": {
         lib: ptxas_by_kernel((build_dir / f"{lib}.log").read_text())
         for lib in ("tau_leap", "sparse_fields", "colored_gibbs", "colored_gibbs_long",
-                    "sparse_energy", "lattice_gibbs", "lattice_energy")}})
+                    "sparse_energy", "lattice_gibbs", "lattice_energy", "ctmc_event")}})
     if missing:
         raise AssertionError("SASS: " + "; ".join(missing))
 
@@ -3806,18 +3874,35 @@ def main() -> int:
     if CTMC().preferred_unroll(prob) != 2 or CTMC().resolved_site_draw(prob) != "tree":
         raise AssertionError("CTMC on SK n=2048 does not resolve to the tree draw at unroll 2")
     c = CTMC_MAIN
+    dense_kw = dict(n_steps=c["n_events"], n_chains=c["n_chains"], schedule=sched,
+                    first_hit=-0.70 * n, sample_every=CTMC_SAMPLE_EVERY)
     reset()
-    make = _make_run(prob, CTMC(), 0, n_steps=c["n_events"], n_chains=c["n_chains"],
-                     schedule=sched, first_hit=-0.70 * n)
+    make = _make_run(prob, CTMC(), 0, **dense_kw)
     res, wall = timed_pass(make)
     expect("ctmc_dense", read())
     gap = incremental_energy_gap("ctmc_dense", prob, make.final_state)
+    # the same run on the event kernel: a launch an event, the plain backend's results
+    reset()
+    make_k = _make_run(prob, CTMC(), 0, backend="cuda", **dense_kw)
+    res_k, wall_k = timed_pass(make_k)
+    ctmc_launches = read()
+    expect("ctmc_dense cuda", ctmc_launches, ctmc_event=c["n_events"])
+    ctmc_fields = ("s", "t", "samples", "times", "energies", "hit", "t_hit")
+    differ = [f for f in ctmc_fields if not torch.equal(getattr(res_k, f), getattr(res, f))]
+    if differ:
+        raise AssertionError(f"ctmc_dense: the event kernel's run differs from the plain "
+                             f"backend's in {differ}")
     emit({"phase": "ctmc_dense", "problem": f"sk_instance({n}, 0)", **c, "unroll": 2,
           "graph_steps": GRAPH_STEPS, "first_hit": -0.70 * n, "wall_s": wall,
           "chain_events_per_s": c["n_events"] * c["n_chains"] / wall,
           "hit_fraction": float(res.hit.float().mean()),
           "final_energy_per_spin": float(prob.energy(res.s).mean()) / n,
-          "max_energy_gap": gap, "nvidia_smi": smi})
+          "max_energy_gap": gap, "cuda": {
+              "identical": list(ctmc_fields), "wall_s": wall_k,
+              "chain_events_per_s": c["n_events"] * c["n_chains"] / wall_k,
+              "launches_per_step": ctmc_launches["ctmc_event"] / c["n_events"]},
+          "nvidia_smi": smi})
+    ctmc_event_entry = ctmc_event_phase(torch, dev, smi, ctmc_launches["ctmc_event"])
 
     # The exact CTMC, sparse: maxcut3r at a constant beta, the incremental
     # tree path; the carried tree against the rates of the final s and h.
@@ -3966,6 +4051,8 @@ def main() -> int:
         # launches on the CAL main path's first-hit run (two passes)
         dict(lattice_energy_entry,
              launches=lat["cuda_first_hit"]["launches"]["lattice_energy"]),
+        # launches on the ctmc_dense phase's run on the event kernel
+        ctmc_event_entry,
         dict(entry("flash_attention", csrc + "flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:85",
                    sum(a["launches"]["flash_attention"] for a in attention.values())

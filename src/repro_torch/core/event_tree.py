@@ -44,6 +44,12 @@ from __future__ import annotations
 
 import torch
 
+# Total-rate floor of the CTMC: below this a chain is treated as frozen (the
+# dwell time is clamped to ~1e30 and no flip is performed). Shared by the
+# denominator clamp and the aliveness test; above it the dwell time and the
+# site draw are both unclamped and exact.
+RATE_FLOOR = 1e-30
+
 
 def leaf_count(n: int) -> int:
     """Next power of two >= n."""

@@ -45,12 +45,16 @@ Kernels, registered by name (every kernel of the JAX registry):
         uniform + O(log n), see `repro_torch.core.event_tree`); "auto"
         picks by size. On `SparseIsing` under a constant schedule the tree
         is carried and repaired at the <= max_deg affected leaves per event.
+        On a float32 `DenseIsing` under the tree draw, `backend="cuda"` runs
+        every event of all chains as ONE launch of the hand-written
+        `ctmc_event` kernel.
 
-Random-scan Gibbs and the CTMC are plain torch on every device (the JAX
-package has no Pallas kernel for them). Every kernel splits a step into a
-`draw` from the generator and an `update` given the draws (pure, except
-the CTMC's carried tree, repaired in place), so a CPU test can feed the
-update the draws the JAX step takes from its key.
+Random-scan Gibbs, and the CTMC off that one route, are plain torch on
+every device (the JAX package has no Pallas kernel for either). Every
+kernel splits a step into a `draw` from the generator and an `update`
+given the draws (pure, except the CTMC's carried tree, repaired in
+place), so a CPU test can feed the update the draws the JAX step takes
+from its key.
 
 On CPU tensors a cuda backend runs each kernel's plain PyTorch version, as
 the JAX package runs its Pallas kernels in interpret mode off-TPU. Both
@@ -119,7 +123,7 @@ from repro_torch.core.faults import FaultModel
 from repro_torch.core.graph_loop import GRAPH_STEPS, StepLoop, plan_blocks
 from repro_torch.core.ising import DenseIsing, LatticeIsing, king_color_masks, resolve_device
 from repro_torch.core.sparse import SparseIsing
-from repro_torch.kernels import ops
+from repro_torch.kernels import ctmc_event, ops
 from repro_torch.kernels.ref import broadcast_rows
 from repro_torch.kernels.lattice_gibbs import lattice_plan
 from repro_torch.kernels.sparse_gather import check_samples_route, colour_plan
@@ -823,11 +827,9 @@ class RandomScanGibbs:
                            stuck=_stuck(faults))
 
 
-# Total-rate floor for the CTMC: below this the chain is treated as frozen
-# (the dwell time is clamped to ~1e30 and no flip is performed). Shared by
-# the denominator clamp and the aliveness test; above it the dwell time and
-# the site draw are both unclamped and exact.
-RATE_FLOOR = 1e-30
+# Total-rate floor for the CTMC (`event_tree.RATE_FLOOR`, which the event
+# kernel's plain version reads too).
+RATE_FLOOR = event_tree.RATE_FLOOR
 
 # site_draw="auto" switches to the sum-tree draw at this problem size (as
 # in the JAX package, which keeps the scan draw's random stream below it).
@@ -843,9 +845,11 @@ class CTMCAux(NamedTuple):
     """The CTMC's kernel-private state, (n_chains, ...) tensors.
 
     h:         incremental local fields.
-    tree:      the rate tree (tree draw; None on the scan draw): the tree
-               the last event was drawn from, or, when carried, the current
-               state's rates at tree_beta.
+    tree:      the rate tree (tree draw; None on the scan draw and under
+               `backend="cuda"`, whose kernel builds each chain's tree in
+               shared memory and keeps none, as nothing reads it later): the
+               tree the last event was drawn from, or, when carried, the
+               current state's rates at tree_beta.
     tree_beta: the beta of each row's carried tree (sparse tree draw, when
                `init` was given the run's constant beta); None where every
                event draws from a fresh build.
@@ -901,8 +905,16 @@ class CTMC:
     `update` given them: on the tree path the draw is a uniform per chain,
     on the scan path the site index itself. The update is pure except on a
     carried tree, which it repairs in place (the state it returns holds the
-    same tensor). Plain torch on every device: the JAX package has no
-    Pallas kernel for it.
+    same tensor). The JAX package has no Pallas kernel for it.
+
+    `backend="cuda"` runs each event of all chains as ONE call of
+    `ops.ctmc_event` (the hand-written kernel on CUDA tensors, its plain
+    version on CPU tensors), bit for bit the rebuilding tree path above,
+    from the same two draws. It takes a float32 `DenseIsing` under the tree
+    draw whose tree fits a block's shared memory (`ctmc_event.MAX_LEAVES`
+    leaves) and no fault model; `backends_for` offers it there alone,
+    `backend="auto"` leaves it out under a fault model (`fault_backends`),
+    and `cuda_refusal` says why not elsewhere.
 
     Faults perturb the rate table the event is drawn from: stuck rates are
     zero wherever rates are computed (the init build, every build, the
@@ -912,10 +924,32 @@ class CTMC:
     but still advances model time. The carried h and e track the true
     fields of the state."""
 
+    backends = ("ref", "cuda")
+    fault_backends = ("ref",)  # the backends that take a fault model
     problem_kinds = ("dense", "sparse")
 
     lambda0: float = 1.0
     site_draw: str = "auto"  # "scan" | "tree" | "auto"
+    backend: str = "ref"  # "ref" | "cuda"
+
+    def cuda_refusal(self, problem) -> Optional[str]:
+        """Why the event kernel cannot run this problem (None: it can)."""
+        if isinstance(problem, SparseIsing):
+            return ("the event kernel ctmc_event takes dense couplings; the sparse CTMC "
+                    "carries and repairs its tree between events, which has no CUDA route")
+        if problem.J.dtype != torch.float32:
+            return f"the event kernel ctmc_event takes float32 couplings, not {problem.J.dtype}"
+        if self.resolved_site_draw(problem) != "tree":
+            return ("the event kernel ctmc_event draws the site from a sum tree; "
+                    "site_draw='scan' (a Gumbel-max over n uniforms) has no CUDA route")
+        return ctmc_event.leaves_refusal(problem.n)
+
+    def backends_for(self, problem=None) -> tuple[str, ...]:
+        """Backends valid for this kernel/problem pair: "cuda" where the
+        event kernel takes the problem (`cuda_refusal`)."""
+        if problem is None or self.cuda_refusal(problem) is None:
+            return self.backends
+        return ("ref",)
 
     def resolved_site_draw(self, problem) -> str:
         """The concrete draw mechanism for this problem size."""
@@ -960,7 +994,19 @@ class CTMC:
         `beta` ((n_chains,), optional) promises that every step will be
         given it; where `carries_tree(problem)`, the tree is then built at
         it and carried (class docstring). Otherwise the tree is built at
-        beta = 1 as in the JAX package, and each step builds its own."""
+        beta = 1 as in the JAX package, and each step builds its own; under
+        `backend="cuda"` no tree is built (CTMCAux), and a problem the
+        kernel cannot take or a fault model raises."""
+        if self.backend not in self.backends:
+            raise ValueError(f"backend must be 'ref' | 'cuda', got {self.backend!r}")
+        if self.backend == "cuda":
+            reason = self.cuda_refusal(problem)
+            if reason is not None:
+                raise ValueError(f"kernel 'ctmc' cannot run backend 'cuda' here: {reason}")
+            if faults is not None:
+                raise NotImplementedError(
+                    "the event kernel ctmc_event takes no fault operands (stuck rates, field "
+                    "noise, dropped events): run a fault model under backend='ref'")
         dev = problem.device
         if s0 is None:
             s0 = random_init(generator, (n_chains, problem.n), device=dev)
@@ -969,7 +1015,7 @@ class CTMC:
         h = problem.local_fields(s0)
         sparse = isinstance(problem, SparseIsing)
         tree = tree_beta = None
-        if self.resolved_site_draw(problem) == "tree":
+        if self.resolved_site_draw(problem) == "tree" and self.backend != "cuda":
             if beta is not None and self.carries_tree(problem):
                 tree_beta = beta.to(device=dev, dtype=torch.float32).expand(s0.shape[0]).clone()
             at = tree_beta if tree_beta is not None else torch.ones(
@@ -1005,8 +1051,15 @@ class CTMC:
         """One Gillespie event per chain given its site draw, Exp(1), field
         noise eta, keep flag and the (n,) stuck mask (None: no such
         fault). On a carried tree `beta` must be its tree_beta (`init`),
-        and eta None."""
+        and eta None. Under `backend="cuda"` one `ops.ctmc_event` call, with
+        no fault operand."""
         s, aux = state.s, state.aux
+        if self.backend == "cuda":
+            if eta is not None or keep is not None or stuck is not None:
+                raise NotImplementedError("the event kernel ctmc_event takes no fault operands")
+            s, h, e, t = ops.ctmc_event(s, aux.h, state.e, state.t, problem.J, beta, expo, site,
+                                        self.lambda0)
+            return KernelState(s=s, t=t, e=e, aux=aux._replace(h=h))
         h = aux.h
         h_draw = h if eta is None else h + eta  # the fields the event is drawn from
         if self.resolved_site_draw(problem) == "scan":
@@ -1135,12 +1188,15 @@ def kernel_backends(kernel, problem=None) -> tuple[str, ...]:
     return getattr(type(kernel), "backends", ("ref",))
 
 
-def _resolve_backend(backend: Optional[str], kernel=None, problem=None) -> Optional[str]:
+def _resolve_backend(backend: Optional[str], kernel=None, problem=None,
+                     faults=None) -> Optional[str]:
     """Resolve a requested backend against what `kernel` supports.
 
     An explicit "cuda" request on a kernel with no CUDA path raises
     ValueError. "auto" picks "cuda" when the problem lives on a CUDA device
-    and the kernel has a CUDA path, "ref" otherwise."""
+    and the kernel has a CUDA path that takes `faults` (the residual fault
+    model, if any: a kernel's `fault_backends`, every backend by default),
+    "ref" otherwise."""
     if backend is None:
         return None
     if backend not in ("ref", "cuda", "auto"):
@@ -1148,12 +1204,17 @@ def _resolve_backend(backend: Optional[str], kernel=None, problem=None) -> Optio
     supported = ("ref", "cuda") if kernel is None else kernel_backends(kernel, problem)
     if backend == "auto":
         on_cuda = problem is not None and problem.device.type == "cuda"
+        if faults is not None:
+            supported = getattr(kernel, "fault_backends", supported)
         return "cuda" if on_cuda and "cuda" in supported else "ref"
     if backend not in supported:
         name = getattr(kernel, "name", type(kernel).__name__)
+        refusal = getattr(kernel, "cuda_refusal", None) if backend == "cuda" else None
+        reason = None if refusal is None or problem is None else refusal(problem)
         raise ValueError(
-            f"kernel {name!r} does not support backend {backend!r}; "
-            f"supported backends: {supported}"
+            f"kernel {name!r} does not support backend {backend!r}"
+            + ("" if reason is None else f" here: {reason}")
+            + f"; supported backends: {supported}"
         )
     return backend
 
@@ -1455,9 +1516,6 @@ def _prepare(
         raise ValueError(f"n_chains must be >= 1, got {n_chains}")
     if isinstance(problem, SparseIsing) and problem.per_sample:
         _check_samples(problem, kernel, n_chains, faults)
-    resolved = _resolve_backend(backend, kernel, problem)
-    if resolved is not None and hasattr(kernel, "backend") and kernel.backend != resolved:
-        kernel = dataclasses.replace(kernel, backend=resolved)
     if hasattr(kernel, "resolved_site_draw"):
         kernel.resolved_site_draw(problem)  # validates site_draw
     _resolve_unroll(unroll, kernel, problem)  # validated as in JAX; the graph ignores it
@@ -1467,6 +1525,10 @@ def _prepare(
             raise TypeError(f"faults must be a repro_torch FaultModel, got {type(faults).__name__}")
         faults.validate(problem)
         problem, faults = faults.bind(problem)
+    # resolved on the bound problem, against the fault model that is left
+    resolved = _resolve_backend(backend, kernel, problem, faults)
+    if resolved is not None and hasattr(kernel, "backend") and kernel.backend != resolved:
+        kernel = dataclasses.replace(kernel, backend=resolved)
     dev = problem.device
     betas = resolve_schedule(schedule, n_steps, n_chains, device=dev)
     betas = betas.expand(n_chains, n_steps).T.contiguous()  # row i: step i's per-chain betas

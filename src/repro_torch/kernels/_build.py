@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)  # a host array of ints
+_F = ctypes.c_float
 # C signature of each launcher: (symbol, argtypes). Pointers and the stream
 # are c_void_p, so ctypes passes them as 64-bit values.
 LAUNCHERS = {
@@ -54,6 +55,7 @@ LAUNCHERS = {
     "colored_gibbs_samples": ("colored_gibbs_samples_launch", [_P] * 7 + [_I] * 8 + [_P]),
     "colored_gibbs_long": ("colored_gibbs_long_launch", [_P] * 7 + [_IP] + [_I] * 5 + [_P]),
     "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 8 + [_P]),
+    "ctmc_event": ("ctmc_event_launch", [_P] * 12 + [_I] * 3 + [_F, _P]),
 }
 # The library of a launcher that does not live in csrc/<its name>.cu
 LIBRARY = {"lattice_gibbs_generic": "lattice_gibbs", "tau_leap_faults": "tau_leap",

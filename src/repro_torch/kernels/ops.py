@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import ctmc_event as _ce
 from repro_torch.kernels import dense_field as _df
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lattice_gibbs as _lg
@@ -151,6 +152,18 @@ def tau_leap_step(
         scale = (beta * scale)[:, None]
         b = beta[:, None] * b
     return _ref.tau_leap_step_ref(s, j_i8, b, scale, uniforms, dt)
+
+
+def ctmc_event(s, h, e, t, J, beta, expo, u, lambda0: float = 1.0,
+               mode: str = "auto") -> tuple[torch.Tensor, ...]:
+    """One exact Gillespie event of every chain (row) of a dense problem,
+    the tree draw of `sampler_api.CTMC`: (B, n) spins s and incremental
+    fields h, (B,) energies e, model times t, per-row betas, Exp(1) draws
+    `expo` and uniforms u, (n, n) couplings J -> the new (s, h, e, t). One
+    launch of the event kernel, or the plain version, bit for bit the same."""
+    if _use_kernel(s, mode):
+        return _ce.ctmc_event(s, h, e, t, J, beta, expo, u, lambda0)
+    return _ref.ctmc_event_ref(s, h, e, t, J, beta, expo, u, lambda0)
 
 
 def quantize_dense(J: torch.Tensor, bits: int = 8) -> tuple[torch.Tensor, torch.Tensor]:

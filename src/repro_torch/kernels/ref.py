@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import event_tree, glauber
 from repro_torch.core.ising import KING_OFFSETS, shift2d
 from repro_torch.core.sparse import gather_sum, padded_energy
 
@@ -194,6 +195,37 @@ def tau_leap_step_ref(
     """
     p_flip = tau_leap_flip_prob_ref(s, j_i8, b, scale, dt)
     return torch.where(uniforms < p_flip, -s, s)
+
+
+def ctmc_event_ref(
+    s: torch.Tensor,
+    h: torch.Tensor,
+    e: torch.Tensor,
+    t: torch.Tensor,
+    J: torch.Tensor,
+    beta: torch.Tensor,
+    expo: torch.Tensor,
+    u: torch.Tensor,
+    lambda0: float = 1.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One Gillespie event of every chain of a dense problem: `CTMC.update`'s
+    tree path (a fresh build at each row's beta, no faults), operation for
+    operation. s, h: (B, n); e, t, beta, expo, u: (B,); J: (n, n). Returns
+    the new (s, h, e, t). No TPU kernel computes it; the CUDA kernel
+    (`csrc/ctmc_event.cu`) rounds every step as this does."""
+    rates = glauber.flip_prob(beta[:, None] * h, s)
+    if lambda0 != 1.0:
+        rates = lambda0 * rates
+    tree = event_tree.build(rates)
+    total = event_tree.total(tree)
+    i = torch.clamp(event_tree.descend(tree, u), max=s.shape[1] - 1)
+    alive = total > event_tree.RATE_FLOOR
+    dt = expo / torch.clamp(total, min=event_tree.RATE_FLOOR)
+    delta = torch.where(alive, -2.0 * s.gather(1, i[:, None])[:, 0], 0.0)
+    e = e + delta * h.gather(1, i[:, None])[:, 0]
+    h = h + J[i] * delta[:, None]
+    s = s.scatter_add(1, i[:, None], delta[:, None])
+    return s, h, e, t + dt
 
 
 def flash_attention_ref(

@@ -12,7 +12,7 @@ from repro_torch.core import boltzmann, ising, problems, sampler_api
 from repro_torch.core.graph_loop import GRAPH_STEPS, plan_blocks
 from repro_torch.data import digits
 from repro_torch.kernels import _build, dense_field, flash_attention, lattice_gibbs, sparse_gather
-from repro_torch.kernels import tau_leap
+from repro_torch.kernels import ctmc_event, tau_leap
 
 CPU = "cpu"
 
@@ -332,6 +332,7 @@ def _launch_every_route():
     sparse_gather.colored_gibbs_sweep(torch.ones(2, 8), idx, w2, b, torch.rand(2, 2, 8), masks,
                                       torch.ones(2))
     sparse_gather.sparse_energy(torch.ones(2, 8), idx, w2, b)
+    ctmc_event.ctmc_event(s, s, *(torch.zeros(B),) * 2, torch.zeros(N, N), *(torch.ones(B),) * 3)
 
     q = torch.zeros(2, 128, 64)
     flash_attention.flash_attention(q, q, q, True, window=64)
@@ -344,7 +345,7 @@ def test_counts_hold_the_launch_counters_and_the_driver_counters(monkeypatch):
     in `tracing.counts()`; no card: the device checks pass and the CUDA
     launchers are replaced by ones that do nothing."""
     launchers = []
-    for mod in (tau_leap, dense_field, lattice_gibbs, sparse_gather, flash_attention):
+    for mod in (tau_leap, dense_field, lattice_gibbs, sparse_gather, flash_attention, ctmc_event):
         monkeypatch.setattr(mod, "check_cuda", lambda t: t.device)
     monkeypatch.setattr(sparse_gather, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(_build, "launcher", lambda name: launchers.append(name) or (lambda *a: 0))
@@ -360,7 +361,7 @@ def test_counts_hold_the_launch_counters_and_the_driver_counters(monkeypatch):
         "sparse_fields", "sparse_fields_global", "colored_gibbs_sweep", "colored_gibbs_sweep_long",
         "colored_gibbs_sweep_faults", "sparse_energy", "sparse_energy_long",
         "colored_gibbs_sweep_samples", "sparse_energy_samples", "flash_attention_window", "flash_attention_kv_len", "flash_attention_bf16",
-        "flash_attention_f32")} | {"launch.flash_attention": 2}
+        "flash_attention_f32", "ctmc_event")} | {"launch.flash_attention": 2}
     assert set(launchers) == set(_build.LAUNCHERS)  # every entry point was reached
     assert tracing.counts()["launch.never_launched"] == 0
     calls, blocks = c["sampler.calls"], c["sampler.eager_blocks"]
